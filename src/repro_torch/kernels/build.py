@@ -1,0 +1,73 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` into a shared library
+with a plain C interface, loaded with ``ctypes``.
+
+The library is built at first use into ``build/kernels/`` at the root of
+the checkout, keyed by a hash of the source and the flags, so an edited
+source rebuilds and an unchanged one is reused.  Nothing here runs when
+the module is imported: the CPU tests import every module of the port
+on machines with no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the CUDA "
+                       "kernels are built from source on the GPU machine")
+
+
+def library_path(name: str) -> pathlib.Path:
+    """Where ``csrc/<name>.cu`` builds to: the file name carries a hash
+    of the source and the flags."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{key[:16]}.so"
+
+
+def build(name: str) -> pathlib.Path:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
+    returns its path.  Raises with nvcc's output on a compile error."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+               str(CSRC / f"{name}.cu")]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}) for "
+                               f"{name}.cu:\n{res.stdout}\n{res.stderr}")
+        (BUILD_DIR / f"{out.stem}.ptxas.txt").write_text(res.stderr)
+        os.replace(tmp, out)                 # atomic: no half-written .so
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and ``dlopen`` the kernel library, once per
+    process."""
+    return ctypes.CDLL(str(build(name)))
