@@ -55,7 +55,7 @@ def _unsupported(what: str):
 
 def init_decode_plan(batch: int, n_kv_heads: int, max_len: int, d: int,
                      k_block: int, plan_blocks: Optional[int] = None,
-                     summary: str = "fp32", *, device="cpu") -> PlanState:
+                     summary: str = "fp32", *, device) -> PlanState:
     """Empty plan over a ``max_len`` cache.  ``plan_blocks`` (P) is the
     plan width; ``None`` keeps the full ``nkb`` (exact)."""
     if summary != "fp32":

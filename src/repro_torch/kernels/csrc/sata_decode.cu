@@ -11,7 +11,7 @@
 //
 // What it computes, per (slot b, KV head h) row: walk the kv_counts[row]
 // planned LOGICAL k-blocks kv_indices[row, 0..count), score the G grouped
-// query heads against each block's keys in fp32 scaled by sm_scale, keep
+// query heads against each block's keys in fp32 scaled by 1/sqrt(D), keep
 // entries with bf16(s) >= bf16(thr) (round-to-nearest-even on both sides,
 // the planner's bisect predicate) AND logical position <= pos[b], and run
 // an online softmax.  Masked entries get p = 0 explicitly (the finite
@@ -19,17 +19,20 @@
 // p is rounded to the cache dtype before the PV product, accumulated in
 // fp32; a row with no admissible key returns zeros.
 //
-// What bounds it on an H100: bytes read from HBM.  Per planned block it
-// reads one K and one V tile (page x D elements each) and does ~4·G·D
-// flops per key row, i.e. at most ~8 flops per bf16 byte at G = 4 — far
-// below the ~295 flops/byte where the tensor cores would become the limit.
-// The least time is (planned K/V tile bytes + q + out + plan) / 3.35 TB/s.
+// What bounds it on an H100: bytes read from HBM.  The output needs the K
+// rows of the planned blocks up to pos (every one is scored) and only the
+// V rows of keys that at least one of the G heads selects (top-k per head,
+// so at most G·k of them), plus q, out and the plan.  At ~4·G·D flops per
+// key row that is at most ~8 flops per bf16 byte at G = 4, far below the
+// ~295 flops/byte where the tensor cores would become the limit.  The least
+// time is those bytes / 3.35 TB/s.
 //
 // What the design does about it: the G query heads of a row share every
-// K/V tile the block reads, so each planned tile crosses HBM once per row
-// (the reference's "repeat the resident tile" padding has no GPU
-// counterpart — padding slots past the count are never visited).  Loads
-// are coalesced along D.  This first version is simple on purpose: one
+// K/V row the block reads, so each crosses HBM once per row (the
+// reference's "repeat the resident tile" padding has no GPU counterpart —
+// padding slots past the count are never visited).  K rows past pos and V
+// rows that no head selected are not read.  Loads are coalesced along D.
+// This first version is simple on purpose: one
 // CUDA block per row, FMA loops and warp reductions, no cp.async/TMA
 // pipelining and no split of a long row across blocks, so at B·KV rows it
 // fills at most B·KV of the 132 SMs.
@@ -37,6 +40,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cmath>
 
 namespace {
 
@@ -92,6 +97,7 @@ sata_decode_kernel(const T* __restrict__ q,              // (B, KV, G, D)
   __shared__ float q_sh[kMaxG][kMaxD];
   __shared__ float s_sh[kMaxG][kMaxBlock];      // masked scores, then rounded p
   __shared__ unsigned char sel_sh[kMaxG][kMaxBlock];
+  __shared__ unsigned char row_sel_sh[kMaxBlock];   // any head selects row t
   __shared__ float thr_sh[kMaxG], m_sh[kMaxG], l_sh[kMaxG], alpha_sh[kMaxG];
 
   for (int i = tid; i < G * D; i += kThreads)
@@ -119,30 +125,40 @@ sata_decode_kernel(const T* __restrict__ q,              // (B, KV, G, D)
 
     // phase A: one warp per key row, lanes split D; all G heads reuse the row
     for (int t = warp; t < kb; t += kWarps) {
-      float kd[kMaxD / 32];
+      bool any = false;
+      if (lblk * kb + t <= pos_b) {   // LOGICAL position; warp-uniform
+        float kd[kMaxD / 32];
 #pragma unroll
-      for (int i = 0; i < kMaxD / 32; ++i) {
-        const int d = lane + 32 * i;
-        kd[i] = d < D ? to_f32(kt[t * tok_stride + d]) : 0.f;
-      }
-      const bool admissible = lblk * kb + t <= pos_b;   // LOGICAL position
+        for (int i = 0; i < kMaxD / 32; ++i) {
+          const int d = lane + 32 * i;
+          kd[i] = d < D ? to_f32(kt[t * tok_stride + d]) : 0.f;
+        }
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
-          float part = 0.f;
+        for (int g = 0; g < kMaxG; ++g) {
+          if (g < G) {
+            float part = 0.f;
 #pragma unroll
-          for (int i = 0; i < kMaxD / 32; ++i) {
-            const int d = lane + 32 * i;
-            if (d < D) part += q_sh[g][d] * kd[i];
-          }
-          const float s = warp_sum(part) * sm_scale;
-          if (lane == 0) {
-            const bool sel = admissible && bf16_rn(s) >= thr_sh[g];
-            s_sh[g][t] = sel ? s : kNegInf;
-            sel_sh[g][t] = sel;
+            for (int i = 0; i < kMaxD / 32; ++i) {
+              const int d = lane + 32 * i;
+              if (d < D) part += q_sh[g][d] * kd[i];
+            }
+            // the xor butterfly leaves the same sum in every lane
+            const float s = warp_sum(part) * sm_scale;
+            const bool sel = bf16_rn(s) >= thr_sh[g];
+            any |= sel;
+            if (lane == 0) {
+              s_sh[g][t] = sel ? s : kNegInf;
+              sel_sh[g][t] = sel;
+            }
           }
         }
+      } else if (lane == 0) {
+        for (int g = 0; g < G; ++g) {
+          s_sh[g][t] = kNegInf;
+          sel_sh[g][t] = 0;
+        }
       }
+      if (lane == 0) row_sel_sh[t] = any;
     }
     __syncthreads();
 
@@ -175,6 +191,7 @@ sata_decode_kernel(const T* __restrict__ q,              // (B, KV, G, D)
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) pv[g] = 0.f;
       for (int t = 0; t < kb; ++t) {
+        if (!row_sel_sh[t]) continue;   // p == 0 for every head: skip the V row
         const float vv = to_f32(vt[t * tok_stride + tid]);
 #pragma unroll
         for (int g = 0; g < kMaxG; ++g)
@@ -207,8 +224,10 @@ extern "C" int sata_decode_attention(
     const void* q, const void* k, const void* v, const void* page_table,
     const void* kv_indices, const void* kv_counts, const void* thresholds,
     const void* pos, void* out, int batch, int n_kv, int G, int D, int P,
-    int k_block, int nkb, float sm_scale, int dtype, void* stream) {
+    int k_block, int nkb, int dtype, void* stream) {
   const dim3 grid(batch * n_kv), block(kThreads);
+  // rounded once from double, as the plain version's fp32 scale is
+  const float sm_scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* tbl = static_cast<const int32_t*>(page_table);
   const int32_t* idx = static_cast<const int32_t*>(kv_indices);

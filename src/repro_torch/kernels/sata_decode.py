@@ -39,8 +39,7 @@ def sata_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
                               kv_counts: torch.Tensor,
                               thresholds: torch.Tensor, pos: torch.Tensor,
                               *, k_block: int,
-                              page_table: Optional[torch.Tensor] = None,
-                              sm_scale: Optional[float] = None
+                              page_table: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
     """Plain PyTorch version of the decode gather kernel: the reference's
     flash loop tile by tile, vectorized over (slot, KV head) rows.
@@ -55,7 +54,7 @@ def sata_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
     p = kv_indices.shape[-1]
     if p == 0:
         return torch.zeros_like(q)
-    scale = float(sm_scale if sm_scale is not None else 1.0 / np.sqrt(d))
+    scale = float(1.0 / np.sqrt(d))
     dev = q.device
     qf = q.float()
     thr = thresholds.float()
@@ -96,15 +95,14 @@ def sata_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
 def _launcher():
     from repro_torch.kernels import build
     fn = build.load("sata_decode").sata_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(owner, q, k, v, page_table, kv_indices, kv_counts, thresholds,
-            pos, *, k_block: int, nkb: int, sm_scale: Optional[float]
-            ) -> torch.Tensor:
+            pos, *, k_block: int, nkb: int) -> torch.Tensor:
     """Validate, allocate the output, launch on the current stream and
     count the launch on ``owner.launches``.  Raises on anything the
     kernel does not take, and when the launch reports an error."""
@@ -147,13 +145,12 @@ def _launch(owner, q, k, v, page_table, kv_indices, kv_counts, thresholds,
            for t in (kv_indices, kv_counts, pos)]
     tbl = None if page_table is None else \
         page_table.to(torch.int32).contiguous()
-    scale = float(sm_scale if sm_scale is not None else 1.0 / np.sqrt(d))
     err = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if tbl is None else tbl.data_ptr(),
         i32[0].data_ptr(), i32[1].data_ptr(), thresholds.data_ptr(),
         i32[2].data_ptr(), out.data_ptr(), b, n_kv, g, d, p, k_block, nkb,
-        scale, 1 if q.dtype == torch.bfloat16 else 0,
+        1 if q.dtype == torch.bfloat16 else 0,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sata_decode kernel launch failed: cudaError {err}")
@@ -162,9 +159,7 @@ def _launch(owner, q, k, v, page_table, kv_indices, kv_counts, thresholds,
 
 
 def sata_decode_attention_kernel(q, k, v, kv_indices, kv_counts, thresholds,
-                                 pos, *, k_block: int = 128,
-                                 sm_scale: Optional[float] = None
-                                 ) -> torch.Tensor:
+                                 pos, *, k_block: int = 128) -> torch.Tensor:
     """CUDA kernel over the contiguous cache: q (B, KV, G, D); k/v
     (B, S, KV, D) with S % k_block == 0; plan as the plain version."""
     b, s = k.shape[:2]
@@ -174,13 +169,12 @@ def sata_decode_attention_kernel(q, k, v, kv_indices, kv_counts, thresholds,
                          f"not match q {tuple(q.shape)} at k_block={k_block}")
     return _launch(sata_decode_attention_kernel, q, k, v, None, kv_indices,
                    kv_counts, thresholds, pos, k_block=k_block,
-                   nkb=s // k_block, sm_scale=sm_scale)
+                   nkb=s // k_block)
 
 
 def sata_decode_attention_paged_kernel(q, k_pages, v_pages, page_table,
                                        kv_indices, kv_counts, thresholds,
-                                       pos, *, sm_scale: Optional[float] = None
-                                       ) -> torch.Tensor:
+                                       pos) -> torch.Tensor:
     """CUDA kernel over the page pool: k_pages/v_pages
     (n_pages, page, KV, D); page_table (B, max_pages); kv_indices hold
     LOGICAL page ids.  The k-block edge IS the page size."""
@@ -193,7 +187,7 @@ def sata_decode_attention_paged_kernel(q, k_pages, v_pages, page_table,
                          f"{tuple(q.shape)}")
     return _launch(sata_decode_attention_paged_kernel, q, k_pages, v_pages,
                    page_table, kv_indices, kv_counts, thresholds, pos,
-                   k_block=page, nkb=page_table.shape[1], sm_scale=sm_scale)
+                   k_block=page, nkb=page_table.shape[1])
 
 
 sata_decode_attention_kernel.launches = 0

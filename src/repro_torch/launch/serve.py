@@ -49,7 +49,6 @@ class ServeOptions:
     gen_len: int = 16
     max_len: int = 64
     prompt_len: int = 1
-    shared_prefix_len: int = 0        # prompts share their first N tokens
 
 
 def _pick_victim(stalled: List[int], slots: List[Optional[int]],
@@ -114,10 +113,6 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
 
     use_prefill = prompt_len > 1
     prompts = rng.integers(0, cfg.vocab_size, (n_requests, prompt_len))
-    if opt.shared_prefix_len:
-        assert opt.shared_prefix_len < prompt_len, "tail must be non-empty"
-        prompts[:, :opt.shared_prefix_len] = \
-            prompts[0, :opt.shared_prefix_len]
     queue: List[int] = list(range(n_requests))
     outputs: Dict[int, List[int]] = {}
     latency: Dict[int, float] = {}

@@ -125,8 +125,7 @@ def _resolve_replan(cfg) -> int:
     return int(rp)
 
 
-def init_kv_cache(cfg, batch: int, max_len: int, dtype,
-                  device="cpu") -> Dict:
+def init_kv_cache(cfg, batch: int, max_len: int, dtype, *, device) -> Dict:
     """Serving self-attention cache for one layer: contiguous per-slot
     ``k``/``v`` (B, max_len, KV, hd), or (``kv.layout="paged"``) a
     ``k_pages``/``v_pages`` pool (n_pages, page, KV, hd) plus a per-slot

@@ -56,7 +56,7 @@ def rms_head_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     return (xf / rms * scale).to(x.dtype)
 
 
-def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
+def rope_freqs(head_dim: int, theta: float, *, device) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                          device=device) / head_dim))
 

@@ -179,7 +179,8 @@ def test_slice3_modes_raise(what):
     q, k, pos = _inputs(9)
     if what == "int8":
         with pytest.raises(NotImplementedError, match="slice 3"):
-            tdp.init_decode_plan(B, KV, S, D, BLK, summary="int8")
+            tdp.init_decode_plan(B, KV, S, D, BLK, summary="int8",
+                                 device="cpu")
         return
     _, tp = _plan_pair(k, pos, step=(0, 0, 0))
     kw = ({"replan_mode": "sketch"} if what == "sketch"

@@ -81,7 +81,8 @@ def test_norms_and_rope_match():
     hs = 1.0 + 0.1 * _rand(3, 16)
     _close(tl.rms_head_norm(torch.from_numpy(h), torch.from_numpy(hs)),
            jl.rms_head_norm(jnp.asarray(h), jnp.asarray(hs)), ELEM_ATOL)
-    _close(tl.rope_freqs(16, 10000.0), jl.rope_freqs(16, 10000.0), 0.0)
+    _close(tl.rope_freqs(16, 10000.0, device="cpu"),
+           jl.rope_freqs(16, 10000.0), 0.0)
     pos = np.array([[0, 3, 7, 31, 60]], np.int32).repeat(2, 0)
     _close(tl.apply_rope(torch.from_numpy(h), torch.from_numpy(pos),
                          10000.0),
@@ -130,7 +131,8 @@ def test_attention_decode_steps_match(layout, replan, mode):
     jp, tp = _attn_params(jc)
     b, max_len = 2, 32
     jcache = jattn.init_kv_cache(jc, b, max_len, jnp.float32)
-    tcache = tattn.init_kv_cache(tc, b, max_len, torch.float32)
+    tcache = tattn.init_kv_cache(tc, b, max_len, torch.float32,
+                                 device="cpu")
     if layout == "paged":
         alloc = JAlloc(b * 4 + 1, b, 4, 8, audit=False)
         for i in range(b):

@@ -111,7 +111,7 @@ def test_incremental_summaries_equal_recompute_bitwise():
     rng = np.random.default_rng(0)
     b, s, kv, d, blk = 3, 32, 2, 8, 8
     k = rng.standard_normal((b, s, kv, d)).astype(np.float32)
-    plan = tdp.init_decode_plan(b, kv, s, d, blk)
+    plan = tdp.init_decode_plan(b, kv, s, d, blk, device="cpu")
     steps = [5, 17, 31]
     for t in range(max(steps) + 1):
         pos = torch.tensor([min(t, p) for p in steps], dtype=torch.int32)
