@@ -6,6 +6,7 @@ port's paged and contiguous serving paths, and times the kernel at the
 main path's shape.
 
     python3 chip_smoke.py            # needs one CUDA GPU (an H100 here)
+    python3 chip_smoke.py --mutants  # phase 2 on each of MUTANTS: each must fail
 
 Phases (any failure exits non-zero; none is caught so a later one runs):
   1. device and build — card name and power limit, torch/CUDA versions,
@@ -252,20 +253,86 @@ def sdpa_inputs(torch, c):
     return qh, kh, vh, mask.reshape(b, kv * g, 1, k.shape[1])
 
 
+def kernel_cases(torch, dev):
+    """Phase 2's inputs: the main-path shape, then the edge cases."""
+    yield "main_B8_KV8_G4_D128_page64_bf16", make_case(
+        torch, b=8, kv=8, g=4, d=128, page=64, s=4096, dtype=torch.bfloat16,
+        seed=0, device=dev, pos_lo=1024, pos_hi=1088)
+    yield from edge_cases(torch, dev)
+
+
 def check_kernels(torch, sd, dev):
-    """Phase 2: the kernel against its plain version at the main-path
-    shape and the edge cases.  Returns the main case and the errors."""
-    main_case = make_case(torch, b=8, kv=8, g=4, d=128, page=64, s=4096,
-                          dtype=torch.bfloat16, seed=0, device=dev,
-                          pos_lo=1024, pos_hi=1088)
-    log(f"[kernel] main-path plan: kv_counts mean "
-        f"{float(main_case['cnt'].float().mean()):.2f} of "
-        f"{main_case['idx'].shape[-1]} pages, pos {main_case['pos'].tolist()}")
-    errs = {"main": check_case(torch, sd, "main_B8_KV8_G4_D128_page64_bf16",
-                               main_case)}
-    for cname, c in edge_cases(torch, dev):
+    """Phase 2: the kernel against its plain version on every case.
+    Returns the main case and the errors."""
+    errs, main_case = {}, None
+    for cname, c in kernel_cases(torch, dev):
+        if main_case is None:
+            main_case = c
+            log(f"[kernel] main-path plan: kv_counts mean "
+                f"{float(c['cnt'].float().mean()):.2f} of "
+                f"{c['idx'].shape[-1]} pages, pos {c['pos'].tolist()}")
         errs[cname] = check_case(torch, sd, cname, c)
     return main_case, errs
+
+
+# one-line faults of the kernel that phase 2's limits must catch
+MUTANTS = {
+    "fp32_predicate": ("const bool sel = bf16_rn(s) >= thr_sh[g];",
+                       "const bool sel = s >= thr_sh[g];"),
+    "unrounded_p": ("s_sh[g][t] = to_f32(from_f32<T>(p));",
+                    "s_sh[g][t] = p;"),
+}
+
+_MUTANT_CHILD = """
+import sys
+sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
+import torch
+import chip_smoke as cs
+from repro_torch.kernels import sata_decode as sd
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+failed = []
+for name, c in cs.kernel_cases(torch, torch.device("cuda")):
+    try:
+        cs.check_case(torch, sd, name, c)
+    except AssertionError as e:
+        failed.append(name)
+        print("[mutant] fails:", e, flush=True)
+print("FAILED", ",".join(failed))
+"""
+
+
+def run_mutants(root: str) -> int:
+    """``--mutants``: build each of ``MUTANTS`` in a temporary copy of the
+    tree and run phase 2's cases on it.  Fails unless every mutant fails
+    at least one case."""
+    import shutil
+    import tempfile
+    missed = []
+    for name, (old, new) in MUTANTS.items():
+        with tempfile.TemporaryDirectory() as d:
+            shutil.copytree(os.path.join(root, "src"), os.path.join(d, "src"))
+            shutil.copy(os.path.abspath(__file__), d)
+            cu = os.path.join(d, SRC_CU)
+            with open(cu) as f:
+                text = f.read()
+            assert text.count(old) == 1, f"{name}: {old!r} not found once"
+            with open(cu, "w") as f:
+                f.write(text.replace(old, new))
+            res = subprocess.run([sys.executable, "-c", _MUTANT_CHILD, d],
+                                 capture_output=True, text=True, cwd=d)
+        lines = res.stdout.splitlines()
+        for line in lines[:-1]:
+            log(f"[{name}] {line}")
+        if res.returncode or not lines or not lines[-1].startswith("FAILED"):
+            log(res.stderr[-4000:])
+            return 1
+        failed = [c for c in lines[-1].split(" ", 1)[-1].split(",") if c]
+        log(f"[{name}] caught by {len(failed)} case(s): {failed}")
+        if not failed:
+            missed.append(name)
+    log(f"mutants missed: {missed}")
+    return 1 if missed else 0
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +352,8 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--mutants"]:
+        return run_mutants(root)
     sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch.configs.archs import ARCHS
     from repro_torch.kernels import build
