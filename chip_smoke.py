@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""GPU smoke test of the PyTorch port: builds the CUDA decode kernel from
-the checkout's sources, holds it against its plain PyTorch version on the
+"""GPU smoke test of the PyTorch port: builds the CUDA kernels from the
+checkout's sources, holds each against its plain PyTorch version on the
 card, serves full-width qwen3-4b (random weights, 36 layers) through the
-port's paged and contiguous serving paths, and times the kernel at the
-main path's shape.
+port's paged and contiguous serving paths, trains it through the SATA
+prefill kernels, and times every kernel at its main path's shape.
 
     python3 chip_smoke.py            # needs one CUDA GPU (an H100 here)
-    python3 chip_smoke.py --mutants  # phase 2 on each of MUTANTS: each must fail
+    python3 chip_smoke.py --mutants  # phases 2 and 6 on each of MUTANTS:
+                                     # each must fail
 
 Phases (any failure exits non-zero; none is caught so a later one runs):
   1. device and build — card name and power limit, torch/CUDA versions,
-     nvcc build seconds;
+     one nvcc per kernel source, all started together;
   2. kernel vs plain version on the card, both layouts, at the main-path
      shape and edge cases (fp32 <= 1e-5 max abs; bf16 <= 2e-2 max abs
      and at most 1% of the outputs off the plain version's bits; paged ==
@@ -21,7 +22,26 @@ Phases (any failure exits non-zero; none is caught so a later one runs):
   5. kernel timing at the main-path shape (CUDA events, median of 30
      runs, L2 flushed before each), its bound from the bytes the output
      needs at 3.35 TB/s, the plain version, and SDPA over the dense cache
-     with the same mask as the library yardstick.
+     with the same mask as the library yardstick;
+  6. the SATA prefill kernels (compacted grid B3 in threshold, mask and
+     block mode; dense grid B4) against their plain versions: fp32 <=
+     1e-5, bf16 within phase 2's limits, equal admitted-key counts per
+     row, B3 == B4 bitwise on the same plan, two launches bitwise equal;
+  7. the main path: ``launch.train.train`` on full-width qwen3-4b, 36
+     layers, chunked selection (``topk_impl="bisect"``), batch 1,
+     S = 4096, 4 steps; the compacted-grid kernel's launches must equal
+     layers x steps x 2 (the forward and the remat recompute), the dense
+     grid's 0; then one more step under ``torch.profiler`` for the
+     device time by kernel and the device's idle share;
+  8. one forward + backward at full width (4 layers) with the kernel
+     route on and off (``_attend``): the same loss within bf16 limits;
+  9. the dense-selection route: ``make_prefill_step`` with
+     ``topk_impl="sort"`` at full width, 4 layers, S = 2048, on the
+     compacted and the dense grid: equal logits bitwise;
+ 10. prefill kernel timing at the shapes phases 7 and 9 give them (CUDA
+     events, median, L2 flushed): the bound from the planned tiles'
+     flops and the unique bytes, the plain version, and SDPA with the
+     equivalent boolean mask as the library yardstick.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the ``kernels`` JSON, and the card's name and power limit are
@@ -49,8 +69,16 @@ FP32_FLOPS_PER_S = 67e12
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 BF16_MISMATCH_MAX = 0.01    # share of bf16 outputs off the plain version
 SRC_CU = "src/repro_torch/kernels/csrc/sata_decode.cu"
+SRC_ATTN_CU = "src/repro_torch/kernels/csrc/sata_attention.cu"
 REPLACES = {"paged": "src/repro/kernels/sata_decode.py:168",
-            "contiguous": "src/repro/kernels/sata_decode.py:97"}
+            "contiguous": "src/repro/kernels/sata_decode.py:97",
+            "compact": "src/repro/kernels/sata_attention.py:260",
+            "dense": "src/repro/kernels/sata_attention.py:117"}
+# phase 8: |loss(kernel route) - loss(_attend)| / loss.  The routes round
+# p to bf16 at different points (per tile after the running max vs once
+# after the full softmax) and sum in different orders, which moves
+# bf16 activations by about one step (2^-8) and the mean loss by far less.
+ROUTE_LOSS_RTOL = 2e-3
 
 
 def log(*a):
@@ -171,6 +199,27 @@ def edge_cases(torch, device):
     yield "P0", c
 
 
+def build_all(build, root, names=("sata_decode", "sata_attention")):
+    """One nvcc per kernel source, all started together; prints each
+    build's seconds and ptxas's registers and spills."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(name):
+        t = time.time()
+        return build.build(name), time.time() - t
+
+    with ThreadPoolExecutor(len(names)) as ex:
+        libs = dict(zip(names, ex.map(timed, names)))
+    for name, (lib, secs) in libs.items():
+        log(f"[build] nvcc {name}.cu -> {os.path.relpath(lib, root)} in "
+            f"{secs:.2f} s")
+        ptxas = lib.parent / f"{lib.stem}.ptxas.txt"
+        if ptxas.exists():
+            for line in ptxas.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"[build] ptxas {name}: {line.strip()}")
+
+
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
@@ -275,12 +324,503 @@ def check_kernels(torch, sd, dev):
     return main_case, errs
 
 
-# one-line faults of the kernel that phase 2's limits must catch
+# ---------------------------------------------------------------------------
+# SATA prefill kernels (compacted grid B3, dense grid B4)
+# ---------------------------------------------------------------------------
+
+def attn_case(torch, *, bh, s, d, qb, kb, dtype, mode, causal, seed, device,
+              topk=8):
+    """Random q/k/v and a plan for one kernel mode: ``threshold`` (the
+    chunked planner's own thresholds and block map), ``mask`` (a random
+    element mask with empty rows, and its tile occupancy) or ``block``
+    (a random block map).  ``idx``/``cnt`` are the full compact plan of
+    ``bm``; ``cut`` adds count-0 rows and padding slots past a
+    shortened count."""
+    from repro_torch.core.blockmap import block_occupancy, compact_kv_plan
+    from repro_torch.core.selection import select_thresholds_chunked
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = (torch.randn((bh, s, d), generator=g).to(device=device,
+                                                       dtype=dtype)
+               for _ in range(3))
+    pos = torch.arange(s, dtype=torch.int32, device=device)[None, :, None] \
+        .expand(bh, s, 1)
+    c = dict(q=q, k=k, v=v, qb=qb, kb=kb, mode=mode, causal=causal,
+             sel={})
+    if mode == "threshold":
+        thr, bm = select_thresholds_chunked(
+            q, k, topk, causal=causal, chunk=min(1024, s), q_block=qb,
+            k_block=kb)
+        c["sel"]["thresholds"] = thr
+    elif mode == "mask":
+        mask = torch.rand((bh, s, s), generator=g) < 0.1
+        mask[0, : min(qb, s) // 2] = False               # rows with no key
+        mask = mask.to(device)
+        bm = block_occupancy(mask, qb, kb)
+        c["sel"]["mask"] = mask
+    else:
+        bm = (torch.rand((bh, s // qb, s // kb), generator=g) < 0.5).to(
+            device)
+    if causal and mode != "mask":
+        c["sel"].update(causal=True, q_pos=pos, k_pos=pos)
+    c["bm"] = bm
+    c["idx"], c["cnt"] = compact_kv_plan(bm)
+    return c
+
+
+def run_attn(sa, c, *, plain, dense_grid=False, idx=None, cnt=None,
+             admitted=None):
+    """B3 (or, ``dense_grid``, B4) on case ``c``: the kernel or its plain
+    version."""
+    kw = dict(q_block=c["qb"], k_block=c["kb"], admitted=admitted)
+    if dense_grid:
+        fn = sa.sata_block_attention_ref if plain else sa.sata_block_attention
+        return fn(c["q"], c["k"], c["v"], c["bm"], mask=c["sel"].get("mask"),
+                  **kw)
+    fn = sa.sata_block_attention_compact_ref if plain \
+        else sa.sata_block_attention_compact
+    return fn(c["q"], c["k"], c["v"], c["idx"] if idx is None else idx,
+              c["cnt"] if cnt is None else cnt, **c["sel"], **kw)
+
+
+def compare(torch, name, got, want, adm_got=None, adm_want=None):
+    """Kernel vs plain: max abs error within TOL, bf16 outputs within
+    BF16_MISMATCH_MAX of the plain version's bits, equal admitted-key
+    counts per row.  Returns the max abs error."""
+    tol = TOL[str(want.dtype).split(".")[-1]]
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    assert torch.isfinite(got).all(), f"{name}: non-finite output"
+    e = float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+    off = float((got != want).float().mean()) if got.numel() else 0.0
+    adm = "" if adm_got is None else \
+        f", admitted keys {int(adm_got.sum())} vs {int(adm_want.sum())}"
+    log(f"[attn-kernel] {name}: max_abs_err={e:.3e} (tol {tol:g}), "
+        f"{off:.4%} of outputs off the plain version's bits{adm}")
+    assert e <= tol, f"{name}: {e} > {tol}"
+    if got.dtype == torch.bfloat16:
+        assert off <= BF16_MISMATCH_MAX, f"{name}: {off:.4%} off"
+    if adm_got is not None:
+        assert torch.equal(adm_got, adm_want), \
+            f"{name}: admitted-key counts differ in " \
+            f"{int((adm_got != adm_want).sum())} rows"
+    return e
+
+
+def check_attn_case(torch, sa, name, c):
+    """B3 vs plain on the full plan and on a cut one (count-0 rows,
+    padding slots); where the mode exists on the dense grid, B4 vs plain
+    and B3 == B4 bitwise.  Returns the largest error."""
+    bh, s = c["q"].shape[:2]
+    dev = c["q"].device
+
+    def adm():
+        return torch.zeros((bh, s), dtype=torch.int32, device=dev)
+
+    errs = []
+    cnt_cut = c["cnt"].clone()
+    cnt_cut[0, 0] = 0
+    cnt_cut[-1, -1] = torch.clamp(cnt_cut[-1, -1] - 1, min=0)
+    for label, cnt in (("", None), (" cut plan", cnt_cut)):
+        a_k, a_p = adm(), adm()
+        got = run_attn(sa, c, plain=False, cnt=cnt, admitted=a_k)
+        want = run_attn(sa, c, plain=True, cnt=cnt, admitted=a_p)
+        torch.cuda.synchronize()
+        errs.append(compare(torch, f"B3 {name}{label}", got, want, a_k, a_p))
+        if not label:
+            full = got
+    if c["mode"] != "threshold" and not c["causal"]:
+        a_k, a_p = adm(), adm()
+        got = run_attn(sa, c, plain=False, dense_grid=True, admitted=a_k)
+        want = run_attn(sa, c, plain=True, dense_grid=True, admitted=a_p)
+        torch.cuda.synchronize()
+        errs.append(compare(torch, f"B4 {name}", got, want, a_k, a_p))
+        assert torch.equal(got, full), f"{name}: B3 != B4 (must be bitwise)"
+        log(f"[attn-kernel] {name}: B3 == B4 bitwise: True")
+    return max(errs)
+
+
+def attn_cases(torch, dev):
+    """Phase 6's inputs: the training shape in threshold mode, the
+    dense-selection shape in mask mode, then edge cases: D in
+    {16, 64, 128}, q/k blocks 16..128 (unequal too), every mode causal
+    and not, fp32 and bf16."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    yield "main_BH32_S4096_D128_blk128_threshold_causal_bf16", attn_case(
+        torch, bh=32, s=4096, d=128, qb=128, kb=128, dtype=bf16,
+        mode="threshold", causal=True, seed=0, device=dev, topk=64)
+    yield "BH32_S2048_D128_blk128_mask_bf16", attn_case(
+        torch, bh=32, s=2048, d=128, qb=128, kb=128, dtype=bf16,
+        mode="mask", causal=False, seed=1, device=dev)
+    specs = [  # (bh, s, d, qb, kb, dtype, mode, causal)
+        (3, 64, 16, 16, 16, f32, "threshold", True),
+        (2, 128, 64, 32, 32, f32, "threshold", False),
+        (2, 256, 128, 64, 128, f32, "mask", False),
+        (2, 128, 32, 32, 32, f32, "block", False),
+        (2, 128, 32, 32, 16, f32, "block", True),
+        (2, 256, 128, 128, 64, bf16, "block", True),
+        (3, 512, 128, 128, 128, bf16, "threshold", True),
+        (2, 192, 64, 64, 64, bf16, "mask", False),
+        (2, 256, 64, 128, 128, bf16, "block", False),
+    ]
+    for n, (bh, s, d, qb, kb, dt, mode, causal) in enumerate(specs):
+        yield (f"{mode}{'_causal' if causal else ''}_D{d}_qb{qb}_kb{kb}_"
+               f"{str(dt).split('.')[-1]}"), attn_case(
+            torch, bh=bh, s=s, d=d, qb=qb, kb=kb, dtype=dt, mode=mode,
+            causal=causal, seed=10 + n, device=dev)
+
+
+def check_attn_kernels(torch, sa, dev):
+    """Phase 6: both prefill kernels against their plain versions on
+    every case, an empty plan, and two launches bitwise equal."""
+    errs, main = {}, None
+    for name, c in attn_cases(torch, dev):
+        if main is None:
+            main = c
+            log(f"[attn-kernel] main plan: {int(c['cnt'].sum())} planned "
+                f"tiles of {c['bm'].numel()}, P {c['idx'].shape[-1]}")
+        errs[name] = check_attn_case(torch, sa, name, c)
+    c = attn_case(torch, bh=2, s=64, d=16, qb=16, kb=16, dtype=torch.float32,
+                  mode="threshold", causal=True, seed=99, device=dev)
+    idx0 = c["idx"][..., :0].contiguous()                     # P == 0
+    got = run_attn(sa, c, plain=False, idx=idx0)
+    assert got.shape == c["q"].shape and not got.any(), "P0: not zeros"
+    log("[attn-kernel] P0: zeros")
+    a = run_attn(sa, main, plain=False)
+    b = run_attn(sa, main, plain=False)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b), "two launches differ"
+    log("[attn-kernel] main: two launches bitwise equal: True")
+    return errs
+
+
+def main_path_cfg(base, **kernel):
+    """qwen3-4b at full width through the SATA kernel route, 128-blocks."""
+    from repro_torch.models.config import SataKernelConfig
+    return dataclasses.replace(
+        base, remat="full",
+        sata=dataclasses.replace(base.sata, kernel=SataKernelConfig(
+            use=True, block=128, **kernel)))
+
+
+def layer0_qkv(torch, model, cfg, tokens):
+    """Layer 0's q/k/v as the kernel route hands them to the kernel:
+    (B·H, S, hd), KV heads repeated, RoPE applied."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import (_dtype, apply_norm, apply_rope,
+                                           embed_apply)
+    with torch.no_grad():
+        b, s = tokens.shape
+        p = model["layers"][0]
+        x = embed_apply(model["embed"], tokens).to(_dtype(cfg))
+        q, k, v = attn._project_qkv(p["attn"], cfg,
+                                    apply_norm(p["ln1"], cfg, x))
+        pos = torch.arange(s, device=tokens.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+        g = cfg.n_heads // cfg.n_kv_heads
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+        return tuple(t.transpose(1, 2).reshape(-1, s, cfg.hd).contiguous()
+                     for t in (q, k, v))
+
+
+def attn_bound(torch, c, *, idx, cnt, mask_bytes_per_tile=0):
+    """Least time of the planned work on an H100: the larger of the
+    planned tiles' flops (QK^T and PV, 4·qb·kb·D each) over the bf16
+    peak and the bytes the function must move over 3.35 TB/s: q and the
+    output once, each k-block some row plans (K and V) once, the plan,
+    thresholds and positions, and the mask bytes of planned tiles."""
+    q = c["q"]
+    bh, s, d = q.shape
+    es = q.element_size()
+    qb, kb = c["qb"], c["kb"]
+    tiles = int(cnt.sum())
+    live = (torch.arange(idx.shape[-1], device=idx.device)
+            < cnt[..., None]).to(torch.int32)
+    used = torch.zeros((bh, s // kb), dtype=torch.int32,
+                       device=idx.device).scatter_reduce_(
+        1, idx.long().reshape(bh, -1), live.reshape(bh, -1), reduce="amax")
+    kv_blocks = int(used.sum())
+    nbytes = (2 * q.numel() * es + 2 * kv_blocks * kb * d * es
+              + idx.numel() * 4 + cnt.numel() * 4
+              + tiles * mask_bytes_per_tile)
+    sel = c["sel"]
+    if "thresholds" in sel:
+        nbytes += sel["thresholds"].numel() * 4
+    if "q_pos" in sel:
+        nbytes += 4 * bh * s * 2
+    flops = 4 * qb * kb * d * tiles
+    peak = BF16_FLOPS_PER_S if es == 2 else FP32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", tiles, kv_blocks)
+
+
+def sdpa_mask(torch, c):
+    """The boolean (BH, 1, Sq, Sk) mask under which SDPA computes what
+    the kernel computes on case ``c``: planned tiles AND the mode's
+    element selection."""
+    from repro_torch.core.blockmap import bisect_select
+    q, k = c["q"], c["k"]
+    bh, s, d = q.shape
+    keep = c["bm"].repeat_interleave(c["qb"], 1).repeat_interleave(c["kb"], 2)
+    sel = c["sel"]
+    if "mask" in sel:
+        keep = keep & sel["mask"]
+    if "thresholds" in sel:
+        sc = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / np.sqrt(d)
+        keep = keep & bisect_select(sc, sel["thresholds"])
+        del sc
+    if sel.get("causal"):
+        keep = keep & torch.ones((s, s), dtype=torch.bool,
+                                 device=q.device).tril()
+    return keep[:, None]
+
+
+def reset_attn_counts(sa):
+    sa.sata_block_attention_compact.launches = 0
+    sa.sata_block_attention.launches = 0
+
+
+def attn_counts(sa):
+    return (sa.sata_block_attention_compact.launches,
+            sa.sata_block_attention.launches)
+
+
+def train_main_path(torch, sa, dev, base, tag, *, steps=4, seq=4096):
+    """Phase 7: ``train()`` on full-width qwen3-4b through the compacted
+    grid; returns the trained model's layer-0 q/k/v for phase 10 and the
+    kernel's launch count."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.train import train
+    cfg = main_path_cfg(dataclasses.replace(base, topk_impl="bisect"))
+    reset_attn_counts(sa)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    out = train("qwen3-4b", cfg=cfg, steps=steps, batch=1, seq=seq,
+                log_every=1, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    n_b3, n_b4 = attn_counts(sa)
+    want = cfg.n_layers * steps * 2
+    log(f"[train] qwen3-4b full width, {cfg.n_layers} layers, batch 1, "
+        f"S {seq}, chunked selection, remat full: losses "
+        f"{[round(x, 4) for x in out['losses']]}, grad norms "
+        f"{[round(x, 4) for x in out['gnorms']]}")
+    log(f"[train] step seconds {[round(x, 3) for x in out['step_s']]}, "
+        f"tokens/s {[round(seq / x, 1) for x in out['step_s']]}, peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        f"GiB, {wall:.1f} s in all; compacted-grid launches {n_b3} "
+        f"(= {cfg.n_layers} layers x {steps} steps x 2: forward + remat "
+        f"recompute), dense-grid launches {n_b4} {tag}")
+    assert all(np.isfinite(out["losses"])) and all(np.isfinite(out["gnorms"]))
+    assert n_b3 == want, f"compacted-grid launches {n_b3} != {want}"
+    assert n_b4 == 0, f"the dense grid ran {n_b4} times on the main path"
+    state = out["final_state"]
+    batch = {k: torch.from_numpy(a).to(dev) for k, a in
+             SyntheticLM(cfg, 1, seq, seed=0).next_batch().items()}
+    profile_step(torch, cfg, state, batch, tag)
+    qkv = layer0_qkv(torch, state["params"], cfg, batch["tokens"])
+    return qkv, n_b3
+
+
+def profile_step(torch, cfg, state, batch, tag, top=12):
+    """One more training step under ``torch.profiler``: device time by
+    kernel (summed over launches) and the device's busy share of the
+    step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.step import make_train_step
+    step_fn = make_train_step(cfg, OptConfig())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t = time.time()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t)
+
+    def dev_ms(e):
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        return us / 1e3
+
+    # kernels only: operator rows carry their kernels' device time too
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [e for e in prof.key_averages()
+           if getattr(e, "device_type", None) == cuda and dev_ms(e) > 0]
+    busy = sum(dev_ms(e) for e in evs)
+    log(f"[profile] one training step: wall {wall_ms:.1f} ms (profiler "
+        f"on), device busy {busy:.1f} ms = {100 * busy / wall_ms:.1f}% of "
+        f"it; idle {100 * (1 - busy / wall_ms):.1f}% {tag}")
+    for e in sorted(evs, key=dev_ms, reverse=True)[:top]:
+        log(f"[profile]   {dev_ms(e):9.2f} ms {100 * dev_ms(e) / busy:5.1f}% "
+            f"x{e.count:<6d} {e.key[:90]}")
+
+
+def route_on_off(torch, sa, dev, base, tag, *, layers=4, seq=4096):
+    """Phase 8: one forward + backward at full width with the kernel
+    route on and off: the same loss within ROUTE_LOSS_RTOL."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.config import SataKernelConfig
+    from repro_torch.models.model import DenseModel, loss_fn
+    on = main_path_cfg(dataclasses.replace(base, topk_impl="bisect",
+                                           n_layers=layers))
+    off = dataclasses.replace(on, sata=dataclasses.replace(
+        on.sata, kernel=SataKernelConfig(use=False)))
+    model = DenseModel(on, device=dev, seed=1)
+    batch = {k: torch.from_numpy(a).to(dev) for k, a in
+             SyntheticLM(on, 1, seq, seed=1).next_batch().items()}
+    res = {}
+    for name, cfg in (("kernel route", on), ("_attend", off)):
+        model.zero_grad(set_to_none=True)
+        reset_attn_counts(sa)
+        t = time.time()
+        loss, _ = loss_fn(model, cfg, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        gn = float(torch.sqrt(sum(torch.sum(p.grad.float() ** 2)
+                                  for p in model.parameters())))
+        res[name] = loss.item()
+        log(f"[route] {name}: loss {res[name]:.6f}, grad norm {gn:.4f}, "
+            f"fwd+bwd {time.time() - t:.2f} s, launches (B3, B4) "
+            f"{attn_counts(sa)} {tag}")
+    rel = abs(res["kernel route"] - res["_attend"]) / abs(res["_attend"])
+    log(f"[route] |loss difference| / loss = {rel:.3e} "
+        f"(limit {ROUTE_LOSS_RTOL:g})")
+    assert rel <= ROUTE_LOSS_RTOL, rel
+
+
+def prefill_schedules(torch, sa, dev, base, tag, *, layers=4, seq=2048):
+    """Phase 9: the dense-selection route through ``make_prefill_step`` on
+    both grids: equal logits bitwise.  Returns layer 0's mask-mode case
+    (SATA-permuted q/k/v, mask and plan) for phase 10 and B4's launch
+    count on its own run."""
+    from repro_torch.core.blockmap import compact_kv_plan, sata_block_plan
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.ops import _take_rows, kernel_fetch_stats
+    from repro_torch.models.attention import topk_threshold_mask
+    from repro_torch.models.model import DenseModel
+    from repro_torch.train.step import make_prefill_step
+    cfgs = {sch: main_path_cfg(dataclasses.replace(
+        base, topk_impl="sort", n_layers=layers), schedule=sch)
+        for sch in ("compact", "dense")}
+    model = DenseModel(cfgs["compact"], device=dev, seed=2)
+    tokens = torch.from_numpy(SyntheticLM(cfgs["compact"], 1, seq, seed=2)
+                              .next_batch()["tokens"]).to(dev)
+    logits, counts = {}, {}
+    for sch, cfg in cfgs.items():
+        reset_attn_counts(sa)
+        t = time.time()
+        logits[sch] = make_prefill_step(cfg)(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        counts[sch] = attn_counts(sa)
+        log(f"[prefill] topk sort, {sch} grid, {layers} layers, S {seq}: "
+            f"{time.time() - t:.2f} s, launches (B3, B4) {counts[sch]} {tag}")
+    assert counts["compact"] == (layers, 0), counts
+    assert counts["dense"] == (0, layers), counts
+    assert torch.isfinite(logits["compact"]).all()
+    same = torch.equal(logits["compact"], logits["dense"])
+    log(f"[prefill] compact == dense grid logits bitwise: {same}")
+    assert same, "compacted and dense grid logits differ"
+    # layer 0's plan, as the dense route builds it
+    cfg = cfgs["dense"]
+    qf, kf, vf = layer0_qkv(torch, model, cfg, tokens)
+    with torch.no_grad():
+        sc = torch.einsum("bqd,bkd->bqk", qf.float(), kf.float()) / np.sqrt(
+            cfg.hd)
+        adm = torch.ones((seq, seq), dtype=torch.bool, device=dev).tril()
+        sc = torch.where(adm, sc, -2.0 ** 30)
+        sel = topk_threshold_mask(sc, cfg.topk_k, impl="sort") & adm
+        del sc
+        kv_order, q_order, bm = sata_block_plan(sel, 128, 128)
+        mask = _take_rows(torch.gather(
+            sel, 2, kv_order.long()[:, None, :].expand_as(sel)), q_order)
+    stats = kernel_fetch_stats(bm, q_block=128, k_block=128, d=cfg.hd,
+                               dtype_bytes=2)
+    log(f"[prefill] layer 0 kernel_fetch_stats: {json.dumps(stats)}")
+    idx, cnt = compact_kv_plan(bm)
+    case = dict(q=_take_rows(qf, q_order), k=_take_rows(kf, kv_order),
+                v=_take_rows(vf, kv_order), qb=128, kb=128, mode="mask",
+                causal=False, sel={"mask": mask}, bm=bm, idx=idx, cnt=cnt)
+    return case, counts["dense"][1]
+
+
+def time_attn(torch, sa, c, name, tag, *, dense_grid=False, mask_bytes=0):
+    """Phase 10 for one kernel: kernel, plain version and SDPA with the
+    equivalent mask, and the bound."""
+    ms = time_ms(torch, lambda: run_attn(sa, c, plain=False,
+                                         dense_grid=dense_grid))
+    plain_ms = time_ms(torch, lambda: run_attn(sa, c, plain=True,
+                                               dense_grid=dense_grid),
+                       reps=3, warm=1)
+    bh, s, d = c["q"].shape
+    mask = sdpa_mask(torch, c).reshape(1, bh, s, s)
+    q4, k4, v4 = (c[n].reshape(1, bh, s, d) for n in ("q", "k", "v"))
+    lib_ms = time_ms(torch, lambda: torch.nn.functional
+                     .scaled_dot_product_attention(q4, k4, v4,
+                                                   attn_mask=mask))
+    del mask
+    bound_ms, bound_by, tiles, kv_blocks = attn_bound(
+        torch, c, idx=c["idx"], cnt=c["cnt"], mask_bytes_per_tile=mask_bytes)
+    log(f"[timing] {name}: BH {bh}, S {s}, D {d}, {c['qb']}x{c['kb']} "
+        f"tiles, {tiles} planned tiles of {c['bm'].numel()}, {kv_blocks} "
+        f"K/V blocks read: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}), plain {plain_ms:.2f} ms, SDPA+mask {lib_ms:.4f} ms "
+        f"{tag}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms)
+
+
+def prefill_phases(torch, sa, dev, base, max_err, tag):
+    """Phases 7-10; returns the two prefill kernels' ``kernels`` rows."""
+    from repro_torch.core.blockmap import compact_kv_plan
+    from repro_torch.core.selection import select_thresholds_chunked
+    (qf, kf, vf), n_b3 = train_main_path(torch, sa, dev, base, tag)
+    torch.cuda.empty_cache()
+    route_on_off(torch, sa, dev, base, tag)
+    torch.cuda.empty_cache()
+    c4, n_b4 = prefill_schedules(torch, sa, dev, base, tag)
+    torch.cuda.empty_cache()
+    s = qf.shape[1]
+    thr, bm = select_thresholds_chunked(qf, kf, base.topk_k, causal=True,
+                                        chunk=1024, q_block=128, k_block=128)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)[None, :, None] \
+        .expand(qf.shape[0], s, 1)
+    idx, cnt = compact_kv_plan(bm)
+    c3 = dict(q=qf, k=kf, v=vf, qb=128, kb=128, mode="threshold",
+              causal=True, sel=dict(thresholds=thr, causal=True, q_pos=pos,
+                                    k_pos=pos), bm=bm, idx=idx, cnt=cnt)
+    rows = []
+    for fn, c, launches, kw in (
+            (sa.sata_block_attention_compact, c3, n_b3, {}),
+            (sa.sata_block_attention, c4, n_b4,
+             dict(dense_grid=True, mask_bytes=128 * 128))):
+        t = time_attn(torch, sa, c, fn.__name__, tag, **kw)
+        rows.append({"name": fn.__name__, "route": "cuda",
+                     "source": SRC_ATTN_CU,
+                     "replaces": REPLACES["dense" if kw else "compact"],
+                     "launches": launches, "max_abs_err": max_err, **t})
+    return rows
+
+
+# one-line faults of the kernels that phases 2 and 6 must catch:
+# name -> (source, line, mutated line)
 MUTANTS = {
-    "fp32_predicate": ("const bool sel = bf16_rn(s) >= thr_sh[g];",
+    "fp32_predicate": (SRC_CU, "const bool sel = bf16_rn(s) >= thr_sh[g];",
                        "const bool sel = s >= thr_sh[g];"),
-    "unrounded_p": ("s_sh[g][t] = to_f32(from_f32<T>(p));",
+    "unrounded_p": (SRC_CU, "s_sh[g][t] = to_f32(from_f32<T>(p));",
                     "s_sh[g][t] = p;"),
+    "attn_fp32_predicate": (SRC_ATTN_CU,
+                            "if (p.thr) sel = bf16_rn(sc) >= thr_sh[r];",
+                            "if (p.thr) sel = sc >= thr_sh[r];"),
+    "attn_unrounded_p": (SRC_ATTN_CU,
+                         "s_sh[r * lds + t] = round_p<T>(pe);",
+                         "s_sh[r * lds + t] = pe;"),
+    "attn_causal_lt": (SRC_ATTN_CU,
+                       "sel = sel && (kpos_sh[key] <= qpos_sh[r]);",
+                       "sel = sel && (kpos_sh[key] < qpos_sh[r]);"),
 }
 
 _MUTANT_CHILD = """
@@ -288,13 +828,19 @@ import sys
 sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
 import torch
 import chip_smoke as cs
+from repro_torch.kernels import sata_attention as sa
 from repro_torch.kernels import sata_decode as sd
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda")
 failed = []
-for name, c in cs.kernel_cases(torch, torch.device("cuda")):
+suites = [(n, lambda c=c: cs.check_case(torch, sd, n, c))
+          for n, c in cs.kernel_cases(torch, dev)] if sys.argv[2] == "decode" \
+    else [(n, lambda n=n, c=c: cs.check_attn_case(torch, sa, n, c))
+          for n, c in cs.attn_cases(torch, dev)]
+for name, run in suites:
     try:
-        cs.check_case(torch, sd, name, c)
+        run()
     except AssertionError as e:
         failed.append(name)
         print("[mutant] fails:", e, flush=True)
@@ -304,23 +850,26 @@ print("FAILED", ",".join(failed))
 
 def run_mutants(root: str) -> int:
     """``--mutants``: build each of ``MUTANTS`` in a temporary copy of the
-    tree and run phase 2's cases on it.  Fails unless every mutant fails
-    at least one case."""
+    tree and run its kernel's cases (phase 2 or phase 6) on it.  Fails
+    unless every mutant fails at least one case."""
     import shutil
     import tempfile
     missed = []
-    for name, (old, new) in MUTANTS.items():
+    for name, (src, old, new) in MUTANTS.items():
         with tempfile.TemporaryDirectory() as d:
-            shutil.copytree(os.path.join(root, "src"), os.path.join(d, "src"))
+            shutil.copytree(os.path.join(root, "src"), os.path.join(d, "src"),
+                            ignore=shutil.ignore_patterns("__pycache__"))
             shutil.copy(os.path.abspath(__file__), d)
-            cu = os.path.join(d, SRC_CU)
+            cu = os.path.join(d, src)
             with open(cu) as f:
                 text = f.read()
             assert text.count(old) == 1, f"{name}: {old!r} not found once"
             with open(cu, "w") as f:
                 f.write(text.replace(old, new))
-            res = subprocess.run([sys.executable, "-c", _MUTANT_CHILD, d],
-                                 capture_output=True, text=True, cwd=d)
+            suite = "decode" if src == SRC_CU else "attention"
+            res = subprocess.run(
+                [sys.executable, "-c", _MUTANT_CHILD, d, suite],
+                capture_output=True, text=True, cwd=d)
         lines = res.stdout.splitlines()
         for line in lines[:-1]:
             log(f"[{name}] {line}")
@@ -338,6 +887,10 @@ def run_mutants(root: str) -> int:
 # ---------------------------------------------------------------------------
 
 def main() -> int:
+    # the training phase holds ~53 GB of parameters, gradients and moments
+    # beside large transient buffers: let the allocator grow segments in
+    # place rather than fragment
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     try:
         import torch
     except ImportError:
@@ -357,6 +910,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch.configs.archs import ARCHS
     from repro_torch.kernels import build
+    from repro_torch.kernels import sata_attention as sa
     from repro_torch.kernels import sata_decode as sd
     from repro_torch.launch.serve import ServeOptions, serve
     from repro_torch.models.config import KVCacheConfig, SataDecodeConfig
@@ -375,15 +929,7 @@ def main() -> int:
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s); "
         f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
-    t = time.time()
-    lib = build.build("sata_decode")
-    log(f"[build] nvcc sata_decode.cu -> {os.path.relpath(lib, root)} in "
-        f"{time.time() - t:.2f} s")
-    ptxas = lib.parent / f"{lib.stem}.ptxas.txt"
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] ptxas: {line.strip()}")
+    build_all(build, root)
 
     # --- 2. kernel vs plain on the card
     main_case, errs = check_kernels(torch, sd, dev)
@@ -498,6 +1044,12 @@ def main() -> int:
         f" x {cfg.n_layers} layers = {cfg.n_layers * per_layer:.2f} ms of "
         f"the {step_ms:.2f} ms mean decode step "
         f"({100 * cfg.n_layers * per_layer / step_ms:.1f}%) {tag}")
+    # --- 6. the SATA prefill kernels against their plain versions
+    attn_errs = check_attn_kernels(torch, sa, dev)
+
+    # --- 7.-10. the training path and the prefill kernels' timing
+    kernels += prefill_phases(torch, sa, dev, base, max(attn_errs.values()),
+                              tag)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

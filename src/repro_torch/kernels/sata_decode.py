@@ -91,12 +91,16 @@ def sata_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
+# the C interface of csrc/sata_decode.cu::sata_decode_attention: 9
+# pointers, 8 ints, the stream
+ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
 @functools.cache
 def _launcher():
     from repro_torch.kernels import build
     fn = build.load("sata_decode").sata_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p])
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 

@@ -6,7 +6,8 @@ The serving cache stacks every field over layers (``(L, ...)``, as the
 reference's scanned cache does); each layer's decode step gets a dict
 of views into it and updates them in place, so a step never copies the
 cache.  Host-side bookkeeping (slot claim, allocation) stays in
-``launch/serve.py``.
+``launch/serve.py``.  Serving never trains: the model's parameters are
+trainable, and these functions run without autograd.
 """
 from __future__ import annotations
 
@@ -90,6 +91,7 @@ def _dec_mlp(p, cfg, x):
     return x + mlp_apply(p["mlp"], cfg, apply_norm(p["ln2"], cfg, x))
 
 
+@torch.no_grad()
 def prefill_prompt(model, cfg: ModelConfig, tokens: torch.Tensor,
                    max_len: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Full-sequence prompt prefill for serving.  Runs the decoder over
@@ -173,6 +175,7 @@ def install_prefill(cfg: ModelConfig, cache: Dict, slot: int,
     return cache
 
 
+@torch.no_grad()
 def serve_step(model, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
                pos) -> Tuple[torch.Tensor, Dict]:
     """tokens: (B, 1) current token ids; pos: scalar or (B,) per-slot

@@ -1,27 +1,32 @@
 """Dense-family decoder as ``nn.Module``s — port of the dense part of
-``repro.models.model``.
+``repro.models.model``: the parameters, ``forward`` and ``loss_fn``.
 
 Weights keep the reference's (in, out) layout, so every projection is
 ``x @ w`` on both sides and ``params_from_jax`` is a plain copy.  The
 modules read by key (``ParamModule``), so the layer functions take them
-where the reference takes its params dicts.  Serving never trains: the
-parameters carry no gradient.
+where the reference takes its params dicts.  The parameters are
+trainable; serving runs under ``torch.inference_mode()``, which records
+no graph.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import ParamModule, _dtype
+from repro_torch.models.layers import (ParamModule, _dtype, apply_norm,
+                                       embed_apply, mlp_apply,
+                                       unembed_apply)
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 class _Init:
@@ -95,10 +100,11 @@ class Embed(ParamModule):
 
 class DenseModel(ParamModule):
     """Pre-norm decoder (attention + SwiGLU MLP) with a ``ModuleList`` of
-    layers — the dense serving family (qwen3-4b and kin).  The serving
-    functions (``models.decode``) run it layer by layer against the KV
-    cache; ``params["layers"][i]`` reads like the reference's stacked
-    params sliced at layer i."""
+    layers — the dense family (qwen3-4b and kin).  ``forward`` /
+    ``loss_fn`` train it; the serving functions (``models.decode``) run
+    it layer by layer against the KV cache.  ``params["layers"][i]``
+    reads like the reference's stacked params sliced at layer i.
+    ``device`` defaults to ``"cuda"`` and raises without a GPU."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
                  generator: Optional[torch.Generator] = None):
@@ -153,3 +159,65 @@ def params_from_jax(np_params: Mapping, cfg: ModelConfig,
                          f"unexpected {sorted(extra)}")
     model.load_state_dict(loaded, assign=True)
     return model
+
+
+# ---------------------------------------------------------------------------
+# forward / loss
+# ---------------------------------------------------------------------------
+
+def _decoder_block_apply(p, cfg: ModelConfig, x: torch.Tensor
+                         ) -> torch.Tensor:
+    h = apply_norm(p["ln1"], cfg, x)
+    x = x + attn.attention_apply(p["attn"], cfg, h)
+    h = apply_norm(p["ln2"], cfg, x)
+    return x + mlp_apply(p["mlp"], cfg, h)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``"full"``: recompute the whole layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant); ``"none"``: keep its
+    activations.  ``"dots"`` (save matmul outputs only) is not ported."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        def run(*args):
+            if not torch.is_grad_enabled():
+                return fn(*args)
+            return checkpoint(fn, *args, use_reentrant=False)
+        return run
+    raise NotImplementedError(
+        f"remat={cfg.remat!r}: only 'full' and 'none' are ported; the "
+        f"'dots' policy is queued on the PyTorch port's ROADMAP")
+
+
+def forward(model: DenseModel, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (logits fp32 (B, S, V), aux_loss).  Dense family only, whose
+    aux loss is 0 (the moe router's load-balancing term is slice 4)."""
+    if cfg.family != "dense" or cfg.moe:
+        raise NotImplementedError(
+            f"family {cfg.family!r}: the port's forward covers the dense "
+            f"family; moe and the others are slice 4")
+    x = embed_apply(model["embed"], batch["tokens"]).to(_dtype(cfg))
+    block = _remat(cfg, lambda p, h: _decoder_block_apply(p, cfg, h))
+    for p in model["layers"]:
+        x = block(p, x)
+    x = apply_norm(model["final_ln"], cfg, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return unembed_apply(model["embed"], cfg, x), aux
+
+
+def loss_fn(model: DenseModel, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy (labels pre-shifted by the pipeline)."""
+    logits, aux = forward(model, cfg, batch)
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = logz - gold
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(nll) if mask is None else mask
+    loss = (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return loss + 0.01 * aux, {"nll": loss, "aux": aux}

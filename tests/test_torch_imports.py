@@ -23,7 +23,11 @@ def _modules():
 
 def test_import_loads_no_jax_and_no_reference_package():
     mods = _modules()
-    assert "repro_torch.launch.serve" in mods
+    for m in ("repro_torch.launch.serve", "repro_torch.launch.train",
+              "repro_torch.kernels.sata_attention", "repro_torch.core.sorting",
+              "repro_torch.train.step", "repro_torch.optim.adamw",
+              "repro_torch.checkpoint.manager", "repro_torch.data.pipeline"):
+        assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -48,7 +52,8 @@ def test_source_scan_finds_no_jax_or_reference_import():
     assert not hits, hits
 
 
-@pytest.mark.parametrize("entry", ["serve", "init_cache", "model"])
+@pytest.mark.parametrize("entry", ["serve", "init_cache", "model", "train",
+                                   "init_train_state"])
 def test_entry_points_default_to_cuda_and_never_fall_back(entry):
     """On a machine without a GPU, a call that does not ask for the CPU
     raises instead of running there."""
@@ -57,10 +62,16 @@ def test_entry_points_default_to_cuda_and_never_fall_back(entry):
     from repro_torch.configs.archs import SMOKE
     from repro_torch.launch.serve import serve
     from repro_torch.models.decode import init_cache
+    from repro_torch.launch.train import train
     from repro_torch.models.model import DenseModel
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.step import init_train_state
     cfg = SMOKE["qwen3-4b"]
     call = {"serve": lambda: serve("qwen3-4b", cfg=cfg),
             "init_cache": lambda: init_cache(cfg, 2, 16),
-            "model": lambda: DenseModel(cfg)}[entry]
+            "model": lambda: DenseModel(cfg),
+            "train": lambda: train("qwen3-4b", steps=1, batch=1, seq=8),
+            "init_train_state": lambda: init_train_state(cfg, OptConfig()),
+            }[entry]
     with pytest.raises(RuntimeError, match="cuda"):
         call()
