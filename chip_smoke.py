@@ -6,8 +6,9 @@ port's paged and contiguous serving paths, trains it through the SATA
 prefill kernels, and times every kernel at its main path's shape.
 
     python3 chip_smoke.py            # needs one CUDA GPU (an H100 here)
-    python3 chip_smoke.py --mutants  # phases 2 and 6 on each of MUTANTS:
-                                     # each must fail
+    python3 chip_smoke.py --mutants  # phases 2 and 6 (and 8 for the
+                                     # prefill kernel) on each of
+                                     # MUTANTS: each must fail
 
 Phases (any failure exits non-zero; none is caught so a later one runs):
   1. device and build — card name and power limit, torch/CUDA versions,
@@ -27,21 +28,26 @@ Phases (any failure exits non-zero; none is caught so a later one runs):
      block mode; dense grid B4) against their plain versions: fp32 <=
      1e-5, bf16 within phase 2's limits, equal admitted-key counts per
      row, B3 == B4 bitwise on the same plan, two launches bitwise equal;
+     at the main shape, the rows where the kernel admits other keys than
+     the chunked route's backward recompute selects (reported);
   7. the main path: ``launch.train.train`` on full-width qwen3-4b, 36
      layers, chunked selection (``topk_impl="bisect"``), batch 1,
      S = 4096, 4 steps; the compacted-grid kernel's launches must equal
      layers x steps x 2 (the forward and the remat recompute), the dense
-     grid's 0; then one more step under ``torch.profiler`` for the
-     device time by kernel and the device's idle share;
+     grid's 0; layer 0's kernel arguments are recorded on the way; then
+     one more step under ``torch.profiler`` for the device time by
+     kernel and the device's idle share;
   8. one forward + backward at full width (4 layers) with the kernel
-     route on and off (``_attend``): the same loss within bf16 limits;
+     route on and off (``_attend``): the same loss and grad norm within
+     ROUTE_RTOL, layer 0's attention output within ROUTE_ATTN_RTOL;
   9. the dense-selection route: ``make_prefill_step`` with
      ``topk_impl="sort"`` at full width, 4 layers, S = 2048, on the
-     compacted and the dense grid: equal logits bitwise;
- 10. prefill kernel timing at the shapes phases 7 and 9 give them (CUDA
-     events, median, L2 flushed): the bound from the planned tiles'
-     flops and the unique bytes, the plain version, and SDPA with the
-     equivalent boolean mask as the library yardstick.
+     compacted and the dense grid: equal logits bitwise; layer 0's
+     dense-grid arguments are recorded on the way;
+ 10. prefill kernels on the arguments recorded in phases 7 and 9: kernel
+     vs plain version (phase 6's limits), timing (CUDA events, median,
+     L2 flushed), the bound from the flops and bytes this input needs,
+     and SDPA with the equivalent boolean mask as the library yardstick.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the ``kernels`` JSON, and the card's name and power limit are
@@ -74,11 +80,15 @@ REPLACES = {"paged": "src/repro/kernels/sata_decode.py:168",
             "contiguous": "src/repro/kernels/sata_decode.py:97",
             "compact": "src/repro/kernels/sata_attention.py:260",
             "dense": "src/repro/kernels/sata_attention.py:117"}
-# phase 8: |loss(kernel route) - loss(_attend)| / loss.  The routes round
-# p to bf16 at different points (per tile after the running max vs once
-# after the full softmax) and sum in different orders, which moves
-# bf16 activations by about one step (2^-8) and the mean loss by far less.
-ROUTE_LOSS_RTOL = 2e-3
+# phase 8, kernel route vs _attend.  The routes round p to bf16 at
+# different points (per tile after the running max vs once after the full
+# softmax) and sum in different orders, which moves each bf16 attention
+# output by about one rounding step (2^-9 relative, uniform), so layer 0's
+# attention output differs by ~2^-8 in relative Frobenius norm
+# (ROUTE_ATTN_RTOL allows 2.5x that), and the loss and the grad norm,
+# means over millions of such outputs, by far less (ROUTE_RTOL).
+ROUTE_RTOL = 2e-3
+ROUTE_ATTN_RTOL = 1e-2
 
 
 def log(*a):
@@ -406,37 +416,64 @@ def compare(torch, name, got, want, adm_got=None, adm_want=None):
     return e
 
 
+def admitted_buffer(torch, c):
+    bh, s = c["q"].shape[:2]
+    return torch.zeros((bh, s), dtype=torch.int32, device=c["q"].device)
+
+
 def check_attn_case(torch, sa, name, c):
     """B3 vs plain on the full plan and on a cut one (count-0 rows,
     padding slots); where the mode exists on the dense grid, B4 vs plain
-    and B3 == B4 bitwise.  Returns the largest error."""
-    bh, s = c["q"].shape[:2]
-    dev = c["q"].device
-
-    def adm():
-        return torch.zeros((bh, s), dtype=torch.int32, device=dev)
-
-    errs = []
+    and B3 == B4 bitwise.  Returns B3's admitted-key counts per row on
+    the full plan."""
     cnt_cut = c["cnt"].clone()
     cnt_cut[0, 0] = 0
     cnt_cut[-1, -1] = torch.clamp(cnt_cut[-1, -1] - 1, min=0)
     for label, cnt in (("", None), (" cut plan", cnt_cut)):
-        a_k, a_p = adm(), adm()
+        a_k, a_p = admitted_buffer(torch, c), admitted_buffer(torch, c)
         got = run_attn(sa, c, plain=False, cnt=cnt, admitted=a_k)
         want = run_attn(sa, c, plain=True, cnt=cnt, admitted=a_p)
         torch.cuda.synchronize()
-        errs.append(compare(torch, f"B3 {name}{label}", got, want, a_k, a_p))
+        compare(torch, f"B3 {name}{label}", got, want, a_k, a_p)
         if not label:
-            full = got
+            full, adm_full = got, a_k
     if c["mode"] != "threshold" and not c["causal"]:
-        a_k, a_p = adm(), adm()
+        a_k, a_p = admitted_buffer(torch, c), admitted_buffer(torch, c)
         got = run_attn(sa, c, plain=False, dense_grid=True, admitted=a_k)
         want = run_attn(sa, c, plain=True, dense_grid=True, admitted=a_p)
         torch.cuda.synchronize()
-        errs.append(compare(torch, f"B4 {name}", got, want, a_k, a_p))
+        compare(torch, f"B4 {name}", got, want, a_k, a_p)
         assert torch.equal(got, full), f"{name}: B3 != B4 (must be bitwise)"
         log(f"[attn-kernel] {name}: B3 == B4 bitwise: True")
-    return max(errs)
+    return adm_full
+
+
+def recompute_flips(torch, c, admitted, name, tag=""):
+    """Threshold mode: the rows where the kernel's admitted-key count
+    differs from the selection of the chunked route's backward
+    (``_selective_ref_chunked``: ``bf16(s) >= bf16(thr)`` on einsum
+    scores over every key, causal, not only the planned tiles).  The
+    kernel sums each score in its own fixed order, the recompute in the
+    GEMM's, so a score on a bf16 rounding boundary can land on either
+    side.  Reported, not asserted."""
+    from repro_torch.core.blockmap import bisect_select, stream_score_chunks
+    sel = c["sel"]
+    bh, s, _ = c["q"].shape
+    causal = bool(sel.get("causal"))
+    pos = sel["q_pos"][0, :, 0] if causal else None
+    kpos = sel["k_pos"][0, :, 0] if causal else None
+    with torch.no_grad():
+        n = stream_score_chunks(
+            c["q"], c["k"], lambda sc, adm, t: (bisect_select(sc, t) & adm)
+            .sum(-1, dtype=torch.int32), chunk=min(1024, s), causal=causal,
+            q_pos=pos, k_pos=kpos, extras=(sel["thresholds"],))
+    n = n.transpose(0, 1).reshape(bh, s)
+    rows = int((n != admitted).sum())
+    log(f"[attn-kernel] {name}: kernel vs backward recompute selection: "
+        f"{rows} of {bh * s} rows differ, {int((n - admitted).abs().sum())} "
+        f"keys ({int(admitted.sum())} admitted by the kernel, "
+        f"{int(n.sum())} by the recompute) {tag}")
+    return rows
 
 
 def attn_cases(torch, dev):
@@ -469,16 +506,20 @@ def attn_cases(torch, dev):
             causal=causal, seed=10 + n, device=dev)
 
 
-def check_attn_kernels(torch, sa, dev):
+def check_attn_kernels(torch, sa, dev, tag):
     """Phase 6: both prefill kernels against their plain versions on
-    every case, an empty plan, and two launches bitwise equal."""
-    errs, main = {}, None
+    every case, an empty plan, two launches bitwise equal, and the main
+    case's selection against the backward recompute's."""
+    main = None
     for name, c in attn_cases(torch, dev):
         if main is None:
-            main = c
+            main, main_name = c, name
             log(f"[attn-kernel] main plan: {int(c['cnt'].sum())} planned "
                 f"tiles of {c['bm'].numel()}, P {c['idx'].shape[-1]}")
-        errs[name] = check_attn_case(torch, sa, name, c)
+            main_adm = check_attn_case(torch, sa, name, c)
+        else:
+            check_attn_case(torch, sa, name, c)
+    recompute_flips(torch, main, main_adm, main_name, tag)
     c = attn_case(torch, bh=2, s=64, d=16, qb=16, kb=16, dtype=torch.float32,
                   mode="threshold", causal=True, seed=99, device=dev)
     idx0 = c["idx"][..., :0].contiguous()                     # P == 0
@@ -490,7 +531,6 @@ def check_attn_kernels(torch, sa, dev):
     torch.cuda.synchronize()
     assert torch.equal(a, b), "two launches differ"
     log("[attn-kernel] main: two launches bitwise equal: True")
-    return errs
 
 
 def main_path_cfg(base, **kernel):
@@ -502,79 +542,139 @@ def main_path_cfg(base, **kernel):
             use=True, block=128, **kernel)))
 
 
-def layer0_qkv(torch, model, cfg, tokens):
-    """Layer 0's q/k/v as the kernel route hands them to the kernel:
-    (B·H, S, hd), KV heads repeated, RoPE applied."""
-    from repro_torch.models import attention as attn
-    from repro_torch.models.layers import (_dtype, apply_norm, apply_rope,
-                                           embed_apply)
-    with torch.no_grad():
-        b, s = tokens.shape
-        p = model["layers"][0]
-        x = embed_apply(model["embed"], tokens).to(_dtype(cfg))
-        q, k, v = attn._project_qkv(p["attn"], cfg,
-                                    apply_norm(p["ln1"], cfg, x))
-        pos = torch.arange(s, device=tokens.device)
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
-        g = cfg.n_heads // cfg.n_kv_heads
-        k = k.repeat_interleave(g, dim=2)
-        v = v.repeat_interleave(g, dim=2)
-        return tuple(t.transpose(1, 2).reshape(-1, s, cfg.hd).contiguous()
-                     for t in (q, k, v))
+class FirstCall:
+    """While open, ``kernels.ops.<name>`` (the kernel route's dispatch to
+    one prefill kernel) keeps the arguments of its first call, which in a
+    forward pass is layer 0's, and passes every call on unchanged.  It
+    launches nothing itself, so the launch counts stay the main path's."""
+
+    def __init__(self, name):
+        from repro_torch.kernels import ops
+        self.ops, self.name, self.args, self.kw = ops, name, None, None
+
+    def __enter__(self):
+        self.fn = getattr(self.ops, self.name)
+        setattr(self.ops, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.ops, self.name, self.fn)
+
+    def __call__(self, *args, **kw):
+        if self.args is None:
+            self.args, self.kw = args, kw
+        return self.fn(*args, **kw)
 
 
-def attn_bound(torch, c, *, idx, cnt, mask_bytes_per_tile=0):
-    """Least time of the planned work on an H100: the larger of the
-    planned tiles' flops (QK^T and PV, 4·qb·kb·D each) over the bf16
-    peak and the bytes the function must move over 3.35 TB/s: q and the
-    output once, each k-block some row plans (K and V) once, the plan,
-    thresholds and positions, and the mask bytes of planned tiles."""
-    q = c["q"]
-    bh, s, d = q.shape
-    es = q.element_size()
-    qb, kb = c["qb"], c["kb"]
-    tiles = int(cnt.sum())
+def planned_map(torch, idx, cnt, nkb):
+    """(BH, nqb, nkb) bool: the k-blocks each row's plan visits (padding
+    slots repeat a live index: reduce, never overwrite)."""
     live = (torch.arange(idx.shape[-1], device=idx.device)
             < cnt[..., None]).to(torch.int32)
-    used = torch.zeros((bh, s // kb), dtype=torch.int32,
+    return torch.zeros(idx.shape[:2] + (nkb,), dtype=torch.int32,
                        device=idx.device).scatter_reduce_(
-        1, idx.long().reshape(bh, -1), live.reshape(bh, -1), reduce="amax")
-    kv_blocks = int(used.sum())
-    nbytes = (2 * q.numel() * es + 2 * kv_blocks * kb * d * es
-              + idx.numel() * 4 + cnt.numel() * 4
-              + tiles * mask_bytes_per_tile)
-    sel = c["sel"]
-    if "thresholds" in sel:
-        nbytes += sel["thresholds"].numel() * 4
-    if "q_pos" in sel:
-        nbytes += 4 * bh * s * 2
-    flops = 4 * qb * kb * d * tiles
-    peak = BF16_FLOPS_PER_S if es == 2 else FP32_FLOPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations", tiles, kv_blocks)
+        2, idx.long(), live, reduce="amax").bool()
 
 
-def sdpa_mask(torch, c):
-    """The boolean (BH, 1, Sq, Sk) mask under which SDPA computes what
-    the kernel computes on case ``c``: planned tiles AND the mode's
-    element selection."""
+def recorded_case(torch, sa, rec, *, dense_grid):
+    """A case as ``attn_case`` builds it, from the arguments a FirstCall
+    recorded: the very tensors the main path handed the kernel."""
+    import inspect
+    from repro_torch.core.blockmap import compact_kv_plan
+    fn = sa.sata_block_attention if dense_grid \
+        else sa.sata_block_attention_compact
+    bound = inspect.signature(fn).bind(*rec.args, **rec.kw)
+    bound.apply_defaults()
+    # q/k/v reach the kernel as the autograd Function's inputs: detach them
+    # so phase 10's plain-version calls build no graph
+    a = {n: x.detach() if isinstance(x, torch.Tensor) else x
+         for n, x in bound.arguments.items()}
+    kb = a["k_block"]
+    sel = {n: a[n] for n in ("mask", "thresholds") if a.get(n) is not None}
+    causal = bool(a.get("causal")) and a["mask"] is None
+    if causal:
+        sel.update(causal=True, q_pos=a["q_pos"], k_pos=a["k_pos"])
+    if dense_grid:
+        bm = a["block_map"].bool()
+        idx, cnt = compact_kv_plan(bm)
+    else:
+        idx, cnt = a["kv_indices"], a["kv_counts"]
+        bm = planned_map(torch, idx, cnt, a["k"].shape[1] // kb)
+    mode = "mask" if "mask" in sel else \
+        "threshold" if "thresholds" in sel else "block"
+    return dict(q=a["q"], k=a["k"], v=a["v"], qb=a["q_block"], kb=kb,
+                mode=mode, causal=causal, sel=sel, bm=bm, idx=idx, cnt=cnt)
+
+
+def attended_pairs(torch, c):
+    """(BH, Sq, Sk) bool: the pairs the kernel attends on case ``c``,
+    planned tiles AND the mode's element selection.  Threshold mode
+    scores with einsum here, so a score on a bf16 rounding boundary may
+    fall on the other side than in the kernel (``recompute_flips``
+    counts such rows)."""
     from repro_torch.core.blockmap import bisect_select
     q, k = c["q"], c["k"]
     bh, s, d = q.shape
     keep = c["bm"].repeat_interleave(c["qb"], 1).repeat_interleave(c["kb"], 2)
     sel = c["sel"]
     if "mask" in sel:
-        keep = keep & sel["mask"]
+        keep &= sel["mask"].bool()
     if "thresholds" in sel:
-        sc = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / np.sqrt(d)
-        keep = keep & bisect_select(sc, sel["thresholds"])
+        sc = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) \
+            * (1.0 / np.sqrt(d))
+        keep &= bisect_select(sc, sel["thresholds"])
         del sc
     if sel.get("causal"):
-        keep = keep & torch.ones((s, s), dtype=torch.bool,
-                                 device=q.device).tril()
-    return keep[:, None]
+        keep &= (sel["k_pos"].reshape(bh, 1, -1)
+                 <= sel["q_pos"].reshape(bh, -1, 1))
+    return keep
+
+
+def attn_bound(torch, c, admitted, keep):
+    """Least time for the function's work on an H100: the larger of its
+    flops over the peak for the input type and its bytes over
+    3.35 TB/s, both counted from this input.  Flops: 2·D for each score
+    the selection needs (mask mode: the selected pairs; threshold and
+    block mode: the position-admissible pairs of the planned tiles) and
+    2·D for each admitted key's PV product (``admitted``, the kernel's
+    per-row counts).  Bytes, each once: q and the output; the K rows
+    scored (mask mode: keys some row selects; else the planned k-blocks)
+    and the V rows some row attends (``keep``); the plan, thresholds,
+    positions and the mask bytes of planned tiles."""
+    q = c["q"]
+    bh, s, d = q.shape
+    es = q.element_size()
+    qb, kb, sel, planned = c["qb"], c["kb"], c["sel"], c["bm"]
+    nqb, nkb = planned.shape[1:]
+    tiles = int(planned.sum())
+    pv = int(admitted.sum())
+    v_rows = int(keep.any(dim=1).sum())
+    if "mask" in sel:
+        qk, k_rows = pv, v_rows
+    else:
+        k_rows = int(planned.any(dim=1).sum()) * kb
+        if sel.get("causal"):
+            qp = sel["q_pos"].reshape(bh, nqb, qb, 1)
+            kp = sel["k_pos"].reshape(bh, nkb, 1, kb)
+            qk = sum(int(((kp[:, None, j] <= qp).sum((-1, -2))
+                          * planned[..., j]).sum()) for j in range(nkb))
+        else:
+            qk = tiles * qb * kb
+    nbytes = ((2 * bh * s + k_rows + v_rows) * d * es
+              + (c["idx"].numel() + c["cnt"].numel()) * 4)
+    if "thresholds" in sel:
+        nbytes += sel["thresholds"].numel() * 4
+    if sel.get("causal"):
+        nbytes += 4 * bh * s * 2
+    if "mask" in sel:
+        nbytes += tiles * qb * kb
+    flops = 2 * d * (qk + pv)
+    peak = BF16_FLOPS_PER_S if es == 2 else FP32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations",
+            dict(tiles=tiles, qk_pairs=qk, pv_keys=pv, gflop=flops / 1e9,
+                 mbytes=nbytes / 1e6))
 
 
 def reset_attn_counts(sa):
@@ -589,16 +689,17 @@ def attn_counts(sa):
 
 def train_main_path(torch, sa, dev, base, tag, *, steps=4, seq=4096):
     """Phase 7: ``train()`` on full-width qwen3-4b through the compacted
-    grid; returns the trained model's layer-0 q/k/v for phase 10 and the
-    kernel's launch count."""
+    grid; returns layer 0's recorded kernel arguments as a case for
+    phase 10 and the kernel's launch count."""
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch.train import train
     cfg = main_path_cfg(dataclasses.replace(base, topk_impl="bisect"))
     reset_attn_counts(sa)
     torch.cuda.reset_peak_memory_stats()
     t = time.time()
-    out = train("qwen3-4b", cfg=cfg, steps=steps, batch=1, seq=seq,
-                log_every=1, device=dev)
+    with FirstCall("_block_attention_compact") as rec:
+        out = train("qwen3-4b", cfg=cfg, steps=steps, batch=1, seq=seq,
+                    log_every=1, device=dev)
     torch.cuda.synchronize()
     wall = time.time() - t
     n_b3, n_b4 = attn_counts(sa)
@@ -616,12 +717,10 @@ def train_main_path(torch, sa, dev, base, tag, *, steps=4, seq=4096):
     assert all(np.isfinite(out["losses"])) and all(np.isfinite(out["gnorms"]))
     assert n_b3 == want, f"compacted-grid launches {n_b3} != {want}"
     assert n_b4 == 0, f"the dense grid ran {n_b4} times on the main path"
-    state = out["final_state"]
     batch = {k: torch.from_numpy(a).to(dev) for k, a in
              SyntheticLM(cfg, 1, seq, seed=0).next_batch().items()}
-    profile_step(torch, cfg, state, batch, tag)
-    qkv = layer0_qkv(torch, state["params"], cfg, batch["tokens"])
-    return qkv, n_b3
+    profile_step(torch, cfg, out["final_state"], batch, tag)
+    return recorded_case(torch, sa, rec, dense_grid=False), n_b3
 
 
 def profile_step(torch, cfg, state, batch, tag, top=12):
@@ -661,9 +760,13 @@ def profile_step(torch, cfg, state, batch, tag, top=12):
 
 def route_on_off(torch, sa, dev, base, tag, *, layers=4, seq=4096):
     """Phase 8: one forward + backward at full width with the kernel
-    route on and off: the same loss within ROUTE_LOSS_RTOL."""
+    route on and off (``_attend``): the same loss and grad norm within
+    ROUTE_RTOL, and layer 0's attention output on the same input within
+    ROUTE_ATTN_RTOL (relative Frobenius norm)."""
     from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.attention import attention_apply
     from repro_torch.models.config import SataKernelConfig
+    from repro_torch.models.layers import _dtype, apply_norm, embed_apply
     from repro_torch.models.model import DenseModel, loss_fn
     on = main_path_cfg(dataclasses.replace(base, topk_impl="bisect",
                                            n_layers=layers))
@@ -672,6 +775,10 @@ def route_on_off(torch, sa, dev, base, tag, *, layers=4, seq=4096):
     model = DenseModel(on, device=dev, seed=1)
     batch = {k: torch.from_numpy(a).to(dev) for k, a in
              SyntheticLM(on, 1, seq, seed=1).next_batch().items()}
+    p0 = model["layers"][0]
+    with torch.no_grad():
+        x0 = apply_norm(p0["ln1"], on, embed_apply(
+            model["embed"], batch["tokens"]).to(_dtype(on)))
     res = {}
     for name, cfg in (("kernel route", on), ("_attend", off)):
         model.zero_grad(set_to_none=True)
@@ -680,27 +787,35 @@ def route_on_off(torch, sa, dev, base, tag, *, layers=4, seq=4096):
         loss, _ = loss_fn(model, cfg, batch)
         loss.backward()
         torch.cuda.synchronize()
+        secs, counts = time.time() - t, attn_counts(sa)
         gn = float(torch.sqrt(sum(torch.sum(p.grad.float() ** 2)
                                   for p in model.parameters())))
-        res[name] = loss.item()
-        log(f"[route] {name}: loss {res[name]:.6f}, grad norm {gn:.4f}, "
-            f"fwd+bwd {time.time() - t:.2f} s, launches (B3, B4) "
-            f"{attn_counts(sa)} {tag}")
-    rel = abs(res["kernel route"] - res["_attend"]) / abs(res["_attend"])
-    log(f"[route] |loss difference| / loss = {rel:.3e} "
-        f"(limit {ROUTE_LOSS_RTOL:g})")
-    assert rel <= ROUTE_LOSS_RTOL, rel
+        with torch.no_grad():
+            attn0 = attention_apply(p0["attn"], cfg, x0).float()
+        res[name] = (loss.item(), gn, attn0)
+        log(f"[route] {name}: loss {res[name][0]:.6f}, grad norm {gn:.6f}, "
+            f"fwd+bwd {secs:.2f} s, launches (B3, B4) {counts} {tag}")
+    (l1, g1, a1), (l0, g0, a0) = res["kernel route"], res["_attend"]
+    rel = {"loss": abs(l1 - l0) / abs(l0),
+           "grad norm": abs(g1 - g0) / abs(g0),
+           "layer-0 attention output": float(
+               torch.linalg.vector_norm(a1 - a0)
+               / torch.linalg.vector_norm(a0))}
+    lim = {"loss": ROUTE_RTOL, "grad norm": ROUTE_RTOL,
+           "layer-0 attention output": ROUTE_ATTN_RTOL}
+    log("[route] kernel route vs _attend, relative: " + ", ".join(
+        f"{n} {rel[n]:.3e} (limit {lim[n]:g})" for n in rel))
+    bad = [n for n in rel if not rel[n] <= lim[n]]
+    assert not bad, f"kernel route vs _attend differ in {bad}: {rel}"
 
 
 def prefill_schedules(torch, sa, dev, base, tag, *, layers=4, seq=2048):
     """Phase 9: the dense-selection route through ``make_prefill_step`` on
-    both grids: equal logits bitwise.  Returns layer 0's mask-mode case
-    (SATA-permuted q/k/v, mask and plan) for phase 10 and B4's launch
-    count on its own run."""
-    from repro_torch.core.blockmap import compact_kv_plan, sata_block_plan
+    both grids: equal logits bitwise.  Returns layer 0's recorded
+    dense-grid arguments as a case for phase 10 and B4's launch count on
+    its own run."""
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.kernels.ops import _take_rows, kernel_fetch_stats
-    from repro_torch.models.attention import topk_threshold_mask
+    from repro_torch.kernels.ops import kernel_fetch_stats
     from repro_torch.models.model import DenseModel
     from repro_torch.train.step import make_prefill_step
     cfgs = {sch: main_path_cfg(dataclasses.replace(
@@ -713,95 +828,84 @@ def prefill_schedules(torch, sa, dev, base, tag, *, layers=4, seq=2048):
     for sch, cfg in cfgs.items():
         reset_attn_counts(sa)
         t = time.time()
-        logits[sch] = make_prefill_step(cfg)(model, {"tokens": tokens})
+        with FirstCall("_block_attention_dense") as rec:
+            logits[sch] = make_prefill_step(cfg)(model, {"tokens": tokens})
         torch.cuda.synchronize()
         counts[sch] = attn_counts(sa)
         log(f"[prefill] topk sort, {sch} grid, {layers} layers, S {seq}: "
             f"{time.time() - t:.2f} s, launches (B3, B4) {counts[sch]} {tag}")
+        if sch == "dense":
+            case = recorded_case(torch, sa, rec, dense_grid=True)
     assert counts["compact"] == (layers, 0), counts
     assert counts["dense"] == (0, layers), counts
     assert torch.isfinite(logits["compact"]).all()
     same = torch.equal(logits["compact"], logits["dense"])
     log(f"[prefill] compact == dense grid logits bitwise: {same}")
     assert same, "compacted and dense grid logits differ"
-    # layer 0's plan, as the dense route builds it
-    cfg = cfgs["dense"]
-    qf, kf, vf = layer0_qkv(torch, model, cfg, tokens)
-    with torch.no_grad():
-        sc = torch.einsum("bqd,bkd->bqk", qf.float(), kf.float()) / np.sqrt(
-            cfg.hd)
-        adm = torch.ones((seq, seq), dtype=torch.bool, device=dev).tril()
-        sc = torch.where(adm, sc, -2.0 ** 30)
-        sel = topk_threshold_mask(sc, cfg.topk_k, impl="sort") & adm
-        del sc
-        kv_order, q_order, bm = sata_block_plan(sel, 128, 128)
-        mask = _take_rows(torch.gather(
-            sel, 2, kv_order.long()[:, None, :].expand_as(sel)), q_order)
-    stats = kernel_fetch_stats(bm, q_block=128, k_block=128, d=cfg.hd,
-                               dtype_bytes=2)
+    stats = kernel_fetch_stats(case["bm"], q_block=case["qb"],
+                               k_block=case["kb"], d=case["q"].shape[-1],
+                               dtype_bytes=case["q"].element_size())
     log(f"[prefill] layer 0 kernel_fetch_stats: {json.dumps(stats)}")
-    idx, cnt = compact_kv_plan(bm)
-    case = dict(q=_take_rows(qf, q_order), k=_take_rows(kf, kv_order),
-                v=_take_rows(vf, kv_order), qb=128, kb=128, mode="mask",
-                causal=False, sel={"mask": mask}, bm=bm, idx=idx, cnt=cnt)
     return case, counts["dense"][1]
 
 
-def time_attn(torch, sa, c, name, tag, *, dense_grid=False, mask_bytes=0):
-    """Phase 10 for one kernel: kernel, plain version and SDPA with the
-    equivalent mask, and the bound."""
+def time_attn(torch, sa, c, name, tag, *, dense_grid=False):
+    """Phase 10 for one kernel on a recorded case: kernel vs plain
+    version (phase 6's limits), then the kernel, the plain version and
+    SDPA with the equivalent mask timed, and the bound.  Returns the
+    ``kernels`` row's numbers and the kernel's admitted-key counts."""
+    a_k, a_p = admitted_buffer(torch, c), admitted_buffer(torch, c)
+    got = run_attn(sa, c, plain=False, dense_grid=dense_grid, admitted=a_k)
+    want = run_attn(sa, c, plain=True, dense_grid=dense_grid, admitted=a_p)
+    torch.cuda.synchronize()
+    err = compare(torch, f"{name} on the main path's layer-0 arguments",
+                  got, want, a_k, a_p)
+    del got, want
     ms = time_ms(torch, lambda: run_attn(sa, c, plain=False,
                                          dense_grid=dense_grid))
     plain_ms = time_ms(torch, lambda: run_attn(sa, c, plain=True,
                                                dense_grid=dense_grid),
                        reps=3, warm=1)
     bh, s, d = c["q"].shape
-    mask = sdpa_mask(torch, c).reshape(1, bh, s, s)
+    keep = attended_pairs(torch, c)
     q4, k4, v4 = (c[n].reshape(1, bh, s, d) for n in ("q", "k", "v"))
     lib_ms = time_ms(torch, lambda: torch.nn.functional
                      .scaled_dot_product_attention(q4, k4, v4,
-                                                   attn_mask=mask))
-    del mask
-    bound_ms, bound_by, tiles, kv_blocks = attn_bound(
-        torch, c, idx=c["idx"], cnt=c["cnt"], mask_bytes_per_tile=mask_bytes)
+                                                   attn_mask=keep[None]))
+    bound_ms, bound_by, n = attn_bound(torch, c, a_k, keep)
+    del keep
     log(f"[timing] {name}: BH {bh}, S {s}, D {d}, {c['qb']}x{c['kb']} "
-        f"tiles, {tiles} planned tiles of {c['bm'].numel()}, {kv_blocks} "
-        f"K/V blocks read: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}), plain {plain_ms:.2f} ms, SDPA+mask {lib_ms:.4f} ms "
-        f"{tag}")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms)
+        f"tiles, {c['mode']} mode, {n['tiles']} planned tiles of "
+        f"{c['bm'].numel()}, {n['qk_pairs']} scores and {n['pv_keys']} "
+        f"admitted keys needed ({n['gflop']:.2f} GFLOP, "
+        f"{n['mbytes']:.1f} MB): kernel {ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.2f} ms, "
+        f"SDPA+mask {lib_ms:.4f} ms {tag}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms), a_k
 
 
-def prefill_phases(torch, sa, dev, base, max_err, tag):
+def prefill_phases(torch, sa, dev, base, tag):
     """Phases 7-10; returns the two prefill kernels' ``kernels`` rows."""
-    from repro_torch.core.blockmap import compact_kv_plan
-    from repro_torch.core.selection import select_thresholds_chunked
-    (qf, kf, vf), n_b3 = train_main_path(torch, sa, dev, base, tag)
+    c3, n_b3 = train_main_path(torch, sa, dev, base, tag)
     torch.cuda.empty_cache()
     route_on_off(torch, sa, dev, base, tag)
     torch.cuda.empty_cache()
     c4, n_b4 = prefill_schedules(torch, sa, dev, base, tag)
     torch.cuda.empty_cache()
-    s = qf.shape[1]
-    thr, bm = select_thresholds_chunked(qf, kf, base.topk_k, causal=True,
-                                        chunk=1024, q_block=128, k_block=128)
-    pos = torch.arange(s, dtype=torch.int32, device=dev)[None, :, None] \
-        .expand(qf.shape[0], s, 1)
-    idx, cnt = compact_kv_plan(bm)
-    c3 = dict(q=qf, k=kf, v=vf, qb=128, kb=128, mode="threshold",
-              causal=True, sel=dict(thresholds=thr, causal=True, q_pos=pos,
-                                    k_pos=pos), bm=bm, idx=idx, cnt=cnt)
     rows = []
-    for fn, c, launches, kw in (
-            (sa.sata_block_attention_compact, c3, n_b3, {}),
-            (sa.sata_block_attention, c4, n_b4,
-             dict(dense_grid=True, mask_bytes=128 * 128))):
-        t = time_attn(torch, sa, c, fn.__name__, tag, **kw)
+    for fn, c, launches, dense_grid in (
+            (sa.sata_block_attention_compact, c3, n_b3, False),
+            (sa.sata_block_attention, c4, n_b4, True)):
+        t, adm = time_attn(torch, sa, c, fn.__name__, tag,
+                           dense_grid=dense_grid)
+        if c["mode"] == "threshold":
+            recompute_flips(torch, c, adm, f"{fn.__name__} main path", tag)
         rows.append({"name": fn.__name__, "route": "cuda",
                      "source": SRC_ATTN_CU,
-                     "replaces": REPLACES["dense" if kw else "compact"],
-                     "launches": launches, "max_abs_err": max_err, **t})
+                     "replaces": REPLACES["dense" if dense_grid
+                                          else "compact"],
+                     "launches": launches, **t})
     return rows
 
 
@@ -822,22 +926,31 @@ MUTANTS = {
                        "sel = sel && (kpos_sh[key] <= qpos_sh[r]);",
                        "sel = sel && (kpos_sh[key] < qpos_sh[r]);"),
 }
+# prefill-kernel mutants also run through phase 8; these must fail it too
+# (an unrounded p changes single bf16 roundings, below its limits)
+PHASE8_MUST_CATCH = ("attn_fp32_predicate", "attn_causal_lt")
+PHASE8 = "phase8_route"
 
 _MUTANT_CHILD = """
 import sys
 sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
 import torch
 import chip_smoke as cs
+from repro_torch.configs.archs import ARCHS
 from repro_torch.kernels import sata_attention as sa
 from repro_torch.kernels import sata_decode as sd
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 dev = torch.device("cuda")
 failed = []
-suites = [(n, lambda c=c: cs.check_case(torch, sd, n, c))
-          for n, c in cs.kernel_cases(torch, dev)] if sys.argv[2] == "decode" \
-    else [(n, lambda n=n, c=c: cs.check_attn_case(torch, sa, n, c))
-          for n, c in cs.attn_cases(torch, dev)]
+if sys.argv[2] == "decode":
+    suites = [(n, lambda c=c: cs.check_case(torch, sd, n, c))
+              for n, c in cs.kernel_cases(torch, dev)]
+else:
+    suites = [(n, lambda n=n, c=c: cs.check_attn_case(torch, sa, n, c))
+              for n, c in cs.attn_cases(torch, dev)]
+    suites.append((cs.PHASE8, lambda: cs.route_on_off(
+        torch, sa, dev, ARCHS["qwen3-4b"], "")))
 for name, run in suites:
     try:
         run()
@@ -850,8 +963,9 @@ print("FAILED", ",".join(failed))
 
 def run_mutants(root: str) -> int:
     """``--mutants``: build each of ``MUTANTS`` in a temporary copy of the
-    tree and run its kernel's cases (phase 2 or phase 6) on it.  Fails
-    unless every mutant fails at least one case."""
+    tree and run its kernel's cases (phase 2, or phase 6 and phase 8) on
+    it.  Fails unless phase 2 or 6 catches every mutant and phase 8
+    catches those of PHASE8_MUST_CATCH."""
     import shutil
     import tempfile
     missed = []
@@ -877,9 +991,14 @@ def run_mutants(root: str) -> int:
             log(res.stderr[-4000:])
             return 1
         failed = [c for c in lines[-1].split(" ", 1)[-1].split(",") if c]
-        log(f"[{name}] caught by {len(failed)} case(s): {failed}")
-        if not failed:
+        kernel_cases = [c for c in failed if c != PHASE8]
+        log(f"[{name}] caught by {len(kernel_cases)} kernel case(s): "
+            f"{kernel_cases}" + ("" if suite == "decode" else
+                                 f"; by phase 8: {PHASE8 in failed}"))
+        if not kernel_cases:
             missed.append(name)
+        if name in PHASE8_MUST_CATCH and PHASE8 not in failed:
+            missed.append(f"{name} (phase 8)")
     log(f"mutants missed: {missed}")
     return 1 if missed else 0
 
@@ -1045,11 +1164,10 @@ def main() -> int:
         f"the {step_ms:.2f} ms mean decode step "
         f"({100 * cfg.n_layers * per_layer / step_ms:.1f}%) {tag}")
     # --- 6. the SATA prefill kernels against their plain versions
-    attn_errs = check_attn_kernels(torch, sa, dev)
+    check_attn_kernels(torch, sa, dev, tag)
 
     # --- 7.-10. the training path and the prefill kernels' timing
-    kernels += prefill_phases(torch, sa, dev, base, max(attn_errs.values()),
-                              tag)
+    kernels += prefill_phases(torch, sa, dev, base, tag)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -28,10 +28,12 @@
 //
 // What bounds it on an H100: operations.  At the training shape (B*H = 32,
 // S = 4096, D = 128, 128 x 128 tiles, about half of them planned under
-// causality) each planned tile needs 4*128*128*128 flops (QK^T and PV), ~140
-// GFLOP per call, against ~134 MB of unique q/k/v/out bytes: ~1000 flops per
-// byte, above the ~295 where the tensor cores rather than HBM become the
-// limit, so the least time is ~0.14 ms at 989 TFLOP/s.  This first version
+// causality) threshold mode needs a score (2*D flops) for each causally
+// admissible pair of the planned tiles, ~68.7 GFLOP, and a PV product (2*D)
+// only for each admitted key, ~2.2 GFLOP at top-64: ~71 GFLOP per call
+// against ~134 MB of unique q/k/v/out bytes, ~530 flops per byte, above the
+// ~295 where the tensor cores rather than HBM become the limit, so the least
+// time is ~0.072 ms at 989 TFLOP/s.  This first version
 // does not reach for it on purpose: FMA loops on the CUDA cores from shared
 // memory (no wgmma, no TMA, no cp.async pipelining), a 64-row slice of a
 // q-block per CUDA block so that 2048 blocks fill the 132 SMs, and K/V staged
