@@ -9,6 +9,9 @@ prefill kernels, and times every kernel at its main path's shape.
     python3 chip_smoke.py --mutants  # phases 2 and 6 (and 8 for the
                                      # prefill kernel) on each of
                                      # MUTANTS: each must fail
+    python3 chip_smoke.py --ab DIR   # phase 2, then this decode kernel
+                                     # and DIR's (an earlier checkout)
+                                     # timed in turns
 
 Phases (any failure exits non-zero; none is caught so a later one runs):
   1. device and build — card name and power limit, torch/CUDA versions,
@@ -20,10 +23,15 @@ Phases (any failure exits non-zero; none is caught so a later one runs):
   3. serve qwen3-4b paged (page 64) through ``repro_torch.launch.serve``;
      the paged kernel's launch count must equal layers x decode steps;
   4. the same requests on the contiguous layout: equal token streams;
-  5. kernel timing at the main-path shape (CUDA events, median of 30
-     runs, L2 flushed before each), its bound from the bytes the output
-     needs at 3.35 TB/s, the plain version, and SDPA over the dense cache
-     with the same mask as the library yardstick;
+  5. decode kernel timing at the main-path shape, at one slot (B1) and
+     at a long row (pos ~4000): CUDA events (median of 30 runs, L2
+     flushed before each, queued behind a device sleep so the events
+     time the device, not the host) and the profiler's device time over
+     the same calls (which also fails if the wrapper launches anything
+     but the kernel), its bound from the bytes the output needs at 3.35
+     TB/s, the plain version, and SDPA over the dense cache with the
+     same mask as the library yardstick; one layer's exact re-plan on
+     the host clock beside it;
   6. the SATA prefill kernels (compacted grid B3 in threshold, mask and
      block mode; dense grid B4) against their plain versions: fp32 <=
      1e-5, bf16 within phase 2's limits, equal admitted-key counts per
@@ -107,9 +115,11 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 def make_case(torch, *, b, kv, g, d, page, s, dtype, seed, device,
-              pos_lo=1, pos_hi=None, topk=64):
+              pos_lo=1, pos_hi=None, topk=64, key_at_pos=False):
     """Random cache + the planner's own plan (``full_replan``) for it,
-    the pool laid out through a shuffled page table."""
+    the pool laid out through a shuffled page table.  ``key_at_pos``
+    makes each row's key at pos 3·q of its first head, so that head
+    selects it."""
     from repro_torch.core.decode_plan import full_replan
     rng = np.random.default_rng(seed)
     nkb = s // page
@@ -121,6 +131,8 @@ def make_case(torch, *, b, kv, g, d, page, s, dtype, seed, device,
                      device=device)
     pos = torch.tensor(rng.integers(pos_lo, pos_hi or s, b),
                        dtype=torch.int32, device=device)
+    if key_at_pos:
+        k[torch.arange(b, device=device), pos.long()] = 3 * q[:, :, 0]
     idx, cnt, thr = full_replan(q, k, pos, topk_k=topk, k_block=page,
                                 plan_blocks=nkb)
     n_pages = b * nkb + 1
@@ -184,9 +196,10 @@ def check_case(torch, sd, name, c):
 
 
 def edge_cases(torch, device):
-    """Small shapes covering G in {1,2,4,8}, D in {16,64,128}, pages of
-    8..128 rows, fp32 and bf16, P == 0, count-0 rows, pos inside a page
-    and padding slots past the count."""
+    """Small shapes covering G in 1..8, D in {9, 16, 20, 24, 64, 128}
+    (every copy width), pages of 8..128 rows, fp32 and bf16, P == 0,
+    count-0 rows, padding slots past the count, and pos inside a page
+    with the key at pos selected."""
     f32, bf16 = torch.float32, torch.bfloat16
     specs = [  # (b, kv, g, d, page, s, dtype)
         (3, 2, 1, 16, 8, 64, f32),
@@ -194,6 +207,13 @@ def edge_cases(torch, device):
         (2, 2, 4, 128, 32, 512, f32),
         (2, 2, 8, 128, 128, 1024, bf16),
         (3, 2, 4, 64, 64, 512, bf16),
+        # odd widths: 16-byte copies into padded rows, then 8-, 4- and
+        # 2-byte copies; G padded to a power of two; a page of 1.5 chunks
+        (2, 2, 3, 24, 16, 128, bf16),
+        (2, 2, 3, 20, 16, 128, bf16),
+        (2, 2, 5, 9, 8, 64, f32),
+        (2, 1, 3, 9, 8, 64, bf16),
+        (2, 2, 4, 128, 48, 480, bf16),
     ]
     for n, (b, kv, g, d, page, s, dt) in enumerate(specs):
         c = make_case(torch, b=b, kv=kv, g=g, d=d, page=page, s=s, dtype=dt,
@@ -203,6 +223,11 @@ def edge_cases(torch, device):
         c["cnt"][0, 0] = 0
         c["cnt"][-1, -1] = torch.clamp(c["cnt"][-1, -1] - 1, min=0)
         yield f"G{g}_D{d}_page{page}_{str(dt).split('.')[-1]}", c
+    # pos inside a page, its key selected: the token <= pos test decides
+    for dt in (f32, bf16):
+        yield f"pos_inside_page_{str(dt).split('.')[-1]}", make_case(
+            torch, b=4, kv=2, g=2, d=64, page=16, s=256, dtype=dt, seed=8,
+            device=device, topk=8, key_at_pos=True)
     c = make_case(torch, b=2, kv=2, g=2, d=16, page=8, s=64, dtype=f32,
                   seed=7, device=device, topk=4)
     c["idx"] = c["idx"][..., :0].contiguous()                  # P == 0
@@ -234,24 +259,81 @@ def build_all(build, root, names=("sata_decode", "sata_attention")):
 # timing
 # ---------------------------------------------------------------------------
 
+SLEEP_CYCLES = 50_000_000     # ~25-30 ms of an H100's SM clock
+
+
 def time_ms(torch, fn, reps=30, warm=3):
     """Median ms of ``reps`` runs, each timed with CUDA events and
     preceded by a 256 MB write that evicts the 50 MB L2 (the serving
-    loop reaches each layer's K/V cold)."""
+    loop reaches each layer's K/V cold).  The device first sleeps while
+    the host queues every run, so the events time the device's work,
+    not the host's launch path between them (a function that syncs
+    inside still shows its host time)."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for a, z in evs:
+        flush.zero_()
+        a.record()
+        fn()
+        z.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(z) for a, z in evs]))
+
+
+def wall_ms(torch, fn, reps=20, warm=3):
+    """Median host-clock ms of ``reps`` synchronized runs: the time an
+    eager chain of small operations takes in the serving loop, where
+    the host's launch path, not the device, sets the pace."""
     for _ in range(warm):
         fn()
     ts = []
     for _ in range(reps):
-        flush.zero_()
-        a = torch.cuda.Event(enable_timing=True)
-        z = torch.cuda.Event(enable_timing=True)
-        a.record()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
         fn()
-        z.record()
-        z.synchronize()
-        ts.append(a.elapsed_time(z))
+        torch.cuda.synchronize()
+        ts.append(1e3 * (time.perf_counter() - t))
     return float(np.median(ts))
+
+
+def device_ms(e):
+    """A profiler row's own device time in ms."""
+    us = getattr(e, "self_device_time_total", None)
+    if us is None:
+        us = getattr(e, "self_cuda_time_total", 0)
+    return us / 1e3
+
+
+def profiled_ms(torch, fn, kernel, reps=30, warm=3):
+    """``time_ms`` under ``torch.profiler``: the event median and the
+    mean device time of the kernels whose name holds ``kernel``.  Fails
+    if anything but those kernels and the timing's own (the L2 flushes
+    and one sleep) ran on the device, i.e. if the wrapper launched
+    anything beside its kernel.  Returns (event ms, device ms or None
+    when the profiler saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ms = time_ms(torch, fn, reps=reps, warm=warm)
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [e for e in prof.key_averages()
+           if getattr(e, "device_type", None) == cuda and device_ms(e) > 0]
+    ours = [e for e in evs if kernel in e.key]
+    if not ours:
+        log(f"[profile] no device time for {kernel} (rows: "
+            f"{[e.key[:60] for e in evs]})")
+        return ms, None
+    n = sum(e.count for e in ours)
+    others = {e.key[:70]: e.count for e in evs if kernel not in e.key}
+    assert n == reps + warm, f"{kernel}: {n} launches, {reps + warm} calls"
+    assert sum(others.values()) <= reps + 1, \
+        f"other kernels in the window: {others}"
+    return ms, sum(device_ms(e) for e in ours) / n
 
 
 def selection(torch, c):
@@ -332,6 +414,43 @@ def check_kernels(torch, sd, dev):
                 f"{c['idx'].shape[-1]} pages, pos {c['pos'].tolist()}")
         errs[cname] = check_case(torch, sd, cname, c)
     return main_case, errs
+
+
+def extra_decode_cases(torch, dev):
+    """Phase 5's other shapes: one slot (B1: 8 rows, one block each on
+    132 SMs) and a long row (pos ~4000 of 4096, ~63 planned pages)."""
+    yield "B1_KV8_G4_D128_page64_bf16", make_case(
+        torch, b=1, kv=8, g=4, d=128, page=64, s=4096, dtype=torch.bfloat16,
+        seed=1, device=dev, pos_lo=1024, pos_hi=1088)
+    yield "long_B8_KV8_G4_D128_page64_bf16_pos4000", make_case(
+        torch, b=8, kv=8, g=4, d=128, page=64, s=4096, dtype=torch.bfloat16,
+        seed=2, device=dev, pos_lo=3968, pos_hi=4032)
+
+
+def time_decode(torch, sd, c, label, paged, tag):
+    """The decode kernel on case ``c``: CUDA-event median and the
+    profiler's device time over the same calls, the plain version, SDPA
+    over the dense cache with the same mask, and the bound.  Returns
+    the ``kernels`` row's timing fields."""
+    layout = "paged" if paged else "contiguous"
+    ms, dev_ms = profiled_ms(torch, lambda: run_kernel(sd, c, paged),
+                             "sata_decode_kernel")
+    plain_ms = time_ms(torch, lambda: run_plain(sd, c, paged), reps=20)
+    qh, kh, vh, mask = sdpa_inputs(torch, c)
+    lib_ms = time_ms(torch, lambda: torch.nn.functional
+                     .scaled_dot_product_attention(
+                         qh, kh, vh, attn_mask=mask, enable_gqa=True))
+    del qh, kh, vh, mask
+    bound_ms, bound_by, k_rows, v_rows = kernel_bound(torch, c, paged)
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    log(f"[timing] decode kernel ({layout}) {label}, "
+        f"{int(c['cnt'].sum())} planned pages, {k_rows} K rows scored, "
+        f"{v_rows} V rows selected: kernel {ms:.4f} ms (profiler device "
+        f"time {dev_txt}), bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{100 * bound_ms / ms:.1f}% of it; plain {plain_ms:.4f} ms, "
+        f"SDPA+mask {lib_ms:.4f} ms {tag}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -739,12 +858,7 @@ def profile_step(torch, cfg, state, batch, tag, top=12):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.time() - t)
 
-    def dev_ms(e):
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        return us / 1e3
-
+    dev_ms = device_ms
     # kernels only: operator rows carry their kernels' device time too
     cuda = torch.autograd.DeviceType.CUDA
     evs = [e for e in prof.key_averages()
@@ -912,10 +1026,12 @@ def prefill_phases(torch, sa, dev, base, tag):
 # one-line faults of the kernels that phases 2 and 6 must catch:
 # name -> (source, line, mutated line)
 MUTANTS = {
-    "fp32_predicate": (SRC_CU, "const bool sel = bf16_rn(s) >= thr_sh[g];",
-                       "const bool sel = s >= thr_sh[g];"),
-    "unrounded_p": (SRC_CU, "s_sh[g][t] = to_f32(from_f32<T>(p));",
-                    "s_sh[g][t] = p;"),
+    "fp32_predicate": (SRC_CU, "return bf16_rn(s) >= thr; }",
+                       "return s >= thr; }"),
+    "unrounded_p": (SRC_CU, "const float pr = to_f32(from_f32<T>(p));",
+                    "const float pr = p;"),
+    "decode_pos_lt": (SRC_CU, "const bool live = tok <= pos_b;",
+                      "const bool live = tok < pos_b;"),
     "attn_fp32_predicate": (SRC_ATTN_CU,
                             "if (p.thr) sel = bf16_rn(sc) >= thr_sh[r];",
                             "if (p.thr) sel = sc >= thr_sh[r];"),
@@ -929,6 +1045,9 @@ MUTANTS = {
 # prefill-kernel mutants also run through phase 8; these must fail it too
 # (an unrounded p changes single bf16 roundings, below its limits)
 PHASE8_MUST_CATCH = ("attn_fp32_predicate", "attn_causal_lt")
+# decode mutants that a named phase-2 case must catch (any case of that
+# name's prefix)
+CASE_MUST_CATCH = {"decode_pos_lt": "pos_inside_page"}
 PHASE8 = "phase8_route"
 
 _MUTANT_CHILD = """
@@ -997,10 +1116,163 @@ def run_mutants(root: str) -> int:
                                  f"; by phase 8: {PHASE8 in failed}"))
         if not kernel_cases:
             missed.append(name)
+        want = CASE_MUST_CATCH.get(name)
+        if want and not any(c.startswith(want) for c in kernel_cases):
+            missed.append(f"{name} ({want})")
         if name in PHASE8_MUST_CATCH and PHASE8 not in failed:
             missed.append(f"{name} (phase 8)")
     log(f"mutants missed: {missed}")
     return 1 if missed else 0
+
+
+def parent_decode(torch, parent: str):
+    """Build ``parent``'s ``sata_decode.cu`` (a checkout whose decode
+    kernel has the earlier C interface: 9 pointers, 8 ints, the stream)
+    and return a function that runs it on a ``make_case`` case."""
+    import ctypes
+    from repro_torch.kernels import build
+    src = os.path.join(parent, SRC_CU)
+    lib = build.BUILD_DIR / "parent" / "libsata_decode_parent.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                          src], capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr
+    fn = ctypes.CDLL(str(lib)).sata_decode_attention
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(c, paged):
+        q = c["q"]
+        b, kv, g, d = q.shape
+        k, v = (c["kp"], c["vp"]) if paged else (c["k"], c["v"])
+        nkb = c["table"].shape[1] if paged else c["k"].shape[1] // c["page"]
+        out = torch.empty_like(q)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 c["table"].data_ptr() if paged else None,
+                 c["idx"].data_ptr(), c["cnt"].data_ptr(),
+                 c["thr"].data_ptr(), c["pos"].data_ptr(), out.data_ptr(),
+                 b, kv, g, d, c["idx"].shape[-1], c["page"], nkb,
+                 1 if q.dtype == torch.bfloat16 else 0,
+                 torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"parent kernel launch failed: cudaError {err}"
+        return out
+    return run
+
+
+def run_ab(root: str, parent: str) -> int:
+    """``--ab PARENT``: phase 2 on this tree's decode kernel, then this
+    kernel and PARENT's timed in turns (parent, this, this, parent) at
+    phase 5's three shapes, both layouts, in one process on one card."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import sata_decode as sd
+    dev = torch.device("cuda")
+    card = card_line()
+    tag = f"[{card}]"
+    log(f"[device] {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    build_all(build, root, names=("sata_decode",))
+    old = parent_decode(torch, parent)
+    main_case, _ = check_kernels(torch, sd, dev)
+    cases = [("main_B8_KV8_G4_D128_page64_bf16", main_case),
+             *extra_decode_cases(torch, dev)]
+    rows = []
+    for name, c in cases:
+        for paged in (True, False):
+            got, want = old(c, paged), run_plain(sd, c, paged)
+            torch.cuda.synchronize()
+            e = float((got.float() - want.float()).abs().max())
+            assert e <= TOL["bfloat16"], f"parent {name}: {e}"
+            ts = {"parent": [], "change": []}
+            for who in ("parent", "change", "change", "parent"):
+                fn = old if who == "parent" else \
+                    (lambda c, paged: run_kernel(sd, c, paged))
+                ts[who].append(time_ms(torch, lambda: fn(c, paged)))
+            bound_ms = kernel_bound(torch, c, paged)[0]
+            lay = "paged" if paged else "contiguous"
+            log(f"[ab] {name} {lay}: parent {ts['parent']} ms, change "
+                f"{ts['change']} ms (in turns: parent, change, change, "
+                f"parent); bound {bound_ms:.5f} ms {tag}")
+            rows.append(dict(case=name, layout=lay, bound_ms=bound_ms, **ts))
+    probes = probe_decode(torch, sd, build, root, main_case, tag)
+    log(card)
+    log(json.dumps({"ab": rows, "probes": probes}))
+    return 0
+
+
+# one-line changes of the decode kernel that take a part of its work away,
+# timed by ``--ab`` to show where the time goes (their outputs are wrong)
+PROBES = {
+    "no_scoring": ("      for (int mt = warp; mt * 16 < C; mt += kWarps) {",
+                   "      for (int mt = C; mt * 16 < C; mt += kWarps) {"),
+    "no_k_copies": ("        one(x, [](void* d, const void* g) { copy_async(d, g, 16); });",
+                    "        one(x, [](void* d, const void* g) {});"),
+}
+# (chunk, stages) at the main shape, with a 20-block window and 128 V rows
+PROBE_RINGS = [(64, 2), (64, 4), (64, 8), (192, 2), (256, 2)]
+
+
+def probe_decode(torch, sd, build, root, c, tag):
+    """What bounds the decode kernel on main-path case ``c`` (paged):
+    the kernel with rows of count 0 (launch, prologue, epilogue), with
+    the L2 warm (no flush, launches back to back), at other ring sizes,
+    and with the PROBES taken out.  Returns {label: ms}."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+    run = lambda case=c: run_kernel(sd, case, True)  # noqa: E731
+    out = {"launch_config": time_ms(torch, run)}
+    c0 = dict(c, cnt=torch.zeros_like(c["cnt"]))
+    out["count_0_rows"] = time_ms(torch, lambda: run(c0))
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    a, z = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
+    for _ in range(30):
+        run()
+    z.record()
+    torch.cuda.synchronize()
+    out["warm_l2_back_to_back"] = a.elapsed_time(z) / 30
+    base = sd.launch_config
+    g, d = c["q"].shape[2:]
+    try:
+        for chunk, stages in PROBE_RINGS:
+            n = sd.smem_bytes(g, d, c["page"], 2, chunk, stages, 20, 128)
+            sd.launch_config = lambda *_, cfg=sd.LaunchConfig(
+                chunk, stages, 20, 128, n): cfg
+            out[f"chunk_{chunk}_stages_{stages}"] = time_ms(torch, run)
+    finally:
+        sd.launch_config = base
+    src = open(os.path.join(root, SRC_CU)).read()
+    pdir = build.BUILD_DIR / "probe"
+    pdir.mkdir(parents=True, exist_ok=True)
+
+    def compile_probe(name):
+        old, new = PROBES[name]
+        assert src.count(old) == 1, f"probe {name}: {old!r} not found once"
+        (pdir / f"{name}.cu").write_text(src.replace(old, new))
+        res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o",
+                              str(pdir / f"{name}.so"),
+                              str(pdir / f"{name}.cu")],
+                             capture_output=True, text=True)
+        assert res.returncode == 0, res.stderr[-2000:]
+
+    with ThreadPoolExecutor(len(PROBES)) as ex:
+        list(ex.map(compile_probe, PROBES))
+    launcher = sd._launcher
+    try:
+        for name in PROBES:
+            fn = ctypes.CDLL(str(pdir / f"{name}.so")).sata_decode_attention
+            fn.argtypes, fn.restype = sd.ARGTYPES, ctypes.c_int
+            sd._launcher = lambda fn=fn: fn
+            out[name] = time_ms(torch, run)
+    finally:
+        sd._launcher = launcher
+    for k, v in out.items():
+        log(f"[probe] decode kernel, main shape, paged, {k}: {v:.4f} ms {tag}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1027,6 +1299,8 @@ def main() -> int:
     if sys.argv[1:] == ["--mutants"]:
         return run_mutants(root)
     sys.path.insert(0, os.path.join(root, "src"))
+    if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
+        return run_ab(root, sys.argv[2])
     from repro_torch.configs.archs import ARCHS
     from repro_torch.kernels import build
     from repro_torch.kernels import sata_attention as sa
@@ -1112,31 +1386,23 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
-    # --- 5. kernel timing at the main-path shape
-    c = main_case
+    # --- 5. kernel timing at the main-path shape, at B1 and at a long row
     kernels = []
     for layout in ("paged", "contiguous"):
-        paged = layout == "paged"
-        ms = time_ms(torch, lambda: run_kernel(sd, c, paged))
-        plain_ms = time_ms(torch, lambda: run_plain(sd, c, paged), reps=20)
-        qh, kh, vh, mask = sdpa_inputs(torch, c)
-        lib_ms = time_ms(torch, lambda: torch.nn.functional
-                         .scaled_dot_product_attention(
-                             qh, kh, vh, attn_mask=mask, enable_gqa=True))
-        bound_ms, bound_by, k_rows, v_rows = kernel_bound(torch, c, paged)
-        fn = sd.sata_decode_attention_paged_kernel if paged \
+        t = time_decode(torch, sd, main_case, "B8 KV8 G4 D128 page64 bf16",
+                        layout == "paged", tag)
+        fn = sd.sata_decode_attention_paged_kernel if layout == "paged" \
             else sd.sata_decode_attention_kernel
         kernels.append({
             "name": fn.__name__, "route": "cuda", "source": SRC_CU,
             "replaces": REPLACES[layout], "launches": runs[layout][1],
-            "max_abs_err": max(errs.values()), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms})
-        log(f"[timing] {fn.__name__} ({layout}) B8 KV8 G4 D128 page64 bf16, "
-            f"{int(c['cnt'].sum())} planned pages, {k_rows} K rows scored, "
-            f"{v_rows} V rows selected: kernel {ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
-            f"SDPA+mask {lib_ms:.4f} ms {tag}")
+            "max_abs_err": max(errs.values()), **t})
+    for cname, c in extra_decode_cases(torch, dev):
+        check_case(torch, sd, cname, c)
+        for paged in (True, False):
+            time_decode(torch, sd, c, cname, paged, tag)
+        del c
+    c = main_case
     # where a decode step's time goes: one layer's exact re-plan (the
     # served replan=1 path) at the same shape, beside the kernel
     from repro_torch.core.decode_plan import (decode_plan_update,
@@ -1155,11 +1421,11 @@ def main() -> int:
         decode_plan_update(plan, c["q"], c["kp"], c["pos"], topk_k=64,
                            k_block=64, page_table=c["table"])
 
-    plan_ms = time_ms(torch, planner, reps=20)
+    plan_ms = wall_ms(torch, planner, reps=20)
     step_ms = runs["paged"][0]["step_ms_mean"]
     per_layer = plan_ms + kernels[0]["ms"]
     log(f"[timing] per layer (paged, B8, exact re-plan over S=4096): "
-        f"planner {plan_ms:.4f} ms + decode kernel {kernels[0]['ms']:.4f} ms;"
+        f"planner {plan_ms:.4f} ms (host clock) + decode kernel {kernels[0]['ms']:.4f} ms;"
         f" x {cfg.n_layers} layers = {cfg.n_layers * per_layer:.2f} ms of "
         f"the {step_ms:.2f} ms mean decode step "
         f"({100 * cfg.n_layers * per_layer / step_ms:.1f}%) {tag}")

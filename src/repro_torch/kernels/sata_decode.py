@@ -11,6 +11,10 @@ keeps ``bf16(s) >= bf16(thr)`` AND ``token <= pos[b]``, and runs an
 online softmax; a row with no admissible key (and ``P == 0``) gives
 zeros.
 
+``launch_config`` picks the kernel's staging for a shape (the K rows a
+ring stage holds, the ring's depth, the k-blocks a softmax window holds,
+the V rows copied at once) and the shared memory that takes.
+
 ``sata_decode_attention_ref`` is the same function as a per-tile loop in
 plain PyTorch, with the kernel's predicate, finite sentinel and p
 rounding.  The CUDA wrappers launch the kernel for CUDA tensors and
@@ -22,6 +26,7 @@ its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional
 
@@ -32,6 +37,112 @@ from repro_torch.core.blockmap import bisect_select
 from repro_torch.core.selection import NEG_INF
 
 MAX_G, MAX_D, MAX_BLOCK = 8, 128, 128     # csrc/sata_decode.cu limits
+# csrc/sata_decode.cu's plan window and ring limit, and the shared memory
+# a block may use on an H100 (sm_90: 227 KB)
+PLAN_WIN, MAX_STAGES = 1024, 8
+SMEM_MAX = 232_448
+CHUNK_BYTES = 49152         # K bytes a ring stage holds, at most
+RING_BYTES = 98304          # K bytes the ring holds
+V_BYTES = 49152             # V bytes a window's PV product takes at once
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchConfig:
+    """How the decode kernel stages its work: ``chunk`` K rows per ring
+    stage (whole k-blocks, or a divisor of one), ``stages`` ring stages,
+    a window of up to ``win_blocks`` k-blocks' scores between two
+    softmax steps, its selected V rows ``v_rows`` at a time, and the
+    dynamic shared memory that layout takes."""
+    chunk: int
+    stages: int
+    win_blocks: int
+    v_rows: int
+    smem_bytes: int
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def threads_for(g: int) -> int:
+    """csrc/sata_decode.cu's block size for G grouped heads."""
+    return 512 if g <= 4 else 256
+
+
+def smem_bytes(g: int, d: int, k_block: int, elem_bytes: int, chunk: int,
+               stages: int, win_blocks: int, v_rows: int) -> int:
+    """Shared-memory bytes of ``csrc/sata_decode.cu``'s layout
+    (``make_layout``), each region rounded up to 16 bytes."""
+    rs = _round16(d * elem_bytes)            # a K/V row, 16-byte vectors
+    # a K row in the ring: bf16 rows padded to the tensor cores' k-step
+    # and 16 bytes more (ldmatrix without bank conflicts)
+    rk = (-(-d * 2 // 32) * 32 + 16) if elem_bytes == 2 else rs
+    nrs = threads_for(g) // (rs // 16)       # PV row subsets
+    wrows = win_blocks * k_block
+    regions = [
+        max(stages * chunk * rk,             # K ring, then the final
+            nrs * g * (rs // elem_bytes) * 4),   # reduction of the subsets
+        stages * chunk,                      # the ring's row flags
+        v_rows * rs,                         # V rows
+        g * wrows * 4, g * wrows, wrows,     # scores, selected, any head
+        wrows * 2, -(-wrows // 32) * 4,      # packed rows, their offsets
+        win_blocks * g * 4, win_blocks * g * 4, win_blocks * g * 4,
+        g * 4, g * 4, g * 4, g * 4,          # m, l, thresholds, rescale
+        PLAN_WIN * 4, PLAN_WIN * 4,          # plan: logical, physical block
+        4,                                   # V rows packed
+    ]
+    return sum(_round16(x) for x in regions)
+
+
+def launch_config(g: int, d: int, k_block: int,
+                  dtype: torch.dtype) -> LaunchConfig:
+    """The staging for one shape.  A chunk is as many whole k-blocks as
+    fit CHUNK_BYTES of K (at most 256 rows), or the largest divisor
+    of a k-block that does; a ring of RING_BYTES of chunks (2 to
+    MAX_STAGES); V_BYTES of V rows at a time; and a window of as many
+    k-blocks' scores as the rest of SMEM_MAX holds."""
+    return _launch_config(g, d, k_block, dtype.itemsize)
+
+
+@functools.cache
+def _launch_config(g: int, d: int, k_block: int, es: int) -> LaunchConfig:
+    rs = _round16(d * es)
+    if k_block * rs <= CHUNK_BYTES:
+        chunk = k_block * max(1, min(CHUNK_BYTES // (k_block * rs),
+                                     256 // k_block))
+    else:
+        chunk = max(c for c in range(1, k_block + 1)
+                    if k_block % c == 0 and c * rs <= CHUNK_BYTES)
+    stages = max(2, min(MAX_STAGES, RING_BYTES // (chunk * rs)))
+    blocks = max(1, chunk // k_block)        # k-blocks a window grows by
+    vr = max(1, V_BYTES // rs)
+
+    def size(wp):
+        return smem_bytes(g, d, k_block, es, chunk, stages, wp, vr)
+
+    while size(blocks) > SMEM_MAX and (stages > 2 or vr > 32):
+        if vr > 32:
+            vr //= 2
+        else:
+            stages -= 1
+    if size(blocks) > SMEM_MAX:
+        raise ValueError(f"no decode kernel layout fits {SMEM_MAX} bytes "
+                         f"at G={g}, D={d}, k_block={k_block}")
+    wp = blocks
+    while size(wp + blocks) <= SMEM_MAX and (wp + blocks) * k_block \
+            <= 32767 and wp + blocks <= PLAN_WIN:
+        wp += blocks
+    return LaunchConfig(chunk, stages, wp, vr, size(wp))
+
+
+def copy_bytes(row_bytes: int, *ptrs: int) -> int:
+    """The widest copy (16, 8, 4 or 2 bytes) that divides a row and the
+    alignment of every base pointer: the kernel's asynchronous copies
+    take 16, 8 or 4 bytes; 2 is a plain copy."""
+    for n in (16, 8, 4):
+        if row_bytes % n == 0 and all(p % n == 0 for p in ptrs):
+            return n
+    return 2
 
 
 def sata_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
@@ -92,8 +203,8 @@ def sata_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
 
 
 # the C interface of csrc/sata_decode.cu::sata_decode_attention: 9
-# pointers, 8 ints, the stream
-ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# pointers, 14 ints, the stream
+ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 
 
 @functools.cache
@@ -149,12 +260,15 @@ def _launch(owner, q, k, v, page_table, kv_indices, kv_counts, thresholds,
            for t in (kv_indices, kv_counts, pos)]
     tbl = None if page_table is None else \
         page_table.to(torch.int32).contiguous()
+    cfg = launch_config(g, d, k_block, q.dtype)
     err = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if tbl is None else tbl.data_ptr(),
         i32[0].data_ptr(), i32[1].data_ptr(), thresholds.data_ptr(),
         i32[2].data_ptr(), out.data_ptr(), b, n_kv, g, d, p, k_block, nkb,
-        1 if q.dtype == torch.bfloat16 else 0,
+        1 if q.dtype == torch.bfloat16 else 0, cfg.chunk, cfg.stages,
+        cfg.win_blocks, cfg.v_rows, cfg.smem_bytes,
+        copy_bytes(d * q.element_size(), k.data_ptr(), v.data_ptr()),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sata_decode kernel launch failed: cudaError {err}")
