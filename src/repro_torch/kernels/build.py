@@ -2,10 +2,11 @@
 with a plain C interface, loaded with ``ctypes``.
 
 The library is built at first use into ``build/kernels/`` at the root of
-the checkout, keyed by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused.  Nothing here runs when
-the module is imported: the CPU tests import every module of the port
-on machines with no ``nvcc``.
+the checkout, keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
+and an unchanged one is reused.  Nothing here runs when the module is
+imported: the CPU tests import every module of the port on machines
+with no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -36,8 +37,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> pathlib.Path:
     """Where ``csrc/<name>.cu`` builds to: the file name carries a hash
-    of the source and the flags."""
+    of the source, the shared headers (``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 

@@ -70,11 +70,9 @@
 // kernels/sata_decode.py::launch_config; the layout below must match its
 // smem_bytes (the entry point checks).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <cmath>
+
+#include "sata_common.cuh"
 
 namespace {
 
@@ -86,7 +84,6 @@ constexpr int kMaxD = 128;
 constexpr int kMaxBlock = 128;
 constexpr int kPlanWin = 1024;    // plan entries kept in shared memory
 constexpr int kMaxStages = 8;
-constexpr float kNegInf = -1073741824.0f;   // -2^30, the reference's NEG_INF
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
 
@@ -144,42 +141,8 @@ __host__ __device__ inline Layout make_layout(int G, int D, int kb, int es, int 
 }
 
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float bf16_rn(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 // the selection predicate: bf16(s) >= bf16(thr), with thr already rounded
 __device__ __forceinline__ bool admit(float s, float thr) { return bf16_rn(s) >= thr; }
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// D (16x8 fp32) += A (16x16 bf16, row-major) * B (16x8 bf16, column-major)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
-}
 
 // a 16-byte vector of shared memory as E = 16 / sizeof(T) floats
 template <typename T> struct Vec;
@@ -202,18 +165,6 @@ template <> struct Vec<__nv_bfloat16> {
     }
   }
 };
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
 
 // Sum GP per-lane values over each aligned group of LPR lanes.  The first
 // log2(GP) stages split the values between the two halves of the group (a
@@ -249,48 +200,6 @@ __device__ __forceinline__ int head_of(int lane) {
   for (int o = LPR / 2; o >= 1 && n > 1; o >>= 1, n /= 2)
     if (lane & o) head += n / 2;
   return head;
-}
-
-// cp.async: `bytes` in {16, 8, 4} are asynchronous; 2 is a plain copy
-__device__ __forceinline__ void copy_async(void* dst, const void* src, int bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  if (bytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-  } else if (bytes == 8) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
-  } else if (bytes == 4) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-  } else {
-    *static_cast<uint16_t*>(dst) = *static_cast<const uint16_t*>(src);
-  }
-}
-
-__device__ __forceinline__ void commit_group() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-#define SATA_WAIT_CASE(n) \
-  case n: asm volatile("cp.async.wait_group " #n ";\n" ::: "memory"); break;
-
-// wait until at most n (< kMaxStages) of this thread's commit groups are
-// pending
-__device__ __forceinline__ void wait_pending(int n) {
-  switch (n) {
-    SATA_WAIT_CASE(0) SATA_WAIT_CASE(1) SATA_WAIT_CASE(2) SATA_WAIT_CASE(3)
-    SATA_WAIT_CASE(4) SATA_WAIT_CASE(5) SATA_WAIT_CASE(6)
-    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory");
-  }
-}
-#undef SATA_WAIT_CASE
-
-
-// n / d for 0 <= n < 2^32 / d, with m = ceil(2^32 / d): the error
-// n * (m - 2^32 / d) / 2^32 < 1 / d never reaches the next integer
-__device__ __forceinline__ int div_by(int n, unsigned long long m) {
-  return static_cast<int>((static_cast<unsigned long long>(n) * m) >> 32);
-}
-__device__ __forceinline__ unsigned long long div_magic(int d) {
-  return (0x100000000ull + d - 1) / d;
 }
 
 struct Args {

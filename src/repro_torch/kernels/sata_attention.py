@@ -18,13 +18,17 @@ gated by positions when ``causal``).
 
 The plain versions (``*_ref``) are the same function as a per-tile loop
 in PyTorch with the kernel's predicate, finite sentinel, p rounding and
-dot-product order, so on the card both select the same keys.  The CUDA
-wrappers launch for CUDA tensors and raise on anything else;
-``kernels.ops`` picks a plain version only for CPU tensors.  Each CUDA
-wrapper counts its launches in ``<wrapper>.launches``.  Both take an
-optional ``admitted`` (BH, Sq) int32 tensor that receives each row's
-count of admitted keys, so a check can hold the kernel's selection to
-the plain version's exactly.
+the CUDA-core body's dot-product order (fp32, and bf16 off the 16-grid),
+so there both select the same keys.  bf16 on the 16-grid runs on the
+tensor cores, which sum each score in their own order; that body
+recomputes, in the plain version's order, every score within
+``admitted_window``'s bound of its row's admission edge, so it admits the
+same keys too, and the checks hold its counts to that window.  The CUDA wrappers launch for
+CUDA tensors and raise on anything else; ``kernels.ops`` picks a plain
+version only for CPU tensors.  Each CUDA wrapper counts its launches in
+``<wrapper>.launches``.  Both take an optional ``admitted`` (BH, Sq)
+int32 tensor that receives each row's count of admitted keys, so a
+check can hold the kernel's selection to the plain version's.
 """
 from __future__ import annotations
 
@@ -179,6 +183,83 @@ def sata_block_attention_ref(q, k, v, block_map, mask=None, *,
     kblk = torch.arange(nkb, device=q.device).expand(bh, nqb, nkb)
     return _flash_plain(q, k, v, kblk, block_map.bool(), q_block=q_block,
                         k_block=k_block, mask=mask, admitted=admitted)
+
+
+# half-width of admitted_window's score window, in units of
+# (D + 16) · 2^-24 · Σ_d |q_d·k_d|
+WINDOW_SLACK = 4.0
+
+
+def admitted_window(q, k, kv_indices, kv_counts, mask=None, thresholds=None,
+                    q_pos=None, k_pos=None, *, causal: bool = False,
+                    q_block: int = 128, k_block: int = 128,
+                    slack: float = WINDOW_SLACK):
+    """The range of admitted-key counts per row that a kernel summing each
+    score's products in another order may give (the tensor-core body
+    recomputes the scores inside this bound in the plain version's order,
+    with |q|·|k| in place of Σ_d |q_d·k_d|, so it gives the plain count).  Returns (lo, hi), int32
+    (BH, Sq): the keys the compacted-grid plain version admits when every
+    dot product q·k of the planned tiles is moved down (lo), or up (hi),
+    by ε = slack · (D + 16) · 2^-24 · Σ_d |q_d·k_d| before the scale and
+    the predicate.  Arguments as ``sata_block_attention_compact_ref``.
+
+    Why that ε: the products of bf16 operands are exact in fp32, so two
+    kernels differ only in how they sum them.  The plain version rounds D
+    times in sequence, each time by at most 2^-24 · Σ|q_d·k_d|; the
+    tensor cores align each k16 step's 16 products and the accumulator to
+    the largest and truncate, losing under 2 ulps (2^-23 relative) of each
+    of the 17 addends, D / 16 times.  Together that is under
+    3.2 · D · 2^-24 · Σ|q_d·k_d|, inside ε at slack 4.  The predicate
+    ``bf16(s) >= bf16(thr)`` is monotone in s and fl(x · scale) in x, so
+    a kernel whose dot products lie within ε admits between lo and hi
+    keys.  An fp32 predicate (``s >= bf16(thr)``) moves admission by up
+    to half a bf16 ulp, 2^-9 relative, orders of magnitude wider.  Mask
+    and block mode, and ``slack=0``, give the plain version's counts.
+    Used by the checks, never by the main path."""
+    q_pos, k_pos = _check_operands(q, k, k, mask, thresholds, q_pos, k_pos,
+                                   causal=causal, q_block=q_block,
+                                   k_block=k_block)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    nqb, nkb = sq // q_block, sk // k_block
+    dev = q.device
+    lo = torch.zeros((bh, nqb, q_block), dtype=torch.int32, device=dev)
+    hi = torch.zeros_like(lo)
+    scale = float(1.0 / np.sqrt(d))
+    eps_unit = slack * (d + 16) * 2.0 ** -24
+    qt = q.reshape(bh, nqb, q_block, d)
+    kt_all = k.reshape(bh, nkb, k_block, d)
+    bi = torch.arange(bh, device=dev)[:, None]
+    ni = torch.arange(nqb, device=dev)[None, :]
+    thr = None if thresholds is None else \
+        thresholds.float().reshape(bh, nqb, q_block, 1)
+    qp = None if q_pos is None else q_pos.reshape(bh, nqb, q_block, 1)
+    kp_all = None if k_pos is None else k_pos.reshape(bh, nkb, 1, k_block)
+    mask_t = None if mask is None else \
+        mask.bool().reshape(bh, nqb, q_block, nkb, k_block).transpose(2, 3)
+    n_slots = kv_indices.shape[-1]
+    live = torch.arange(n_slots, device=dev) < kv_counts[..., None]
+    for j in range(n_slots):
+        blk = kv_indices[..., j].long()
+        kt = kt_all[bi, blk]
+        if mask_t is not None:
+            sel_lo = sel_hi = mask_t[bi, ni, blk]
+        elif thr is not None:
+            dot = _scores(qt, kt)
+            eps = eps_unit * torch.einsum("bnqd,bnkd->bnqk",
+                                          qt.float().abs(), kt.float().abs())
+            sel_lo = bisect_select((dot - eps) * scale, thr)
+            sel_hi = bisect_select((dot + eps) * scale, thr)
+        else:
+            sel_lo = sel_hi = torch.ones(qt.shape[:3] + (k_block,),
+                                         dtype=torch.bool, device=dev)
+        if qp is not None:
+            gate = kp_all[bi, blk] <= qp
+            sel_lo, sel_hi = sel_lo & gate, sel_hi & gate
+        on = live[..., j][..., None]
+        lo += torch.where(on, sel_lo.sum(-1, dtype=torch.int32), 0)
+        hi += torch.where(on, sel_hi.sum(-1, dtype=torch.int32), 0)
+    return lo.reshape(bh, sq), hi.reshape(bh, sq)
 
 
 # the C interface of csrc/sata_attention.cu::sata_block_attention: 12
