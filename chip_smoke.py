@@ -3,7 +3,9 @@
 checkout's sources, holds each against its plain PyTorch version on the
 card, serves full-width qwen3-4b (random weights, 36 layers) through the
 port's paged and contiguous serving paths, trains it through the SATA
-prefill kernels, and times every kernel at its main path's shape.
+prefill kernels, serves it again through the shared-prefix page cache
+and the int8 / sketch summary backends, and times every kernel at its
+main path's shape.
 
     python3 chip_smoke.py            # needs one CUDA GPU (an H100 here)
     python3 chip_smoke.py --mutants  # phases 2 and 6 (and 8 for the
@@ -17,9 +19,12 @@ Phases (any failure exits non-zero; none is caught so a later one runs):
   1. device and build — card name and power limit, torch/CUDA versions,
      one nvcc per kernel source, all started together;
   2. kernel vs plain version on the card, both layouts, at the main-path
-     shape and edge cases (fp32 <= 1e-5 max abs; bf16 <= 2e-2 max abs
-     and at most 1% of the outputs off the plain version's bits; paged ==
-     contiguous bitwise);
+     shape, at the main shape over aliased page tables (two slots' rows
+     share 16 physical pages, one row maps a page twice in a row: the
+     tables the prefix cache makes) and edge cases (fp32 <= 1e-5 max abs;
+     bf16 <= 2e-2 max abs and at most 1% of the outputs off the plain
+     version's bits; paged == contiguous bitwise, the contiguous cache
+     being the pool's logical view);
   3. serve qwen3-4b paged (page 64) through ``repro_torch.launch.serve``;
      the paged kernel's launch count must equal layers x decode steps;
   4. the same requests on the contiguous layout: equal token streams;
@@ -60,7 +65,21 @@ Phases (any failure exits non-zero; none is caught so a later one runs):
      vs plain version (phase 6's limits), the body the kernel's entry
      point takes (bf16 must take the tensor cores), timing (CUDA events, median,
      L2 flushed), the bound from the flops and bytes this input needs,
-     and SDPA with the equivalent boolean mask as the library yardstick.
+     and SDPA with the equivalent boolean mask as the library yardstick;
+ 11. phase 3's serve with prompts sharing their first 1000 tokens (15
+     full pages + a 40-row partial page, copied on write), the prefix
+     cache on and off: equal token streams, hit rate >= 14/16, copies on
+     write and shared pages > 0, the paged kernel's launches = layers x
+     decode steps, ``check_invariants`` after the run; prefill ms of a
+     hit and a miss, decode step ms, pages held with and without;
+ 12. int8 summaries at ``replan=1``: phase 3's token stream; int8 +
+     sketch re-plans every 8th step (plan width 8 pages) with the prefix
+     cache on, phase 11's workload: every layer's final plan state holds
+     int8 bounds containing the fp32 bounds of the cache's keys and
+     ``kv_indices`` naming valid blocks; at the main shape
+     ``sketch_replan`` with C·F >= nkb == ``full_replan`` bitwise; one
+     layer's exact re-plan, int8 incremental step and int8 sketch re-plan
+     on the host clock.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the ``kernels`` JSON, and the card's name and power limit are
@@ -401,11 +420,39 @@ def sdpa_inputs(torch, c):
     return qh, kh, vh, mask.reshape(b, kv * g, 1, k.shape[1])
 
 
+def aliased_case(torch, dev):
+    """The main shape with the page tables the shared-prefix cache makes:
+    slots 0 and 1 map the same physical pages at logical pages 0-15 (a
+    shared prefix) and slot 2 maps one physical page at logical pages 4
+    and 5.  The contiguous cache is the pool's logical view through
+    these tables, and the plan is the planner's for it."""
+    from repro_torch.core.decode_plan import full_replan
+    from repro_torch.core.paging import logical_kv_view
+    c = make_case(torch, b=8, kv=8, g=4, d=128, page=64, s=4096,
+                  dtype=torch.bfloat16, seed=3, device=dev, pos_lo=1024,
+                  pos_hi=1088)
+    tbl = c["table"].clone()
+    tbl[1, :16] = tbl[0, :16]
+    tbl[2, 5] = tbl[2, 4]
+    k, v = logical_kv_view(c["kp"], tbl), logical_kv_view(c["vp"], tbl)
+    idx, cnt, thr = full_replan(c["q"], k, c["pos"], topk_k=64, k_block=64,
+                                plan_blocks=64)
+    shared = (idx[:2, :, :, None] == torch.arange(16, device=dev))
+    live = torch.arange(64, device=dev)[None, None, :] < cnt[:2, :, None]
+    assert bool((shared.any(-1) & live).any(-1).all()), \
+        "slots 0 and 1 must both plan pages of the shared prefix"
+    c.update(table=tbl, k=k, v=v, idx=idx, cnt=cnt, thr=thr)
+    return c
+
+
 def kernel_cases(torch, dev):
-    """Phase 2's inputs: the main-path shape, then the edge cases."""
+    """Phase 2's inputs: the main-path shape, the main shape over aliased
+    page tables, then the edge cases."""
     yield "main_B8_KV8_G4_D128_page64_bf16", make_case(
         torch, b=8, kv=8, g=4, d=128, page=64, s=4096, dtype=torch.bfloat16,
         seed=0, device=dev, pos_lo=1024, pos_hi=1088)
+    yield "aliased_pages_B8_KV8_G4_D128_page64_bf16", aliased_case(torch,
+                                                                   dev)
     yield from edge_cases(torch, dev)
 
 
@@ -1078,6 +1125,229 @@ def prefill_phases(torch, sa, dev, base, tag):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 11-12: the shared-prefix cache and the summary backends
+# ---------------------------------------------------------------------------
+
+SHARED_PREFIX = 1000     # 15 full pages of 64 + a 40-row partial page
+SKETCH_BLOCKS = 8        # phase 12's plan width P: 8 of 64 pages
+
+
+@contextlib.contextmanager
+def recording(module, name, seen, keep_last=False):
+    """While open, ``module.<name>`` appends each call's (args, kwargs,
+    result) to ``seen`` (only the last call with ``keep_last``) and is
+    otherwise passed through unchanged."""
+    fn = getattr(module, name)
+
+    def rec(*args, **kw):
+        out = fn(*args, **kw)
+        if keep_last:
+            seen.clear()
+        seen.append((args, kw, out))
+        return out
+
+    setattr(module, name, rec)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def serve_full(torch, sd, serve, cfg, model, opts, label, tag):
+    """One full-width serve on the paged layout: every request complete,
+    the paged kernel launched layers × decode steps times."""
+    sd.sata_decode_attention_paged_kernel.launches = 0
+    sd.sata_decode_attention_kernel.launches = 0
+    out = serve("qwen3-4b", smoke=False, cfg=cfg, model=model, options=opts,
+                device=next(model.parameters()).device)
+    torch.cuda.synchronize()
+    n = sd.sata_decode_attention_paged_kernel.launches
+    outs = out["outputs"]
+    assert sorted(outs) == list(range(opts.n_requests)), sorted(outs)
+    for r, toks in outs.items():
+        assert len(toks) == opts.gen_len, (r, len(toks))
+        assert all(0 <= x < cfg.vocab_size for x in toks), r
+    assert n == cfg.n_layers * out["steps"], \
+        f"{label}: {n} launches != {cfg.n_layers} x {out['steps']}"
+    assert sd.sata_decode_attention_kernel.launches == 0
+    occ, pf = out["page_occupancy"], out["prefill_ms_mean"]
+    log(f"[{label}] {out['steps']} decode steps, mean decode step "
+        f"{out['step_ms_mean']:.2f} ms, paged kernel launches {n} (= "
+        f"{cfg.n_layers} layers x {out['steps']} steps), mean prefill "
+        f"ms: hit {pf['hit']}, miss {pf['miss']}; pages held at peak "
+        f"{occ['pages_in_use_peak']}/{occ['n_pages']} {tag}")
+    return out, n
+
+
+def prefix_cache_phase(torch, sd, serve, cfg, model, opts, tag):
+    """Phase 11: phase 3's path with ``shared_prefix_len=1000``, served
+    with the prefix cache on and off: equal token streams, hits, copies
+    on write and shared pages, and the allocator's audit after the run.
+    Returns the cache-on run's paged-kernel launches."""
+    from repro_torch.launch import serve as serve_mod
+    sp_opts = dataclasses.replace(opts, shared_prefix_len=SHARED_PREFIX)
+    on_cfg = dataclasses.replace(cfg, kv=dataclasses.replace(
+        cfg.kv, prefix_cache=True))
+    tries = []
+    with recording(serve_mod, "PrefixCache", tries):
+        on, n_on = serve_full(torch, sd, serve, on_cfg, model, sp_opts,
+                              "prefix on", tag)
+    off, _ = serve_full(torch, sd, serve, cfg, model, sp_opts, "prefix off",
+                        tag)
+    assert on["outputs"] == off["outputs"], \
+        "prefix cache on and off serve different token streams"
+    p = on["prefix_cache"]
+    assert p["hits"] * 16 >= 14 * p["requests"], p
+    assert p["cow_copies"] > 0 and p["shared_pages_peak"] > 0, p
+    assert len(tries) == 1, len(tries)
+    trie = tries[0][2]
+    trie.alloc.check_invariants(trie)
+    log(f"[prefix] on == off token streams: True; hit rate "
+        f"{p['hit_rate']:.4f} ({p['hits']}/{p['requests']}), prefill "
+        f"tokens saved {p['prefill_tokens_saved']}/"
+        f"{p['prefill_tokens_total']}, {p['cow_copies']} copies on write, "
+        f"shared pages peak {p['shared_pages_peak']}, cached pages "
+        f"{p['cached_pages']}, evictions {p['evictions']}, "
+        f"{on['page_occupancy']['audits_run']} allocator audits + the "
+        f"final check_invariants passed; pages held at peak with / "
+        f"without the cache {on['page_occupancy']['pages_in_use_peak']} / "
+        f"{off['page_occupancy']['pages_in_use_peak']} {tag}")
+    return n_on
+
+
+def check_final_plans(torch, cache, pos, max_len):
+    """Phase 12's check of every layer's final plan state: the
+    dequantized int8 bounds contain the fp32 bounds the cache's keys
+    give (``summaries_from_cache``) for each slot the last step served,
+    and every ``kv_indices`` entry below ``kv_counts`` names a block of
+    the cache (at or before the slot's position when it was served)."""
+    from repro_torch.core.decode_plan import (plan_summary_bounds,
+                                              summaries_from_cache)
+    from repro_torch.core.paging import logical_kv_view
+    kv = cache["kv"]
+    plan, blk = kv["plan"], kv["k_pages"].shape[2]
+    nkb = max_len // blk
+    served = (kv["page_table"][0, :, 0] != 0) & (pos < max_len)
+    assert bool(served.any()), "the last step served no slot"
+    sl = served.nonzero()[:, 0]
+    n_blocks = 0
+    for layer in range(plan["k_min"].shape[0]):
+        one = {n: t[layer] for n, t in plan.items()}
+        lo8, hi8 = plan_summary_bounds(one)
+        keys = logical_kv_view(kv["k_pages"][layer], kv["page_table"][layer])
+        lo, hi = summaries_from_cache(keys[sl], pos[sl], k_block=blk)
+        live = torch.isfinite(lo[..., 0])
+        assert bool((lo8[sl] <= lo).all()) and bool((hi8[sl] >= hi).all()), \
+            f"layer {layer}: int8 bounds do not contain the fp32 bounds"
+        n_blocks += int(live.sum())
+        idx, cnt = one["kv_indices"], one["kv_counts"]
+        used = (torch.arange(idx.shape[-1], device=idx.device)[None, None]
+                < cnt[..., None])
+        assert bool(((idx >= 0) & (idx < nkb))[used].all()), layer
+        last = (pos[sl] // blk)[:, None, None]
+        assert bool((idx[sl] <= last)[used[sl]].all()), layer
+    return int(sl.numel()), n_blocks
+
+
+def summary_phase(torch, sd, serve, cfg, model, opts, fp32_outputs, case,
+                  tag):
+    """Phase 12: int8 summaries at ``replan=1`` serve phase 3's stream;
+    int8 + sketch re-plans every 8th step with the prefix cache on serve
+    phase 11's workload, its final plan states checked on the card; at
+    the main shape ``sketch_replan`` covering every block equals
+    ``full_replan`` bitwise; and the planner's per-layer times."""
+    from repro_torch.models import decode as dec
+    dcfg = cfg.sata.decode
+    int8 = dataclasses.replace(cfg, sata=dataclasses.replace(
+        cfg.sata, decode=dataclasses.replace(dcfg, summary="int8")))
+    out8, _ = serve_full(torch, sd, serve, int8, model, opts, "int8 replan 1",
+                         tag)
+    assert out8["outputs"] == fp32_outputs, \
+        "int8 at replan=1 serves another token stream than fp32"
+    log(f"[summary] int8 at replan=1 == fp32 token streams: True {tag}")
+    sk = dataclasses.replace(cfg, sata=dataclasses.replace(
+        cfg.sata, decode=dataclasses.replace(
+            dcfg, summary="int8", replan=8, replan_mode="sketch",
+            blocks=SKETCH_BLOCKS)),
+        kv=dataclasses.replace(cfg.kv, prefix_cache=True))
+    caches, steps = [], []
+    sp_opts = dataclasses.replace(opts, shared_prefix_len=SHARED_PREFIX)
+    with recording(dec, "init_cache", caches), \
+            recording(dec, "serve_step", steps, keep_last=True):
+        outs, _ = serve_full(torch, sd, serve, sk, model, sp_opts,
+                             f"int8 sketch replan 8 P{SKETCH_BLOCKS} "
+                             f"prefix on", tag)
+    assert len(caches) == 1 and len(steps) == 1, (len(caches), len(steps))
+    cache, last_pos = caches[0][2], steps[0][0][4]
+    n_slots, n_blocks = check_final_plans(torch, cache, last_pos,
+                                          opts.max_len)
+    f = outs["decode_fetch"]
+    log(f"[summary] final plan states, {cfg.n_layers} layers: int8 bounds "
+        f"contain the fp32 bounds ({n_slots} served slots, {n_blocks} "
+        f"(layer, slot, head, block) bounds), kv_indices valid; re-plans "
+        f"{f['replans']:.2f} per (layer, slot), plan bytes "
+        f"{f['plan_fetch_bytes']} vs kernel bytes "
+        f"{f['kv_fetch_bytes_plan']} {tag}")
+    del cache, caches, steps, last_pos
+    planner_times(torch, case, tag)
+
+
+
+def planner_times(torch, c, tag):
+    """Phase 12 at the main shape (phase 2's main case): ``sketch_replan``
+    with C·F >= nkb against ``full_replan``, bitwise; then one layer's
+    planner on the host clock after ``torch.cuda.synchronize()``: the
+    exact re-plan, the int8 incremental step and the int8 sketch re-plan
+    at P = SKETCH_BLOCKS."""
+    from repro_torch.core.decode_plan import (decode_plan_update,
+                                              full_replan, init_decode_plan,
+                                              quantize_summaries,
+                                              sketch_replan,
+                                              summaries_from_cache)
+    b, kv, g, d = c["q"].shape
+    s, blk = c["k"].shape[1], c["page"]
+    lo, hi = summaries_from_cache(c["k"], c["pos"], k_block=blk)
+
+    def plan_of(p, summary, step):
+        plan = init_decode_plan(b, kv, s, d, blk, p, summary=summary,
+                                device=c["q"].device)
+        vals = quantize_summaries(lo, hi) if summary == "int8" else (lo, hi)
+        for n, v in zip(("k_min", "k_max", "k_scale", "k_zero"), vals):
+            plan[n].copy_(v)
+        plan["step"].fill_(step)
+        return plan
+
+    full = full_replan(c["q"], c["k"], c["pos"], topk_k=64, k_block=blk,
+                       plan_blocks=s // blk)
+    sk = sketch_replan(c["q"], c["kp"], plan_of(None, "int8", 0), c["pos"],
+                       topk_k=64, k_block=blk, page_table=c["table"])
+    for name, x, y in zip(("kv_indices", "kv_counts", "thresholds"), sk,
+                          full):
+        assert torch.equal(x, y), f"sketch (C·F >= nkb) != full: {name}"
+    log(f"[summary] main shape: sketch_replan (C·F = nkb = {s // blk}) == "
+        f"full_replan bitwise (plans and thresholds) {tag}")
+    runs = {"exact re-plan": (None, "fp32", 0, dict(replan_interval=1)),
+            "int8 incremental step": (SKETCH_BLOCKS, "int8", 1,
+                                      dict(replan_interval=8)),
+            "int8 sketch re-plan": (SKETCH_BLOCKS, "int8", 0,
+                                    dict(replan_interval=8,
+                                         replan_mode="sketch"))}
+    times = {}
+    for name, (p, summary, step, kw) in runs.items():
+        plan = plan_of(p, summary, step)
+
+        def once():
+            plan["step"].fill_(step)          # stay on (or off) the beat
+            decode_plan_update(plan, c["q"], c["kp"], c["pos"], topk_k=64,
+                               k_block=blk, page_table=c["table"], **kw)
+
+        times[name] = wall_ms(torch, once, reps=20)
+    log("[timing] planner per layer (B8, KV8, G4, D128, pages of 64, pos "
+        "1024-1087, host clock after synchronize): " + ", ".join(
+            f"{n} {t:.4f} ms" for n, t in times.items()) + f" {tag}")
+
+
 # one-line faults of the kernels that phases 2 and 6 must catch:
 # name -> (source, line, mutated line)
 MUTANTS = {
@@ -1631,6 +1901,13 @@ def main() -> int:
 
     # --- 7.-10. the training path and the prefill kernels' timing
     kernels += prefill_phases(torch, sa, dev, base, tag)
+
+    # --- 11.-12. the shared-prefix cache and the summary backends
+    model = DenseModel(cfg, device=dev, seed=0)
+    prefix_cache_phase(torch, sd, serve, cfg, model, opts, tag)
+    summary_phase(torch, sd, serve, cfg, model, opts,
+                  runs["paged"][0]["outputs"], main_case, tag)
+    del model
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

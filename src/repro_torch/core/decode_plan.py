@@ -1,13 +1,20 @@
 """Decode-path SATA: incremental per-slot KV-block plan — port of
-``repro.core.decode_plan`` (fp32 summaries, exact re-plans, fixed
-integer re-plan interval).
+``repro.core.decode_plan``.
 
 Per batch slot and KV head the plan state keeps
 
-  k_min / k_max  (B, KV, nkb, D) fp32 — elementwise key bounds per
-                 k-block, absorbed incrementally as the cache grows
-                 (min/max is associative, so they equal a from-scratch
-                 recompute bit for bit — ``summaries_from_cache``);
+  k_min / k_max  (B, KV, nkb, D) — elementwise key bounds per k-block,
+                 absorbed incrementally as the cache grows.  Two storage
+                 backends (``summary=`` on init):
+                 * ``"fp32"``: exact bounds; min/max is associative, so
+                   they equal a from-scratch recompute bit for bit
+                   (``summaries_from_cache``);
+                 * ``"int8"``: codes plus per-block fp32 ``k_scale`` /
+                   ``k_zero`` (B, KV, nkb), rounded outward so the
+                   dequantized bounds always CONTAIN the exact ones
+                   (absorb = dequantize ∪ new key, requantize outward).
+                   Quantized bounds only rank blocks; the token
+                   threshold still runs over full-precision keys;
   kv_indices     (B, KV, P) int32 — ascending selected k-block indices
                  (``compact_kv_plan`` layout, the decode kernel's plan);
   kv_counts      (B, KV) int32    — live entries per row;
@@ -21,16 +28,20 @@ update the tensors IN PLACE — the serving cache stacks each field over
 layers and hands every layer a dict of views, so an in-place update
 lands in the stacked state without copying it — and return the dict.
 
-Two refresh modes blend by ``replan_interval``: an exact full re-plan
-(score every cached key, bisect each query row's top-k threshold, keep
-every block holding a selected token) and the incremental plan (rank
-blocks by the Quest upper bound from the summaries, keep the top P,
-bisect the exact token threshold over the planned blocks only).  A step
-that mixes triggered and untriggered slots loops over the slots on the
-host, so only the triggering slots stream their cache.
+Refreshes blend an exact full re-plan (score every cached key, bisect
+each query row's top-k threshold, keep every block holding a selected
+token) or, with ``replan_mode="sketch"``, the two-level
+``sketch_replan`` (rank super-block sketches, then bisect over the
+surviving candidate blocks only) with the incremental plan (rank blocks
+by the Quest upper bound from the summaries, keep the top P, bisect the
+token threshold over the planned blocks only).  The trigger is a fixed
+integer interval or churn-adaptive (``churn_budget``: a slot re-plans
+once the blocks entering and leaving its plan add up to
+``churn_budget · P``).  A step that mixes triggered and untriggered
+slots loops over the slots on the host, so only the triggering slots
+stream their cache.
 
-The int8 summary backend, sketch re-plans, the churn-adaptive trigger,
-the QoS knob vectors and retirement are slice 3 of the port and raise
+The QoS knob vectors and retirement (queue A items 16 and 17) raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -46,30 +57,111 @@ from repro_torch.core.selection import NEG_INF, kth_largest_bisect
 
 PlanState = Dict[str, torch.Tensor]
 
-_SLICE3 = "slice 3 of the PyTorch port (serving features)"
+SUMMARY_BACKENDS = ("fp32", "int8")
+
+# int8 code range: block range endpoints land on ±126 so the ±1
+# conservative-rounding margin never clips anti-conservatively
+_INT8_LEVELS = 252.0
+
+_QOS = "the QoS plan state (queue A item 16, slice 3 of the PyTorch port)"
+_RETIRE = ("the retirement plan state (queue A item 17, slice 3 of the "
+           "PyTorch port)")
 
 
-def _unsupported(what: str):
-    return NotImplementedError(f"{what} is not ported yet: {_SLICE3}")
+def _refuse_unported(plan: PlanState) -> None:
+    if "budget" in plan:
+        raise NotImplementedError(f"{_QOS} is not ported yet")
+    if "imp" in plan or "live_blk" in plan:
+        raise NotImplementedError(f"{_RETIRE} is not ported yet")
+
+
+def summary_bytes(nkb: int, d: int, summary: str = "fp32") -> int:
+    """Block-summary bytes per (slot, kv head) — what one incremental
+    ranking pass reads.  fp32: 2·nkb·D·4.  int8: 2·nkb·D codes plus the
+    per-block fp32 (scale, zero) pairs."""
+    assert summary in SUMMARY_BACKENDS, summary
+    if summary == "int8":
+        return 2 * nkb * d + nkb * 2 * 4
+    return 2 * nkb * d * 4
+
+
+def quantize_summaries(k_min: torch.Tensor, k_max: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor,
+                                  torch.Tensor, torch.Tensor]:
+    """fp32 per-block bounds (..., D) → int8 codes plus per-block fp32
+    (scale, zero) (...,).  Conservative: floor−1 / ceil+1 rounding leaves
+    a whole quantization step of margin, so ``dequantize_summaries`` of
+    the result contains the inputs elementwise (the scale floor keeps
+    that step above a few ulps of ``zero`` for near-constant blocks).
+    Empty blocks (±inf bounds) get the ``scale = -1`` sentinel."""
+    empty = ~torch.isfinite(k_min[..., 0])
+    lo = torch.where(empty[..., None], 0.0, k_min.float())
+    hi = torch.where(empty[..., None], 0.0, k_max.float())
+    rlo = lo.amin(dim=-1)
+    rhi = hi.amax(dim=-1)
+    zero = 0.5 * (rlo + rhi)
+    rng = torch.maximum(rhi - rlo, torch.clamp(1e-4 * zero.abs(), min=1e-30))
+    scale = rng / _INT8_LEVELS
+    q_lo = torch.clamp(torch.floor((lo - zero[..., None]) / scale[..., None])
+                       - 1, -128, 127).to(torch.int8)
+    q_hi = torch.clamp(torch.ceil((hi - zero[..., None]) / scale[..., None])
+                       + 1, -128, 127).to(torch.int8)
+    return (q_lo, q_hi, torch.where(empty, -1.0, scale),
+            torch.where(empty, 0.0, zero))
+
+
+def dequantize_summaries(q_lo: torch.Tensor, q_hi: torch.Tensor,
+                         scale: torch.Tensor, zero: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of ``quantize_summaries``: codes (..., D) + fp32 (scale,
+    zero) (...,) → fp32 bounds; ``scale < 0`` (empty) → ±inf."""
+    lo = zero[..., None] + q_lo.float() * scale[..., None]
+    hi = zero[..., None] + q_hi.float() * scale[..., None]
+    valid = (scale >= 0.0)[..., None]
+    return (torch.where(valid, lo, float("inf")),
+            torch.where(valid, hi, float("-inf")))
+
+
+def plan_summary_bounds(plan: PlanState
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plan's block bounds as fp32 (±inf marks empty blocks),
+    whatever backend stores them (``k_scale`` present ⇔ int8)."""
+    if "k_scale" in plan:
+        return dequantize_summaries(plan["k_min"], plan["k_max"],
+                                    plan["k_scale"], plan["k_zero"])
+    return plan["k_min"], plan["k_max"]
 
 
 def init_decode_plan(batch: int, n_kv_heads: int, max_len: int, d: int,
                      k_block: int, plan_blocks: Optional[int] = None,
                      summary: str = "fp32", *, device) -> PlanState:
     """Empty plan over a ``max_len`` cache.  ``plan_blocks`` (P) is the
-    plan width; ``None`` keeps the full ``nkb`` (exact)."""
-    if summary != "fp32":
-        raise _unsupported(f"summary backend {summary!r}")
+    plan width; ``None`` keeps the full ``nkb`` (exact).  ``summary``
+    picks the bounds backend."""
     assert max_len % k_block == 0, (max_len, k_block)
+    assert summary in SUMMARY_BACKENDS, summary
     nkb = max_len // k_block
     p = nkb if plan_blocks is None else min(int(plan_blocks), nkb)
     assert p >= 1, p
     f32, i32 = torch.float32, torch.int32
+    shape = (batch, n_kv_heads, nkb, d)
+    if summary == "int8":
+        bounds = {
+            "k_min": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_max": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.full(shape[:3], -1.0, dtype=f32,
+                                  device=device),
+            "k_zero": torch.zeros(shape[:3], dtype=f32, device=device),
+        }
+    else:
+        bounds = {
+            "k_min": torch.full(shape, float("inf"), dtype=f32,
+                                device=device),
+            "k_max": torch.full(shape, float("-inf"), dtype=f32,
+                                device=device),
+        }
     return {
-        "k_min": torch.full((batch, n_kv_heads, nkb, d), float("inf"),
-                            dtype=f32, device=device),
-        "k_max": torch.full((batch, n_kv_heads, nkb, d), float("-inf"),
-                            dtype=f32, device=device),
+        **bounds,
         "kv_indices": torch.zeros((batch, n_kv_heads, p), dtype=i32,
                                   device=device),
         "kv_counts": torch.zeros((batch, n_kv_heads), dtype=i32,
@@ -91,8 +183,14 @@ def reset_plan_slot(plan: PlanState, slot, *, batch_axis: int = 0
     ``batch_axis`` names the batch dimension of layer-stacked states.
     ``replans`` stays — it is the cumulative traffic counter."""
     ix = (slice(None),) * batch_axis + (slot,)
-    plan["k_min"][ix] = float("inf")
-    plan["k_max"][ix] = float("-inf")
+    if "k_scale" in plan:            # int8 backend: sentinel = empty
+        plan["k_min"][ix] = 0
+        plan["k_max"][ix] = 0
+        plan["k_scale"][ix] = -1.0
+        plan["k_zero"][ix] = 0.0
+    else:
+        plan["k_min"][ix] = float("inf")
+        plan["k_max"][ix] = float("-inf")
     plan["kv_indices"][ix] = 0
     plan["kv_counts"][ix] = 0
     plan["step"][ix] = 0
@@ -113,24 +211,35 @@ def release_plan_slot(plan: PlanState, slot, *, batch_axis: int = 0
 
 def update_block_summaries(plan: PlanState, k_new: torch.Tensor,
                            pos: torch.Tensor, *, k_block: int) -> PlanState:
-    """Absorb one appended key per slot into its block's min/max bounds,
-    in place.  k_new: (B, 1, KV, D) — the value actually written to the
+    """Absorb one appended key per slot into its block's bounds, in
+    place.  k_new: (B, 1, KV, D) — the value actually written to the
     cache; pos: (B,) write positions.  A position past the cache (an
     idle slot's stale position) updates nothing, as the reference's
-    out-of-bounds scatter drops it."""
-    if "k_scale" in plan:
-        raise _unsupported("the int8 summary backend")
+    out-of-bounds scatter drops it.  The int8 backend dequantizes the
+    touched block, absorbs the key and requantizes outward, so
+    containment of the exact bounds carries over every append."""
     kn = k_new[:, 0].float()                                  # (B, KV, D)
     b, kv, _ = kn.shape
     nkb = plan["k_min"].shape[2]
     blk = (pos // k_block).long()
-    inb = (blk < nkb)[:, None, None]
+    inb = (blk < nkb)[:, None]
     bi = torch.arange(b, device=kn.device)[:, None]
     ki = torch.arange(kv, device=kn.device)[None, :]
     bx = blk.clamp(max=nkb - 1)[:, None]
-    lo, hi = plan["k_min"][bi, ki, bx], plan["k_max"][bi, ki, bx]
-    plan["k_min"][bi, ki, bx] = torch.where(inb, torch.minimum(lo, kn), lo)
-    plan["k_max"][bi, ki, bx] = torch.where(inb, torch.maximum(hi, kn), hi)
+    ix = (bi, ki, bx)
+    if "k_scale" not in plan:
+        lo, hi = plan["k_min"][ix], plan["k_max"][ix]
+        plan["k_min"][ix] = torch.where(inb[..., None],
+                                        torch.minimum(lo, kn), lo)
+        plan["k_max"][ix] = torch.where(inb[..., None],
+                                        torch.maximum(hi, kn), hi)
+        return plan
+    old = [plan[n][ix] for n in ("k_min", "k_max", "k_scale", "k_zero")]
+    lo, hi = dequantize_summaries(*old)
+    new = quantize_summaries(torch.minimum(lo, kn), torch.maximum(hi, kn))
+    for n, o, v in zip(("k_min", "k_max", "k_scale", "k_zero"), old, new):
+        keep = inb[..., None] if v.dim() == 3 else inb
+        plan[n][ix] = torch.where(keep, v, o)
     return plan
 
 
@@ -173,6 +282,16 @@ def block_upper_bounds(q: torch.Tensor, k_min: torch.Tensor,
     return (lo + hi) * sm_scale
 
 
+def _scores(q: torch.Tensor, keys: torch.Tensor, sm_scale: float
+            ) -> torch.Tensor:
+    """fp32 scores (B, KV, G, T) of q (B, KV, G, D) against contiguous
+    keys (B, KV, T, D).  Every planner scores through this one GEMM
+    layout, so a key set scores bitwise alike whichever planner gathered
+    it (``sketch_replan`` covering every block equals ``full_replan``
+    on the card, too)."""
+    return torch.matmul(q.float(), keys.float().transpose(-1, -2)) * sm_scale
+
+
 def full_replan(q: torch.Tensor, k_cache: torch.Tensor, pos: torch.Tensor,
                 *, topk_k: int, k_block: int, plan_blocks: int
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -184,8 +303,9 @@ def full_replan(q: torch.Tensor, k_cache: torch.Tensor, pos: torch.Tensor,
     b, s, kv, d = k_cache.shape
     nkb = s // k_block
     sm_scale = 1.0 / np.sqrt(d)
-    sc = torch.einsum("bkgd,bskd->bkgs", q.float(),
-                      k_cache.float()) * sm_scale
+    keys = k_cache.permute(0, 2, 1, 3).to(
+        torch.float32, memory_format=torch.contiguous_format)
+    sc = _scores(q, keys, sm_scale)                           # (B,KV,G,S)
     valid = (torch.arange(s, device=sc.device)
              <= pos[:, None])[:, None, None, :]               # (B,1,1,S)
     sc = torch.where(valid, sc, NEG_INF)
@@ -231,8 +351,7 @@ def incremental_plan(q: torch.Tensor, k_cache: torch.Tensor,
     exact token threshold over the planned blocks only.  Shapes as
     ``full_replan``; with ``page_table`` set, ``k_cache`` is the pool.
     Cost: O(nkb·D) ranking + O(P·k_block·D) threshold."""
-    if "k_scale" in plan:
-        raise _unsupported("the int8 summary backend")
+    _refuse_unported(plan)
     b, kv, _, d = q.shape
     nkb = plan["k_min"].shape[2]
     p = plan["kv_indices"].shape[-1]
@@ -241,9 +360,10 @@ def incremental_plan(q: torch.Tensor, k_cache: torch.Tensor,
     valid_blk = (torch.arange(nkb, device=dev) * k_block
                  <= pos[:, None])                             # (B, nkb)
     vb = valid_blk[:, None, :, None]
+    k_min, k_max = plan_summary_bounds(plan)                  # fp32 either way
     ub = block_upper_bounds(q.float(),
-                            torch.where(vb, plan["k_min"], 0.0),
-                            torch.where(vb, plan["k_max"], 0.0),
+                            torch.where(vb, k_min, 0.0),
+                            torch.where(vb, k_max, 0.0),
                             sm_scale=sm_scale)                # (B,KV,G,nkb)
     ub_row = torch.where(valid_blk[:, None, :], ub.amax(dim=2), NEG_INF)
     # top-P blocks per (slot, kv head): the token-level bisect predicate
@@ -253,7 +373,7 @@ def incremental_plan(q: torch.Tensor, k_cache: torch.Tensor,
     kv_indices, kv_counts = _compact_rows(occ, p)
     kg, tok = gather_planned_keys(k_cache, kv_indices, k_block=k_block,
                                   page_table=page_table)
-    sc = torch.einsum("bkgd,bktd->bkgt", q.float(), kg.float()) * sm_scale
+    sc = _scores(q, kg, sm_scale)
     slot = torch.arange(p * k_block, device=dev) // k_block
     live = slot[None, None, :] < kv_counts[..., None]         # no dup pads
     live = live & (tok <= pos[:, None, None])
@@ -262,38 +382,145 @@ def incremental_plan(q: torch.Tensor, k_cache: torch.Tensor,
     return kv_indices, kv_counts, thr
 
 
+def sketch_geometry(nkb: int, plan_blocks: int, sketch_factor: int
+                    ) -> Tuple[int, int, int, int]:
+    """Shape arithmetic shared by ``sketch_replan`` and the plan-traffic
+    accounting: ``(F, nsb, C, C·F)`` — the super-block factor F (largest
+    divisor of ``nkb`` ≤ ``sketch_factor``), the super-block count, the
+    surviving super-block budget ``C = ceil(P / F)`` and the candidate
+    blocks the exact threshold pass then reads."""
+    f = max(1, min(int(sketch_factor), nkb))
+    while nkb % f:
+        f -= 1
+    nsb = nkb // f
+    c = min(max(1, -(-int(plan_blocks) // f)), nsb)
+    return f, nsb, c, c * f
+
+
+def sketch_replan(q: torch.Tensor, k_cache: torch.Tensor, plan: PlanState,
+                  pos: torch.Tensor, *, topk_k: int, k_block: int,
+                  sketch_factor: int = 4,
+                  page_table: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Two-level re-plan, the sub-linear stand-in for ``full_replan``.
+
+    Level 1 unions each run of F adjacent block summaries into a
+    super-block sketch, ranks the sketches by the Quest upper bound and
+    keeps the top ``C = ceil(P/F)``.  Level 2 gathers only those
+    ``C·F`` candidate blocks, bisects the per-row token threshold over
+    them and keeps every candidate block holding a selected token.
+    Reads drop from O(S·D) to O(nkb·D + C·F·k_block·D).  Approximate by
+    design; when ``C·F ≥ nkb`` every valid block is a candidate and the
+    result equals ``full_replan`` bitwise.  Shapes as ``full_replan``;
+    with ``page_table`` set, ``k_cache`` is the pool."""
+    _refuse_unported(plan)
+    b, kv, gq, d = q.shape
+    k_min, k_max = plan_summary_bounds(plan)
+    nkb = k_min.shape[2]
+    p = plan["kv_indices"].shape[-1]
+    f, nsb, c, _ = sketch_geometry(nkb, p, sketch_factor)
+    sm_scale = 1.0 / np.sqrt(d)
+    dev = q.device
+    valid_blk = (torch.arange(nkb, device=dev) * k_block
+                 <= pos[:, None])                             # (B, nkb)
+    vb = valid_blk[:, None, :, None]
+    lo = torch.where(vb, k_min, 0.0)
+    hi = torch.where(vb, k_max, 0.0)
+    slo = lo.reshape(b, kv, nsb, f, d).amin(dim=3)            # sketch =
+    shi = hi.reshape(b, kv, nsb, f, d).amax(dim=3)            # bound union
+    ub = block_upper_bounds(q.float(), slo, shi,
+                            sm_scale=sm_scale)                # (B,KV,G,nsb)
+    valid_sb = valid_blk.reshape(b, nsb, f).any(dim=-1)
+    ub_row = torch.where(valid_sb[:, None, :], ub.amax(dim=2), NEG_INF)
+    thr_sb = kth_largest_bisect(ub_row, c)                    # (B, KV, 1)
+    occ_sb = bisect_select(ub_row, thr_sb) & valid_sb[:, None, :]
+    sb_idx, sb_cnt = _compact_rows(occ_sb, c)                 # (B, KV, C)
+    cand = (sb_idx.long()[..., None] * f
+            + torch.arange(f, device=dev)).reshape(b, kv, c * f)
+    # exact token threshold, restricted to the candidate blocks
+    kg, tok = gather_planned_keys(k_cache, cand, k_block=k_block,
+                                  page_table=page_table)
+    sc = _scores(q, kg, sm_scale)
+    sb_slot = torch.arange(c * f * k_block, device=dev) // (f * k_block)
+    live = sb_slot[None, None, :] < sb_cnt[..., None]         # no dup pads
+    live = (live & (tok <= pos[:, None, None]))[:, :, None, :]
+    sc = torch.where(live, sc, NEG_INF)
+    thr = kth_largest_bisect(sc, topk_k)                      # (B, KV, G, 1)
+    sel = bisect_select(torch.where(live, sc, float("-inf")), thr) & live
+    sel_blk = sel.reshape(b, kv, gq, c * f, k_block).any(dim=4).any(dim=2)
+    # scatter back to block occupancy; a padded (repeated) candidate
+    # contributes nothing, and duplicates OR together
+    occ = torch.zeros((b, kv, nkb), dtype=torch.int32, device=dev)
+    occ.scatter_add_(2, cand, sel_blk.to(torch.int32))
+    kv_indices, kv_counts = _compact_rows(occ > 0, p)
+    return kv_indices, kv_counts, thr
+
+
+def _plan_occupancy(kv_indices: torch.Tensor, kv_counts: torch.Tensor,
+                    nkb: int) -> torch.Tensor:
+    """(B, KV, P) padded index lists → (B, KV, nkb) bool occupancy
+    (padding slots past the count are ignored)."""
+    dev = kv_indices.device
+    hit = kv_indices[..., None] == torch.arange(nkb, device=dev)
+    live = (torch.arange(kv_indices.shape[-1], device=dev)
+            < kv_counts[..., None])[..., None]
+    return (hit & live).any(dim=-2)
+
+
+def plan_churn(plan: PlanState, kv_indices: torch.Tensor,
+               kv_counts: torch.Tensor) -> torch.Tensor:
+    """Blocks entering + leaving between the carried plan and this
+    step's, per slot (mean over kv heads) — the drift signal the
+    churn-adaptive trigger integrates.  (B,) fp32."""
+    nkb = plan["k_min"].shape[2]
+    o_old = _plan_occupancy(plan["kv_indices"], plan["kv_counts"], nkb)
+    o_new = _plan_occupancy(kv_indices, kv_counts, nkb)
+    return (o_old ^ o_new).sum(dim=-1).float().mean(dim=-1)
+
+
+_SUB_FIELDS = ("k_min", "k_max", "k_scale", "k_zero", "kv_indices")
+
+
 def decode_plan_update(plan: PlanState, q: torch.Tensor,
                        k_cache: torch.Tensor, pos: torch.Tensor, *,
                        topk_k: int, k_block: int, replan_interval: int = 1,
                        churn_budget: Optional[float] = None,
                        page_table: Optional[torch.Tensor] = None,
-                       replan_mode: str = "exact"
+                       replan_mode: str = "exact", sketch_factor: int = 4
                        ) -> Tuple[PlanState, torch.Tensor]:
     """One decode step of plan maintenance (the summaries must already
     hold the step's appended key — call ``update_block_summaries``
     first).  Updates ``plan`` in place and returns it with the per-row
     thresholds for the decode kernel.
 
-    ``replan_interval=1`` runs the exact full re-plan every step.  An
-    integer interval re-plans every ``interval``-th step of each slot
-    and runs the incremental plan in between; a step whose active slots
-    disagree takes the partial re-plan — a host loop over slots that
-    streams the cache only for the slots that trigger.  ``replans``
-    counts the full re-plans of active slots, as the reference does."""
-    if replan_mode != "exact":
-        raise _unsupported(f"replan_mode={replan_mode!r}")
-    if churn_budget is not None:
-        raise _unsupported("the churn-adaptive re-plan trigger")
-    if "budget" in plan or "imp" in plan or "k_scale" in plan:
-        raise _unsupported("QoS / retirement / int8 plan state")
+    Trigger, per slot: with ``churn_budget`` set a slot re-plans at its
+    step 0 and once the churn it accumulated over incremental steps
+    reaches ``churn_budget · P``; otherwise every ``replan_interval``-th
+    step of the slot re-plans (``1`` = exact every step).  The re-plan
+    is ``full_replan`` or, with ``replan_mode="sketch"``,
+    ``sketch_replan``; other steps run the incremental plan.  A step
+    whose active slots disagree takes the partial re-plan — a host loop
+    over slots that streams the cache only for the slots that trigger.
+    ``replans`` counts the re-plans of active slots, as the reference
+    does."""
+    assert replan_mode in ("exact", "sketch"), replan_mode
+    _refuse_unported(plan)
     p = plan["kv_indices"].shape[-1]
     active = plan["active"]
-    if replan_interval <= 1:
+    if churn_budget is not None:
+        do_full = ((plan["step"] == 0)
+                   | (plan["churn"] >= churn_budget * p)) & active
+    elif replan_interval <= 1:
         do_full = active
     else:
         do_full = (plan["step"] % replan_interval == 0) & active
 
-    def _full(qb, kc, posb, tbl):
+    def _full(qb, kc, posb, sub, tbl):
+        if replan_mode == "sketch":
+            return sketch_replan(qb, kc, sub, posb, topk_k=topk_k,
+                                 k_block=k_block,
+                                 sketch_factor=sketch_factor,
+                                 page_table=tbl)
         kf = kc if tbl is None else logical_kv_view(kc, tbl)
         return full_replan(qb, kf, posb, topk_k=topk_k, k_block=k_block,
                            plan_blocks=p)
@@ -302,14 +529,16 @@ def decode_plan_update(plan: PlanState, q: torch.Tensor,
         return incremental_plan(qb, kc, sub, posb, topk_k=topk_k,
                                 k_block=k_block, page_table=tbl)
 
-    if replan_interval <= 1:
+    if replan_interval <= 1 and churn_budget is None:
         # exact mode re-plans every slot (idle ones ride the batched
         # einsum for free); ``do_full`` still scopes the accounting
-        kv_indices, kv_counts, thr = _full(q, k_cache, pos, page_table)
+        kv_indices, kv_counts, thr = _full(q, k_cache, pos, plan,
+                                           page_table)
     else:
         flags = do_full.tolist()
         if all(flags):
-            kv_indices, kv_counts, thr = _full(q, k_cache, pos, page_table)
+            kv_indices, kv_counts, thr = _full(q, k_cache, pos, plan,
+                                               page_table)
         elif not any(flags):
             kv_indices, kv_counts, thr = _incr(q, k_cache, pos, plan,
                                                page_table)
@@ -321,13 +550,13 @@ def decode_plan_update(plan: PlanState, q: torch.Tensor,
                 sl = slice(i, i + 1)
                 kc = k_cache if page_table is not None else k_cache[sl]
                 tbl = None if page_table is None else page_table[sl]
-                if f:
-                    outs.append(_full(q[sl], kc, pos[sl], tbl))
-                else:
-                    sub = {k: plan[k][sl] for k in
-                           ("k_min", "k_max", "kv_indices")}
-                    outs.append(_incr(q[sl], kc, pos[sl], sub, tbl))
+                sub = {k: plan[k][sl] for k in _SUB_FIELDS if k in plan}
+                outs.append((_full if f else _incr)(q[sl], kc, pos[sl], sub,
+                                                    tbl))
             kv_indices, kv_counts, thr = (torch.cat(t) for t in zip(*outs))
+    if churn_budget is not None:
+        drift = plan_churn(plan, kv_indices, kv_counts)
+        plan["churn"].copy_(torch.where(do_full, 0.0, plan["churn"] + drift))
     plan["kv_indices"].copy_(kv_indices)
     plan["kv_counts"].copy_(kv_counts)
     plan["step"] += active.to(torch.int32)
@@ -340,10 +569,12 @@ def plan_from_prefill(k_cache: torch.Tensor, q_tail: torch.Tensor,
                       plan_blocks: Optional[int] = None,
                       summary: str = "fp32") -> PlanState:
     """Seed a decode-plan state from prefill outputs: summaries from the
-    written keys (bit-identical to incremental maintenance), the plan
-    rows from the prompt tail's selected blocks, and ``step = 1`` — off
-    the re-plan beat, so decode step 0 runs the planned incremental
-    path instead of a cold full re-plan.
+    written keys (bit-identical to incremental maintenance; the int8
+    backend quantizes them once, so a page-summary copy of the same
+    bounds is bit-identical too), the plan rows from the prompt tail's
+    selected blocks, and ``step = 1`` — off the re-plan beat, so decode
+    step 0 runs the planned incremental path instead of a cold full
+    re-plan.
     k_cache: (B, S, KV, D) logical; q_tail: (B, KV, G, D); pos: (B,)."""
     b, s, kv, d = k_cache.shape
     plan = init_decode_plan(b, kv, s, d, k_block, plan_blocks,
@@ -353,7 +584,11 @@ def plan_from_prefill(k_cache: torch.Tensor, q_tail: torch.Tensor,
     kv_indices, kv_counts, _ = full_replan(q_tail, k_cache, pos,
                                            topk_k=topk_k, k_block=k_block,
                                            plan_blocks=p)
-    plan.update(k_min=k_min, k_max=k_max, kv_indices=kv_indices,
-                kv_counts=kv_counts)
+    plan.update(kv_indices=kv_indices, kv_counts=kv_counts)
+    if summary == "int8":
+        q_lo, q_hi, sc, zp = quantize_summaries(k_min, k_max)
+        plan.update(k_min=q_lo, k_max=q_hi, k_scale=sc, k_zero=zp)
+    else:
+        plan.update(k_min=k_min, k_max=k_max)
     plan["step"].fill_(1)
     return plan

@@ -1,5 +1,5 @@
 """Paged serving KV cache: global page pool + per-slot page tables —
-port of the core of ``repro.core.paging``.
+port of ``repro.core.paging``.
 
   k_pages / v_pages  (n_pages, page, KV, D) — one physical pool per layer;
   page_table         (B, max_pages) int32 — per-slot logical→physical map.
@@ -9,13 +9,21 @@ entries point at it, so a write from a stalled slot lands there
 harmlessly (every read path masks key positions ``<= pos``, and a stall
 only happens at a page boundary).
 
-The allocator is host-side numpy, copied from the reference (not
-imported): claim, append, stall and free.  Host swap, retirement,
-copy-on-write and the prefix trie are later slices.
+The allocator and the prefix trie are host-side numpy, copied from the
+reference (not imported): claim, append, stall and free; per-page
+refcounts, so one physical page backs the same logical block of several
+slots; copy-on-write (``ensure_writable``, eager or through lazy write
+leases); and the shared-prefix trie (``PrefixCache``) that maps a new
+prompt's longest cached prefix into its slot.  Shared pages are
+immutable while ``ref > 1``: an append into one copies it first, and
+the paged decode write re-routes any write that would still land in one
+to the overflow page.  Host swap and pool squeezes (whose clauses
+``check_invariants`` keeps) and retirement are later slices.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import hashlib
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,16 +43,62 @@ def logical_kv_view(pages: torch.Tensor, page_table: torch.Tensor
     return g.reshape(b, mp * g.shape[2], *pages.shape[2:])
 
 
+# --- per-physical-page SATA block-summary cache -------------------------
+# A shared-prefix install copies a cached page's summary row instead of
+# recomputing it from the page's keys.  The rows mirror the plan state's
+# summary backend: fp32 stores exact bounds; int8 stores conservative
+# codes plus per-page fp32 (scale, zero).  A page's row is always the
+# quantization of the same from-scratch fp32 bounds, so copying it is
+# bit-identical to recomputing it under either backend.
+
+def page_summary_fields(summary: str = "fp32") -> Tuple[str, ...]:
+    """Cache-dict names of the page-summary arrays — the rows
+    ``copy_phys_pages`` moves with K/V on copy-on-write."""
+    if summary == "int8":
+        return ("page_k_min", "page_k_max", "page_k_scale", "page_k_zero")
+    return ("page_k_min", "page_k_max")
+
+
+def init_page_summaries(n_pages: int, n_kv_heads: int, d: int,
+                        summary: str = "fp32", *, device
+                        ) -> Dict[str, torch.Tensor]:
+    """Empty per-physical-page summary arrays: bounds (n_pages, KV, D);
+    the int8 backend adds (n_pages, KV) scale/zero with the ``scale =
+    -1`` empty sentinel (``decode_plan.dequantize_summaries``)."""
+    if summary == "int8":
+        return {
+            "page_k_min": torch.zeros((n_pages, n_kv_heads, d),
+                                      dtype=torch.int8, device=device),
+            "page_k_max": torch.zeros((n_pages, n_kv_heads, d),
+                                      dtype=torch.int8, device=device),
+            "page_k_scale": torch.full((n_pages, n_kv_heads), -1.0,
+                                       dtype=torch.float32, device=device),
+            "page_k_zero": torch.zeros((n_pages, n_kv_heads),
+                                       dtype=torch.float32, device=device),
+        }
+    return {
+        "page_k_min": torch.full((n_pages, n_kv_heads, d), float("inf"),
+                                 dtype=torch.float32, device=device),
+        "page_k_max": torch.full((n_pages, n_kv_heads, d), float("-inf"),
+                                 dtype=torch.float32, device=device),
+    }
+
+
 class PageAllocator:
     """Host-side free-list allocator for the paged pool.
 
     Positions advance sequentially from 0 within a slot, so logical
     pages map strictly in order; ``n_mapped[slot]`` is both the mapped
     count and the next logical page to map.  ``table`` mirrors the
-    device page table (unmapped = OVERFLOW_PAGE)."""
+    device page table (unmapped = OVERFLOW_PAGE).  ``ref`` counts each
+    physical page's references — slot table entries plus the prefix
+    trie's retention — and a page recycles only at zero; ``ref > 1``
+    marks it shared, so writes must copy it first.  ``audit=True`` runs
+    ``check_invariants`` after every mutation, as the reference's
+    serving default does."""
 
     def __init__(self, n_pages: int, batch_slots: int, max_pages: int,
-                 page: int):
+                 page: int, audit: bool = False):
         assert n_pages >= 2, "pool needs >= 1 usable page + overflow"
         self.n_pages = int(n_pages)
         self.page = int(page)
@@ -55,6 +109,29 @@ class PageAllocator:
                              np.int32)
         self.n_mapped = np.zeros(batch_slots, np.int32)
         self.pages_in_use_peak = 0
+        self.ref = np.zeros(n_pages, np.int64)
+        self.shared_pages_peak = 0
+        # host swap and pool squeezes (the faults slice) keep pages out
+        # of the free list; the audit's clauses for them stay, and both
+        # lists stay empty until that slice lands
+        self.squeezed: List[int] = []
+        self.swapped: List[Dict] = []
+        # lazy copy-on-write: phys page → the slot holding a write lease
+        # on it.  The SOLE mapping slot may append in place into a
+        # trie-retained partial page past the rows the trie node covers;
+        # the lease lives only while {holder's entry, trie retention}
+        # are the page's references
+        self.lazy_cow = False
+        self.cow_leases: Dict[int, int] = {}
+        self.lazy_cow_skips = 0
+        self.audit = bool(audit)
+        self.audit_trie: Optional["PrefixCache"] = None
+        self.audits_run = 0
+
+    def _audit(self) -> None:
+        if self.audit:
+            self.check_invariants()
+            self.audits_run += 1
 
     @property
     def free_pages(self) -> int:
@@ -62,7 +139,12 @@ class PageAllocator:
 
     @property
     def pages_in_use(self) -> int:
-        return (self.n_pages - 1) - len(self.free)
+        return (self.n_pages - 1) - len(self.free) - len(self.squeezed)
+
+    @property
+    def shared_pages(self) -> int:
+        """Physical pages currently referenced more than once."""
+        return int((self.ref > 1).sum())
 
     def pages_for(self, n_tokens: int) -> int:
         """Pages needed to hold ``n_tokens`` cache rows."""
@@ -80,24 +162,206 @@ class PageAllocator:
         need = pos // self.page + 1
         while self.n_mapped[slot] < need:
             if not self.free:
+                self._audit()
                 return False
             phys = self.free.pop()
+            self.ref[phys] = 1
             self.table[slot, self.n_mapped[slot]] = phys
             self.n_mapped[slot] += 1
         self.pages_in_use_peak = max(self.pages_in_use_peak,
                                      self.pages_in_use)
+        self._audit()
         return True
 
+    def map_shared(self, slot: int, phys_pages: List[int]) -> None:
+        """Map already-populated physical pages (a matched cached
+        prefix) as the slot's first logical pages: refcount bump, zero
+        copy.  Must precede any ``ensure`` for the slot."""
+        assert self.n_mapped[slot] == 0, "shared prefix maps first"
+        for lp, phys in enumerate(phys_pages):
+            assert phys != OVERFLOW_PAGE
+            self.table[slot, lp] = int(phys)
+            self.ref[phys] += 1
+        self.n_mapped[slot] = len(phys_pages)
+        self.shared_pages_peak = max(self.shared_pages_peak,
+                                     self.shared_pages)
+        self._audit()
+
+    def _deref(self, phys: int) -> None:
+        """Reference drop without the audit, for multi-page mutations
+        that audit once at the end."""
+        assert phys != OVERFLOW_PAGE and self.ref[phys] > 0, phys
+        self.ref[phys] -= 1
+        if self.ref[phys] == 0:
+            self.free.append(int(phys))
+
+    def deref(self, phys: int) -> None:
+        """Drop one reference; the page recycles at zero."""
+        self._deref(phys)
+        self._audit()
+
+    def ensure_writable(self, slot: int, pos: int
+                        ) -> Tuple[bool, Optional[Tuple[int, int]]]:
+        """Copy-on-write gate: the page holding ``pos`` must be
+        exclusively owned before the slot writes a row into it.
+        Returns ``(ok, copy)``: ``copy = (src, dst)`` when a shared page
+        was remapped and the caller must copy its rows device-side
+        (``models.decode.copy_phys_pages``) before the write lands;
+        ``(False, None)`` when the pool cannot back the copy (the slot
+        stalls this step, like ``ensure``).
+
+        With ``lazy_cow``, a page whose only other reference is the
+        trie's retention (``ref == 2``) and whose write row lies past
+        every row a trie node covers is not copied: the slot takes a
+        write lease instead.  The driver pushes ``writable_ref_view()``
+        so the device write-protect honours the lease; a third
+        reference ends it, and the next append takes the copy."""
+        lp = pos // self.page
+        if lp >= self.n_mapped[slot]:
+            return True, None                    # unmapped: ensure() maps
+        src = int(self.table[slot, lp])
+        if self.ref[src] <= 1:
+            self.cow_leases.pop(src, None)       # lease served its term
+            return True, None                    # exclusive: write away
+        if self.lazy_cow and self.ref[src] == 2:
+            if self.cow_leases.get(src) == slot:
+                return True, None                # live lease
+            if (src not in self.cow_leases and self._trie_retains(src)
+                    and pos % self.page >=
+                    self.audit_trie.covered_rows(src)):
+                # the write row lies past every cached row: in place is
+                # safe.  A matcher diverging inside the covered rows
+                # never qualifies — it would overwrite a cached prefix
+                self.cow_leases[src] = slot
+                self.lazy_cow_skips += 1
+                return True, None
+        if not self.free:
+            return False, None                   # CoW needs a page: stall
+        dst = self.free.pop()
+        self.ref[dst] = 1
+        self.table[slot, lp] = dst
+        self.ref[src] -= 1                       # shared pages never hit 0
+        self.cow_leases.pop(src, None)           # holder went private
+        self.pages_in_use_peak = max(self.pages_in_use_peak,
+                                     self.pages_in_use)
+        self._audit()
+        return True, (src, dst)
+
+    def _trie_retains(self, phys: int) -> bool:
+        """Is one of ``phys``'s references the prefix trie's retention?"""
+        return self.audit_trie is not None and \
+            phys in self.audit_trie.retained_pages()
+
+    def writable_ref_view(self) -> np.ndarray:
+        """The refcounts the driver pushes for the device write-protect:
+        ``ref``, except that a live lazy-CoW lease's page reports 1 so
+        its holder's in-place appends pass.  Liveness is re-derived on
+        every push: a lease whose page gained a third reference, or
+        whose holder no longer maps it, is dropped here."""
+        if not self.cow_leases:
+            return self.ref
+        view = self.ref.copy()
+        for phys in list(self.cow_leases):
+            slot = self.cow_leases[phys]
+            held = phys in self.table[slot, :self.n_mapped[slot]]
+            if self.ref[phys] == 2 and held:
+                view[phys] = 1
+            else:
+                del self.cow_leases[phys]
+        return view
+
+    def drop_leases(self, slot: int) -> None:
+        """Release every lazy-CoW lease ``slot`` holds (the next occupant
+        must not inherit a write grant on a page it never mapped)."""
+        self.cow_leases = {p: s for p, s in self.cow_leases.items()
+                           if s != slot}
+
     def free_slot(self, slot: int) -> int:
-        """Release a finished slot's pages back to the free list and
-        reset its table row to the overflow page (a recycled page must
-        not stay visible through an old row).  Returns pages freed."""
+        """Release a finished (or preempted) slot's references.  A page
+        returns to the free list only when nothing else references it —
+        a page the trie or another slot holds survives.  The table row
+        resets to the overflow page (a recycled page must not stay
+        visible through an old row).  Returns the pages unmapped."""
         n = int(self.n_mapped[slot])
         phys = [int(p) for p in self.table[slot, :n]]
         self.table[slot, :] = OVERFLOW_PAGE
         self.n_mapped[slot] = 0
-        self.free.extend(phys)
+        self.drop_leases(slot)
+        for p in phys:
+            self._deref(p)
+        self._audit()
         return n
+
+    def check_invariants(self, trie: Optional["PrefixCache"] = None
+                         ) -> None:
+        """Allocator-state audit; raises ``AssertionError`` on the first
+        violated invariant:
+
+        * the overflow page is never referenced, free, squeezed, or
+          mapped inside a slot's mapped region;
+        * the free and squeezed lists are duplicate-free and disjoint,
+          and a page sits on one of them iff its refcount is zero;
+        * every refcount equals the references the bookkeeping can name:
+          slot table entries in mapped regions, swap handles' resident
+          pins and the trie's retention (so no ``ref == 1`` page is
+          mapped by two slots);
+        * table entries beyond ``n_mapped`` are the overflow page;
+        * every lazy-CoW lease names a live, non-overflow page;
+        * every trie node's page is live.
+
+        ``trie`` defaults to ``audit_trie`` (``PrefixCache`` wires
+        itself in)."""
+        trie = trie if trie is not None else self.audit_trie
+        assert self.ref[OVERFLOW_PAGE] == 0, \
+            "overflow page acquired a reference"
+        free_set = set(self.free)
+        assert len(free_set) == len(self.free), "free list has duplicates"
+        sq_set = set(self.squeezed)
+        assert len(sq_set) == len(self.squeezed), \
+            "squeezed list has duplicates"
+        assert not (free_set & sq_set), "page both free and squeezed"
+        assert OVERFLOW_PAGE not in free_set | sq_set, \
+            "overflow page entered the free/squeezed lists"
+        mapped = (np.arange(self.max_pages)[None, :]
+                  < self.n_mapped[:, None])           # (B, max_pages)
+        over = mapped & (self.table == OVERFLOW_PAGE)
+        if over.any():
+            s, lp = (int(x[0]) for x in np.nonzero(over))
+            raise AssertionError(
+                f"slot {s} maps overflow at logical page {lp}")
+        stale = ~mapped & (self.table != OVERFLOW_PAGE)
+        if stale.any():
+            s, lp = (int(x[0]) for x in np.nonzero(stale))
+            raise AssertionError(f"stale table entry {self.table[s, lp]} "
+                                 f"at slot {s} lp {lp}")
+        expected = np.bincount(self.table[mapped].astype(np.int64),
+                               minlength=self.n_pages)
+        for phys, slot in self.cow_leases.items():
+            assert phys != OVERFLOW_PAGE, "lease on the overflow page"
+            assert self.ref[phys] >= 1, \
+                f"lazy-CoW lease on dead page {phys} (slot {slot})"
+        for h in self.swapped:
+            for p in h["resident"]:
+                if p >= 0:
+                    expected[int(p)] += 1
+        if trie is not None:
+            for p in trie.retained_pages():
+                assert self.ref[p] > 0, f"trie retains dead page {p}"
+                expected[p] += 1
+        bad = np.nonzero(expected != self.ref)[0]
+        assert bad.size == 0, (
+            f"refcount mismatch at pages {bad.tolist()}: counted "
+            f"{expected[bad].tolist()} references, ref say "
+            f"{self.ref[bad].tolist()}")
+        listed = np.zeros(self.n_pages, bool)
+        listed[list(free_set | sq_set)] = True
+        off = np.nonzero(listed[1:] != (self.ref[1:] == 0))[0]
+        if off.size:
+            p = int(off[0]) + 1
+            raise AssertionError(
+                f"page {p}: ref {int(self.ref[p])} but "
+                f"{'on' if listed[p] else 'missing from'} the "
+                f"free/squeezed lists")
 
     def stats(self, *, row_bytes: int, layers: int = 1) -> Dict[str, int]:
         """Pool occupancy in bytes.  ``row_bytes`` = bytes of ONE token
@@ -109,6 +373,271 @@ class PageAllocator:
             "page_size": self.page,
             "pages_in_use": self.pages_in_use,
             "pages_in_use_peak": self.pages_in_use_peak,
+            "shared_pages": self.shared_pages,
+            "shared_pages_peak": self.shared_pages_peak,
+            "private_pages": self.pages_in_use - self.shared_pages,
             "hbm_reserved_bytes": self.n_pages * page_bytes,
             "hbm_used_peak_bytes": self.pages_in_use_peak * page_bytes,
+            "lazy_cow_skips": self.lazy_cow_skips,
+        }
+
+
+# ---------------------------------------------------------------------------
+# Shared-prefix page cache
+# ---------------------------------------------------------------------------
+
+class _TrieNode:
+    """One physical page worth of prompt tokens.  Full nodes (``page``
+    tokens) key the chain walk by token hash and may have children;
+    partial nodes terminate a chain and match by token-prefix
+    comparison only."""
+
+    __slots__ = ("phys", "tokens", "digest", "children", "partials",
+                 "parent", "stamp")
+
+    def __init__(self, phys: int, tokens: Tuple[int, ...], digest: bytes,
+                 parent: Optional["_TrieNode"]):
+        self.phys = int(phys)
+        self.tokens = tokens
+        self.digest = digest
+        self.children: Dict[bytes, "_TrieNode"] = {}
+        self.partials: List["_TrieNode"] = []
+        self.parent = parent
+        self.stamp = 0
+
+    @property
+    def evictable(self) -> bool:
+        return not self.children and not self.partials
+
+
+def _chain_digest(parent_digest: bytes, tokens: np.ndarray) -> bytes:
+    """Position-dependent page key: hashing the parent digest chains the
+    pages, so equal page contents at different prefix depths never
+    collide.  Lookups still compare tokens — the digest only routes."""
+    return hashlib.sha1(
+        parent_digest + np.ascontiguousarray(tokens, np.int64).tobytes()
+    ).digest()
+
+
+class PrefixCache:
+    """Prompt-prefix trie over the page pool.
+
+    ``match`` walks full-page children by chained token hash (checking
+    the stored tokens) and ends with the longest token-prefix match
+    among the stop node's children, so a prompt sharing half a cached
+    page still maps it (its tail prefill copies the page before writing).
+    ``register`` inserts a prefilled prompt's pages — full pages as chain
+    nodes, a final partial page as a terminal node — taking one
+    reference per page for the trie.  ``evict`` releases least recently
+    used leaves that no slot maps when the pool runs dry.  Host-side
+    bookkeeping, like the allocator it feeds."""
+
+    def __init__(self, alloc: PageAllocator):
+        self.alloc = alloc
+        self.page = alloc.page
+        self.root = _TrieNode(OVERFLOW_PAGE, (), b"root", None)
+        self._clock = 0
+        self.hits = 0
+        self.misses = 0
+        self.tokens_saved = 0
+        self.evictions = 0
+        self.node_count = 0
+        self.invalidated = 0
+        # the allocator's audit counts trie retention
+        alloc.audit_trie = self
+
+    def _nodes(self):
+        """Every node below the root (depth-first)."""
+        stack = [self.root]
+        while stack:
+            node = stack.pop()
+            if node is not self.root:
+                yield node
+            stack.extend(node.children.values())
+            stack.extend(node.partials)
+
+    @property
+    def cached_pages(self) -> int:
+        return len(self.retained_pages())
+
+    def retained_pages(self) -> List[int]:
+        """Physical pages the trie holds one retention reference on, one
+        entry per node."""
+        return [n.phys for n in self._nodes()]
+
+    def covered_rows(self, phys: int) -> int:
+        """Rows of ``phys`` a trie node covers (0 when none): the lazy
+        lease gate — in-place writes are safe only past these rows."""
+        return max((len(n.tokens) for n in self._nodes()
+                    if n.phys == int(phys)), default=0)
+
+    def _touch(self, node: _TrieNode) -> None:
+        self._clock += 1
+        while node is not None and node is not self.root:
+            node.stamp = self._clock
+            node = node.parent
+
+    def match(self, tokens: np.ndarray
+              ) -> Tuple[int, List[int], Optional[int]]:
+        """Longest cached prefix of ``tokens``: ``(matched_tokens,
+        phys_pages, partial_rows)`` — the ascending physical pages to
+        map (``map_shared``) and, when the match ends mid-page, the
+        valid rows of the last one (``None`` when page-aligned).  Match
+        ``tokens[:-1]`` so the tail prefill still yields last-token
+        logits.  A pure lookup plus the LRU touch: ``note`` records the
+        hit once the claim lands."""
+        toks = np.asarray(tokens, np.int64).reshape(-1)
+        node, phys, m = self.root, [], 0
+        while len(toks) - m >= self.page:
+            page_toks = toks[m:m + self.page]
+            child = node.children.get(_chain_digest(node.digest, page_toks))
+            if child is None or child.tokens != tuple(page_toks.tolist()):
+                break
+            node, m = child, m + self.page
+            phys.append(child.phys)
+        # longest common token prefix among the stop node's children,
+        # full and partial: a half-used shared page still saves compute
+        best, best_len = None, 0
+        rest = tuple(toks[m:].tolist())
+        for cand in list(node.children.values()) + node.partials:
+            lcp = 0
+            for a, b in zip(rest, cand.tokens):
+                if a != b:
+                    break
+                lcp += 1
+            if lcp > best_len:
+                best, best_len = cand, lcp
+        if best is not None:
+            phys.append(best.phys)
+            m += best_len
+            self._touch(best)
+        elif phys:
+            self._touch(node)
+        return m, phys, (best_len if best is not None else None)
+
+    def note(self, matched_tokens: int) -> None:
+        """Record one admitted request's hit statistics."""
+        if matched_tokens:
+            self.hits += 1
+            self.tokens_saved += matched_tokens
+        else:
+            self.misses += 1
+
+    def register(self, tokens: np.ndarray, table_row: np.ndarray) -> int:
+        """Insert a prompt's pages (the slot's mapping ``table_row``);
+        each newly retained page gains one reference for the trie.
+        Chain nodes already cached are skipped, and so is a partial page
+        whose tokens an existing sibling covers.  Returns pages newly
+        retained."""
+        toks = np.asarray(tokens, np.int64).reshape(-1)
+        node, m, added = self.root, 0, 0
+        while len(toks) - m >= self.page:
+            page_toks = toks[m:m + self.page]
+            digest = _chain_digest(node.digest, page_toks)
+            child = node.children.get(digest)
+            if child is None or child.tokens != tuple(page_toks.tolist()):
+                phys = int(table_row[m // self.page])
+                child = _TrieNode(phys, tuple(page_toks.tolist()), digest,
+                                  node)
+                node.children[digest] = child
+                self.alloc.ref[phys] += 1
+                added += 1
+            node, m = child, m + self.page
+        rest = tuple(toks[m:].tolist())
+        if rest:
+            covered = any(
+                len(cand.tokens) >= len(rest)
+                and cand.tokens[:len(rest)] == rest
+                for cand in list(node.children.values()) + node.partials)
+            if not covered:
+                phys = int(table_row[m // self.page])
+                part = _TrieNode(phys, rest,
+                                 _chain_digest(node.digest,
+                                               np.asarray(rest)), node)
+                node.partials.append(part)
+                self.alloc.ref[phys] += 1
+                added += 1
+                node = part
+        self._touch(node)
+        self.node_count += added
+        self.alloc.shared_pages_peak = max(self.alloc.shared_pages_peak,
+                                           self.alloc.shared_pages)
+        self.alloc._audit()
+        return added
+
+    def evict(self, need_pages: int) -> int:
+        """Free least recently used evictable leaves until ``need_pages``
+        pages are free (or nothing more can go).  Only leaves no slot
+        maps (``ref == 1``, the trie's own reference) go; an interior
+        node whose subtree went becomes a leaf for a later round."""
+        freed = 0
+        while len(self.alloc.free) < need_pages:
+            victims = [n for n in self._nodes()
+                       if n.evictable and self.alloc.ref[n.phys] == 1]
+            pick = min(victims, key=lambda n: n.stamp, default=None)
+            if pick is None:
+                break
+            parent = pick.parent
+            if pick in parent.partials:
+                parent.partials.remove(pick)
+            else:
+                parent.children.pop(pick.digest, None)
+            self.alloc.deref(pick.phys)
+            self.node_count -= 1
+            freed += 1
+            self.evictions += 1
+        return freed
+
+    def invalidate_pages(self, pages: List[int]) -> int:
+        """Drop every node whose physical page is in ``pages``, with its
+        whole subtree (a chain walk cannot cross a removed node),
+        releasing one retention reference per removed node.  Returns
+        nodes removed."""
+        bad = {int(p) for p in pages}
+        removed = 0
+
+        def _drop_subtree(node: _TrieNode) -> int:
+            n = 0
+            stack = [node]
+            while stack:
+                x = stack.pop()
+                stack.extend(x.children.values())
+                stack.extend(x.partials)
+                self.alloc._deref(x.phys)
+                n += 1
+            return n
+
+        def _scrub(node: _TrieNode) -> None:
+            nonlocal removed
+            for key in list(node.children):
+                child = node.children[key]
+                if child.phys in bad:
+                    removed += _drop_subtree(child)
+                    del node.children[key]
+                else:
+                    _scrub(child)
+            keep = []
+            for part in node.partials:
+                if part.phys in bad:
+                    removed += _drop_subtree(part)
+                else:
+                    keep.append(part)
+            node.partials = keep
+
+        _scrub(self.root)
+        self.node_count -= removed
+        self.invalidated += removed
+        self.alloc._audit()
+        return removed
+
+    def stats(self) -> Dict[str, float]:
+        total = self.hits + self.misses
+        return {
+            "requests": total,
+            "hits": self.hits,
+            "hit_rate": self.hits / max(total, 1),
+            "prefill_tokens_saved": self.tokens_saved,
+            "cached_pages": self.cached_pages,
+            "evictions": self.evictions,
+            "invalidated": self.invalidated,
         }

@@ -24,6 +24,7 @@ import torch
 from repro_torch.core.blockmap import (compact_kv_plan, identity_block_plan,
                                        occupancy_from_scores_chunked,
                                        resolve_sel_chunk, sata_block_plan)
+from repro_torch.core.decode_plan import sketch_geometry, summary_bytes
 from repro_torch.core.selection import select_thresholds_chunked
 from repro_torch.kernels import sata_attention as sa
 from repro_torch.kernels.ref import ref_block_attention
@@ -231,18 +232,31 @@ def sata_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_fetch_stats(kv_counts, pos, *, k_block: int, d: int,
                        dtype_bytes: int = 4, replan=None,
-                       nkb: Optional[int] = None) -> Dict:
+                       nkb: Optional[int] = None, summary: str = "fp32",
+                       replan_mode: str = "exact", sketch_factor: int = 4,
+                       plan_blocks: Optional[int] = None, quant=None,
+                       sketch=None, live_blocks=None) -> Dict:
     """Per-step K/V fetch accounting for the decode route (numpy, a copy
-    of the reference's fp32 / exact-re-plan accounting).  kv_counts:
-    (..., B, KV) int; pos: (B,) per-slot positions.
+    of the reference's).  kv_counts: (..., B, KV) int; pos: (B,)
+    per-slot positions.
 
     Kernel side: dense decode streams every valid block of the prefix
     per (slot, kv head); the planned kernel fetches ``kv_counts`` tiles.
     Plan side (``replan`` given — the fraction of this step's layer
-    plans that ran the full re-plan, a scalar or a (B,) vector): an
-    exact full re-plan streams all valid cached K; an incremental step
-    reads the fp32 block summaries (``nkb`` sizes them) plus the planned
-    blocks' keys."""
+    plans that re-planned, a scalar or a (B,) vector): an exact re-plan
+    streams all valid cached K; a sketch re-plan
+    (``replan_mode="sketch"``) reads the summaries plus the
+    ``sketch_geometry`` candidate blocks' keys (``plan_blocks`` is P);
+    an incremental step reads the block summaries (``nkb`` and
+    ``summary`` size them) plus the planned blocks' keys.  The QoS rung
+    vectors ``quant``/``sketch`` and the retirement ``live_blocks`` are
+    queue A items 16 and 17 and raise."""
+    for name, val, item in (("quant", quant, 16), ("sketch", sketch, 16),
+                            ("live_blocks", live_blocks, 17)):
+        if val is not None:
+            raise NotImplementedError(
+                f"decode_fetch_stats({name}=...) is not ported yet: queue "
+                f"A item {item}, slice 3 of the PyTorch port")
     cnt = np.asarray(kv_counts)
     pos = np.asarray(pos).reshape(-1)
     b = pos.shape[0]
@@ -261,10 +275,15 @@ def decode_fetch_stats(kv_counts, pos, *, k_block: int, d: int,
     if replan is not None:
         k_tile_bytes = k_block * d * dtype_bytes               # K only
         layers = cnt.size // (b * kv)
-        s_head = 0 if nkb is None else 2 * nkb * d * 4         # fp32 bounds
+        s_head = 0 if nkb is None else summary_bytes(nkb, d, summary)
         sum_head_slot = np.full(b, s_head, np.int64)
         summaries_b = int(sum_head_slot.sum()) * kv * layers
         full_slot = valid_blocks * kv * layers * k_tile_bytes
+        if nkb is not None and replan_mode == "sketch":
+            pb = nkb if plan_blocks is None else min(int(plan_blocks), nkb)
+            n_cand = sketch_geometry(nkb, pb, sketch_factor)[3]
+            full_slot = (np.minimum(valid_blocks, n_cand) * kv * layers
+                         * k_tile_bytes + sum_head_slot * kv * layers)
         full_b = int(full_slot.sum())
         incr_b = summaries_b + plan_tiles * k_tile_bytes
         rep = np.asarray(replan, np.float64).reshape(-1)

@@ -396,30 +396,45 @@ def sata_decode_on(cfg, max_len: int) -> bool:
     return _use_bisect_impl(cfg.topk_impl, max_len)
 
 
-def _resolve_replan(cfg) -> int:
+def prefix_cache_on(cfg) -> bool:
+    """Shared-prefix page cache (``core.paging.PrefixCache``)?  Only on
+    the paged layout — sharing IS page-table aliasing."""
+    if not cfg.kv.prefix_cache:
+        return False
+    if not paged_kv_on(cfg):
+        raise ValueError(
+            "kv.prefix_cache=True requires kv.layout='paged' — prefix "
+            "sharing aliases physical pages through the page table, which "
+            "the contiguous layout does not have")
+    return True
+
+
+def _resolve_replan(cfg) -> Tuple[int, Optional[float]]:
+    """``sata.decode.replan`` → (interval, churn_budget): an integer
+    keeps the fixed-interval trigger; ``"auto"`` switches to the
+    churn-adaptive trigger with ``sata.decode.churn`` as the budget."""
     rp = cfg.sata.decode.replan
     if rp == "auto":
-        raise NotImplementedError(
-            "sata.decode.replan='auto' (churn-adaptive trigger) is not "
-            "ported yet: slice 3 of the PyTorch port (serving features)")
-    return int(rp)
+        return 1, float(cfg.sata.decode.churn)
+    return int(rp), None
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype, *, device) -> Dict:
     """Serving self-attention cache for one layer: contiguous per-slot
     ``k``/``v`` (B, max_len, KV, hd), or (``kv.layout="paged"``) a
     ``k_pages``/``v_pages`` pool (n_pages, page, KV, hd) plus a per-slot
-    ``page_table`` (B, max_pages).  A SATA decode ``plan`` rides along
-    when routing is on; paged, its block edge must equal the page."""
+    ``page_table`` (B, max_pages).  With the prefix cache on, the paged
+    cache adds the driver-pushed per-page refcounts ``page_ref`` (the
+    write path's shared-page protect) and, with SATA decode, the
+    per-physical-page summary arrays a cache-hit install seeds from.  A
+    SATA decode ``plan`` rides along when routing is on; paged, its
+    block edge must equal the page."""
     from repro_torch.core.decode_plan import init_decode_plan
     hd = cfg.hd
     sata = sata_decode_on(cfg, max_len)
-    if cfg.kv.prefix_cache:
-        raise NotImplementedError(
-            "kv.prefix_cache is not ported yet: slice 3 of the PyTorch "
-            "port (serving features)")
     if paged_kv_on(cfg):
-        from repro_torch.core.paging import OVERFLOW_PAGE
+        from repro_torch.core.paging import (OVERFLOW_PAGE,
+                                             init_page_summaries)
         page = kv_page_size(cfg, max_len)
         if max_len % page:
             raise ValueError(f"max_len ({max_len}) must tile by the page "
@@ -433,6 +448,13 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype, *, device) -> Dict:
             "page_table": torch.full((batch, max_pages), OVERFLOW_PAGE,
                                      dtype=torch.int32, device=device),
         }
+        if prefix_cache_on(cfg):
+            cache["page_ref"] = torch.zeros((n_pages,), dtype=torch.int32,
+                                            device=device)
+            if sata:
+                cache.update(init_page_summaries(
+                    n_pages, cfg.n_kv_heads, hd, cfg.sata.decode.summary,
+                    device=device))
         if sata and decode_block_size(cfg, max_len) != page:
             raise ValueError(
                 f"paged SATA decode needs the page size == the decode "
@@ -443,11 +465,14 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype, *, device) -> Dict:
         cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
                  "v": torch.zeros(shape, dtype=dtype, device=device)}
     if sata:
-        if cfg.sata.qos.ladder or cfg.sata.retire.mode == "on":
+        if cfg.sata.qos.ladder:
             raise NotImplementedError(
-                "the QoS ladder and token retirement are not ported yet: "
-                "slice 3 of the PyTorch port (serving features)")
-        _resolve_replan(cfg)
+                "the QoS ladder is not ported yet: queue A item 16, slice 3 "
+                "of the PyTorch port")
+        if cfg.sata.retire.mode == "on":
+            raise NotImplementedError(
+                "token retirement is not ported yet: queue A item 17, "
+                "slice 3 of the PyTorch port")
         cache["plan"] = init_decode_plan(
             batch, cfg.n_kv_heads, max_len, hd,
             decode_block_size(cfg, max_len), cfg.sata.decode.blocks,
@@ -469,8 +494,9 @@ def _attend_sata_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Decode attention through the incremental plan + gather kernel.
     q: (B, 1, H, hd); k/v: the updated cache (contiguous (B, S, KV, hd)
     or the pool with ``page_table``); k_new: (B, 1, KV, hd) the key row
-    just written; pos: (B,).  Returns ((B, 1, H, hd), plan) with the
-    plan updated in place."""
+    just written; pos: (B,).  The summary backend rides in the plan
+    state; the re-plan trigger and mode come from ``cfg.sata.decode``.
+    Returns ((B, 1, H, hd), plan) with the plan updated in place."""
     from repro_torch.core.decode_plan import (decode_plan_update,
                                               update_block_summaries)
     from repro_torch.kernels.ops import sata_decode_attention
@@ -479,10 +505,12 @@ def _attend_sata_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q[:, 0].reshape(b, kv, h // kv, hd)
     # summarize the value actually WRITTEN to the cache (same dtype cast)
     update_block_summaries(plan, k_new.to(k.dtype), pos, k_block=k_block)
+    interval, churn_budget = _resolve_replan(cfg)
     plan, thr = decode_plan_update(
         plan, qg, k, pos, topk_k=cfg.topk_k, k_block=k_block,
-        replan_interval=_resolve_replan(cfg), page_table=page_table,
-        replan_mode=cfg.sata.decode.replan_mode)
+        replan_interval=interval, churn_budget=churn_budget,
+        page_table=page_table, replan_mode=cfg.sata.decode.replan_mode,
+        sketch_factor=cfg.sata.decode.sketch_factor)
     out = sata_decode_attention(qg, k, v, plan["kv_indices"],
                                 plan["kv_counts"], thr, pos,
                                 k_block=k_block, page_table=page_table)
@@ -538,13 +566,21 @@ def _paged_decode_step(params, cfg, cache: Dict, q: torch.Tensor,
     place), then attend through the paged plan + gather kernel, or
     densely over the gathered logical view without a plan.  A slot
     whose current page is unmapped writes to the overflow page; the
-    serving driver discards that step's output and re-feeds."""
-    from repro_torch.core.paging import logical_kv_view
+    serving driver discards that step's output and re-feeds.
+
+    With the prefix cache on, a write aimed at a SHARED page (pushed
+    refcount ``page_ref > 1``; the driver must copy it first) re-routes
+    to the overflow page before the in-place write, so shared prompt
+    pages stay immutable even against a driver fault."""
+    from repro_torch.core.paging import OVERFLOW_PAGE, logical_kv_view
     b = q.shape[0]
     kp, vp, tbl = cache["k_pages"], cache["v_pages"], cache["page_table"]
     page = kp.shape[1]
     lp = (pos.long() // page).clamp(max=tbl.shape[1] - 1)
     phys = torch.gather(tbl.long(), 1, lp[:, None])[:, 0]
+    ref = cache.get("page_ref")
+    if ref is not None:
+        phys = torch.where(ref[phys] > 1, OVERFLOW_PAGE, phys)
     off = pos.long() % page
     kp[phys, off] = k_new[:, 0].to(kp.dtype)
     vp[phys, off] = v_new[:, 0].to(vp.dtype)

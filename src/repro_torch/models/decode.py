@@ -6,12 +6,16 @@ The serving cache stacks every field over layers (``(L, ...)``, as the
 reference's scanned cache does); each layer's decode step gets a dict
 of views into it and updates them in place, so a step never copies the
 cache.  Host-side bookkeeping (slot claim, allocation) stays in
-``launch/serve.py``.  Serving never trains: the model's parameters are
+``launch/serve.py``.  The shared-prefix cache's device side lives here
+too: the copy-on-write page copy (``copy_phys_pages``), the gather of a
+matched prefix (``gather_prefix_kv``), the continuation prefill over it
+and the install that seeds the matched blocks' plan summaries from the
+per-page summary cache.  Serving never trains: the model's parameters are
 trainable, and these functions run without autograd.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,7 +28,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (_dtype, apply_norm, apply_rope,
                                        embed_apply, mlp_apply, unembed_apply)
 
-_SEED_FIELDS = ("k_min", "k_max", "kv_indices", "kv_counts", "step", "churn")
+_SEED_FIELDS = ("k_min", "k_max", "k_scale", "k_zero", "kv_indices",
+                "kv_counts", "step", "churn")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -77,23 +82,75 @@ def release_slot(cfg: ModelConfig, cache: Dict, slot: int) -> Dict:
     return cache
 
 
-def set_page_table(cfg: ModelConfig, cache: Dict, table) -> Dict:
+def set_page_table(cfg: ModelConfig, cache: Dict, table,
+                   page_ref=None) -> Dict:
     """Push the host allocator's page table (B, max_pages) into the
     device cache, in place, for every layer (all layers of a slot grow
-    in lockstep)."""
-    pt = cache["kv"]["page_table"]
+    in lockstep).  ``page_ref`` (n_pages,) pushes the per-page refcounts
+    alongside when the prefix cache is on — the paged write path
+    write-protects shared pages (refcount > 1) with them."""
+    kv = cache["kv"]
+    pt = kv["page_table"]
     tbl = torch.as_tensor(np.asarray(table), dtype=torch.int32)
     pt.copy_(tbl.to(pt.device).expand_as(pt))
+    if page_ref is not None and "page_ref" in kv:
+        ref = torch.as_tensor(np.asarray(page_ref), dtype=torch.int32)
+        kv["page_ref"].copy_(ref.to(pt.device).expand_as(kv["page_ref"]))
     return cache
+
+
+def copy_phys_pages(cache: Dict, pairs) -> Dict:
+    """Copy-on-write, device side, in place: for each ``(src, dst)``
+    physical page pair the allocator remapped
+    (``PageAllocator.ensure_writable``) copy the K/V page rows and the
+    per-page summary rows, across all layers.  Rows past the writer's
+    position are masked on every read, so a whole-page copy is exact."""
+    if not pairs:
+        return cache
+    kv = cache["kv"]
+    dev = kv["k_pages"].device
+    src = torch.as_tensor([s for s, _ in pairs], dtype=torch.long,
+                          device=dev)
+    dst = torch.as_tensor([d for _, d in pairs], dtype=torch.long,
+                          device=dev)
+    for f in ("k_pages", "v_pages", "page_k_min", "page_k_max",
+              "page_k_scale", "page_k_zero"):
+        if f in kv:
+            kv[f][:, dst] = kv[f][:, src]
+    return cache
+
+
+def gather_prefix_kv(cache: Dict, table_row, prefix_len: int) -> Dict:
+    """Gather a slot's first ``prefix_len`` cached K/V rows from the
+    pool into the logical layout — the matched shared prefix a tail
+    prefill attends over.  ``table_row``: the slot's page-table row
+    (host numpy).  Returns {"k", "v"}: (L, 1, prefix_len, KV, hd)."""
+    kv = cache["kv"]
+    page = kv["k_pages"].shape[2]
+    n_lp = -(-prefix_len // page)
+    phys = torch.as_tensor(np.asarray(table_row[:n_lp]), dtype=torch.long,
+                           device=kv["k_pages"].device)
+
+    def g(pool):
+        x = pool[:, phys]                        # (L, n_lp, page, KV, hd)
+        x = x.reshape(x.shape[0], n_lp * page, *x.shape[3:])
+        return x[:, None, :prefix_len]
+
+    return {"k": g(kv["k_pages"]), "v": g(kv["v_pages"])}
 
 
 def _dec_mlp(p, cfg, x):
     return x + mlp_apply(p["mlp"], cfg, apply_norm(p["ln2"], cfg, x))
 
 
+# prefill rows run in blocks of this many, aligned to absolute positions
+PREFILL_ROWS = 256
+
+
 @torch.no_grad()
 def prefill_prompt(model, cfg: ModelConfig, tokens: torch.Tensor,
-                   max_len: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                   max_len: int, prefix_kv: Optional[Dict] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Full-sequence prompt prefill for serving.  Runs the decoder over
     the whole (B, S_p) prompt and returns the last position's logits
     (B, V) fp32 plus the state ``install_prefill`` places into a slot:
@@ -101,37 +158,78 @@ def prefill_prompt(model, cfg: ModelConfig, tokens: torch.Tensor,
     per-layer ``plan`` (``plan_from_prefill``: summaries over the
     written keys, the prompt tail's selected blocks, ``step`` off the
     re-plan beat).  Attention is the dense top-k reference
-    (``attn._attend``), the same selection decode uses."""
+    (``attn._attend``), the same selection decode uses.
+
+    Continuation (``prefix_kv`` = {"k", "v"} (L, B, m, KV, hd), the
+    matched prefix's cached rows — the shared-prefix hit path):
+    ``tokens`` is the unmatched tail, run at positions ``m..m+S_p-1``
+    over prefix + tail keys, and the seeded plan covers the concatenated
+    keys, as a full-prompt prefill's would.
+
+    Every operation on rows runs once per block of ``PREFILL_ROWS``
+    positions, aligned to position 0, and attends over all the prompt's
+    keys.  A continuation computes from the block holding position ``m``
+    (the rows before ``m`` in it take zero inputs; their keys and values
+    come from the prefix, their outputs are dropped), so each of its
+    rows goes through the operations, at the shapes, that a full prefill
+    gives that row.  On the card cuBLAS and the reductions choose their
+    summation order by shape, so only this makes a cache hit's tail,
+    logits and plan bitwise a miss's."""
     _check_family(cfg)
     b, sp = tokens.shape
-    # strictly less: the first decode step writes at pos == sp
-    assert sp < max_len, (sp, max_len)
+    m = 0 if prefix_kv is None else int(prefix_kv["k"].shape[2])
+    # strictly less: the first decode step writes at pos == m + sp
+    assert m + sp < max_len, (m, sp, max_len)
     dt = _dtype(cfg)
     kvh, hd = cfg.n_kv_heads, cfg.hd
     g = cfg.n_heads // kvh
     seed_plan = attn.sata_decode_on(cfg, max_len)
     blk = attn.decode_block_size(cfg, max_len)
     dev = tokens.device
-    positions = torch.arange(sp, device=dev)
+    total = m + sp
+    start = m - m % PREFILL_ROWS               # first computed row
+    pad = m - start                             # rows before m in its block
+    positions = torch.arange(start, total, device=dev)
+    k_positions = torch.arange(total, device=dev)
     x = embed_apply(model["embed"], tokens).to(dt)
+    x = torch.cat([x.new_zeros((b, pad) + x.shape[2:]), x], dim=1)
+    cuts = [(a - start, min(a + PREFILL_ROWS, total) - start)
+            for a in range(start, total, PREFILL_ROWS)]
+
+    def by_block(fn, *ts):
+        outs = [fn(*(t[:, lo:hi] for t in ts)) for lo, hi in cuts]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(o, dim=1) for o in zip(*outs))
+        return torch.cat(outs, dim=1)
+
     ks, vs, seeds = [], [], []
-    for p in model["layers"]:
-        hn = apply_norm(p["ln1"], cfg, x)
-        q, k, v = attn._project_qkv(p["attn"], cfg, hn)
+    for i, p in enumerate(model["layers"]):
+        hn = by_block(lambda t: apply_norm(p["ln1"], cfg, t), x)
+        q, k, v = by_block(lambda t: attn._project_qkv(p["attn"], cfg, t), hn)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        out = attn._attend(q, k, v, cfg, positions, positions, causal=True)
-        y = out.reshape(b, sp, cfg.n_heads * hd) @ p["attn"]["wo"]
-        x = _dec_mlp(p, cfg, x + y)
-        ks.append(k.to(dt))
-        vs.append(v.to(dt))
+        kc, vc = k[:, pad:].to(dt), v[:, pad:].to(dt)
+        k_all, v_all = kc, vc
+        if prefix_kv is not None:
+            # the cached prefix rows are bitwise the rows the skipped
+            # positions would produce, so this is the full prefill's math
+            k_all = torch.cat([prefix_kv["k"][i], kc], dim=1)
+            v_all = torch.cat([prefix_kv["v"][i], vc], dim=1)
+        out = by_block(lambda qb, pb: attn._attend(
+            qb, k_all, v_all, cfg, pb[0], k_positions, causal=True),
+            q, positions[None])
+        y = by_block(lambda t: t.reshape(b, t.shape[1], cfg.n_heads * hd)
+                     @ p["attn"]["wo"], out)
+        x = by_block(lambda t, u: _dec_mlp(p, cfg, t + u), x, y)
+        ks.append(kc)
+        vs.append(vc)
         if seed_plan:
             # seed from the WRITTEN keys, padded to the logical length
             k_pad = torch.zeros((b, max_len, kvh, hd), dtype=dt, device=dev)
-            k_pad[:, :sp] = k.to(dt)
+            k_pad[:, :total] = k_all
             seeds.append(plan_from_prefill(
                 k_pad, q[:, -1].reshape(b, kvh, g, hd),
-                torch.full((b,), sp - 1, dtype=torch.int32, device=dev),
+                torch.full((b,), total - 1, dtype=torch.int32, device=dev),
                 topk_k=cfg.topk_k, k_block=blk,
                 plan_blocks=cfg.sata.decode.blocks,
                 summary=cfg.sata.decode.summary))
@@ -145,34 +243,77 @@ def prefill_prompt(model, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def install_prefill(cfg: ModelConfig, cache: Dict, slot: int,
-                    state: Dict[str, Any], phys_pages=None) -> Dict:
+                    state: Dict[str, Any], phys_pages=None, *,
+                    prefix_len: int = 0) -> Dict:
     """Place one prefilled request (``prefill_prompt`` output, B=1) into
     serving slot ``slot``, in place: the prompt K/V rows into the slot's
     contiguous region or, paged, scattered through ``phys_pages`` (the
     slot's mapped pages in logical order), and the seeded plan rows into
-    the slot's plan state."""
+    the slot's plan state.
+
+    ``prefix_len > 0`` is the shared-prefix install (paged only):
+    ``state`` came from a continuation prefill over the unmatched tail
+    and the matched pages are already mapped, so only the tail rows are
+    written.  With the per-page summary arrays in the cache, the plan
+    summaries of fully matched blocks are seeded FROM the summary cache
+    (bit-identical to the seed's recompute under either backend), and
+    every full prompt page's summary row is (re)registered for later
+    hits."""
     ks, vs = state["k"], state["v"]                   # (L, 1, S_p, KV, hd)
     sp = ks.shape[2]
+    total = prefix_len + sp
     kv = cache["kv"]
+    seed = state.get("plan")
     if "k_pages" in kv:
         assert phys_pages is not None, "paged install needs the pages"
         page = kv["k_pages"].shape[2]
         row = np.asarray(phys_pages).reshape(-1)
-        assert row.shape[0] * page >= sp, (row.shape[0], page, sp)
-        tok = np.arange(sp)
+        assert row.shape[0] * page >= total, (row.shape[0], page, total)
+        tok = np.arange(prefix_len, total)
         dev = kv["k_pages"].device
         phys_w = torch.as_tensor(row[tok // page], dtype=torch.long,
                                  device=dev)
         off_w = torch.as_tensor(tok % page, dtype=torch.long, device=dev)
         kv["k_pages"][:, phys_w, off_w] = ks[:, 0].to(kv["k_pages"].dtype)
         kv["v_pages"][:, phys_w, off_w] = vs[:, 0].to(kv["v_pages"].dtype)
+        if seed is not None and "page_k_min" in kv:
+            _seed_page_summaries(kv, seed, row, prefix_len // page,
+                                 total // page)
     else:
+        assert prefix_len == 0, "shared-prefix install is paged-only"
         kv["k"][:, slot, :sp] = ks[:, 0].to(kv["k"].dtype)
         kv["v"][:, slot, :sp] = vs[:, 0].to(kv["v"].dtype)
-    if "plan" in state and "plan" in kv:
+    if seed is not None and "plan" in kv:
         for name in _SEED_FIELDS:
-            kv["plan"][name][:, slot] = state["plan"][name][:, 0]
+            if name in kv["plan"]:
+                kv["plan"][name][:, slot] = seed[name][:, 0]
     return cache
+
+
+# page-summary array → its plan-state field; bounds are (.., KV, D) per
+# page and (.., KV, nkb, D) in the plan, scale/zero drop the D axis
+_PAGE_SUMMARY = (("page_k_min", "k_min"), ("page_k_max", "k_max"),
+                 ("page_k_scale", "k_scale"), ("page_k_zero", "k_zero"))
+
+
+def _seed_page_summaries(kv: Dict, seed: Dict, row: np.ndarray,
+                         n_shared: int, n_full: int) -> None:
+    """The install's summary-cache step, in place: the seed's first
+    ``n_shared`` blocks (fully matched pages) take the cached page rows,
+    then the first ``n_full`` blocks (full prompt pages) are written back
+    to the cache.  ``seed`` holds (L, 1, KV, nkb, ...) plan fields."""
+    dev = kv["page_k_min"].device
+    for page_f, plan_f in _PAGE_SUMMARY:
+        if page_f not in kv:
+            continue
+        if n_shared:
+            ph = torch.as_tensor(row[:n_shared], dtype=torch.long,
+                                 device=dev)
+            seed[plan_f][:, 0, :, :n_shared] = \
+                kv[page_f][:, ph].transpose(1, 2)
+        if n_full:
+            ph = torch.as_tensor(row[:n_full], dtype=torch.long, device=dev)
+            kv[page_f][:, ph] = seed[plan_f][:, 0, :, :n_full].transpose(1, 2)
 
 
 @torch.no_grad()

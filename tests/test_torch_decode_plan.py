@@ -176,15 +176,33 @@ def test_slot_reset_and_release_match():
 
 @pytest.mark.parametrize("what", ["int8", "sketch", "auto"])
 def test_slice3_modes_raise(what):
+    """The int8 backend, sketch re-plans and the churn trigger are
+    ported (``test_torch_summary_backend.py`` holds them against the
+    reference): each now runs, while its slice-3 neighbour still unported
+    — the QoS knob vectors (item 16) and the retirement state (item 17)
+    — raises, naming its item."""
     q, k, pos = _inputs(9)
+    summary = "int8" if what == "int8" else "fp32"
+    tp = tdp.init_decode_plan(B, KV, S, D, BLK, summary=summary,
+                              device="cpu")
+    lo, hi = tdp.summaries_from_cache(*_t(k, pos), k_block=BLK)
     if what == "int8":
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            tdp.init_decode_plan(B, KV, S, D, BLK, summary="int8",
-                                 device="cpu")
-        return
-    _, tp = _plan_pair(k, pos, step=(0, 0, 0))
-    kw = ({"replan_mode": "sketch"} if what == "sketch"
-          else {"churn_budget": 0.25})
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tdp.decode_plan_update(tp, *_t(q, k), torch.from_numpy(pos),
-                               topk_k=TOPK, k_block=BLK, **kw)
+        for name, v in zip(("k_min", "k_max", "k_scale", "k_zero"),
+                           tdp.quantize_summaries(lo, hi)):
+            tp[name].copy_(v)
+    else:
+        tp["k_min"].copy_(lo)
+        tp["k_max"].copy_(hi)
+    kw = {"int8": {"replan_interval": 2},
+          "sketch": {"replan_mode": "sketch"},
+          "auto": {"churn_budget": 0.25}}[what]
+    tdp.decode_plan_update(tp, *_t(q, k), torch.from_numpy(pos),
+                           topk_k=TOPK, k_block=BLK, **kw)
+    assert int(tp["replans"].sum()) == B      # step 0: every slot re-plans
+    extra, item = {"int8": ("budget", "item 16"),
+                   "sketch": ("budget", "item 16"),
+                   "auto": ("live_blk", "item 17")}[what]
+    with pytest.raises(NotImplementedError, match=item):
+        tdp.decode_plan_update({**tp, extra: torch.ones(B)}, *_t(q, k),
+                               torch.from_numpy(pos), topk_k=TOPK,
+                               k_block=BLK, **kw)
