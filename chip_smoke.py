@@ -4,8 +4,9 @@ checkout's sources, holds each against its plain PyTorch version on the
 card, serves full-width qwen3-4b (random weights, 36 layers) through the
 port's paged and contiguous serving paths, trains it through the SATA
 prefill kernels, serves it again through the shared-prefix page cache
-and the int8 / sketch summary backends, and times every kernel at its
-main path's shape.
+and the int8 / sketch summary backends and under host swaps, a crash
+and a corrupted swap handle, kills and resumes a serve from its
+checkpoint, and times every kernel at its main path's shape.
 
     python3 chip_smoke.py            # needs one CUDA GPU (an H100 here)
     python3 chip_smoke.py --mutants  # phases 2 and 6 (and 8 for the
@@ -79,7 +80,20 @@ Phases (any failure exits non-zero; none is caught so a later one runs):
      ``kv_indices`` naming valid blocks; at the main shape
      ``sketch_replan`` with C·F >= nkb == ``full_replan`` bitwise; one
      layer's exact re-plan, int8 incremental step and int8 sketch re-plan
-     on the host clock.
+     on the host clock;
+ 13. faults: (a) phase 11's workload under ``fault_plan()`` — a slot
+     preempted into a parked host-swap handle (the pool squeezed dry),
+     a byte of it flipped (caught at the claim gate, quarantined,
+     re-prefilled), a second parked handle, a crash that swaps every
+     live slot to host in full and rebuilds the device cache and the
+     allocator, then the squeeze returned: token streams equal phase
+     11's, host swaps >= 2 pinning shared prefix pages, one crash, one
+     corruption injected and detected, no requeue and no cold re-plan,
+     the paged kernel's launches = layers x decode steps, the audit
+     after the run; the swap path's ms, bytes, GB/s and crc32 share,
+     the host's crc32 rate (in place and over a copy), the crash to the
+     next decode step and device memory around the rebuild; (b) at CKPT_LAYERS layers, a serve killed after a
+     checkpoint and resumed from disk equals the uninterrupted run.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the ``kernels`` JSON, and the card's name and power limit are
@@ -1184,14 +1198,14 @@ def prefix_cache_phase(torch, sd, serve, cfg, model, opts, tag):
     """Phase 11: phase 3's path with ``shared_prefix_len=1000``, served
     with the prefix cache on and off: equal token streams, hits, copies
     on write and shared pages, and the allocator's audit after the run.
-    Returns the cache-on run's paged-kernel launches."""
+    Returns the cache-on run's report."""
     from repro_torch.launch import serve as serve_mod
     sp_opts = dataclasses.replace(opts, shared_prefix_len=SHARED_PREFIX)
     on_cfg = dataclasses.replace(cfg, kv=dataclasses.replace(
         cfg.kv, prefix_cache=True))
     tries = []
     with recording(serve_mod, "PrefixCache", tries):
-        on, n_on = serve_full(torch, sd, serve, on_cfg, model, sp_opts,
+        on, _ = serve_full(torch, sd, serve, on_cfg, model, sp_opts,
                               "prefix on", tag)
     off, _ = serve_full(torch, sd, serve, cfg, model, sp_opts, "prefix off",
                         tag)
@@ -1213,7 +1227,7 @@ def prefix_cache_phase(torch, sd, serve, cfg, model, opts, tag):
         f"final check_invariants passed; pages held at peak with / "
         f"without the cache {on['page_occupancy']['pages_in_use_peak']} / "
         f"{off['page_occupancy']['pages_in_use_peak']} {tag}")
-    return n_on
+    return on
 
 
 def check_final_plans(torch, cache, pos, max_len):
@@ -1346,6 +1360,320 @@ def planner_times(torch, c, tag):
     log("[timing] planner per layer (B8, KV8, G4, D128, pages of 64, pos "
         "1024-1087, host clock after synchronize): " + ", ".join(
             f"{n} {t:.4f} ms" for n, t in times.items()) + f" {tag}")
+
+
+# phase 13a's fault schedule over phase 11's workload, by loop step: slot 0
+# is preempted and the pool squeezed dry in the same step, so its handle
+# stays parked; a byte of that handle is flipped while it waits (caught
+# at the claim gate: quarantine, trie invalidation, re-prefill); slot 1
+# is preempted into a second parked handle; the crash turns that
+# handle's pins into payload and swaps every live slot out in full; the
+# restore returns the squeezed pages
+FAULT_STEPS = {"park": 4, "corrupt": 6, "second": 8, "crash": 10,
+               "restore": 12}
+CKPT_LAYERS = 4          # phase 13b: full width, 4 layers
+CKPT_POOL = 160          # pages: a checkpoint of a few hundred MB
+CKPT_EVERY, CKPT_KILL = 8, 10
+
+
+def fault_plan():
+    from repro_torch.launch.faults import FaultPlan
+    s = FAULT_STEPS
+    return (FaultPlan()
+            .preempt(s["park"], slot=0).pool_squeeze(s["park"], 10 ** 6)
+            .corrupt_page(s["corrupt"], 0)
+            .preempt(s["second"], slot=1)
+            .crash_step(s["crash"])
+            .pool_restore(s["restore"]))
+
+
+class SwapClock:
+    """Host-clock timing of the swap path inside one serve: each wrapped
+    call (outermost only) is timed between ``torch.cuda.synchronize()``
+    calls, with the crc32 time and bytes spent inside it; ``at`` and
+    ``serve_step`` marks time the crash from its event to the next
+    decode step, and ``init_cache`` marks device memory around the
+    rebuild."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.rows = []          # (kind, ms, crc ms, crc bytes, pins)
+        self.depth = 0
+        self.crc_ms = self.crc_bytes = 0.0
+        self.marks = {}
+
+    def _sync_ms(self):
+        self.torch.cuda.synchronize()
+        return 1e3 * time.perf_counter()
+
+    def timed(self, owner, name, kind):
+        fn = getattr(owner, name)
+
+        def wrapped(*a, **kw):
+            top = self.depth == 0
+            if top:
+                self.crc_ms = self.crc_bytes = 0.0
+                t = self._sync_ms()
+            self.depth += 1
+            try:
+                out = fn(*a, **kw)
+            finally:
+                self.depth -= 1
+            if top:
+                pins = (int((out["resident"] >= 0).sum())
+                        if kind == "swap_out" else 0)
+                self.rows.append((kind, self._sync_ms() - t, self.crc_ms,
+                                  self.crc_bytes, pins))
+            return out
+        return fn, wrapped
+
+    def crc(self, fn):
+        def wrapped(payload):
+            t = time.perf_counter()
+            out = fn(payload)
+            self.crc_ms += 1e3 * (time.perf_counter() - t)
+            self.crc_bytes += sum(v.nbytes for v in payload.values())
+            return out
+        return wrapped
+
+    def mark(self, key, fn, when=lambda *a: True, memory=False):
+        def wrapped(*a, **kw):
+            if when(*a) and key + "_in" not in self.marks:
+                self.marks[key + "_in"] = self._sync_ms()
+                if memory:
+                    self.marks[key + "_mem_in"] = \
+                        self.torch.cuda.memory_allocated()
+                out = fn(*a, **kw)
+                self.marks[key + "_out"] = self._sync_ms()
+                if memory:
+                    self.marks[key + "_mem_out"] = \
+                        self.torch.cuda.memory_allocated()
+                return out
+            return fn(*a, **kw)
+        return wrapped
+
+    def summary(self, kind):
+        rows = [r for r in self.rows if r[0] == kind]
+        ms = sum(r[1] for r in rows)
+        crc_ms = sum(r[2] for r in rows)
+        nbytes = sum(r[3] for r in rows)
+        return len(rows), ms, crc_ms, nbytes
+
+
+@contextlib.contextmanager
+def swap_clock(torch, fp):
+    """Install a ``SwapClock`` over the allocator's swap methods, the
+    payload checksum, the plan capture / restore, ``fp``'s ``at`` (the
+    crash event), ``serve_step`` (the first step after it) and
+    ``init_cache`` (memory around the rebuild); undo on exit."""
+    from repro_torch.core import paging
+    from repro_torch.models import decode as dec
+    clock = SwapClock(torch)
+    patches = [(paging.PageAllocator, n, *clock.timed(
+        paging.PageAllocator, n, n)) for n in
+        ("swap_out", "swap_to_full", "swap_in", "verify_handle")]
+    patches += [(dec, n, *clock.timed(dec, n, n))
+                for n in ("capture_plan_state", "restore_plan_state")]
+    crc = paging._payload_checksums
+    patches.append((paging, "_payload_checksums", crc, clock.crc(crc)))
+    crash = FAULT_STEPS["crash"]
+    at = fp.at
+    fp.at = clock.mark("crash", at, lambda step: step == crash, memory=True)
+    step = dec.serve_step
+    patches.append((dec, "serve_step", step, clock.mark(
+        "after_crash", step, lambda *a: "crash_in" in clock.marks)))
+    init = dec.init_cache
+    patches.append((dec, "init_cache", init, clock.mark(
+        "rebuild", init, lambda *a: "crash_in" in clock.marks,
+        memory=True)))
+    for owner, name, _, new in patches:
+        setattr(owner, name, new)
+    try:
+        yield clock
+    finally:
+        for owner, name, old, _ in patches:
+            setattr(owner, name, old)
+        fp.at = at
+
+
+def crc_rates(tag, nbytes=128 * 2 ** 20, reps=3):
+    """The host's crc32 rate over one swap-sized payload: the port's
+    ``_payload_checksums`` (the buffer in place) against the same sum
+    over a ``tobytes()`` copy, in turns."""
+    import zlib
+    from repro_torch.core.paging import _payload_checksums
+    a = np.random.default_rng(0).integers(-2 ** 15, 2 ** 15, nbytes // 2,
+                                          dtype=np.int16)
+    forms = {"in place": lambda: _payload_checksums({"a": a})["a"],
+             "tobytes copy": lambda: zlib.crc32(a.tobytes())}
+    best = {}
+    for _ in range(reps):
+        for name, fn in forms.items():
+            t = time.perf_counter()
+            crc = fn()
+            best[name] = min(best.get(name, 1e9), time.perf_counter() - t)
+            assert crc == zlib.crc32(a.tobytes()), name
+    log(f"[faults] host crc32 over {nbytes / 1e6:.1f} MB (best of {reps}): "
+        + ", ".join(f"{n} {nbytes / t / 1e9:.3f} GB/s"
+                    for n, t in best.items()) + f" {tag}")
+
+
+def fault_phase(torch, sd, cfg, model, opts, phase11, tag):
+    """Phase 13a: phase 11's workload (prefix cache on, 36 layers) under
+    ``fault_plan()``: the token streams must equal phase 11's, with two
+    or more host swaps whose handles pin shared prefix pages, one crash
+    restored from host swap, the corrupted handle quarantined, no
+    requeue and no cold re-plan, the paged kernel launched layers x
+    steps, and the allocator's audit passing after the run."""
+    from repro_torch.launch import serve as serve_mod
+    sp_opts = dataclasses.replace(opts, shared_prefix_len=SHARED_PREFIX)
+    on_cfg = dataclasses.replace(cfg, kv=dataclasses.replace(
+        cfg.kv, prefix_cache=True))
+    fp = fault_plan()
+    allocs = []
+    sd.sata_decode_attention_paged_kernel.launches = 0
+    sd.sata_decode_attention_kernel.launches = 0
+    with recording(serve_mod, "PageAllocator", allocs), \
+            swap_clock(torch, fp) as clock:
+        out = serve_mod.serve("qwen3-4b", smoke=False, cfg=on_cfg,
+                              model=model, options=sp_opts,
+                              device=next(model.parameters()).device,
+                              faults=fp)
+        torch.cuda.synchronize()
+    n = sd.sata_decode_attention_paged_kernel.launches
+    assert out["outputs"] == phase11["outputs"], \
+        "the fault run serves other token streams than phase 11"
+    assert n == cfg.n_layers * out["steps"], \
+        f"faults: {n} launches != {cfg.n_layers} x {out['steps']}"
+    assert sd.sata_decode_attention_kernel.launches == 0
+    o = out["page_occupancy"]
+    assert o["host_swaps"] >= 2 and o["crashes"] == 1, o
+    assert o["corrupt_pages_detected"] == o["corrupt_pages_injected"] == 1, o
+    assert o["quarantined_pages"] > 0, o
+    assert o["requeue_preemptions"] == 0 and o["swap_cold_replans"] == 0, o
+    assert o["audits_run"] > 0, o
+    pinned = [r for r in clock.rows if r[0] == "swap_out" and r[4] > 0]
+    assert len(pinned) >= 2, "fewer than two swaps pinned shared pages"
+    assert len(allocs) == 2, f"{len(allocs)} allocators (crash rebuilds 1)"
+    alloc = allocs[-1][2]
+    alloc.check_invariants()
+    assert not alloc.swapped, "a swap handle is still outstanding"
+    log(f"[faults] token streams == phase 11's: True; {out['steps']} "
+        f"steps (phase 11: {phase11['steps']}), paged kernel launches {n} "
+        f"(= {cfg.n_layers} x {out['steps']}); host swaps "
+        f"{o['host_swaps']} ({len(pinned)} pinning shared pages), "
+        f"restores {o['swap_restores']}, crashes {o['crashes']}, corrupt "
+        f"injected/detected {o['corrupt_pages_injected']}/"
+        f"{o['corrupt_pages_detected']}, quarantined pages "
+        f"{o['quarantined_pages']}, trie nodes invalidated "
+        f"{o['trie_nodes_invalidated']}, requeues "
+        f"{o['requeue_preemptions']}, cold re-plans "
+        f"{o['swap_cold_replans']}, re-prefilled tokens "
+        f"{o['re_prefill_tokens']}, tokens salvaged "
+        f"{o['tokens_salvaged']}, host swap bytes peak "
+        f"{o['host_swap_bytes_peak']}, {o['audits_run']} audits + the "
+        f"final check_invariants passed {tag}")
+    for kind in ("swap_out", "swap_to_full", "swap_in", "verify_handle",
+                 "capture_plan_state", "restore_plan_state"):
+        k, ms, crc_ms, nbytes = clock.summary(kind)
+        if not k:
+            continue
+        line = f"[faults] {kind}: {k} calls, {ms / k:.3f} ms each"
+        if nbytes:
+            line += (f", {nbytes / k / 1e6:.2f} MB payload each, "
+                     f"{nbytes / ms / 1e6:.3f} GB/s, crc32 {crc_ms / k:.3f}"
+                     f" ms each ({100 * crc_ms / ms:.1f}% of the call, "
+                     f"{nbytes / crc_ms / 1e6:.3f} GB/s)")
+        log(line + f" {tag}")
+    crc_rates(tag)
+    mk = clock.marks
+    log(f"[faults] crash → first decode step after it "
+        f"{mk['after_crash_in'] - mk['crash_in']:.1f} ms (the swap-outs "
+        f"to host, the rebuild {mk['rebuild_out'] - mk['rebuild_in']:.1f}"
+        f" ms, the re-admissions that fit); memory_allocated before the "
+        f"crash {mk['crash_mem_in'] / 2 ** 30:.3f} GiB, at the rebuild "
+        f"(old pool dropped) {mk['rebuild_mem_in'] / 2 ** 30:.3f} GiB, "
+        f"after it {mk['rebuild_mem_out'] / 2 ** 30:.3f} GiB; swap restore "
+        f"wall {1e3 * o['swap_restore_wall_s']:.1f} ms in all; mean decode "
+        f"step {out['step_ms_mean']:.2f} ms (phase 11: "
+        f"{phase11['step_ms_mean']:.2f}) {tag}")
+    assert mk["rebuild_mem_in"] < mk["crash_mem_in"], \
+        "the crash did not drop the device pool"
+    return out
+
+
+def checkpoint_phase(torch, sd, cfg, opts, dev, root, tag):
+    """Phase 13b: phase 11's workload at full width and CKPT_LAYERS
+    layers, a CKPT_POOL-page pool, under a schedule that parks a swap
+    handle across a save: the run killed at CKPT_KILL after a save at
+    CKPT_EVERY and resumed from disk serves the streams of the
+    uninterrupted run, its cache restored onto the card."""
+    import shutil
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.faults import FaultPlan
+    from repro_torch.models import decode as dec
+    from repro_torch.models.model import DenseModel
+    c4 = dataclasses.replace(cfg, n_layers=CKPT_LAYERS, kv=dataclasses.replace(
+        cfg.kv, prefix_cache=True, pool_pages=CKPT_POOL))
+    model = DenseModel(c4, device=dev, seed=0)
+    sp_opts = dataclasses.replace(opts, shared_prefix_len=SHARED_PREFIX)
+    d = os.path.join(root, "build", "serve_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+
+    def run(**res):
+        fp = (FaultPlan().preempt(CKPT_EVERY - 1, slot=0)
+              .defer_admission(CKPT_EVERY - 1).defer_admission(CKPT_EVERY))
+        t = time.perf_counter()
+        out = serve_mod.serve("qwen3-4b", smoke=False, cfg=c4, model=model,
+                              options=sp_opts, device=dev, faults=fp,
+                              resilience=serve_mod.ResilienceOptions(**res))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    try:
+        base, t_base = run()
+        t = time.perf_counter()
+        try:
+            run(checkpoint_dir=d, checkpoint_every=CKPT_EVERY,
+                kill_at_step=CKPT_KILL)
+            raise AssertionError("kill_at_step did not stop the serve")
+        except serve_mod.ServeKilled:
+            t_kill = time.perf_counter() - t
+        sizes = {s: sum(os.path.getsize(os.path.join(p, f))
+                        for p, _, fs in os.walk(os.path.join(d, s))
+                        for f in fs) for s in sorted(os.listdir(d))}
+        caches = []
+        with recording(dec, "init_cache", caches):
+            out, t_res = run(checkpoint_dir=d, checkpoint_every=CKPT_EVERY,
+                             resume=True)
+        on_card = all(t.device.type == dev.type for _, _, c in caches
+                      for t in _tensors(c))
+        del caches
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    assert out["checkpoint"]["resumed_at"] == CKPT_EVERY, out["checkpoint"]
+    assert out["outputs"] == base["outputs"], \
+        "the resumed serve's token streams differ from the uninterrupted run"
+    assert on_card, "the resumed cache is not on the card"
+    assert base["page_occupancy"]["host_swaps"] >= 1
+    log(f"[checkpoint] {CKPT_LAYERS} layers, {CKPT_POOL} pages: killed at "
+        f"step {CKPT_KILL} after a save at {CKPT_EVERY}, resumed at "
+        f"{out['checkpoint']['resumed_at']}: token streams == the "
+        f"uninterrupted run's: True, resumed cache on the card: True; "
+        f"checkpoints on disk "
+        f"{', '.join(f'{k} {v / 1e6:.1f} MB' for k, v in sizes.items())};"
+        f" wall: uninterrupted {t_base:.2f} s, killed run {t_kill:.2f} s, "
+        f"resumed run {t_res:.2f} s {tag}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    else:
+        yield tree
 
 
 # one-line faults of the kernels that phases 2 and 6 must catch:
@@ -1904,10 +2232,15 @@ def main() -> int:
 
     # --- 11.-12. the shared-prefix cache and the summary backends
     model = DenseModel(cfg, device=dev, seed=0)
-    prefix_cache_phase(torch, sd, serve, cfg, model, opts, tag)
+    phase11 = prefix_cache_phase(torch, sd, serve, cfg, model, opts, tag)
     summary_phase(torch, sd, serve, cfg, model, opts,
                   runs["paged"][0]["outputs"], main_case, tag)
+
+    # --- 13. host swap, crash, quarantine; serve checkpoint / resume
+    fault_phase(torch, sd, cfg, model, opts, phase11, tag)
     del model
+    torch.cuda.empty_cache()
+    checkpoint_phase(torch, sd, cfg, opts, dev, root, tag)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -61,10 +61,13 @@ class CheckpointManager:
 
     # ------------------------------------------------------------- save
     def save(self, step: int, state: Any, extra: Optional[Dict] = None,
-             blocking: bool = True) -> None:
+             blocking: bool = True,
+             meta_blob: Optional[bytes] = None) -> None:
         """Snapshot ``state`` now (owning host copies) and write it as
         ``step_<step>``, on a background thread unless ``blocking``.
-        ``extra`` (JSON) goes into the manifest."""
+        ``extra`` (JSON) goes into the manifest; ``meta_blob``, opaque
+        host bytes (the serve loop's pickled control state), is written
+        atomically beside the leaves as ``meta.bin`` (``load_meta``)."""
         self.wait()                                   # one in flight max
         host = {name: _host_copy(t) for name, t in _leaves(state)}
 
@@ -78,6 +81,8 @@ class CheckpointManager:
             manifest = {"step": step, "n_leaves": len(host),
                         "leaves": list(host), "extra": extra or {}}
             (tmp / "manifest.json").write_text(json.dumps(manifest))
+            if meta_blob is not None:
+                (tmp / "meta.bin").write_bytes(meta_blob)
             if final.exists():
                 shutil.rmtree(final)
             os.replace(tmp, final)
@@ -138,3 +143,11 @@ class CheckpointManager:
         step = self.latest_step() if step is None else step
         return json.loads(
             (self.dir / f"step_{step}" / "manifest.json").read_text())
+
+    def load_meta(self, step: Optional[int] = None) -> bytes:
+        """The ``meta_blob`` saved with ``step`` (default: the latest)."""
+        self.wait()
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.dir}")
+        return (self.dir / f"step_{step}" / "meta.bin").read_bytes()

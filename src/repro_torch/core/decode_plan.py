@@ -209,6 +209,41 @@ def release_plan_slot(plan: PlanState, slot, *, batch_axis: int = 0
     return plan
 
 
+# A slot's complete plan state — what host-swap preemption moves besides
+# its pages: summaries, selected blocks, the re-plan beat (``step``),
+# churn, the cumulative re-plan counter and liveness.  The reference also
+# lists its retirement fields (``imp``/``live_blk``), which this port's
+# plan does not carry (queue A item 17); names absent from the plan are
+# skipped.
+PLAN_SLOT_FIELDS = ("k_min", "k_max", "k_scale", "k_zero", "kv_indices",
+                    "kv_counts", "step", "churn", "replans", "active",
+                    "imp", "live_blk")
+
+
+def capture_plan_slot(plan: PlanState, slot, *, batch_axis: int = 0
+                      ) -> Dict[str, np.ndarray]:
+    """Host snapshot of one slot's plan state.  Each field is an owning
+    numpy copy taken synchronously (a CPU tensor's ``.numpy()`` would be
+    a view of the live plan, which the slot's next occupant rewrites);
+    ``install_plan_slot`` puts it back bitwise."""
+    ix = (slice(None),) * batch_axis + (slot,)
+    return {name: plan[name][ix].to("cpu", copy=True).numpy()
+            for name in PLAN_SLOT_FIELDS if name in plan}
+
+
+def install_plan_slot(plan: PlanState, slot, saved: Dict[str, np.ndarray],
+                      *, batch_axis: int = 0) -> PlanState:
+    """Reset-free reinstall of a ``capture_plan_slot`` snapshot into
+    ``slot``, in place and bitwise — ``step`` included, so the first
+    step after a restore keeps the slot's re-plan beat instead of
+    running a cold full re-plan, and ``active`` (captured live)."""
+    ix = (slice(None),) * batch_axis + (slot,)
+    for name, val in saved.items():
+        t = plan[name]
+        t[ix] = torch.from_numpy(np.asarray(val)).to(t.device, t.dtype)
+    return plan
+
+
 def update_block_summaries(plan: PlanState, k_new: torch.Tensor,
                            pos: torch.Tensor, *, k_block: int) -> PlanState:
     """Absorb one appended key per slot into its block's bounds, in

@@ -17,18 +17,58 @@ leases); and the shared-prefix trie (``PrefixCache``) that maps a new
 prompt's longest cached prefix into its slot.  Shared pages are
 immutable while ``ref > 1``: an append into one copies it first, and
 the paged decode write re-routes any write that would still land in one
-to the overflow page.  Host swap and pool squeezes (whose clauses
-``check_invariants`` keeps) and retirement are later slices.
+to the overflow page.
+
+Fault tolerance: ``squeeze``/``unsqueeze`` withhold free pages (injected
+external pressure); ``swap_out`` detaches a slot for host-swap
+preemption — private pages' rows go to host through the driver's gather
+callback, each payload array under a crc32, while shared pages stay
+resident under a reference the handle pins — and ``swap_in`` restores
+it into fresh pages after ``verify_handle`` re-checks every crc.
+``swap_to_full`` turns a handle's pins into host payload before a crash
+drops the pool, and ``discard_handle`` quarantines a handle that failed
+its check.  ``audit="light"`` samples the full audit.  Retirement holes
+are a later slice: a handle's ``retired`` list stays empty.
 """
 from __future__ import annotations
 
 import hashlib
-from typing import Dict, List, Optional, Tuple
+import zlib
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 OVERFLOW_PAGE = 0
+
+
+class PageIntegrityError(RuntimeError):
+    """A host-swap payload failed its checksum at restore time: the
+    handle's pages were corrupted while parked in host memory.  The
+    serving driver quarantines the handle (``discard_handle`` +
+    ``PrefixCache.invalidate_pages``) and recovers the request by
+    re-prefill; corrupted K/V never scatters back into the pool."""
+
+
+def _payload_checksums(payload: Any) -> Dict[str, int]:
+    """crc32 per payload array (the ``gather_phys_pages`` dict layout; a
+    bare array checks under the empty key).  crc32 detects every
+    single-byte flip, the failure ``corrupt_page`` injects, and any
+    burst under 32 bits.  It reads each array's buffer in place: the
+    sums equal those of its ``tobytes()``, which would copy every
+    payload once more."""
+    if isinstance(payload, dict):
+        return {k: zlib.crc32(np.ascontiguousarray(v))
+                for k, v in payload.items()}
+    return {"": zlib.crc32(np.ascontiguousarray(payload))}
+
+
+# Host-swap payload callbacks: the allocator decides WHICH physical pages
+# move, the serving driver HOW their rows move
+# (``models.decode.gather_phys_pages`` / ``scatter_phys_pages``).
+# Payloads are opaque to the allocator.
+GatherFn = Callable[[List[int]], Any]
+ScatterFn = Callable[[List[int], Any], None]
 
 
 def logical_kv_view(pages: torch.Tensor, page_table: torch.Tensor
@@ -91,14 +131,16 @@ class PageAllocator:
     pages map strictly in order; ``n_mapped[slot]`` is both the mapped
     count and the next logical page to map.  ``table`` mirrors the
     device page table (unmapped = OVERFLOW_PAGE).  ``ref`` counts each
-    physical page's references — slot table entries plus the prefix
-    trie's retention — and a page recycles only at zero; ``ref > 1``
-    marks it shared, so writes must copy it first.  ``audit=True`` runs
-    ``check_invariants`` after every mutation, as the reference's
-    serving default does."""
+    physical page's references — slot table entries, swap handles' pins
+    and the prefix trie's retention — and a page recycles only at zero;
+    ``ref > 1`` marks it shared, so writes must copy it first.
+    ``audit=True`` runs ``check_invariants`` after every mutation, as
+    the reference's serving default does; ``audit="light"`` runs it
+    every ``audit_period``-th mutation and the O(pages)
+    ``_light_audit`` otherwise."""
 
     def __init__(self, n_pages: int, batch_slots: int, max_pages: int,
-                 page: int, audit: bool = False):
+                 page: int, audit: Union[bool, str] = False):
         assert n_pages >= 2, "pool needs >= 1 usable page + overflow"
         self.n_pages = int(n_pages)
         self.page = int(page)
@@ -111,11 +153,12 @@ class PageAllocator:
         self.pages_in_use_peak = 0
         self.ref = np.zeros(n_pages, np.int64)
         self.shared_pages_peak = 0
-        # host swap and pool squeezes (the faults slice) keep pages out
-        # of the free list; the audit's clauses for them stay, and both
-        # lists stay empty until that slice lands
+        # pages withheld by injected pressure (``squeeze``): out of the
+        # free list but referenced by nobody
         self.squeezed: List[int] = []
-        self.swapped: List[Dict] = []
+        # outstanding host-swap handles: each resident (shared) page a
+        # handle pins holds one reference until ``swap_in`` releases it
+        self.swapped: List[Dict[str, Any]] = []
         # lazy copy-on-write: phys page → the slot holding a write lease
         # on it.  The SOLE mapping slot may append in place into a
         # trie-retained partial page past the rows the trie node covers;
@@ -124,14 +167,43 @@ class PageAllocator:
         self.lazy_cow = False
         self.cow_leases: Dict[int, int] = {}
         self.lazy_cow_skips = 0
-        self.audit = bool(audit)
+        self.audit = audit if audit == "light" else bool(audit)
+        self.audit_period = 16
         self.audit_trie: Optional["PrefixCache"] = None
         self.audits_run = 0
+        self.light_audits_run = 0
+        self._mutations = 0
 
     def _audit(self) -> None:
-        if self.audit:
-            self.check_invariants()
-            self.audits_run += 1
+        if not self.audit:
+            return
+        self._mutations += 1
+        if self.audit == "light" and self._mutations % self.audit_period:
+            self._light_audit()
+            self.light_audits_run += 1
+            return
+        self.check_invariants()
+        self.audits_run += 1
+
+    def _light_audit(self) -> None:
+        """The sampled mode's cheap check: the refcounts sum to the
+        nameable references (table mappings + handle pins + trie nodes),
+        the overflow page stays unreferenced, and the idle pages number
+        the free + squeezed lists.  Catches a leaked or doubled
+        reference in O(pages) without walking the tables."""
+        expect = int(self.n_mapped.sum())
+        expect += sum(int((h["resident"] >= 0).sum()) for h in self.swapped)
+        if self.audit_trie is not None:
+            expect += self.audit_trie.node_count
+        total = int(self.ref.sum())
+        assert total == expect, (
+            f"refcount sum {total} != nameable references {expect}")
+        assert self.ref[OVERFLOW_PAGE] == 0, \
+            "overflow page acquired a reference"
+        idle = int((self.ref == 0).sum()) - 1       # minus overflow
+        assert idle == len(self.free) + len(self.squeezed), (
+            f"{idle} idle pages vs {len(self.free)} free + "
+            f"{len(self.squeezed)} squeezed")
 
     @property
     def free_pages(self) -> int:
@@ -291,6 +363,155 @@ class PageAllocator:
             self._deref(p)
         self._audit()
         return n
+
+    # --- fault injection: external pool pressure ----------------------
+
+    def squeeze(self, n: int) -> int:
+        """Withhold up to ``n`` free pages (injected external memory
+        pressure): they leave the free list unreferenced, so the pool
+        looks that much smaller to admission, copy-on-write and append
+        until ``unsqueeze`` returns them.  Returns pages taken."""
+        taken = 0
+        while taken < n and self.free:
+            self.squeezed.append(self.free.pop())
+            taken += 1
+        self._audit()
+        return taken
+
+    def unsqueeze(self, n: Optional[int] = None) -> int:
+        """Return squeezed pages to the free list (all by default)."""
+        back = 0
+        while self.squeezed and (n is None or back < n):
+            self.free.append(self.squeezed.pop())
+            back += 1
+        self._audit()
+        return back
+
+    # --- host-swap preemption -----------------------------------------
+
+    def swap_out(self, slot: int, gather: GatherFn) -> Dict[str, Any]:
+        """Detach ``slot``'s pages for host-swap preemption and return
+        the handle ``swap_in`` re-admits from.  Private pages (``ref ==
+        1``) have their rows gathered to host through ``gather(phys)``
+        and return to the free list; shared pages stay resident, and the
+        handle takes over the slot's reference on each, so eviction can
+        never recycle a page the swapped request still needs.  Each
+        payload array is checksummed.  The slot's table row resets."""
+        n = int(self.n_mapped[slot])
+        assert n > 0, "swap_out on a slot with no mapped pages"
+        phys = [int(p) for p in self.table[slot, :n]]
+        resident = np.full(n, -1, np.int64)
+        priv_lp: List[int] = []
+        priv_phys: List[int] = []
+        for lp, p in enumerate(phys):
+            if self.ref[p] > 1:
+                resident[lp] = p     # the slot's ref moves to the handle
+            else:
+                priv_lp.append(lp)
+                priv_phys.append(p)
+        chunks = [(priv_lp, gather(priv_phys))] if priv_phys else []
+        self.table[slot, :] = OVERFLOW_PAGE
+        self.n_mapped[slot] = 0
+        self.drop_leases(slot)
+        for p in priv_phys:
+            self._deref(p)
+        handle = {"n_pages": n, "resident": resident, "chunks": chunks,
+                  "retired": [],
+                  "sums": [_payload_checksums(pl) for _, pl in chunks]}
+        self.swapped.append(handle)
+        self._audit()
+        return handle
+
+    def swap_to_full(self, handle: Dict[str, Any], gather: GatherFn
+                     ) -> None:
+        """Turn a handle's resident (shared) pages into host payload too:
+        the crash path, where the device pool is about to be lost.
+        Afterwards the handle restores entirely from host memory, into a
+        fresh allocator."""
+        resident = handle["resident"]
+        res_lp = [lp for lp in range(handle["n_pages"]) if resident[lp] >= 0]
+        if not res_lp:
+            return
+        res_phys = [int(resident[lp]) for lp in res_lp]
+        payload = gather(res_phys)
+        handle["chunks"].append((res_lp, payload))
+        handle["sums"].append(_payload_checksums(payload))
+        resident[:] = -1
+        for p in res_phys:
+            self._deref(p)
+        self._audit()
+
+    def swap_pages_needed(self, handle: Dict[str, Any]) -> int:
+        """Free pages ``swap_in`` must allocate for this handle (its
+        payload pages; resident pages just remap)."""
+        return sum(len(lps) for lps, _ in handle["chunks"])
+
+    def verify_handle(self, handle: Dict[str, Any]) -> None:
+        """Re-checksum every payload chunk against the sums recorded when
+        it was gathered; raises :class:`PageIntegrityError` naming the
+        first mismatching chunk and array."""
+        for ci, ((lps, payload), sums) in enumerate(
+                zip(handle["chunks"], handle.get("sums", []))):
+            fresh = _payload_checksums(payload)
+            for key, want in sums.items():
+                got = fresh.get(key)
+                if got != want:
+                    raise PageIntegrityError(
+                        f"swap payload checksum mismatch: chunk {ci} "
+                        f"(logical pages {list(lps)}) array {key!r}: "
+                        f"crc {got:#010x} != recorded {want:#010x}")
+
+    def discard_handle(self, handle: Dict[str, Any]) -> List[int]:
+        """Quarantine a swap handle: drop it from the outstanding list
+        and release its resident pins (those pages never left the
+        device, but nothing holds them for this request any more); the
+        host payload is abandoned.  Returns the formerly resident pages,
+        so the driver can invalidate trie entries built over them."""
+        assert any(h is handle for h in self.swapped), \
+            "unknown or already-restored handle"
+        resident = handle["resident"]
+        res = [int(p) for p in resident if p >= 0]
+        for p in res:
+            self._deref(p)
+        resident[:] = -1
+        self.swapped = [h for h in self.swapped if h is not handle]
+        self._audit()
+        return res
+
+    def swap_in(self, slot: int, handle: Dict[str, Any],
+                scatter: ScatterFn) -> bool:
+        """Re-admit a swapped request into the empty ``slot``: resident
+        pages remap at their logical positions (the handle's pin moves
+        back to the slot's table), payload pages land in freshly
+        allocated pages through ``scatter(new_phys, payload)``.  The
+        handle is verified before any mutation.  Returns False, with
+        nothing changed, when the pool cannot back the payload yet."""
+        assert any(h is handle for h in self.swapped), \
+            "unknown or already-restored handle"
+        self.verify_handle(handle)      # before ANY mutation
+        if len(self.free) < self.swap_pages_needed(handle):
+            return False
+        assert self.n_mapped[slot] == 0, "swap_in needs an empty slot"
+        resident = handle["resident"]
+        for lp in range(handle["n_pages"]):
+            if resident[lp] >= 0:
+                self.table[slot, lp] = int(resident[lp])
+        for lps, payload in handle["chunks"]:
+            fresh = []
+            for lp in lps:
+                q = self.free.pop()
+                self.ref[q] = 1
+                self.table[slot, lp] = q
+                fresh.append(q)
+            scatter(fresh, payload)
+        self.n_mapped[slot] = handle["n_pages"]
+        self.swapped = [h for h in self.swapped if h is not handle]
+        self.pages_in_use_peak = max(self.pages_in_use_peak,
+                                     self.pages_in_use)
+        self._audit()
+        return True
+
+    # --- invariant audit ----------------------------------------------
 
     def check_invariants(self, trie: Optional["PrefixCache"] = None
                          ) -> None:

@@ -4,45 +4,74 @@ batch slots, per-slot positions, new requests claim finished slots).
 
 Covered: slot claim and ``reset_slot``; the prompt prefill handoff
 (``prompt_len > 1``); with the paged layout, admission control with
-deferral backoff, page-boundary stalls with re-feed, and requeue
-preemption on livelock (a request preempted ``PREEMPT_RETRY_LIMIT``
-times is protected: admission reserves its pages and victim selection
-spares it); the shared-prefix page cache (``kv.prefix_cache``): a claim
-maps the longest cached prompt prefix's pages into its slot, copies a
-partially matched page on write, prefills only the unmatched tail and
-registers its prompt, appends into shared pages go through
-copy-on-write, and trie pages are evicted under pool pressure.  The
-report carries outputs, tokens, tok/s, steps, per-request latencies,
-the SATA decode fetch accounting (per summary backend and re-plan
-mode), the page occupancy and the prefix-cache statistics.
+deferral backoff and page-boundary stalls with re-feed; the
+shared-prefix page cache (``kv.prefix_cache``): a claim maps the longest
+cached prompt prefix's pages into its slot, copies a partially matched
+page on write, prefills only the unmatched tail and registers its
+prompt, appends into shared pages go through copy-on-write, and trie
+pages are evicted under pool pressure.
 
-The loop runs eagerly on ``device`` (default ``"cuda"``; the CPU only
-when asked).  Not ported yet, each raising ``NotImplementedError``
-that names its queue A item: fault injection and the resilience
-options — host swap, watchdog, checkpoints (item 15), the QoS ladder
+Fault tolerance (paged; ``ResilienceOptions``, ``faults=FaultPlan``):
+preemption prefers **host swap** — the victim's private pages (K/V and
+page-summary rows), page-table row, position and complete decode-plan
+state move to host numpy under crc32 checksums, while shared pages stay
+resident under references the handle pins — and re-admission scatters
+the payload into fresh pages and reinstalls the plan reset-free, so
+decode resumes bitwise where it stopped.  ``host_swap_bytes`` bounds the
+host budget (``0`` disables swap; a budget too small for the victim
+requeues it, which regenerates its output).  A request preempted
+``preempt_retry_limit`` times re-admits under reserved pages and is
+spared as a victim; ``max_steps_per_request`` retires a runaway request
+as ``timed_out``; ``audit_pages`` audits the allocator after every
+mutation (``"light"`` samples).  The ``FaultPlan`` events: pool
+squeezes and restores, forced preemptions, admission deferrals, load
+spikes (one preemption per severity unit: the QoS ladder is not
+ported), slow steps (a no-op without the ladder), a corrupted byte in a
+parked handle — caught at the claim gate, the handle quarantined, its
+trie pages invalidated and the request re-prefilled — and a crash that
+swaps every live slot to host, drops the device cache and allocator, and
+restores each request from its handle.  ``checkpoint_dir`` /
+``checkpoint_every`` save the device cache and every host structure at
+the top of a step, ``kill_at_step`` raises :class:`ServeKilled` after
+the save, and ``resume=True`` replays from the last save.
+
+The report carries outputs, tokens, tok/s, steps, per-request latencies,
+the SATA decode fetch accounting (per summary backend and re-plan mode),
+the page occupancy with every fault counter, and the prefix-cache
+statistics.  The loop runs eagerly on ``device`` (default ``"cuda"``; the
+CPU only when asked).  Not ported yet, each raising
+``NotImplementedError`` that names its queue A item: the QoS ladder
 (item 16), retirement (item 17) and the cross-replica prefix index
 (slice 5).
 """
 from __future__ import annotations
 
 import dataclasses
+import pickle
 import time
-from typing import Any, Dict, List, Optional
+import types
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.archs import ARCHS, SMOKE
-from repro_torch.core.paging import PageAllocator, PrefixCache
+from repro_torch.core.paging import (PageAllocator, PageIntegrityError,
+                                     PrefixCache)
 from repro_torch.kernels.ops import decode_fetch_stats
+from repro_torch.launch.faults import FaultPlan
 from repro_torch.models import attention as attn
 from repro_torch.models import decode as dec
 from repro_torch.models.layers import _dtype
 from repro_torch.models.model import DenseModel
 
-# the reference's ResilienceOptions.preempt_retry_limit default
-PREEMPT_RETRY_LIMIT = 3
+
+class ServeKilled(RuntimeError):
+    """Raised by ``serve`` at ``ResilienceOptions.kill_at_step``: a
+    deterministic stand-in for a process crash, raised right after the
+    checkpoint block, so a run with ``resume=True`` replays from the
+    last save."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +84,25 @@ class ServeOptions:
     prompt_len: int = 1
     shared_prefix_len: int = 0        # prompts share their first N
                                       # tokens (a common system prompt)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResilienceOptions:
+    """Fault-tolerance knobs for :func:`serve` (the module docstring
+    gives the failure model each one drives)."""
+    host_swap_bytes: Optional[int] = None   # host-swap payload budget
+                                            # (None unbounded, 0 =
+                                            # requeue only)
+    max_steps_per_request: Optional[int] = None  # deadline watchdog
+    preempt_retry_limit: int = 3            # reserved-page guarantee
+                                            # past this many preemptions
+    audit_pages: Union[bool, str] = True    # allocator invariant audit
+                                            # (True | False | "light")
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0
+    resume: bool = False
+    kill_at_step: Optional[int] = None      # ServeKilled after the
+                                            # checkpoint block
 
 
 def _pick_victim(stalled: List[int], slots: List[Optional[int]],
@@ -77,28 +125,28 @@ def _unported(what: str, where: str) -> NotImplementedError:
 
 def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
           cfg=None, options: Optional[ServeOptions] = None,
-          device="cuda", faults=None, resilience=None, prefix_index=None
-          ) -> Dict[str, Any]:
+          device="cuda", faults: Optional[FaultPlan] = None,
+          resilience: Optional[ResilienceOptions] = None,
+          prefix_index=None) -> Dict[str, Any]:
     """Serve ``options.n_requests`` requests through ``batch_slots``
     decode slots on ``device``.  ``model`` defaults to a ``DenseModel``
     with random weights from ``seed``; prompts come from
     ``numpy.random.default_rng(seed)`` as in the reference, so a model
     built with ``params_from_jax`` serves the reference's exact
-    workload.  The allocator audits its invariants after every mutation,
-    as the reference's default ``audit_pages=True`` does."""
-    item15 = "queue A item 15, slice 3"
-    for name, val, where in (("faults", faults, item15),
-                             ("resilience", resilience, item15),
-                             ("prefix_index", prefix_index,
-                              "queue A slice 5")):
-        if val is not None:
-            raise _unported(f"serve({name}=...)", where)
+    workload.  ``faults`` is a step-keyed ``FaultPlan``; ``resilience``
+    defaults to ``ResilienceOptions()``, as in the reference (host swap
+    on, unbounded, audits after every allocator mutation)."""
+    if prefix_index is not None:
+        raise _unported("serve(prefix_index=...)", "queue A slice 5")
     dev = resolve_device(device)
     opt = options or ServeOptions()
+    res = resilience or ResilienceOptions()
     n_requests, batch_slots = opt.n_requests, opt.batch_slots
     gen_len, max_len = opt.gen_len, opt.max_len
     prompt_len = max(1, int(opt.prompt_len))
     shared_prefix_len = opt.shared_prefix_len
+    host_swap_bytes = res.host_swap_bytes
+    preempt_retry_limit = res.preempt_retry_limit
     cfg = cfg or (SMOKE if smoke else ARCHS)[arch]
     if cfg.sata.qos.ladder:
         raise _unported("the QoS ladder", "queue A item 16, slice 3")
@@ -118,7 +166,7 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
         page = attn.kv_page_size(cfg, max_len)
         n_pages = int(cache["kv"]["k_pages"].shape[1])
         alloc = PageAllocator(n_pages, batch_slots, max_len // page, page,
-                              audit=True)
+                              audit=res.audit_pages)
         alloc.lazy_cow = bool(cfg.kv.lazy_cow)
         dec.set_page_table(cfg, cache, alloc.table)
         # backpressure only helps when ONE request's worst case fits
@@ -128,13 +176,40 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
                 f"kv.pool_pages={n_pages} ({alloc.free_pages} usable) "
                 f"cannot hold one request's worst-case working set "
                 f"({need} pages of {page} tokens)")
+    # host swap covers the families whose whole per-slot decode state is
+    # pages + plan; the estimate sizes one page of K/V over all layers
+    can_swap = (alloc is not None and cfg.family in ("dense", "moe")
+                and (host_swap_bytes is None or host_swap_bytes > 0))
+    swap_page_bytes = (2 * cfg.n_kv_heads * cfg.hd * dtype_bytes * page
+                       * cfg.n_layers)
+    if faults is not None and not faults.empty:
+        if alloc is None:
+            raise ValueError(
+                "fault injection drives the paged allocator — set "
+                "kv.layout='paged'")
+        if faults.has_crash and cfg.family not in ("dense", "moe"):
+            raise ValueError(
+                "crash_step recovery restores every live slot from host "
+                "swap, which needs the dense/moe paged serving path")
 
     use_prefill = prompt_len > 1
     # --- shared-prefix page cache (prompt-prefix trie over the pool)
     pcache: Optional[PrefixCache] = None
     if attn.prefix_cache_on(cfg):
         pcache = PrefixCache(alloc)
-    cow_copies = 0
+    # every counter of the report; one namespace, so the checkpoint
+    # saves and restores them together
+    ctr = types.SimpleNamespace(
+        produced=0, deferred_claims=0, stalled_steps=0, preemptions=0,
+        fetch_tiles_plan=0, fetch_tiles_dense=0, plan_bytes=0,
+        kernel_bytes_plan=0, kernel_bytes_dense=0, cow_copies=0,
+        host_swaps=0, swap_restores=0, requeue_preemptions=0,
+        tokens_salvaged=0, requeue_tokens_discarded=0, re_prefill_tokens=0,
+        swap_cold_replans=0, crashes=0, protected_admissions=0,
+        host_swap_bytes_now=0, host_swap_bytes_peak=0, restore_wall=0.0,
+        rep_offset=0.0, corrupt_pages_injected=0, corrupt_pages_detected=0,
+        quarantined_pages=0, trie_nodes_invalidated=0,
+        deferred_retries_skipped=0)
 
     def _push_tables() -> None:
         # with the cache on the device write-protect reads the refcounts;
@@ -145,10 +220,9 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
             else None)
 
     def _copy(cp) -> None:
-        nonlocal cow_copies
         if cp is not None:
             dec.copy_phys_pages(cache, [cp])
-            cow_copies += 1
+            ctr.cow_copies += 1
 
     def _step_writable(i: int) -> bool:
         """Pool-side gate before slot ``i`` appends at pos_h[i]: copy the
@@ -179,67 +253,257 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
     slots: List[Optional[int]] = [None] * batch_slots
     pos_h = np.zeros(batch_slots, np.int32)
     tokens_h = np.zeros((batch_slots, 1), np.int32)
-    produced = steps = 0
-    deferred_claims = stalled_steps = preemptions = 0
-    fetch_tiles_plan = fetch_tiles_dense = 0
-    plan_bytes = kernel_bytes_plan = kernel_bytes_dense = 0
+    steps = 0
     step_s: List[float] = []
     prefill_s: Dict[str, List[float]] = {"hit": [], "miss": []}
     noted: set = set()               # requests whose hit/miss is counted
+    swapped_recs: Dict[int, Dict[str, Any]] = {}  # request → swap record
     preempt_count: Dict[int, int] = {}
     admit_seq: Dict[int, int] = {}
     admit_clock = 0
+    req_steps: Dict[int, int] = {}   # watchdog: steps each request held
+    timed_out: set = set()
     defer_until: Dict[int, int] = {}      # request → earliest retry step
     defer_backoff: Dict[int, int] = {}
     blk = attn.decode_block_size(cfg, max_len)
     tile_bytes = 2 * blk * cfg.hd * dtype_bytes
     plan = cache["kv"].get("plan")
 
+    def _clear_backoff() -> None:
+        """Pool capacity may have grown: deferred claims re-check now."""
+        defer_until.clear()
+        defer_backoff.clear()
+
+    def _gather_pages(phys):
+        return dec.gather_phys_pages(cache, phys)
+
+    def _scatter_pages(fresh, payload):
+        dec.scatter_phys_pages(cache, fresh, payload)
+
+    def _payload_bytes(rec) -> int:
+        b = sum(a.nbytes for _, payload in rec["handle"]["chunks"]
+                for a in payload.values())
+        return b + sum(np.asarray(v).nbytes
+                       for snap in rec["plan"].values()
+                       for v in snap.values())
+
     def _protected() -> set:
         return {r for r, c in preempt_count.items()
-                if c >= PREEMPT_RETRY_LIMIT}
+                if c >= preempt_retry_limit}
 
     def _reserve_need(exclude: Optional[int] = None) -> int:
-        """Pages admission holds back for queued protected requests."""
-        return sum(alloc.pages_for(prompt_len) for r in queue
-                   if r != exclude
-                   and preempt_count.get(r, 0) >= PREEMPT_RETRY_LIMIT)
+        """Pages admission holds back for queued protected requests (at
+        the retry limit): a swapped one needs its payload pages, a
+        requeued one its prompt's."""
+        n = 0
+        for r in queue:
+            if r == exclude or preempt_count.get(r, 0) < preempt_retry_limit:
+                continue
+            if r in swapped_recs:
+                n += alloc.swap_pages_needed(swapped_recs[r]["handle"])
+            else:
+                n += alloc.pages_for(prompt_len)
+        return n
 
     def _defer(r0: int) -> None:
-        nonlocal deferred_claims
-        deferred_claims += 1                          # backpressure: wait
+        ctr.deferred_claims += 1                      # backpressure: wait
         bo = min(max(defer_backoff.get(r0, 0) * 2, 1), 8)
         defer_backoff[r0] = bo
         defer_until[r0] = steps + bo
 
     def _finish(i: int, now: float) -> None:
-        """Slot ``i``'s request completed: free the slot and its page
-        references (pages the trie or another slot holds survive)."""
+        """Slot ``i``'s request completed (or timed out): free the slot
+        and its page references (pages the trie or another slot holds
+        survive)."""
         latency[slots[i]] = now - t_claim[slots[i]]
         slots[i] = None
         dec.release_slot(cfg, cache, i)
         if alloc is not None:
             alloc.free_slot(i)
-            defer_until.clear()
-            defer_backoff.clear()
+            _clear_backoff()
 
-    def _preempt(victim: int) -> None:
-        """Requeue the victim: its decoded output is discarded and
-        regenerated on re-admission (deterministic decode leaves the
-        final outputs unchanged; shared pages survive through their
-        other references)."""
-        nonlocal produced, preemptions
+    def _swap_out(victim: int) -> None:
+        """Host-swap the victim: the plan snapshot first (the slot is
+        still live), then its pages (gathered before they free), then
+        release.  Its decoded output and position are kept: a restore
+        resumes, it does not regenerate."""
         r = slots[victim]
-        preempt_count[r] = preempt_count.get(r, 0) + 1
-        produced -= len(outputs[r])
-        outputs[r] = []
+        snap = dec.capture_plan_state(cfg, cache, victim)
+        handle = alloc.swap_out(victim, _gather_pages)
+        rec = {"handle": handle, "plan": snap, "pos": int(pos_h[victim]),
+               "token": int(tokens_h[victim, 0])}
+        rec["bytes"] = _payload_bytes(rec)
+        swapped_recs[r] = rec
+        ctr.tokens_salvaged += len(outputs[r])
         queue.insert(0, r)
         slots[victim] = None
         dec.release_slot(cfg, cache, victim)
-        alloc.free_slot(victim)
-        preemptions += 1
-        defer_until.clear()               # the victim's pages freed
-        defer_backoff.clear()
+        ctr.host_swaps += 1
+        ctr.host_swap_bytes_now += rec["bytes"]
+        ctr.host_swap_bytes_peak = max(ctr.host_swap_bytes_peak,
+                                       ctr.host_swap_bytes_now)
+
+    def _preempt(victim: int) -> None:
+        """Evict the victim: host swap when the host budget holds its
+        estimated payload, else requeue — its decoded output is
+        discarded and regenerated on re-admission (deterministic decode
+        leaves the final outputs unchanged; shared pages survive through
+        their other references)."""
+        r = slots[victim]
+        preempt_count[r] = preempt_count.get(r, 0) + 1
+        est = int(alloc.n_mapped[victim]) * swap_page_bytes
+        fits = (host_swap_bytes is None
+                or ctr.host_swap_bytes_now + est <= host_swap_bytes)
+        if can_swap and fits and alloc.n_mapped[victim] > 0:
+            _swap_out(victim)
+        else:
+            ctr.produced -= len(outputs[r])
+            ctr.requeue_tokens_discarded += len(outputs[r])
+            outputs[r] = []
+            queue.insert(0, r)
+            slots[victim] = None
+            dec.release_slot(cfg, cache, victim)
+            alloc.free_slot(victim)
+            ctr.requeue_preemptions += 1
+        ctr.preemptions += 1
+        _clear_backoff()                  # the victim's pages freed
+
+    def _to_full(rec) -> None:
+        """Turn a swap record's resident pins into host payload."""
+        alloc.swap_to_full(rec["handle"], _gather_pages)
+        nb = _payload_bytes(rec)
+        ctr.host_swap_bytes_now += nb - rec["bytes"]
+        rec["bytes"] = nb
+
+    def _crash_restore() -> None:
+        """Mid-serve crash: every byte on the device is about to be lost,
+        so outstanding handles turn their resident pages into host
+        payload and every live slot swaps out in full; then the device
+        cache, the allocator and the (empty) trie are built anew, and
+        the claim loop re-admits each request from its handle —
+        positions, plan state and decoded output all survive."""
+        nonlocal cache, plan, alloc, pcache, last_rep, rep_base
+        for rec in swapped_recs.values():
+            _to_full(rec)
+        # reversed: each insert(0) lands the lowest slot at the queue
+        # head, so re-admission replays in slot order
+        for i in reversed(range(batch_slots)):
+            r = slots[i]
+            if r is not None:
+                _swap_out(i)                  # a crash ignores the budget
+                _to_full(swapped_recs[r])
+        ctr.host_swap_bytes_peak = max(ctr.host_swap_bytes_peak,
+                                       ctr.host_swap_bytes_now)
+        handles = alloc.swapped
+        squeezed_n = len(alloc.squeezed)
+        # drop the old pool before the new one exists, as a crash would
+        cache["kv"].clear()
+        plan = None
+        cache = dec.init_cache(cfg, batch_slots, max_len, device=dev)
+        plan = cache["kv"].get("plan")
+        # lazy_cow stays at its default here, as in the reference's
+        # rebuild
+        alloc = PageAllocator(n_pages, batch_slots, max_len // page, page,
+                              audit=res.audit_pages)
+        alloc.swapped = handles               # payload survives the crash
+        alloc.squeeze(squeezed_n)             # injected pressure persists
+        if pcache is not None:
+            old = pcache
+            pcache = PrefixCache(alloc)       # trie contents are lost...
+            pcache.hits, pcache.misses = old.hits, old.misses
+            pcache.tokens_saved = old.tokens_saved      # ...stats carry
+            pcache.evictions = old.evictions
+        for i in range(batch_slots):
+            dec.release_slot(cfg, cache, i)
+        _push_tables()
+        # fold the pre-crash re-plan count into the offset; the fresh
+        # cache's counters restart the delta accounting
+        if last_rep is not None:
+            ctr.rep_offset += float((last_rep - rep_base).mean())
+            last_rep = _replans()
+            rep_base = last_rep.copy()
+        ctr.crashes += 1
+
+    def _quarantine(r0: int) -> None:
+        """The head request's parked handle failed its checksum: drop the
+        handle, invalidate trie entries over its resident pages, and
+        recover the request by re-prefill (its salvaged progress is lost
+        with the payload)."""
+        rec = swapped_recs.pop(r0)
+        ctr.quarantined_pages += sum(len(lps)
+                                     for lps, _ in rec["handle"]["chunks"])
+        bad = alloc.discard_handle(rec["handle"])
+        if pcache is not None and bad:
+            ctr.trie_nodes_invalidated += pcache.invalidate_pages(bad)
+        ctr.host_swap_bytes_now -= rec["bytes"]
+        ctr.corrupt_pages_detected += 1
+        ctr.produced -= len(outputs[r0])
+        ctr.requeue_tokens_discarded += len(outputs[r0])
+        ctr.tokens_salvaged -= len(outputs[r0])
+        outputs[r0] = []
+
+    def _corrupt(nth: int) -> None:
+        """Flip one byte of the ``nth`` outstanding handle's first parked
+        chunk (a deterministic offset); the claim gate must catch it."""
+        recs = sorted(swapped_recs)
+        if not recs:
+            return
+        chunks = swapped_recs[recs[nth % len(recs)]]["handle"]["chunks"]
+        if not chunks:
+            return
+        payload = chunks[0][1]
+        key = sorted(payload)[0]
+        arr = np.array(payload[key])          # an owning, writable copy
+        payload[key] = arr
+        flat = arr.view(np.uint8).reshape(-1)
+        flat[(steps * 131 + nth) % flat.size] ^= 0x01
+        ctr.corrupt_pages_injected += 1
+
+    def _swap_in(i: int, r0: int, reserve: int, protected: bool) -> bool:
+        """Re-admit swapped request ``r0`` into slot ``i``: its pages
+        scatter back into fresh pages, its plan reinstalls reset-free,
+        and decode resumes at the swapped position with the swapped next
+        token.  False = deferred (the pool cannot back it yet)."""
+        nonlocal admit_clock
+        rec = swapped_recs[r0]
+        needed = alloc.swap_pages_needed(rec["handle"]) + reserve
+        if not alloc.can_admit(needed):
+            if pcache is not None:
+                pcache.evict(needed)
+            if not alloc.can_admit(needed):
+                _defer(r0)
+                return False
+        t_res = time.time()
+        ok = alloc.swap_in(i, rec["handle"], _scatter_pages)
+        assert ok, "can_admit reserved the payload pages"
+        dec.restore_plan_state(cfg, cache, i, rec["plan"])
+        _push_tables()
+        queue.pop(0)
+        slots[i] = r0
+        admit_seq[r0] = admit_clock
+        admit_clock += 1
+        defer_until.pop(r0, None)
+        defer_backoff.pop(r0, None)
+        pos_h[i] = rec["pos"]
+        tokens_h[i, 0] = rec["token"]
+        snap = rec["plan"].get("kv")
+        if last_rep is not None:
+            if rec["pos"] > 0 and (snap is None
+                                   or not np.asarray(snap["active"]).any()):
+                ctr.swap_cold_replans += 1    # 0 when the plan moved live
+            if snap is not None:
+                # slot i's device counter jumps to the restored value:
+                # absorb the jump into the baseline, it is no re-plan
+                col = snap["replans"].astype(np.float64).reshape(-1)
+                rep_base[:, i] += col - last_rep[:, i]
+                last_rep[:, i] = col
+        ctr.host_swap_bytes_now -= rec["bytes"]
+        del swapped_recs[r0]
+        ctr.swap_restores += 1
+        if protected:
+            ctr.protected_admissions += 1
+        ctr.restore_wall += time.time() - t_res
+        return True
 
     def _claim_prefill(i: int, r: int, m: int, phys_m: List[int]) -> None:
         """Prefill request ``r``'s prompt into slot ``i`` and record its
@@ -247,7 +511,6 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
         ``phys_m`` the slot maps them, copies a partially matched last
         page before the tail writes into it, and prefills the tail over
         the gathered prefix; the prompt's pages then enter the trie."""
-        nonlocal produced
         t_pf = time.perf_counter()
         if pcache is not None and r not in noted:
             # once per REQUEST: a requeued request's re-claim hits its
@@ -291,32 +554,139 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
         prefill_s["hit" if m else "miss"].append(
             time.perf_counter() - t_pf)
         outputs[r].append(first)
-        produced += 1
+        ctr.produced += 1
         tokens_h[i, 0] = first
 
     def _replans() -> Optional[np.ndarray]:
         return None if plan is None else \
             plan["replans"].cpu().numpy().astype(np.float64)
 
+    def _held() -> List[int]:
+        return [j for j in range(batch_slots) if slots[j] is not None]
+
+    ckpt = None
+    if res.checkpoint_dir is not None:
+        from repro_torch.checkpoint.manager import CheckpointManager
+        ckpt = CheckpointManager(res.checkpoint_dir, keep=2)
+    last_ckpt = -1
+    resumed_at: Optional[int] = None
     with torch.inference_mode():
         # every slot starts RELEASED; a claim re-activates it
         for i in range(batch_slots):
             dec.release_slot(cfg, cache, i)
         last_rep = _replans()
         rep_base = None if last_rep is None else last_rep.copy()
+        if res.resume:
+            assert ckpt is not None, "resume=True needs checkpoint_dir"
+            rstep = ckpt.latest_step()
+            assert rstep is not None, "resume=True but no checkpoint on disk"
+            ckpt.restore(like=cache, step=rstep)
+            # bytes this program wrote with its own checkpoint
+            m = pickle.loads(ckpt.load_meta(rstep))
+            steps = last_ckpt = resumed_at = m["steps"]
+            queue, outputs, latency = m["queue"], m["outputs"], m["latency"]
+            slots, pos_h, tokens_h = m["slots"], m["pos_h"], m["tokens_h"]
+            alloc, pcache = m["alloc"], m["pcache"]
+            swapped_recs, preempt_count = m["swapped_recs"], \
+                m["preempt_count"]
+            admit_seq, admit_clock = m["admit_seq"], m["admit_clock"]
+            req_steps, timed_out, noted = m["req_steps"], m["timed_out"], \
+                m["noted"]
+            defer_until, defer_backoff = m["defer_until"], \
+                m["defer_backoff"]
+            last_rep, rep_base = m["last_rep"], m["rep_base"]
+            rng.bit_generator.state = m["rng"]
+            vars(ctr).update(m["ctrs"])
+            # wall clocks re-anchor: resumed latencies measure this
+            # process's wall; outputs and counters stay bitwise
+            t_claim = {r: time.time() for r in m["t_claim_reqs"]}
+            if alloc is not None:
+                _push_tables()
         t0 = time.time()
         max_steps = 4 * (n_requests * gen_len + batch_slots + 1)
         while (queue or any(s is not None for s in slots)) \
                 and steps < max_steps:
+            if (ckpt is not None and res.checkpoint_every > 0
+                    and steps % res.checkpoint_every == 0
+                    and steps != last_ckpt):
+                meta = {
+                    "steps": steps, "queue": list(queue),
+                    "outputs": outputs, "latency": latency,
+                    "slots": list(slots), "pos_h": pos_h.copy(),
+                    "tokens_h": tokens_h.copy(), "alloc": alloc,
+                    "pcache": pcache, "swapped_recs": swapped_recs,
+                    "preempt_count": preempt_count, "admit_seq": admit_seq,
+                    "admit_clock": admit_clock, "req_steps": req_steps,
+                    "timed_out": timed_out, "noted": noted,
+                    "defer_until": defer_until,
+                    "defer_backoff": defer_backoff,
+                    "last_rep": last_rep, "rep_base": rep_base,
+                    "rng": rng.bit_generator.state,
+                    "t_claim_reqs": list(t_claim), "ctrs": dict(vars(ctr)),
+                }
+                # ONE pickle: alloc.swapped, the trie's allocator and each
+                # swap record's handle keep their shared identity (swap_in
+                # checks it)
+                ckpt.save(steps, cache, blocking=True,
+                          meta_blob=pickle.dumps(meta))
+                last_ckpt = steps
+            if res.kill_at_step is not None and steps == res.kill_at_step:
+                raise ServeKilled(f"injected process kill at loop step "
+                                  f"{steps}")
+            defer_now = False
+            for kind, arg in (faults.at(steps) if faults is not None
+                              else ()):
+                if kind == "pool_squeeze":
+                    alloc.squeeze(arg)
+                elif kind == "pool_restore":
+                    alloc.unsqueeze(arg)
+                    _clear_backoff()              # capacity returned
+                elif kind == "load_spike":
+                    # the QoS ladder is not ported: shed load by one
+                    # preemption per severity unit
+                    for _ in range(1 if arg is None else max(1, int(arg))):
+                        if not _held():
+                            break
+                        _preempt(_pick_victim(_held(), slots, outputs,
+                                              admit_seq, _protected()))
+                        _push_tables()
+                elif kind == "slow_step":
+                    pass          # a pressure tick for the QoS ladder only
+                elif kind == "corrupt_page":
+                    _corrupt(0 if arg is None else int(arg))
+                elif kind == "defer_admission":
+                    defer_now = True
+                elif kind == "preempt":
+                    tgt = arg
+                    if tgt is None and _held():
+                        tgt = _pick_victim(_held(), slots, outputs,
+                                           admit_seq, _protected())
+                    if tgt is not None and slots[tgt] is not None:
+                        _preempt(tgt)
+                        _push_tables()
+                elif kind == "crash_step":
+                    _crash_restore()
             for i in range(batch_slots):              # claim free slots
-                if slots[i] is not None or not queue:
+                if slots[i] is not None or not queue or defer_now:
                     continue
                 r0 = queue[0]
                 if steps < defer_until.get(r0, 0):
+                    ctr.deferred_retries_skipped += 1
                     break               # backoff; keep admission order
-                protected = preempt_count.get(r0, 0) >= PREEMPT_RETRY_LIMIT
+                if r0 in swapped_recs:
+                    # integrity gate BEFORE any page is reserved: a handle
+                    # corrupted while parked must never scatter back
+                    try:
+                        alloc.verify_handle(swapped_recs[r0]["handle"])
+                    except PageIntegrityError:
+                        _quarantine(r0)
+                protected = preempt_count.get(r0, 0) >= preempt_retry_limit
                 reserve = 0 if (alloc is None or protected) \
                     else _reserve_need(exclude=r0)
+                if r0 in swapped_recs:
+                    if not _swap_in(i, r0, reserve, protected):
+                        break
+                    continue
                 # prefix match BEFORE admission: matched pages shrink the
                 # claim's pool demand (match tokens[:-1] so the tail
                 # prefill always yields last-token logits)
@@ -342,6 +712,10 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
                 admit_clock += 1
                 defer_until.pop(r, None)
                 defer_backoff.pop(r, None)
+                if protected:
+                    ctr.protected_admissions += 1
+                if preempt_count.get(r, 0) and use_prefill:
+                    ctr.re_prefill_tokens += prompt_len - m   # redone
                 outputs[r] = []
                 t_claim[r] = time.time()
                 dec.reset_slot(cfg, cache, i)
@@ -352,7 +726,7 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
                 else:
                     pos_h[i] = 0
                     tokens_h[i, 0] = int(prompts[r, 0])
-            active = [i for i in range(batch_slots) if slots[i] is not None]
+            active = _held()
             stalled: List[int] = []
             if alloc is not None and active:
                 while True:
@@ -364,16 +738,16 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
                         break
                     # every active slot is stalled: first reclaim pages
                     # only the trie holds, then — pages only free when a
-                    # request completes — livelock: requeue the
-                    # least-progress victim
+                    # request completes — livelock: preempt the
+                    # least-progress victim (swap keeps its progress,
+                    # requeue regenerates it)
                     if pcache is not None and pcache.evict(1):
                         continue
                     _preempt(_pick_victim(stalled, slots, outputs,
                                           admit_seq, _protected()))
-                stalled_steps += len(stalled)
+                ctr.stalled_steps += len(stalled)
                 _push_tables()
-                active = [i for i in range(batch_slots)
-                          if slots[i] is not None]
+                active = _held()
             t_step = time.perf_counter()
             logits, cache = dec.serve_step(
                 model, cfg, cache, torch.as_tensor(tokens_h, device=dev),
@@ -396,29 +770,39 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
                         replan_mode=cfg.sata.decode.replan_mode,
                         sketch_factor=cfg.sata.decode.sketch_factor,
                         plan_blocks=cfg.sata.decode.blocks)
-                    fetch_tiles_plan += st["kv_fetch_tiles_plan"]
-                    fetch_tiles_dense += st["kv_fetch_tiles_dense"]
-                    plan_bytes += st["plan_fetch_bytes_step"]
-                    kernel_bytes_plan += st["kv_fetch_bytes_plan"]
-                    kernel_bytes_dense += st["kv_fetch_bytes_dense"]
+                    ctr.fetch_tiles_plan += st["kv_fetch_tiles_plan"]
+                    ctr.fetch_tiles_dense += st["kv_fetch_tiles_dense"]
+                    ctr.plan_bytes += st["plan_fetch_bytes_step"]
+                    ctr.kernel_bytes_plan += st["kv_fetch_bytes_plan"]
+                    ctr.kernel_bytes_dense += st["kv_fetch_bytes_dense"]
             now = time.time()
             for i in range(batch_slots):
                 r = slots[i]
                 if r is None:
                     continue
+                # watchdog clock: every step HOLDING the slot counts,
+                # stalled or not
+                req_steps[r] = req_steps.get(r, 0) + 1
                 if i not in stalled:                  # stalled: re-fed
                     outputs[r].append(int(nxt[i]))
-                    produced += 1
+                    ctr.produced += 1
                     pos_h[i] += 1
-                if len(outputs[r]) >= gen_len or pos_h[i] >= max_len:
+                done = len(outputs[r]) >= gen_len or pos_h[i] >= max_len
+                if (not done and res.max_steps_per_request is not None
+                        and req_steps[r] >= res.max_steps_per_request):
+                    # graceful retirement: the partial output stands, the
+                    # pages free, the request is not requeued
+                    timed_out.add(r)
+                    done = True
+                if done:
                     _finish(i, now)
                 elif i not in stalled:
                     tokens_h[i, 0] = int(nxt[i])
             steps += 1
         wall = time.time() - t0
     out: Dict[str, Any] = {
-        "outputs": outputs, "tokens_generated": produced,
-        "tok_per_s": produced / max(wall, 1e-9), "steps": steps,
+        "outputs": outputs, "tokens_generated": ctr.produced,
+        "tok_per_s": ctr.produced / max(wall, 1e-9), "steps": steps,
         "step_ms_mean": 1e3 * float(np.mean(step_s)) if step_s else 0.0,
         # host clock from the claim's prefix match to its first token
         # (which waits for the device)
@@ -427,23 +811,29 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
         "request_latency_s": latency,
         "latency_mean_s": float(np.mean(list(latency.values())))
         if latency else 0.0,
+        "timed_out": sorted(timed_out),
         "device": str(dev),
     }
-    if fetch_tiles_dense:
+    if ckpt is not None:
+        out["checkpoint"] = {"dir": str(res.checkpoint_dir),
+                             "last_saved_step": last_ckpt,
+                             "resumed_at": resumed_at}
+    if ctr.fetch_tiles_dense:
         out["decode_fetch"] = {
-            "kv_fetch_tiles_plan": fetch_tiles_plan,
-            "kv_fetch_tiles_dense": fetch_tiles_dense,
-            "kv_fetch_bytes_plan": fetch_tiles_plan * tile_bytes,
-            "kv_fetch_bytes_dense": fetch_tiles_dense * tile_bytes,
-            "fetch_reduction": fetch_tiles_dense / max(fetch_tiles_plan, 1),
-            "plan_fetch_bytes": plan_bytes,
+            "kv_fetch_tiles_plan": ctr.fetch_tiles_plan,
+            "kv_fetch_tiles_dense": ctr.fetch_tiles_dense,
+            "kv_fetch_bytes_plan": ctr.fetch_tiles_plan * tile_bytes,
+            "kv_fetch_bytes_dense": ctr.fetch_tiles_dense * tile_bytes,
+            "fetch_reduction": ctr.fetch_tiles_dense
+            / max(ctr.fetch_tiles_plan, 1),
+            "plan_fetch_bytes": ctr.plan_bytes,
             "summary_backend": cfg.sata.decode.summary,
             "replan_mode": cfg.sata.decode.replan_mode,
-            "step_bytes_plan_route": kernel_bytes_plan + plan_bytes,
-            "step_bytes_dense_route": kernel_bytes_dense,
-            "true_reduction": kernel_bytes_dense
-            / max(kernel_bytes_plan + plan_bytes, 1),
-            "replans": float((last_rep - rep_base).mean()),
+            "step_bytes_plan_route": ctr.kernel_bytes_plan + ctr.plan_bytes,
+            "step_bytes_dense_route": ctr.kernel_bytes_dense,
+            "true_reduction": ctr.kernel_bytes_dense
+            / max(ctr.kernel_bytes_plan + ctr.plan_bytes, 1),
+            "replans": ctr.rep_offset + float((last_rep - rep_base).mean()),
         }
     if alloc is not None:
         row_bytes = 2 * cfg.n_kv_heads * cfg.hd * dtype_bytes
@@ -452,17 +842,30 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
             batch_slots * max_len * row_bytes * cfg.n_layers
         occ["reserved_vs_contiguous"] = (occ["contiguous_reserved_bytes"]
                                          / max(occ["hbm_reserved_bytes"], 1))
-        occ["deferred_claims"] = deferred_claims
-        occ["stalled_steps"] = stalled_steps
-        occ["preemptions"] = preemptions
+        for k in ("deferred_claims", "stalled_steps", "preemptions",
+                  # swap keeps progress, requeue discards it, a crash
+                  # restores everything from host swap
+                  "host_swaps", "swap_restores", "requeue_preemptions",
+                  "tokens_salvaged", "requeue_tokens_discarded",
+                  "re_prefill_tokens", "swap_cold_replans",
+                  "host_swap_bytes_peak", "crashes", "protected_admissions",
+                  "deferred_retries_skipped",
+                  # page integrity: every injected corruption must be
+                  # caught at the claim gate and quarantined
+                  "corrupt_pages_injected", "corrupt_pages_detected",
+                  "quarantined_pages", "trie_nodes_invalidated"):
+            occ[k] = getattr(ctr, k)
+        occ["swap_restore_wall_s"] = ctr.restore_wall
+        occ["preempt_retries_max"] = max(preempt_count.values(), default=0)
         occ["preempted_requests"] = sum(1 for c in preempt_count.values()
                                         if c > 0)
         occ["audits_run"] = alloc.audits_run
+        occ["light_audits_run"] = alloc.light_audits_run
         out["page_occupancy"] = occ
     if pcache is not None:
         pstats = pcache.stats()
         pstats["prefill_tokens_total"] = len(latency) * prompt_len
-        pstats["cow_copies"] = cow_copies
+        pstats["cow_copies"] = ctr.cow_copies
         pstats["shared_pages_peak"] = alloc.shared_pages_peak
         out["prefix_cache"] = pstats
     return out

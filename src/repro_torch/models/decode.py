@@ -10,8 +10,12 @@ cache.  Host-side bookkeeping (slot claim, allocation) stays in
 too: the copy-on-write page copy (``copy_phys_pages``), the gather of a
 matched prefix (``gather_prefix_kv``), the continuation prefill over it
 and the install that seeds the matched blocks' plan summaries from the
-per-page summary cache.  Serving never trains: the model's parameters are
-trainable, and these functions run without autograd.
+per-page summary cache.  Host-swap preemption moves physical pages'
+rows to host numpy and back (``gather_phys_pages`` /
+``scatter_phys_pages``) and a slot's plan state with them
+(``capture_plan_state`` / ``restore_plan_state``).  Serving never
+trains: the model's parameters are trainable, and these functions run
+without autograd.
 """
 from __future__ import annotations
 
@@ -21,7 +25,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.decode_plan import (plan_from_prefill,
+from repro_torch.core.decode_plan import (capture_plan_slot,
+                                          install_plan_slot,
+                                          plan_from_prefill,
                                           release_plan_slot, reset_plan_slot)
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
@@ -99,6 +105,14 @@ def set_page_table(cfg: ModelConfig, cache: Dict, table,
     return cache
 
 
+# Every per-physical-page array a page's rows live in: K/V and the
+# page-summary rows (fp32 bounds, plus scale/zero under int8).  A copy on
+# write or a swap moves them together — a page whose summary row stayed
+# behind would rank blocks from another request's bounds.
+_PAGE_POOL_FIELDS = ("k_pages", "v_pages", "page_k_min", "page_k_max",
+                     "page_k_scale", "page_k_zero")
+
+
 def copy_phys_pages(cache: Dict, pairs) -> Dict:
     """Copy-on-write, device side, in place: for each ``(src, dst)``
     physical page pair the allocator remapped
@@ -113,10 +127,72 @@ def copy_phys_pages(cache: Dict, pairs) -> Dict:
                           device=dev)
     dst = torch.as_tensor([d for _, d in pairs], dtype=torch.long,
                           device=dev)
-    for f in ("k_pages", "v_pages", "page_k_min", "page_k_max",
-              "page_k_scale", "page_k_zero"):
+    for f in _PAGE_POOL_FIELDS:
         if f in kv:
             kv[f][:, dst] = kv[f][:, src]
+    return cache
+
+
+def gather_phys_pages(cache: Dict, phys) -> Dict[str, np.ndarray]:
+    """Copy physical pages' rows to host numpy — the gather callback of
+    ``PageAllocator.swap_out``.  Keys are ``"kv.<field>"``, as in the
+    reference; each value holds the field's rows at ``phys``, in order,
+    as an owning copy taken after the device work that wrote them
+    (``.cpu()`` synchronises).  bf16 rows travel as their 16-bit
+    patterns (``int16``): numpy has no bfloat16, and the checksums must
+    see the real bits (they equal the reference's, whose ml_dtypes
+    bfloat16 has the same bytes)."""
+    kv = cache["kv"]
+    idx = torch.as_tensor(np.asarray(phys, np.int64),
+                          device=kv["k_pages"].device)
+    out: Dict[str, np.ndarray] = {}
+    for f in _PAGE_POOL_FIELDS:
+        if f in kv:
+            rows = kv[f][:, idx]                 # indexing copies
+            if rows.dtype == torch.bfloat16:
+                rows = rows.view(torch.int16)
+            out[f"kv.{f}"] = rows.cpu().numpy()
+    return out
+
+
+def scatter_phys_pages(cache: Dict, phys, payload: Dict[str, np.ndarray]
+                       ) -> Dict:
+    """Land a gathered payload in (freshly allocated) physical pages, in
+    place — the scatter callback of ``PageAllocator.swap_in``.  ``phys``
+    need not be the pages the payload came from: the table maps logical
+    to physical and the plan indexes logical blocks, so any pages are
+    exact."""
+    kv = cache["kv"]
+    dev = kv["k_pages"].device
+    idx = torch.as_tensor(np.asarray(phys, np.int64), device=dev)
+    for f in _PAGE_POOL_FIELDS:
+        key = f"kv.{f}"
+        if f in kv and key in payload:
+            rows = torch.from_numpy(np.ascontiguousarray(payload[key]))
+            if kv[f].dtype == torch.bfloat16:
+                rows = rows.view(torch.bfloat16)
+            kv[f][:, idx] = rows.to(dev, kv[f].dtype)
+    return cache
+
+
+def capture_plan_state(cfg: ModelConfig, cache: Dict, slot: int
+                       ) -> Dict[str, Dict[str, np.ndarray]]:
+    """Host snapshot of one slot's decode-plan state across the layers —
+    a host swap's piece besides the pages.  ``restore_plan_state`` puts
+    it back reset-free: summaries, selected blocks, beat phase, churn
+    and the re-plan counter resume where the victim left off."""
+    kv = cache["kv"]
+    if "plan" not in kv:
+        return {}
+    return {"kv": capture_plan_slot(kv["plan"], slot, batch_axis=1)}
+
+
+def restore_plan_state(cfg: ModelConfig, cache: Dict, slot: int,
+                       saved: Dict[str, Dict[str, np.ndarray]]) -> Dict:
+    """Reinstall a ``capture_plan_state`` snapshot into ``slot`` (in
+    place, bitwise)."""
+    for name, snap in saved.items():
+        install_plan_slot(cache[name]["plan"], slot, snap, batch_axis=1)
     return cache
 
 

@@ -8,9 +8,9 @@ Tolerances: host state (trie contents, page tables, refcounts, free
 lists, leases, hit and copy counters) and greedy token streams are
 exact; logits 1e-4 and freshly computed K rows 1e-5 against the
 reference (fp32 summation order, as in ``test_torch_serve.py``), while
-the port's own cache hit is bitwise its miss.  The reference serves with
-``host_swap_bytes=0``: the port preempts by requeue, host swap being a
-later slice."""
+the port's own cache hit is bitwise its miss.  Both packages serve at
+their default ``ResilienceOptions()``: a preemption is a host swap whose
+handle pins the trie's shared pages, and the swap counters are equal."""
 import dataclasses
 
 import numpy as np
@@ -522,7 +522,8 @@ SERVES = {  # name: (seed, ServeOptions kwargs, config overrides)
 }
 OCC_KEYS = ("pages_in_use_peak", "shared_pages_peak", "stalled_steps",
             "preemptions", "deferred_claims", "audits_run",
-            "lazy_cow_skips")
+            "lazy_cow_skips", "host_swaps", "swap_restores",
+            "requeue_preemptions", "host_swap_bytes_peak")
 PREFIX_KEYS = ("requests", "hits", "prefill_tokens_saved", "cached_pages",
                "evictions", "prefill_tokens_total", "cow_copies",
                "shared_pages_peak")
@@ -535,8 +536,7 @@ def serve_pair(name, jcfg, tcfg):
     seed, kw, _ = SERVES[name]
     params, model = _weights(seed)
     want = jsv.serve("qwen3-4b", smoke=True, cfg=jcfg, params=params,
-                     seed=seed, options=jsv.ServeOptions(**kw),
-                     resilience=jsv.ResilienceOptions(host_swap_bytes=0))
+                     seed=seed, options=jsv.ServeOptions(**kw))
     got = tsv.serve("qwen3-4b", smoke=True, cfg=tcfg, model=model,
                     seed=seed, options=tsv.ServeOptions(**kw), device="cpu")
     off = tsv.serve("qwen3-4b", smoke=True, model=model, seed=seed,

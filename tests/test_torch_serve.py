@@ -5,10 +5,9 @@ bisect, SATA decode on, 8-token blocks, exact re-plan every step).
 
 Logits are held to atol 1e-4 (fp32 matmul and softmax summation order
 accumulated over 4 layers).  ``serve()`` must give EQUAL greedy token
-streams and equal fetch-tile counters.  The reference runs with
-``host_swap_bytes=0``: its default preempts by host swap, a slice-3
-feature of the port, while the port preempts by requeue — the
-reference's other preemption mode, selected that way."""
+streams and equal fetch-tile counters.  Both packages serve at their
+default ``ResilienceOptions()``, so a preemption under pool pressure is
+a host swap on both sides, and the swap counters must be equal too."""
 import dataclasses
 
 import numpy as np
@@ -77,8 +76,7 @@ def reference_runs(weights):
             jc, _ = _cfgs(layout, pool)
             done[name] = jsv.serve(
                 "qwen3-4b", smoke=True, cfg=jc, params=params,
-                options=jsv.ServeOptions(prompt_len=plen, **EXAMPLE),
-                resilience=jsv.ResilienceOptions(host_swap_bytes=0))
+                options=jsv.ServeOptions(prompt_len=plen, **EXAMPLE))
         return done[name]
     return get
 
@@ -176,9 +174,41 @@ def test_serve_matches_reference(weights, reference_runs, name):
         assert got["page_occupancy"]["preemptions"] > 0   # path exercised
 
 
+SWAP_KEYS = ("preemptions", "host_swaps", "swap_restores",
+             "requeue_preemptions", "tokens_salvaged", "re_prefill_tokens",
+             "swap_cold_replans", "host_swap_bytes_peak", "audits_run")
+
+
+def test_default_preemption_is_host_swap(weights, reference_runs):
+    """At the defaults, under pool pressure (12 pages for 3 slots), the
+    reference preempts by host swap; so does the port, with the same
+    swap counters, and without a requeue or a re-prefilled token."""
+    _, model = weights
+    want = reference_runs("paged_pool12")["page_occupancy"]
+    _, tc = _cfgs("paged", 12)
+    got = tsv.serve("qwen3-4b", smoke=True, cfg=tc, model=model,
+                    options=tsv.ServeOptions(**EXAMPLE),
+                    device="cpu")["page_occupancy"]
+    for k in SWAP_KEYS:
+        assert got[k] == want[k], k
+    assert got["host_swaps"] == got["preemptions"] > 0
+    assert got["requeue_preemptions"] == got["re_prefill_tokens"] == 0
+
+
 def test_serve_rejects_unported_options():
+    """Every fault and resilience option runs; what stays unported raises
+    naming its queue item: the QoS ladder, retirement and the
+    cross-replica prefix index."""
     _, tc = _cfgs()
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tsv.serve("qwen3-4b", cfg=tc, device="cpu", faults=object())
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tsv.serve("qwen3-4b", cfg=tc, device="cpu", resilience=object())
+    sata = tc.sata
+    for cfg, item in (
+            (dataclasses.replace(tc, sata=dataclasses.replace(
+                sata, qos=dataclasses.replace(sata.qos, ladder=True))),
+             "item 16"),
+            (dataclasses.replace(tc, sata=dataclasses.replace(
+                sata, retire=dataclasses.replace(sata.retire, mode="on"))),
+             "item 17")):
+        with pytest.raises(NotImplementedError, match=item):
+            tsv.serve("qwen3-4b", cfg=cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        tsv.serve("qwen3-4b", cfg=tc, device="cpu", prefix_index=object())
