@@ -6,7 +6,8 @@ port's paged and contiguous serving paths, trains it through the SATA
 prefill kernels, serves it again through the shared-prefix page cache
 and the int8 / sketch summary backends and under host swaps, a crash
 and a corrupted swap handle, kills and resumes a serve from its
-checkpoint, and times every kernel at its main path's shape.
+checkpoint, serves it under the QoS degradation ladder and with cascade
+token retirement, and times every kernel at its main path's shape.
 
     python3 chip_smoke.py            # needs one CUDA GPU (an H100 here)
     python3 chip_smoke.py --mutants  # phases 2 and 6 (and 8 for the
@@ -93,7 +94,25 @@ Phases (any failure exits non-zero; none is caught so a later one runs):
      after the run; the swap path's ms, bytes, GB/s and crc32 share,
      the host's crc32 rate (in place and over a copy), the crash to the
      next decode step and device memory around the rebuild; (b) at CKPT_LAYERS layers, a serve killed after a
-     checkpoint and resumed from disk equals the uninterrupted run.
+     checkpoint and resumed from disk equals the uninterrupted run;
+ 14. overload: (a) the QoS ladder at plan width SKETCH_BLOCKS, 12
+     requests of 32 tokens through 8 slots: with the ladder and no
+     faults, with the ladder under ``ladder_spikes()`` (every request
+     complete, no preemption, requeue or timeout, rungs down and up,
+     every never-degraded request's stream equal to the fault-free
+     run's, the per-slot planner's calls on two steps equal to the plain
+     budget rank — a sort over bf16 scores, ties at the edge admitted —
+     and the share of rung >= 1 rows above the budget reported), and
+     without the ladder under the same spikes (load shed by host swap);
+     (b) phase 3's workload with retirement on (keep RETIRE_KEEP,
+     watermark RETIRE_MARK) on a RETIRE_POOL-page pool: pages reclaimed
+     mid-stream, after every pass and every step no layer's plan names a
+     retired block and every hole maps page 0 on the card,
+     ``check_invariants`` after the run, fewer deferred claims and steps
+     than retirement off, and the never-firing twin equal to phase 3's
+     streams; the paged kernel's launches = layers x decode steps in
+     every run, and held to its plain version on one recorded call of
+     each (a row at rung >= 1; a table with holes).
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the ``kernels`` JSON, and the card's name and power limit are
@@ -1168,13 +1187,14 @@ def recording(module, name, seen, keep_last=False):
         setattr(module, name, fn)
 
 
-def serve_full(torch, sd, serve, cfg, model, opts, label, tag):
-    """One full-width serve on the paged layout: every request complete,
-    the paged kernel launched layers × decode steps times."""
+def serve_full(torch, sd, serve, cfg, model, opts, label, tag, **kw):
+    """One full-width serve on the paged layout (``kw`` goes to
+    ``serve``): every request complete, the paged kernel launched
+    layers × decode steps times."""
     sd.sata_decode_attention_paged_kernel.launches = 0
     sd.sata_decode_attention_kernel.launches = 0
     out = serve("qwen3-4b", smoke=False, cfg=cfg, model=model, options=opts,
-                device=next(model.parameters()).device)
+                device=next(model.parameters()).device, **kw)
     torch.cuda.synchronize()
     n = sd.sata_decode_attention_paged_kernel.launches
     outs = out["outputs"]
@@ -1666,6 +1686,428 @@ def checkpoint_phase(torch, sd, cfg, opts, dev, root, tag):
         f"resumed run {t_res:.2f} s {tag}")
     del model
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the QoS ladder and cascade retirement
+# ---------------------------------------------------------------------------
+
+LADDER_REQUESTS, LADDER_GEN = 12, 32    # through phase 3's 8 slots
+LADDER_CLEAR = 4
+# run 2's loop steps whose per-slot plans are held to the plain budget
+# rank: rung 3 (incremental steps, int8 ranking) and rung 1 (an exact
+# re-plan every step)
+LADDER_PROBE_STEPS = (6, 18)
+LADDER_KERNEL_STEP = 6                  # B1's recorded call (rung 3)
+RETIRE_POOL = 80        # pages: below the 8 x 17 that the slots need
+RETIRE_KEEP, RETIRE_MARK = 0.5, 0.4
+
+
+def ladder_spikes():
+    """The reference bench's spike schedule
+    (``benchmarks/bench_decode.py::_bench_degradation``)."""
+    from repro_torch.launch.faults import FaultPlan
+    return FaultPlan().load_spike(4, 2).slow_step(5).load_spike(10, 1)
+
+
+@contextlib.contextmanager
+def patched(owner, name, make):
+    """While open, ``owner.<name>`` is ``make(original)``."""
+    fn = getattr(owner, name)
+    setattr(owner, name, make(fn))
+    try:
+        yield fn
+    finally:
+        setattr(owner, name, fn)
+
+
+def budget_top(torch, score, valid, k):
+    """The plain budget rank: the valid entries whose bf16 score is at or
+    above the row's k-th largest bf16 score, found by a sort — ties at
+    the edge are admitted, as the bisection's ``bisect_select`` predicate
+    admits them."""
+    from repro_torch.core.selection import NEG_INF
+    v = torch.where(valid, score, NEG_INF).to(torch.bfloat16)
+    edge = v.sort(dim=-1, descending=True).values[..., k - 1:k]
+    return valid & (v >= edge)
+
+
+def model_device(model):
+    return next(model.parameters()).device
+
+
+class BudgetProbe:
+    """Holds the per-slot planner calls of the steps in ``steps`` whose
+    slot sits at a narrowed ``budget`` (the first ``limit`` of each kind
+    a step: layer 0's slots) to the plain budget rank: an incremental
+    step keeps exactly the blocks ``budget_top`` picks from the Quest
+    upper bounds, an exact re-plan exactly those it picks among its
+    selected blocks by best token score.  The checks run on the card
+    inside the call, on its own inputs, and launch no decode kernel."""
+
+    def __init__(self, torch, p, steps, limit=8):
+        from repro_torch.core import decode_plan as dp
+        self.torch, self.dp, self.p = torch, dp, p
+        self.steps, self.limit = steps, limit
+        self.step = -1
+        self.seen = {}                  # (step, kind) -> calls checked
+        self.rows = {"incremental": 0, "full": 0}
+
+    def _take(self, kind, budget):
+        if self.step not in self.steps or budget is None:
+            return None
+        key = (self.step, kind)
+        if self.seen.get(key, 0) >= self.limit:
+            return None
+        k = int(budget.reshape(-1)[0])
+        if k >= self.p:
+            return None
+        self.seen[key] = self.seen.get(key, 0) + 1
+        return k
+
+    def incremental(self, fn):
+        torch, dp = self.torch, self.dp
+
+        def wrapped(q, k_cache, plan, pos, **kw):
+            out = fn(q, k_cache, plan, pos, **kw)
+            k = self._take("incremental", kw.get("budget"))
+            if k is not None:
+                valid = dp._valid_blocks(plan, pos, kw["k_block"])
+                vb = valid[:, None, :, None]
+                lo, hi = dp.degraded_summary_bounds(plan, kw.get("quant"))
+                ub = dp.block_upper_bounds(
+                    q.float(), torch.where(vb, lo, 0.0),
+                    torch.where(vb, hi, 0.0),
+                    sm_scale=1.0 / np.sqrt(q.shape[-1])).amax(dim=2)
+                want = budget_top(torch, ub, valid[:, None, :], k)
+                idx, cnt = dp._compact_rows(want, self.p)
+                assert torch.equal(idx, out[0]) and torch.equal(cnt, out[1]), \
+                    f"step {self.step}: incremental plan at budget {k} is " \
+                    f"not the plain budget rank"
+                self.rows["incremental"] += int(cnt.numel())
+            return out
+        return wrapped
+
+    def full(self, fn):
+        torch, dp = self.torch, self.dp
+
+        def wrapped(q, k_cache, pos, **kw):
+            out = fn(q, k_cache, pos, **kw)
+            k = self._take("full", kw.get("budget"))
+            if k is not None:
+                kb, live = kw["k_block"], kw.get("live_blk")
+                s = k_cache.shape[1]
+                nkb = s // kb
+                idx0, cnt0, _ = fn(q, k_cache, pos, topk_k=kw["topk_k"],
+                                   k_block=kb, plan_blocks=nkb,
+                                   live_blk=live)
+                occ0 = dp._plan_occupancy(idx0, cnt0, nkb)
+                keys = k_cache.permute(0, 2, 1, 3).to(
+                    torch.float32, memory_format=torch.contiguous_format)
+                sc = dp._scores(q, keys, 1.0 / np.sqrt(q.shape[-1]))
+                valid = torch.arange(s, device=sc.device) <= pos[:, None]
+                if live is not None:
+                    valid = valid & live.repeat_interleave(kb, dim=-1)
+                sc = torch.where(valid[:, None, None, :], sc,
+                                 dp.NEG_INF)
+                blk = sc.amax(dim=2).reshape(*occ0.shape, kb).amax(-1)
+                want = budget_top(torch, blk, occ0, k)
+                idx, cnt = dp._compact_rows(want, kw["plan_blocks"])
+                assert torch.equal(idx, out[0]) and torch.equal(cnt, out[1]), \
+                    f"step {self.step}: exact re-plan at budget {k} is " \
+                    f"not the plain budget rank"
+                self.rows["full"] += int(cnt.numel())
+            return out
+        return wrapped
+
+
+class KernelProbe:
+    """Holds one main-path call of the paged decode kernel to its plain
+    version (phase 2's limits), on the call's own inputs, right after
+    the kernel ran: the first call after ``arm(check)`` whose inputs
+    ``check`` accepts (it returns a note for the log, or None to wait
+    for a later call).  The kernel's output is the main path's own; the
+    plain version launches no kernel, so the launch counts stay the
+    main path's."""
+
+    def __init__(self, torch, sd):
+        self.torch, self.sd = torch, sd
+        self.check = None
+        self.result = None
+
+    def arm(self, check):
+        if self.result is None:
+            self.check = check
+
+    def __call__(self, fn):
+        torch, sd = self.torch, self.sd
+
+        def wrapped(q, kp, vp, table, idx, cnt, thr, pos):
+            out = fn(q, kp, vp, table, idx, cnt, thr, pos)
+            note = None if self.check is None else \
+                self.check(table, idx, cnt, pos)
+            if note is not None:
+                want = sd.sata_decode_attention_ref(
+                    q, kp, vp, idx, cnt, thr, pos, k_block=kp.shape[1],
+                    page_table=table)
+                tol = TOL[str(q.dtype).split(".")[-1]]
+                err = float((out.float() - want.float()).abs().max())
+                off = float((out != want).float().mean())
+                assert torch.isfinite(out).all()
+                assert err <= tol, f"B1 on the recorded call: {err} > {tol}"
+                if out.dtype == torch.bfloat16:
+                    assert off <= BF16_MISMATCH_MAX, f"{off:.4%} off"
+                self.result = (err, off, note)
+                self.check = None
+            return out
+        return wrapped
+
+
+def ladder_phase(torch, sd, serve, cfg, model, opts, tag):
+    """Phase 14a: the QoS ladder at plan width SKETCH_BLOCKS, 12 requests
+    of 32 tokens through 8 slots: run 1 with the ladder and no faults,
+    run 2 with the ladder under ``ladder_spikes()``, run 3 without the
+    ladder under the same spikes.  Returns kernel 1's check on a
+    recorded call of run 2 and the three runs' launches."""
+    from repro_torch.core import decode_plan as dp
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode as dec
+    p = SKETCH_BLOCKS
+    lcfg = dataclasses.replace(cfg, sata=dataclasses.replace(
+        cfg.sata, decode=dataclasses.replace(cfg.sata.decode, blocks=p),
+        qos=dataclasses.replace(cfg.sata.qos, ladder=True,
+                                clear_steps=LADDER_CLEAR)))
+    off_cfg = dataclasses.replace(lcfg, sata=dataclasses.replace(
+        lcfg.sata, qos=dataclasses.replace(lcfg.sata.qos, ladder=False)))
+    lopts = dataclasses.replace(opts, n_requests=LADDER_REQUESTS,
+                                gen_len=LADDER_GEN)
+    run1, n1 = serve_full(torch, sd, serve, lcfg, model, lopts,
+                          "ladder, no faults", tag)
+    # run 2, watched: every step's degraded rows, the per-slot planner's
+    # budget rank on the probe steps, B1 on a recorded call
+    probe = BudgetProbe(torch, p, LADDER_PROBE_STEPS)
+    kprobe = KernelProbe(torch, sd)
+    acc = torch.zeros(6, dtype=torch.int64, device=model_device(model))
+
+    def step_hook(fn):
+        def wrapped(model_, cfg_, cache, tokens, pos):
+            probe.step += 1
+            if probe.step == LADDER_KERNEL_STEP:
+                kprobe.arm(lambda table, idx, cnt, pos_: (
+                    f"loop step {LADDER_KERNEL_STEP}, kv_counts max "
+                    f"{int(cnt.max())} mean {float(cnt.float().mean()):.2f}"))
+            out = fn(model_, cfg_, cache, tokens, pos)
+            plan = cache["kv"]["plan"]
+            cnt, bud = plan["kv_counts"], plan["budget"][..., None]
+            deg = (plan["active"][..., None] & (bud < p)).expand_as(cnt)
+            und = (plan["active"][..., None] & (bud >= p)).expand_as(cnt)
+            acc.add_(torch.stack([
+                deg.sum(), (deg & (cnt > bud)).sum(),
+                torch.where(deg, cnt, 0).sum(), und.sum(),
+                torch.where(und, cnt, 0).sum(), (cnt > p).sum()]))
+            return out
+        return wrapped
+
+    with patched(dec, "serve_step", step_hook), \
+            patched(dp, "incremental_plan", probe.incremental), \
+            patched(dp, "full_replan", probe.full), \
+            patched(ops, "sata_decode_attention_paged_kernel", kprobe):
+        run2, n2 = serve_full(torch, sd, serve, lcfg, model, lopts,
+                              "ladder, spikes", tag,
+                              faults=ladder_spikes())
+    run3, n3 = serve_full(torch, sd, serve, off_cfg, model, lopts,
+                          "ladder off, spikes", tag, faults=ladder_spikes())
+    n_deg, n_over, c_deg, n_und, c_und, n_wide = acc.tolist()
+    assert n_wide == 0, "a plan named more blocks than its width"
+    q, o2, o3 = run2["qos"], run2["page_occupancy"], run3["page_occupancy"]
+    assert not run2["timed_out"] and o2["requeue_preemptions"] == 0
+    assert o2["preemptions"] == 0, o2["preemptions"]
+    assert q["rung_downs"] > 0 and q["rung_ups"] > 0, q
+    clean = [r for r, tl in run2["degradation"].items() if not tl]
+    assert clean, "every request was degraded"
+    for r in clean:
+        assert run2["outputs"][r] == run1["outputs"][r], \
+            f"request {r} was never degraded but its stream differs"
+    assert probe.rows["incremental"] and probe.rows["full"], probe.rows
+    assert kprobe.result is not None, "B1's recorded call was not checked"
+    assert o3["preemptions"] >= 1 and o3["requeue_preemptions"] == 0
+    assert o3["host_swaps"] == o3["preemptions"], o3
+    assert n_deg > 0, "no row sat at rung >= 1"
+    err, off, note = kprobe.result
+    log(f"[ladder] run 2: every request complete, {len(clean)} never "
+        f"degraded (requests {clean}) == run 1 bitwise: True; rung_downs "
+        f"{q['rung_downs']}, rung_ups {q['rung_ups']}, degraded_steps "
+        f"{q['degraded_steps']}, load_spikes {q['load_spikes']}, slow_steps "
+        f"{q['slow_steps']}, preemptions {o2['preemptions']}, requeues "
+        f"{o2['requeue_preemptions']}, timeouts {len(run2['timed_out'])}; "
+        f"run 3 (no ladder): preemptions {o3['preemptions']} = host swaps "
+        f"{o3['host_swaps']}, requeues {o3['requeue_preemptions']} {tag}")
+    log(f"[ladder] budget rung on the card: (layer, slot, head) rows at "
+        f"rung >= 1 over run 2's steps {n_deg}, mean kv_counts "
+        f"{c_deg / n_deg:.3f} (rung 0 rows {n_und}, mean "
+        f"{c_und / max(n_und, 1):.3f}), rows above the budget of {p // 2} "
+        f"{n_over} ({n_over / n_deg:.2%}: bf16 ties at the rank edge); "
+        f"plain budget rank == the planner's on "
+        f"{probe.rows['incremental']} incremental and {probe.rows['full']} "
+        f"exact re-plan rows of steps {LADDER_PROBE_STEPS} {tag}")
+    log(f"[ladder] B1 on a recorded call of run 2 ({note}): max_abs_err="
+        f"{err:.3e}, {off:.4%} of outputs off the plain version's bits; "
+        f"mean decode step: run 1 {run1['step_ms_mean']:.2f} ms, run 2 "
+        f"{run2['step_ms_mean']:.2f} ms, run 3 (no ladder, batched "
+        f"planner) {run3['step_ms_mean']:.2f} ms {tag}")
+    return err, {"14a run 1": n1, "14a run 2": n2, "14a run 3": n3}
+
+
+def retire_phase(torch, sd, serve, cfg, model, opts, phase3, tag):
+    """Phase 14b: phase 3's workload with retirement on (keep
+    RETIRE_KEEP, watermark RETIRE_MARK): run 1 on a RETIRE_POOL-page
+    pool, watched after every retirement pass and every step; run 2 the
+    same with retirement off; run 3, the never-firing twin (phase 3's
+    pool, a watermark no slot reaches), must serve phase 3's streams.
+    Returns kernel 1's check on a recorded call with holes and the
+    runs' launches."""
+    from repro_torch.core import decode_plan as dp
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import decode as dec
+
+    def rcfg(mode, pool, mark=RETIRE_MARK):
+        return dataclasses.replace(
+            cfg, sata=dataclasses.replace(cfg.sata, retire=dataclasses.replace(
+                cfg.sata.retire, mode=mode, keep=RETIRE_KEEP,
+                watermark=mark)),
+            kv=dataclasses.replace(cfg.kv, pool_pages=pool))
+
+    allocs = []
+    kprobe = KernelProbe(torch, sd)
+    dev = model_device(model)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    nkb = opts.max_len // cfg.kv.page_size
+    checks = {"passes": 0, "steps": 0, "holes_seen": 0}
+
+    def dead_mask():
+        alloc = allocs[0][2]
+        m = np.zeros((opts.batch_slots, nkb), bool)
+        for i, lps in enumerate(alloc.retired):
+            m[i, list(lps)] = True
+        return torch.as_tensor(m, device=dev)
+
+    def check_plans(cache, dead, table):
+        """No layer's plan names a dead block of an active slot and
+        every layer's live mask is the allocator's; with ``table``,
+        every hole maps the overflow page in every layer's page table
+        on the card (the serve loop pushes the table after a pass)."""
+        kv = cache["kv"]
+        plan = kv["plan"]
+        act = plan["active"][0]                                   # (B,)
+        occ = dp._plan_occupancy(plan["kv_indices"], plan["kv_counts"], nkb)
+        dead_a = dead & act[:, None]
+        bad.add_((occ & dead_a[None, :, None, :]).sum())
+        bad.add_(((plan["live_blk"] != ~dead) & act[None, :, None]).sum())
+        if table:
+            bad.add_((kv["page_table"] != 0)[:, dead_a].sum())
+
+    def retire_hook(fn):
+        def wrapped(cfg_, cache, slot, blocks):
+            out = fn(cfg_, cache, slot, blocks)
+            checks["passes"] += 1
+            check_plans(cache, dead_mask(), table=False)
+
+            def holes(table, idx, cnt, pos):
+                # a row of an active slot whose table holds a hole
+                dead = dead_mask()
+                rows = [i for i in range(dead.shape[0])
+                        if bool(dead[i].any())]
+                if not rows:
+                    return None
+                i = rows[0]
+                lps = dead[i].nonzero()[:, 0]
+                assert bool((table[i, lps] == 0).all())
+                return (f"slot {i}: {len(lps)} holes, table entries 0, "
+                        f"kv_counts {cnt[i].tolist()}")
+            kprobe.arm(holes)
+            return out
+        return wrapped
+
+    def step_hook(fn):
+        def wrapped(model_, cfg_, cache, tokens, pos):
+            out = fn(model_, cfg_, cache, tokens, pos)
+            if allocs:
+                dead = dead_mask()
+                checks["steps"] += 1
+                checks["holes_seen"] = max(checks["holes_seen"],
+                                           int(dead.sum()))
+                check_plans(cache, dead, table=True)
+            return out
+        return wrapped
+
+    with recording(serve_mod, "PageAllocator", allocs), \
+            patched(dec, "retire_plan", retire_hook), \
+            patched(dec, "serve_step", step_hook), \
+            patched(ops, "sata_decode_attention_paged_kernel", kprobe):
+        on, n1 = serve_full(torch, sd, serve, rcfg("on", RETIRE_POOL),
+                            model, opts, f"retire on, {RETIRE_POOL} pages",
+                            tag)
+    assert len(allocs) == 1, len(allocs)
+    alloc = allocs[0][2]
+    alloc.check_invariants()
+    off, n2 = serve_full(torch, sd, serve, rcfg("off", RETIRE_POOL), model,
+                         opts, f"retire off, {RETIRE_POOL} pages", tag)
+    twin, n3 = serve_full(torch, sd, serve, rcfg("on", 0, mark=2.0), model,
+                          opts, "retire on, never fires", tag)
+    assert int(bad) == 0, f"{int(bad)} retired-block violations on the card"
+    r, oo, of = on["retirement"], on["page_occupancy"], off["page_occupancy"]
+    first = min(t[0][0] for t in r["timelines"].values() if t)
+    assert r["pages_reclaimed"] > 0 and first < on["steps"] - 1, r
+    assert oo["pages_retired"] == r["pages_reclaimed"]
+    assert checks["passes"] == r["events"] > 0, (checks, r["events"])
+    assert kprobe.result is not None, "no B1 call over a table with holes"
+    # at this page arithmetic admission control, not preemption, sheds
+    # the load: retirement must admit more requests at once
+    assert oo["preemptions"] <= of["preemptions"], (oo, of)
+    assert oo["deferred_claims"] < of["deferred_claims"], (oo, of)
+    assert on["steps"] < off["steps"], (on["steps"], off["steps"])
+    assert twin["outputs"] == phase3["outputs"], \
+        "retirement that never fires serves another stream than phase 3"
+    assert twin["retirement"]["pages_reclaimed"] == 0
+    err, off_bits, note = kprobe.result
+    log(f"[retire] {RETIRE_POOL}-page pool, keep {RETIRE_KEEP}, watermark "
+        f"{RETIRE_MARK}: {r['events']} retirement events (slot passes), "
+        f"{r['pages_reclaimed']} pages reclaimed ({r['retired_tokens']} "
+        f"tokens), first at loop step {first} of {on['steps']}; retire on "
+        f"vs off: steps {on['steps']} vs {off['steps']}, preemptions "
+        f"{oo['preemptions']} vs {of['preemptions']}, deferred claims "
+        f"{oo['deferred_claims']} vs {of['deferred_claims']}, stalled "
+        f"steps {oo['stalled_steps']} vs {of['stalled_steps']}, pages "
+        f"held at peak {oo['pages_in_use_peak']} vs "
+        f"{of['pages_in_use_peak']}; retire pass {on['retire_pass_ms_mean']:.2f}"
+        f" ms mean on the host clock; mean decode step "
+        f"{on['step_ms_mean']:.2f} vs {off['step_ms_mean']:.2f} ms {tag}")
+    log(f"[retire] on the card after each of {checks['passes']} passes and "
+        f"each of {checks['steps']} steps: no plan of any layer names a "
+        f"retired block, every layer's live mask is the allocator's, every "
+        f"hole (up to {checks['holes_seen']} at once) maps page 0; "
+        f"check_invariants after the run passed; never-firing twin == "
+        f"phase 3's streams bitwise: True; head importance "
+        f"{[round(x, 1) for x in r['head_importance']]} {tag}")
+    log(f"[retire] B1 on a recorded call over a table with holes ({note}): "
+        f"max_abs_err={err:.3e}, {off_bits:.4%} of outputs off the plain "
+        f"version's bits {tag}")
+    return err, {"14b run 1": n1, "14b run 2": n2, "14b run 3": n3}
+
+
+def overload_phases(torch, sd, serve, cfg, opts, phase3, dev, tag):
+    """Phases 14a and 14b on a fresh full-width model; returns kernel 1's
+    launches on their paths and its error on their recorded calls."""
+    from repro_torch.models.model import DenseModel
+    model = DenseModel(cfg, device=dev, seed=0)
+    err_a, n_a = ladder_phase(torch, sd, serve, cfg, model, opts, tag)
+    err_b, n_b = retire_phase(torch, sd, serve, cfg, model, opts, phase3,
+                              tag)
+    del model
+    torch.cuda.empty_cache()
+    return {"paths": {**n_a, **n_b},
+            "recorded_calls": {"14a": err_a, "14b": err_b}}
 
 
 def _tensors(tree):
@@ -2241,6 +2683,12 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     checkpoint_phase(torch, sd, cfg, opts, dev, root, tag)
+
+    # --- 14. the QoS ladder and cascade retirement
+    kernels[0].update(overload_phases(torch, sd, serve, cfg, opts,
+                                      runs["paged"][0], dev, tag))
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
+                                    *kernels[0]["recorded_calls"].values())
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

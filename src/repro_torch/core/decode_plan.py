@@ -41,8 +41,22 @@ once the blocks entering and leaving its plan add up to
 slots loops over the slots on the host, so only the triggering slots
 stream their cache.
 
-The QoS knob vectors and retirement (queue A items 16 and 17) raise
-``NotImplementedError``.
+Per-slot QoS knobs (``init_decode_plan(..., qos=True)``): ``budget`` /
+``interval`` (B,) int32 and ``quant`` / ``sketch`` (B,) bool, the
+degradation-ladder rungs the serving loop's QoS controller pushes
+between steps.  ``budget`` caps the blocks a plan keeps (a re-plan ranks
+its selected blocks by best token score and re-bisects the threshold
+over the survivors), ``interval`` is the slot's own re-plan beat,
+``quant`` ranks the slot's blocks from an int8 round trip of its fp32
+bounds, and ``sketch`` makes its re-plan hierarchical.  A step with the
+knobs always loops over the slots on the host, one slot at a time, so
+an undegraded slot's arithmetic (every product at batch 1) never
+depends on its neighbours' rungs.
+
+Cascade retirement (``retire=True``): ``imp`` (B, KV, nkb) fp32, the
+decayed planned-set membership of each block, and ``live_blk`` (B, nkb)
+bool, which every planner ANDs into its block validity; the serving
+loop retires a slot's coldest blocks through ``retire_plan_blocks``.
 """
 from __future__ import annotations
 
@@ -62,18 +76,6 @@ SUMMARY_BACKENDS = ("fp32", "int8")
 # int8 code range: block range endpoints land on ±126 so the ±1
 # conservative-rounding margin never clips anti-conservatively
 _INT8_LEVELS = 252.0
-
-_QOS = "the QoS plan state (queue A item 16, slice 3 of the PyTorch port)"
-_RETIRE = ("the retirement plan state (queue A item 17, slice 3 of the "
-           "PyTorch port)")
-
-
-def _refuse_unported(plan: PlanState) -> None:
-    if "budget" in plan:
-        raise NotImplementedError(f"{_QOS} is not ported yet")
-    if "imp" in plan or "live_blk" in plan:
-        raise NotImplementedError(f"{_RETIRE} is not ported yet")
-
 
 def summary_bytes(nkb: int, d: int, summary: str = "fp32") -> int:
     """Block-summary bytes per (slot, kv head) — what one incremental
@@ -132,12 +134,44 @@ def plan_summary_bounds(plan: PlanState
     return plan["k_min"], plan["k_max"]
 
 
+def degraded_summary_bounds(plan: PlanState,
+                            quant: Optional[torch.Tensor]
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``plan_summary_bounds`` with the per-slot ``quant`` rung: flagged
+    slots rank from an int8 quantize → dequantize round trip of their
+    fp32 bounds (conservative, so containment holds); unflagged slots
+    pass through bitwise.  A no-op when the backend already stores
+    int8 codes."""
+    k_min, k_max = plan_summary_bounds(plan)
+    if quant is None or "k_scale" in plan:
+        return k_min, k_max
+    d_lo, d_hi = dequantize_summaries(*quantize_summaries(k_min, k_max))
+    m = quant[:, None, None, None]
+    return torch.where(m, d_lo, k_min), torch.where(m, d_hi, k_max)
+
+
+def clamp_plan_budget(occ: torch.Tensor, blk_score: torch.Tensor,
+                      budget: torch.Tensor) -> torch.Tensor:
+    """Cap the selected blocks per (slot, kv head) at the slot's QoS
+    ``budget``: keep the top-``budget`` selected blocks by best token
+    score.  occ: (B, KV, nkb) bool; blk_score: (B, KV, nkb) fp32;
+    budget: (B,) int."""
+    s = torch.where(occ, blk_score, NEG_INF)
+    thr = kth_largest_bisect(s, budget[:, None, None])        # (B, KV, 1)
+    return occ & bisect_select(s, thr)
+
+
 def init_decode_plan(batch: int, n_kv_heads: int, max_len: int, d: int,
                      k_block: int, plan_blocks: Optional[int] = None,
-                     summary: str = "fp32", *, device) -> PlanState:
+                     summary: str = "fp32", *, device, qos: bool = False,
+                     replan_interval: int = 1,
+                     retire: bool = False) -> PlanState:
     """Empty plan over a ``max_len`` cache.  ``plan_blocks`` (P) is the
     plan width; ``None`` keeps the full ``nkb`` (exact).  ``summary``
-    picks the bounds backend."""
+    picks the bounds backend.  ``qos=True`` adds the knob vectors at
+    full quality (budget P, interval ``replan_interval``, no quant, no
+    sketch); ``retire=True`` adds ``imp`` (zeros) and ``live_blk``
+    (all live).  Without them the state has neither field."""
     assert max_len % k_block == 0, (max_len, k_block)
     assert summary in SUMMARY_BACKENDS, summary
     nkb = max_len // k_block
@@ -160,8 +194,22 @@ def init_decode_plan(batch: int, n_kv_heads: int, max_len: int, d: int,
             "k_max": torch.full(shape, float("-inf"), dtype=f32,
                                 device=device),
         }
+    extra = {}
+    if qos:
+        extra.update(
+            budget=torch.full((batch,), p, dtype=i32, device=device),
+            interval=torch.full((batch,), max(int(replan_interval), 1),
+                                dtype=i32, device=device),
+            quant=torch.zeros((batch,), dtype=torch.bool, device=device),
+            sketch=torch.zeros((batch,), dtype=torch.bool, device=device))
+    if retire:
+        extra.update(
+            imp=torch.zeros(shape[:3], dtype=f32, device=device),
+            live_blk=torch.ones((batch, nkb), dtype=torch.bool,
+                                device=device))
     return {
         **bounds,
+        **extra,
         "kv_indices": torch.zeros((batch, n_kv_heads, p), dtype=i32,
                                   device=device),
         "kv_counts": torch.zeros((batch, n_kv_heads), dtype=i32,
@@ -196,6 +244,9 @@ def reset_plan_slot(plan: PlanState, slot, *, batch_axis: int = 0
     plan["step"][ix] = 0
     plan["churn"][ix] = 0.0
     plan["active"][ix] = True
+    if "imp" in plan:                # retirement restarts with the occupant
+        plan["imp"][ix] = 0.0
+        plan["live_blk"][ix] = True
     return plan
 
 
@@ -211,10 +262,11 @@ def release_plan_slot(plan: PlanState, slot, *, batch_axis: int = 0
 
 # A slot's complete plan state — what host-swap preemption moves besides
 # its pages: summaries, selected blocks, the re-plan beat (``step``),
-# churn, the cumulative re-plan counter and liveness.  The reference also
-# lists its retirement fields (``imp``/``live_blk``), which this port's
-# plan does not carry (queue A item 17); names absent from the plan are
-# skipped.
+# churn, the cumulative re-plan counter, liveness and the retirement
+# state (a restored slot must not re-plan blocks whose pages were
+# reclaimed); names absent from the plan are skipped.  The QoS knobs are
+# not here: a rung belongs to the serving slot, and the serve loop
+# pushes the knob vectors on every admission and rung change.
 PLAN_SLOT_FIELDS = ("k_min", "k_max", "k_scale", "k_zero", "kv_indices",
                     "kv_counts", "step", "churn", "replans", "active",
                     "imp", "live_blk")
@@ -328,13 +380,20 @@ def _scores(q: torch.Tensor, keys: torch.Tensor, sm_scale: float
 
 
 def full_replan(q: torch.Tensor, k_cache: torch.Tensor, pos: torch.Tensor,
-                *, topk_k: int, k_block: int, plan_blocks: int
+                *, topk_k: int, k_block: int, plan_blocks: int,
+                budget: Optional[torch.Tensor] = None,
+                live_blk: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Exact per-step plan: score all cached keys, bisect each query
     row's top-k threshold, keep every block with a selected token.
     q: (B, KV, G, D); k_cache: (B, S, KV, D) logical; pos: (B,).
     Returns (kv_indices (B, KV, P), kv_counts (B, KV),
-    thresholds (B, KV, G, 1) fp32)."""
+    thresholds (B, KV, G, 1) fp32).
+
+    ``budget`` (B,) caps the kept blocks per (slot, head): the selected
+    blocks ranked by best token score, the top ``budget`` kept and the
+    threshold re-bisected over their tokens only.  ``live_blk`` (B, nkb)
+    takes retired blocks' tokens out of the score multiset."""
     b, s, kv, d = k_cache.shape
     nkb = s // k_block
     sm_scale = 1.0 / np.sqrt(d)
@@ -343,10 +402,19 @@ def full_replan(q: torch.Tensor, k_cache: torch.Tensor, pos: torch.Tensor,
     sc = _scores(q, keys, sm_scale)                           # (B,KV,G,S)
     valid = (torch.arange(s, device=sc.device)
              <= pos[:, None])[:, None, None, :]               # (B,1,1,S)
+    if live_blk is not None:
+        valid = valid & live_blk.repeat_interleave(k_block, dim=-1)[
+            :, None, None, :]
     sc = torch.where(valid, sc, NEG_INF)
     thr = kth_largest_bisect(sc, topk_k)                      # (B, KV, G, 1)
     sel = bisect_select(torch.where(valid, sc, float("-inf")), thr) & valid
     occ = sel.reshape(b, kv, -1, nkb, k_block).any(dim=4).any(dim=2)
+    if budget is not None:
+        blk_score = sc.amax(dim=2).reshape(b, kv, nkb, k_block).amax(-1)
+        occ = clamp_plan_budget(occ, blk_score, budget)
+        keep = occ.repeat_interleave(k_block, dim=-1)         # (B, KV, S)
+        thr = kth_largest_bisect(
+            torch.where(keep[:, :, None, :], sc, NEG_INF), topk_k)
     kv_indices, kv_counts = _compact_rows(occ, plan_blocks)
     return kv_indices, kv_counts, thr
 
@@ -377,33 +445,48 @@ def gather_planned_keys(k_cache: torch.Tensor, kv_indices: torch.Tensor, *,
     return kg.reshape(b, kv, p * k_block, k_cache.shape[-1]), tok
 
 
+def _valid_blocks(plan: PlanState, pos: torch.Tensor, k_block: int
+                  ) -> torch.Tensor:
+    """(B, nkb) blocks holding a token at or before ``pos`` and, with
+    retirement, not retired."""
+    nkb = plan["k_min"].shape[2]
+    valid = (torch.arange(nkb, device=pos.device) * k_block
+             <= pos[:, None])
+    if "live_blk" in plan:
+        valid = valid & plan["live_blk"]
+    return valid
+
+
 def incremental_plan(q: torch.Tensor, k_cache: torch.Tensor,
                      plan: PlanState, pos: torch.Tensor, *, topk_k: int,
-                     k_block: int, page_table: Optional[torch.Tensor] = None
+                     k_block: int, page_table: Optional[torch.Tensor] = None,
+                     budget: Optional[torch.Tensor] = None,
+                     quant: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Approximate per-step plan from the block summaries: rank valid
     blocks by their upper-bound score, keep the top P, then bisect the
     exact token threshold over the planned blocks only.  Shapes as
     ``full_replan``; with ``page_table`` set, ``k_cache`` is the pool.
-    Cost: O(nkb·D) ranking + O(P·k_block·D) threshold."""
-    _refuse_unported(plan)
+    Cost: O(nkb·D) ranking + O(P·k_block·D) threshold.  ``budget`` (B,)
+    ranks the top ``budget`` blocks instead of P; ``quant`` (B,) ranks
+    flagged slots from int8-rounded bounds; a plan with ``live_blk``
+    never ranks a retired block."""
     b, kv, _, d = q.shape
-    nkb = plan["k_min"].shape[2]
     p = plan["kv_indices"].shape[-1]
     sm_scale = 1.0 / np.sqrt(d)
     dev = q.device
-    valid_blk = (torch.arange(nkb, device=dev) * k_block
-                 <= pos[:, None])                             # (B, nkb)
+    valid_blk = _valid_blocks(plan, pos, k_block)             # (B, nkb)
     vb = valid_blk[:, None, :, None]
-    k_min, k_max = plan_summary_bounds(plan)                  # fp32 either way
+    k_min, k_max = degraded_summary_bounds(plan, quant)       # fp32 either way
     ub = block_upper_bounds(q.float(),
                             torch.where(vb, k_min, 0.0),
                             torch.where(vb, k_max, 0.0),
                             sm_scale=sm_scale)                # (B,KV,G,nkb)
     ub_row = torch.where(valid_blk[:, None, :], ub.amax(dim=2), NEG_INF)
     # top-P blocks per (slot, kv head): the token-level bisect predicate
-    # applied at block granularity
-    thr_b = kth_largest_bisect(ub_row, p)                     # (B, KV, 1)
+    # applied at block granularity (a budget narrows it per slot)
+    p_row = p if budget is None else budget[:, None, None]
+    thr_b = kth_largest_bisect(ub_row, p_row)                 # (B, KV, 1)
     occ = bisect_select(ub_row, thr_b) & valid_blk[:, None, :]
     kv_indices, kv_counts = _compact_rows(occ, p)
     kg, tok = gather_planned_keys(k_cache, kv_indices, k_block=k_block,
@@ -435,7 +518,9 @@ def sketch_geometry(nkb: int, plan_blocks: int, sketch_factor: int
 def sketch_replan(q: torch.Tensor, k_cache: torch.Tensor, plan: PlanState,
                   pos: torch.Tensor, *, topk_k: int, k_block: int,
                   sketch_factor: int = 4,
-                  page_table: Optional[torch.Tensor] = None
+                  page_table: Optional[torch.Tensor] = None,
+                  budget: Optional[torch.Tensor] = None,
+                  quant: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Two-level re-plan, the sub-linear stand-in for ``full_replan``.
 
@@ -447,17 +532,19 @@ def sketch_replan(q: torch.Tensor, k_cache: torch.Tensor, plan: PlanState,
     Reads drop from O(S·D) to O(nkb·D + C·F·k_block·D).  Approximate by
     design; when ``C·F ≥ nkb`` every valid block is a candidate and the
     result equals ``full_replan`` bitwise.  Shapes as ``full_replan``;
-    with ``page_table`` set, ``k_cache`` is the pool."""
-    _refuse_unported(plan)
+    with ``page_table`` set, ``k_cache`` is the pool.  ``budget`` (B,)
+    narrows both levels per slot (``ceil(budget/F)`` super-blocks, then
+    the block cap of ``full_replan``); ``quant`` (B,) ranks flagged
+    slots' sketches from int8-rounded bounds; retired blocks are never
+    ranked nor scored."""
     b, kv, gq, d = q.shape
-    k_min, k_max = plan_summary_bounds(plan)
+    k_min, k_max = degraded_summary_bounds(plan, quant)
     nkb = k_min.shape[2]
     p = plan["kv_indices"].shape[-1]
     f, nsb, c, _ = sketch_geometry(nkb, p, sketch_factor)
     sm_scale = 1.0 / np.sqrt(d)
     dev = q.device
-    valid_blk = (torch.arange(nkb, device=dev) * k_block
-                 <= pos[:, None])                             # (B, nkb)
+    valid_blk = _valid_blocks(plan, pos, k_block)             # (B, nkb)
     vb = valid_blk[:, None, :, None]
     lo = torch.where(vb, k_min, 0.0)
     hi = torch.where(vb, k_max, 0.0)
@@ -467,7 +554,10 @@ def sketch_replan(q: torch.Tensor, k_cache: torch.Tensor, plan: PlanState,
                             sm_scale=sm_scale)                # (B,KV,G,nsb)
     valid_sb = valid_blk.reshape(b, nsb, f).any(dim=-1)
     ub_row = torch.where(valid_sb[:, None, :], ub.amax(dim=2), NEG_INF)
-    thr_sb = kth_largest_bisect(ub_row, c)                    # (B, KV, 1)
+    # a budget narrows the surviving super-block count per slot
+    c_row = c if budget is None else \
+        torch.clamp((budget[:, None, None] + f - 1) // f, 1, c)
+    thr_sb = kth_largest_bisect(ub_row, c_row)                # (B, KV, 1)
     occ_sb = bisect_select(ub_row, thr_sb) & valid_sb[:, None, :]
     sb_idx, sb_cnt = _compact_rows(occ_sb, c)                 # (B, KV, C)
     cand = (sb_idx.long()[..., None] * f
@@ -478,11 +568,24 @@ def sketch_replan(q: torch.Tensor, k_cache: torch.Tensor, plan: PlanState,
     sc = _scores(q, kg, sm_scale)
     sb_slot = torch.arange(c * f * k_block, device=dev) // (f * k_block)
     live = sb_slot[None, None, :] < sb_cnt[..., None]         # no dup pads
-    live = (live & (tok <= pos[:, None, None]))[:, :, None, :]
+    live = live & (tok <= pos[:, None, None])
+    if "live_blk" in plan:
+        # a surviving super-block may straddle retired blocks, whose
+        # freed pages must never reach the threshold multiset
+        lv = torch.gather(plan["live_blk"][:, None, :].expand(b, kv, nkb),
+                          2, cand)
+        live = live & lv.repeat_interleave(k_block, dim=-1)
+    live = live[:, :, None, :]
     sc = torch.where(live, sc, NEG_INF)
     thr = kth_largest_bisect(sc, topk_k)                      # (B, KV, G, 1)
     sel = bisect_select(torch.where(live, sc, float("-inf")), thr) & live
     sel_blk = sel.reshape(b, kv, gq, c * f, k_block).any(dim=4).any(dim=2)
+    if budget is not None:
+        cand_score = sc.amax(dim=2).reshape(b, kv, c * f, k_block).amax(-1)
+        sel_blk = clamp_plan_budget(sel_blk, cand_score, budget)
+        keep = sel_blk.repeat_interleave(k_block, dim=-1)     # (B,KV,C·F·kb)
+        thr = kth_largest_bisect(
+            torch.where(keep[:, :, None, :], sc, NEG_INF), topk_k)
     # scatter back to block occupancy; a padded (repeated) candidate
     # contributes nothing, and duplicates OR together
     occ = torch.zeros((b, kv, nkb), dtype=torch.int32, device=dev)
@@ -513,7 +616,8 @@ def plan_churn(plan: PlanState, kv_indices: torch.Tensor,
     return (o_old ^ o_new).sum(dim=-1).float().mean(dim=-1)
 
 
-_SUB_FIELDS = ("k_min", "k_max", "k_scale", "k_zero", "kv_indices")
+_SUB_FIELDS = ("k_min", "k_max", "k_scale", "k_zero", "kv_indices",
+               "live_blk")
 
 
 def decode_plan_update(plan: PlanState, q: torch.Tensor,
@@ -521,7 +625,8 @@ def decode_plan_update(plan: PlanState, q: torch.Tensor,
                        topk_k: int, k_block: int, replan_interval: int = 1,
                        churn_budget: Optional[float] = None,
                        page_table: Optional[torch.Tensor] = None,
-                       replan_mode: str = "exact", sketch_factor: int = 4
+                       replan_mode: str = "exact", sketch_factor: int = 4,
+                       retire_decay: float = 0.9
                        ) -> Tuple[PlanState, torch.Tensor]:
     """One decode step of plan maintenance (the summaries must already
     hold the step's appended key — call ``update_block_summaries``
@@ -537,12 +642,27 @@ def decode_plan_update(plan: PlanState, q: torch.Tensor,
     whose active slots disagree takes the partial re-plan — a host loop
     over slots that streams the cache only for the slots that trigger.
     ``replans`` counts the re-plans of active slots, as the reference
-    does."""
+    does.
+
+    With the QoS knobs in the plan each slot triggers on its own
+    ``interval``, and every step loops over the slots one at a time:
+    each plans at batch 1 under its own ``budget`` / ``quant``, and a
+    ``sketch`` slot re-plans hierarchically.  The knobs own the beat, so
+    the churn trigger is refused.  With the retirement state, active
+    slots' importance decays and absorbs this step's planned blocks:
+    ``imp ← retire_decay · imp + planned``."""
     assert replan_mode in ("exact", "sketch"), replan_mode
-    _refuse_unported(plan)
     p = plan["kv_indices"].shape[-1]
+    qos = "budget" in plan
+    assert not (qos and churn_budget is not None), \
+        "QoS ladder owns the re-plan beat; use an integer interval"
     active = plan["active"]
-    if churn_budget is not None:
+    if qos:
+        # each slot's own beat; step 0 lands on every beat, so a cold
+        # slot re-plans first
+        do_full = ((plan["step"] % plan["interval"].clamp(min=1)) == 0) \
+            & active
+    elif churn_budget is not None:
         do_full = ((plan["step"] == 0)
                    | (plan["churn"] >= churn_budget * p)) & active
     elif replan_interval <= 1:
@@ -550,45 +670,63 @@ def decode_plan_update(plan: PlanState, q: torch.Tensor,
     else:
         do_full = (plan["step"] % replan_interval == 0) & active
 
-    def _full(qb, kc, posb, sub, tbl):
-        if replan_mode == "sketch":
+    def _full(qb, kc, posb, sub, tbl, bud=None, qnt=None, skt=False):
+        if replan_mode == "sketch" or skt:
             return sketch_replan(qb, kc, sub, posb, topk_k=topk_k,
                                  k_block=k_block,
                                  sketch_factor=sketch_factor,
-                                 page_table=tbl)
+                                 page_table=tbl, budget=bud, quant=qnt)
         kf = kc if tbl is None else logical_kv_view(kc, tbl)
         return full_replan(qb, kf, posb, topk_k=topk_k, k_block=k_block,
-                           plan_blocks=p)
+                           plan_blocks=p, budget=bud,
+                           live_blk=sub.get("live_blk"))
 
-    def _incr(qb, kc, posb, sub, tbl):
+    def _incr(qb, kc, posb, sub, tbl, bud=None, qnt=None, skt=False):
         return incremental_plan(qb, kc, sub, posb, topk_k=topk_k,
-                                k_block=k_block, page_table=tbl)
+                                k_block=k_block, page_table=tbl,
+                                budget=bud, quant=qnt)
 
-    if replan_interval <= 1 and churn_budget is None:
+    def _per_slot(flags, knobs):
+        # a real per-slot branch at batch 1: untriggered slots never
+        # stream their cache, and under the knobs each slot's products
+        # keep one shape whatever its neighbours' rungs
+        outs = []
+        for i, f in enumerate(flags):
+            sl = slice(i, i + 1)
+            kc = k_cache if page_table is not None else k_cache[sl]
+            tbl = None if page_table is None else page_table[sl]
+            sub = {k: plan[k][sl] for k in _SUB_FIELDS if k in plan}
+            kw = {}
+            if knobs is not None:
+                # an unflagged slot's bounds pass through quantization
+                # bitwise, so it skips the round trip
+                kw = dict(bud=plan["budget"][sl],
+                          qnt=plan["quant"][sl] if knobs[0][i] else None,
+                          skt=knobs[1][i])
+            outs.append((_full if f else _incr)(q[sl], kc, pos[sl], sub,
+                                                tbl, **kw))
+        return (torch.cat(t) for t in zip(*outs))
+
+    if qos:
+        flags, *knobs = torch.stack(
+            [do_full, plan["quant"], plan["sketch"]]).tolist()
+        kv_indices, kv_counts, thr = _per_slot(flags, knobs)
+    elif replan_interval <= 1 and churn_budget is None:
         # exact mode re-plans every slot (idle ones ride the batched
         # einsum for free); ``do_full`` still scopes the accounting
-        kv_indices, kv_counts, thr = _full(q, k_cache, pos, plan,
-                                           page_table)
+        sub = {k: plan[k] for k in _SUB_FIELDS if k in plan}
+        kv_indices, kv_counts, thr = _full(q, k_cache, pos, sub, page_table)
     else:
         flags = do_full.tolist()
+        sub = {k: plan[k] for k in _SUB_FIELDS if k in plan}
         if all(flags):
-            kv_indices, kv_counts, thr = _full(q, k_cache, pos, plan,
+            kv_indices, kv_counts, thr = _full(q, k_cache, pos, sub,
                                                page_table)
         elif not any(flags):
-            kv_indices, kv_counts, thr = _incr(q, k_cache, pos, plan,
+            kv_indices, kv_counts, thr = _incr(q, k_cache, pos, sub,
                                                page_table)
         else:
-            # partial re-plan: a real per-slot branch, so untriggered
-            # slots never stream their cache
-            outs = []
-            for i, f in enumerate(flags):
-                sl = slice(i, i + 1)
-                kc = k_cache if page_table is not None else k_cache[sl]
-                tbl = None if page_table is None else page_table[sl]
-                sub = {k: plan[k][sl] for k in _SUB_FIELDS if k in plan}
-                outs.append((_full if f else _incr)(q[sl], kc, pos[sl], sub,
-                                                    tbl))
-            kv_indices, kv_counts, thr = (torch.cat(t) for t in zip(*outs))
+            kv_indices, kv_counts, thr = _per_slot(flags, None)
     if churn_budget is not None:
         drift = plan_churn(plan, kv_indices, kv_counts)
         plan["churn"].copy_(torch.where(do_full, 0.0, plan["churn"] + drift))
@@ -596,7 +734,50 @@ def decode_plan_update(plan: PlanState, q: torch.Tensor,
     plan["kv_counts"].copy_(kv_counts)
     plan["step"] += active.to(torch.int32)
     plan["replans"] += do_full.to(torch.int32)
+    if "imp" in plan:
+        # cumulative importance from the plan's own output (no extra
+        # cache reads); idle slots freeze
+        sel = _plan_occupancy(kv_indices, kv_counts, plan["imp"].shape[-1])
+        imp = plan["imp"] * retire_decay + sel.to(torch.float32)
+        plan["imp"].copy_(torch.where(active[:, None, None], imp,
+                                      plan["imp"]))
     return plan, thr
+
+
+def retire_plan_blocks(plan: PlanState, slot, blocks, *,
+                       batch_axis: int = 0) -> PlanState:
+    """Plan repair after a retirement pass freed one slot's ``blocks``,
+    in place: the blocks leave ``live_blk``, their summaries return to
+    the empty sentinel of the backend, their importance is zeroed, and
+    the slot's planned rows are compacted again over the survivors (the
+    untouched entries round-trip bitwise).  Positions stay logical, so
+    causality and RoPE are untouched.  ``batch_axis`` names the batch
+    dimension of layer-stacked states."""
+    assert "live_blk" in plan, "plan was not initialized with retire=True"
+    ix = (slice(None),) * batch_axis + (slot,)
+    nkb = plan["live_blk"].shape[-1]
+    p = plan["kv_indices"].shape[-1]
+    m = torch.zeros((nkb,), dtype=torch.bool,
+                    device=plan["live_blk"].device)
+    m[torch.as_tensor(np.asarray(blocks, np.int64), device=m.device)] = True
+    plan["live_blk"][ix] &= ~m
+    plan["imp"][ix].masked_fill_(m, 0.0)
+    if "k_scale" in plan:            # int8 backend: sentinel = empty
+        plan["k_min"][ix].masked_fill_(m[:, None], 0)
+        plan["k_max"][ix].masked_fill_(m[:, None], 0)
+        plan["k_scale"][ix].masked_fill_(m, -1.0)
+        plan["k_zero"][ix].masked_fill_(m, 0.0)
+    else:
+        plan["k_min"][ix].masked_fill_(m[:, None], float("inf"))
+        plan["k_max"][ix].masked_fill_(m[:, None], float("-inf"))
+    idx, cnt = plan["kv_indices"][ix], plan["kv_counts"][ix]
+    lead = idx.shape[:-2]                # () or (L,) layer-stacked
+    occ = _plan_occupancy(idx.reshape((-1,) + idx.shape[-2:]),
+                          cnt.reshape((-1,) + cnt.shape[-1:]), nkb)
+    ni, nc = _compact_rows(occ & ~m, p)
+    idx.copy_(ni.reshape(lead + ni.shape[-2:]))
+    cnt.copy_(nc.reshape(lead + nc.shape[-1:]))
+    return plan
 
 
 def plan_from_prefill(k_cache: torch.Tensor, q_tail: torch.Tensor,

@@ -27,8 +27,13 @@ resident under a reference the handle pins — and ``swap_in`` restores
 it into fresh pages after ``verify_handle`` re-checks every crc.
 ``swap_to_full`` turns a handle's pins into host payload before a crash
 drops the pool, and ``discard_handle`` quarantines a handle that failed
-its check.  ``audit="light"`` samples the full audit.  Retirement holes
-are a later slice: a handle's ``retired`` list stays empty.
+its check.  ``audit="light"`` samples the full audit.
+
+Cascade retirement: ``retire_compact`` frees the pages behind a slot's
+cold logical pages mid-stream.  A retired logical page becomes a HOLE
+below ``n_mapped``: its table entry maps the overflow page, ``ensure``
+never remaps it, and ``free_slot`` / ``swap_out`` skip it; a swap handle
+records the holes and ``swap_in`` marks them again.
 """
 from __future__ import annotations
 
@@ -156,6 +161,10 @@ class PageAllocator:
         # pages withheld by injected pressure (``squeeze``): out of the
         # free list but referenced by nobody
         self.squeezed: List[int] = []
+        # retirement holes: per slot, the logical pages whose physical
+        # page ``retire_compact`` freed; cleared with the slot
+        self.retired: List[set] = [set() for _ in range(batch_slots)]
+        self.pages_retired = 0
         # outstanding host-swap handles: each resident (shared) page a
         # handle pins holds one reference until ``swap_in`` releases it
         self.swapped: List[Dict[str, Any]] = []
@@ -192,6 +201,7 @@ class PageAllocator:
         the free + squeezed lists.  Catches a leaked or doubled
         reference in O(pages) without walking the tables."""
         expect = int(self.n_mapped.sum())
+        expect -= sum(len(r) for r in self.retired)   # holes map nothing
         expect += sum(int((h["resident"] >= 0).sum()) for h in self.swapped)
         if self.audit_trie is not None:
             expect += self.audit_trie.node_count
@@ -348,16 +358,51 @@ class PageAllocator:
         self.cow_leases = {p: s for p, s in self.cow_leases.items()
                            if s != slot}
 
+    def retire_compact(self, slot: int, lps: List[int]
+                       ) -> Tuple[List[int], List[int]]:
+        """Cascade retirement: free the physical pages behind ``slot``'s
+        cold logical pages ``lps`` mid-stream.  Returns ``(freed_phys,
+        skipped_lps)``.  A page anyone else references (``ref > 1``: the
+        trie's retention, another slot's mapping, a swap handle's pin)
+        is skipped, never freed; a swapped-out request has no table row
+        to name pages through.  A retired logical page becomes a hole:
+        its entry maps the overflow page while ``n_mapped`` stands, so
+        the surviving pages keep their logical positions.  The caller
+        never retires the block holding the write position."""
+        freed: List[int] = []
+        skipped: List[int] = []
+        for lp in sorted({int(x) for x in lps}):
+            assert 0 <= lp < self.n_mapped[slot], \
+                f"retire of unmapped logical page {lp} (slot {slot})"
+            assert lp not in self.retired[slot], \
+                f"logical page {lp} already retired (slot {slot})"
+            phys = int(self.table[slot, lp])
+            assert phys != OVERFLOW_PAGE, (slot, lp)
+            if self.ref[phys] > 1:               # pinned: trie / slot /
+                skipped.append(lp)               # swap-handle reference
+                continue
+            self.table[slot, lp] = OVERFLOW_PAGE
+            self.retired[slot].add(lp)
+            self.cow_leases.pop(phys, None)
+            self._deref(phys)
+            freed.append(phys)
+        self.pages_retired += len(freed)
+        self._audit()
+        return freed, skipped
+
     def free_slot(self, slot: int) -> int:
         """Release a finished (or preempted) slot's references.  A page
         returns to the free list only when nothing else references it —
         a page the trie or another slot holds survives.  The table row
         resets to the overflow page (a recycled page must not stay
-        visible through an old row).  Returns the pages unmapped."""
+        visible through an old row); retirement holes hold no reference
+        and are forgotten.  Returns the pages unmapped."""
         n = int(self.n_mapped[slot])
-        phys = [int(p) for p in self.table[slot, :n]]
+        phys = [int(self.table[slot, lp]) for lp in range(n)
+                if lp not in self.retired[slot]]
         self.table[slot, :] = OVERFLOW_PAGE
         self.n_mapped[slot] = 0
+        self.retired[slot] = set()
         self.drop_leases(slot)
         for p in phys:
             self._deref(p)
@@ -396,14 +441,18 @@ class PageAllocator:
         and return to the free list; shared pages stay resident, and the
         handle takes over the slot's reference on each, so eviction can
         never recycle a page the swapped request still needs.  Each
-        payload array is checksummed.  The slot's table row resets."""
+        payload array is checksummed.  The slot's table row resets;
+        retirement holes move nothing and are recorded in the handle."""
         n = int(self.n_mapped[slot])
         assert n > 0, "swap_out on a slot with no mapped pages"
+        retired = sorted(self.retired[slot])
         phys = [int(p) for p in self.table[slot, :n]]
         resident = np.full(n, -1, np.int64)
         priv_lp: List[int] = []
         priv_phys: List[int] = []
         for lp, p in enumerate(phys):
+            if lp in self.retired[slot]:
+                continue                 # a hole: nothing to move
             if self.ref[p] > 1:
                 resident[lp] = p     # the slot's ref moves to the handle
             else:
@@ -412,11 +461,12 @@ class PageAllocator:
         chunks = [(priv_lp, gather(priv_phys))] if priv_phys else []
         self.table[slot, :] = OVERFLOW_PAGE
         self.n_mapped[slot] = 0
+        self.retired[slot] = set()
         self.drop_leases(slot)
         for p in priv_phys:
             self._deref(p)
         handle = {"n_pages": n, "resident": resident, "chunks": chunks,
-                  "retired": [],
+                  "retired": retired,
                   "sums": [_payload_checksums(pl) for _, pl in chunks]}
         self.swapped.append(handle)
         self._audit()
@@ -483,8 +533,9 @@ class PageAllocator:
         """Re-admit a swapped request into the empty ``slot``: resident
         pages remap at their logical positions (the handle's pin moves
         back to the slot's table), payload pages land in freshly
-        allocated pages through ``scatter(new_phys, payload)``.  The
-        handle is verified before any mutation.  Returns False, with
+        allocated pages through ``scatter(new_phys, payload)``, and its
+        retirement holes are holes again.  The handle is verified before
+        any mutation.  Returns False, with
         nothing changed, when the pool cannot back the payload yet."""
         assert any(h is handle for h in self.swapped), \
             "unknown or already-restored handle"
@@ -505,6 +556,7 @@ class PageAllocator:
                 fresh.append(q)
             scatter(fresh, payload)
         self.n_mapped[slot] = handle["n_pages"]
+        self.retired[slot] = set(handle.get("retired", ()))
         self.swapped = [h for h in self.swapped if h is not handle]
         self.pages_in_use_peak = max(self.pages_in_use_peak,
                                      self.pages_in_use)
@@ -527,6 +579,8 @@ class PageAllocator:
           pins and the trie's retention (so no ``ref == 1`` page is
           mapped by two slots);
         * table entries beyond ``n_mapped`` are the overflow page;
+        * retirement holes lie below ``n_mapped`` and map exactly the
+          overflow page;
         * every lazy-CoW lease names a live, non-overflow page;
         * every trie node's page is live.
 
@@ -545,6 +599,20 @@ class PageAllocator:
             "overflow page entered the free/squeezed lists"
         mapped = (np.arange(self.max_pages)[None, :]
                   < self.n_mapped[:, None])           # (B, max_pages)
+        hole = np.zeros_like(mapped)
+        for s, lps in enumerate(self.retired):
+            m = int(self.n_mapped[s])
+            assert all(0 <= lp < m for lp in lps), (
+                f"slot {s}: retired pages {sorted(lps)} outside the mapped "
+                f"region [0, {m})")
+            hole[s, list(lps)] = True
+        kept = hole & (self.table != OVERFLOW_PAGE)
+        if kept.any():
+            s, lp = (int(x[0]) for x in np.nonzero(kept))
+            raise AssertionError(f"slot {s}: retired logical page {lp} "
+                                 f"still maps physical page "
+                                 f"{self.table[s, lp]}")
+        mapped &= ~hole
         over = mapped & (self.table == OVERFLOW_PAGE)
         if over.any():
             s, lp = (int(x[0]) for x in np.nonzero(over))
@@ -599,6 +667,7 @@ class PageAllocator:
             "private_pages": self.pages_in_use - self.shared_pages,
             "hbm_reserved_bytes": self.n_pages * page_bytes,
             "hbm_used_peak_bytes": self.pages_in_use_peak * page_bytes,
+            "pages_retired": self.pages_retired,
             "lazy_cow_skips": self.lazy_cow_skips,
         }
 

@@ -234,8 +234,8 @@ def decode_fetch_stats(kv_counts, pos, *, k_block: int, d: int,
                        dtype_bytes: int = 4, replan=None,
                        nkb: Optional[int] = None, summary: str = "fp32",
                        replan_mode: str = "exact", sketch_factor: int = 4,
-                       plan_blocks: Optional[int] = None, quant=None,
-                       sketch=None, live_blocks=None) -> Dict:
+                       plan_blocks=None, quant=None, sketch=None,
+                       live_blocks=None) -> Dict:
     """Per-step K/V fetch accounting for the decode route (numpy, a copy
     of the reference's).  kv_counts: (..., B, KV) int; pos: (B,)
     per-slot positions.
@@ -248,15 +248,16 @@ def decode_fetch_stats(kv_counts, pos, *, k_block: int, d: int,
     (``replan_mode="sketch"``) reads the summaries plus the
     ``sketch_geometry`` candidate blocks' keys (``plan_blocks`` is P);
     an incremental step reads the block summaries (``nkb`` and
-    ``summary`` size them) plus the planned blocks' keys.  The QoS rung
-    vectors ``quant``/``sketch`` and the retirement ``live_blocks`` are
-    queue A items 16 and 17 and raise."""
-    for name, val, item in (("quant", quant, 16), ("sketch", sketch, 16),
-                            ("live_blocks", live_blocks, 17)):
-        if val is not None:
-            raise NotImplementedError(
-                f"decode_fetch_stats({name}=...) is not ported yet: queue "
-                f"A item {item}, slice 3 of the PyTorch port")
+    ``summary`` size them) plus the planned blocks' keys.
+
+    QoS rungs: ``plan_blocks`` may be a (B,) vector (a degraded slot's
+    sketch geometry prices at its own budget); ``quant`` (B,) bool
+    prices flagged slots' summary reads at the int8 code size, and
+    ``sketch`` (B,) bool prices flagged slots' re-plans hierarchically
+    even under the exact mode.  Retirement: ``live_blocks`` (B,) prices
+    each slot's summary reads at its live block count and its re-plan
+    key stream at ``min(valid, live)`` blocks.  Scalars and ``None``
+    keep the plain accounting."""
     cnt = np.asarray(kv_counts)
     pos = np.asarray(pos).reshape(-1)
     b = pos.shape[0]
@@ -275,15 +276,53 @@ def decode_fetch_stats(kv_counts, pos, *, k_block: int, d: int,
     if replan is not None:
         k_tile_bytes = k_block * d * dtype_bytes               # K only
         layers = cnt.size // (b * kv)
-        s_head = 0 if nkb is None else summary_bytes(nkb, d, summary)
-        sum_head_slot = np.full(b, s_head, np.int64)
+        live = None
+        if live_blocks is not None:
+            live = np.asarray(live_blocks, np.int64).reshape(-1)
+            assert live.size == b, (live.size, b)
+        qn = None
+        if quant is not None:
+            qn = np.asarray(quant, bool).reshape(-1)
+            assert qn.size == b, (qn.size, b)
+        # summary bytes per (slot, head): live blocks after retirement,
+        # int8 codes on the quant rung
+        if nkb is None:
+            sum_head_slot = np.zeros(b, np.int64)
+        else:
+            n_blk = np.full(b, nkb, np.int64) if live is None else live
+            sum_head_slot = np.array(
+                [summary_bytes(int(n), d, summary) for n in n_blk],
+                np.int64)
+            if qn is not None:
+                sum_head_slot = np.where(qn, np.array(
+                    [summary_bytes(int(n), d, "int8") for n in n_blk],
+                    np.int64), sum_head_slot)
         summaries_b = int(sum_head_slot.sum()) * kv * layers
-        full_slot = valid_blocks * kv * layers * k_tile_bytes
-        if nkb is not None and replan_mode == "sketch":
-            pb = nkb if plan_blocks is None else min(int(plan_blocks), nkb)
-            n_cand = sketch_geometry(nkb, pb, sketch_factor)[3]
-            full_slot = (np.minimum(valid_blocks, n_cand) * kv * layers
-                         * k_tile_bytes + sum_head_slot * kv * layers)
+        skt = None if sketch is None else \
+            np.asarray(sketch, bool).reshape(-1)
+        vb = valid_blocks if live is None else \
+            np.minimum(live, valid_blocks)
+        exact_slot = vb * kv * layers * k_tile_bytes
+        if nkb is not None and (replan_mode == "sketch" or skt is not None):
+            pb_slot = np.full(b, nkb, np.int64)
+            if plan_blocks is not None:
+                pb_arr = np.asarray(plan_blocks).reshape(-1)
+                assert pb_arr.size in (1, b), (pb_arr.size, b)
+                pb_slot = np.minimum(
+                    np.broadcast_to(pb_arr, (b,)).astype(np.int64), nkb)
+            cand_slot = np.array(
+                [min(int(vb[i]), sketch_geometry(nkb, int(pb_slot[i]),
+                                                 sketch_factor)[3])
+                 for i in range(b)], np.int64)
+            sketch_slot = (cand_slot * kv * layers * k_tile_bytes
+                           + sum_head_slot * kv * layers)
+            if replan_mode == "sketch":
+                full_slot = sketch_slot
+            else:
+                assert skt.size == b, (skt.size, b)
+                full_slot = np.where(skt, sketch_slot, exact_slot)
+        else:
+            full_slot = exact_slot
         full_b = int(full_slot.sum())
         incr_b = summaries_b + plan_tiles * k_tile_bytes
         rep = np.asarray(replan, np.float64).reshape(-1)

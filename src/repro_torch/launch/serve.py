@@ -25,24 +25,35 @@ spared as a victim; ``max_steps_per_request`` retires a runaway request
 as ``timed_out``; ``audit_pages`` audits the allocator after every
 mutation (``"light"`` samples).  The ``FaultPlan`` events: pool
 squeezes and restores, forced preemptions, admission deferrals, load
-spikes (one preemption per severity unit: the QoS ladder is not
-ported), slow steps (a no-op without the ladder), a corrupted byte in a
-parked handle — caught at the claim gate, the handle quarantined, its
-trie pages invalidated and the request re-prefilled — and a crash that
-swaps every live slot to host, drops the device cache and allocator, and
-restores each request from its handle.  ``checkpoint_dir`` /
-``checkpoint_every`` save the device cache and every host structure at
-the top of a step, ``kill_at_step`` raises :class:`ServeKilled` after
-the save, and ``resume=True`` replays from the last save.
+spikes and slow steps (with the QoS ladder they press rungs; without
+it a spike preempts one slot per severity unit and a slow step does
+nothing), a corrupted byte in a parked handle — caught at the claim
+gate, the handle quarantined, its trie pages invalidated and the
+request re-prefilled — and a crash that swaps every live slot to host,
+drops the device cache and allocator, and restores each request from
+its handle.  ``checkpoint_dir`` / ``checkpoint_every`` save the device
+cache and every host structure at the top of a step, ``kill_at_step``
+raises :class:`ServeKilled` after the save, and ``resume=True`` replays
+from the last save.
+
+Overload (``sata.qos.ladder``): load spikes, slow steps and pool
+pressure (a deferred claim, a stalled slot) step every active slot down
+the :class:`QoSController` rungs instead of preempting; the per-slot
+plan knobs degrade in place and recover with hysteresis, and each
+request's report entry records its rung timeline.  Cascade retirement
+(``sata.retire.mode="on"``, paged): after each step a slot past its
+live-token watermark, or every slot under pool pressure, retires its
+coldest completed blocks down to the ``keep`` budget and their pages
+return to the pool mid-stream.
 
 The report carries outputs, tokens, tok/s, steps, per-request latencies,
-the SATA decode fetch accounting (per summary backend and re-plan mode),
-the page occupancy with every fault counter, and the prefix-cache
-statistics.  The loop runs eagerly on ``device`` (default ``"cuda"``; the
-CPU only when asked).  Not ported yet, each raising
-``NotImplementedError`` that names its queue A item: the QoS ladder
-(item 16), retirement (item 17) and the cross-replica prefix index
-(slice 5).
+the SATA decode fetch accounting (per summary backend, re-plan mode,
+rung and live block count), the page occupancy with every fault
+counter, the prefix-cache statistics, the degradation timelines and
+ladder counters, and the retirement counters.  The loop runs eagerly on
+``device`` (default ``"cuda"``; the CPU only when asked).  The
+cross-replica prefix index (slice 5) is not ported yet and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -50,7 +61,7 @@ import dataclasses
 import pickle
 import time
 import types
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -65,6 +76,89 @@ from repro_torch.models import attention as attn
 from repro_torch.models import decode as dec
 from repro_torch.models.layers import _dtype
 from repro_torch.models.model import DenseModel
+
+
+class QoSController:
+    """SLO degradation ladder — an own copy of the reference's: per-slot
+    rung counters mapping overload pressure to decode-plan knobs.
+    Rungs apply cumulatively::
+
+        0  full quality        budget=P, interval=iv, fp32, exact
+        1  half plan budget    budget = max(1, P // 2)
+        2  slow re-plan beat   interval = iv * 4
+        3  int8 rank bounds    quantized (conservative) block ranking
+        4  sketch re-plans     hierarchical candidate pre-filter
+
+    ``press`` steps active slots down ``severity`` rungs; ``tick`` is
+    the hysteresis clock — ``clear_steps`` consecutive pressure-free
+    ticks recover one rung, and any pressure zeroes every clear counter;
+    ``reset`` (a new admission) returns the slot to full quality."""
+
+    MAX_RUNG = 4
+
+    def __init__(self, n_slots: int, p0: int, iv0: int,
+                 clear_steps: int = 4):
+        self.n_slots = int(n_slots)
+        self.p0 = max(1, int(p0))
+        self.iv0 = max(1, int(iv0))
+        self.clear_steps = max(1, int(clear_steps))
+        self.rung = [0] * self.n_slots
+        self.clear = [0] * self.n_slots
+        self.rung_downs = 0
+        self.rung_ups = 0
+
+    def knobs(self, i: int) -> Tuple[int, int, bool, bool]:
+        """(budget, interval, quant, sketch) for slot ``i``'s rung."""
+        r = self.rung[i]
+        return (self.p0 if r < 1 else max(1, self.p0 // 2),
+                self.iv0 if r < 2 else self.iv0 * 4,
+                r >= 3, r >= 4)
+
+    def vectors(self):
+        """Per-slot knob vectors for ``models.decode.set_qos_knobs``."""
+        ks = [self.knobs(i) for i in range(self.n_slots)]
+        return (np.asarray([k[0] for k in ks], np.int32),
+                np.asarray([k[1] for k in ks], np.int32),
+                np.asarray([k[2] for k in ks], bool),
+                np.asarray([k[3] for k in ks], bool))
+
+    def press(self, active: List[int], severity: int = 1) -> List[int]:
+        """Degrade every active slot ``severity`` rungs (clamped at the
+        bottom).  Returns the changed slots."""
+        changed = []
+        for i in active:
+            new = min(self.rung[i] + max(1, int(severity)), self.MAX_RUNG)
+            if new != self.rung[i]:
+                self.rung[i] = new
+                self.rung_downs += 1
+                changed.append(i)
+            self.clear[i] = 0
+        return changed
+
+    def tick(self, active: List[int], pressure: bool) -> List[int]:
+        """Once per loop step, after the step's pressure is known.
+        Returns the slots that recovered one rung."""
+        if pressure:
+            self.clear = [0] * self.n_slots
+            return []
+        changed = []
+        for i in active:
+            if self.rung[i] == 0:
+                continue
+            self.clear[i] += 1
+            if self.clear[i] >= self.clear_steps:
+                self.rung[i] -= 1
+                self.clear[i] = 0
+                self.rung_ups += 1
+                changed.append(i)
+        return changed
+
+    def reset(self, i: int) -> bool:
+        """A new admission into slot ``i`` starts at full quality."""
+        changed = self.rung[i] != 0
+        self.rung[i] = 0
+        self.clear[i] = 0
+        return changed
 
 
 class ServeKilled(RuntimeError):
@@ -148,10 +242,6 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
     host_swap_bytes = res.host_swap_bytes
     preempt_retry_limit = res.preempt_retry_limit
     cfg = cfg or (SMOKE if smoke else ARCHS)[arch]
-    if cfg.sata.qos.ladder:
-        raise _unported("the QoS ladder", "queue A item 16, slice 3")
-    if cfg.sata.retire.mode == "on":
-        raise _unported("retirement", "queue A item 17, slice 3")
     if model is None:
         model = DenseModel(cfg, device=dev, seed=seed)
     rng = np.random.default_rng(seed)
@@ -209,7 +299,9 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
         host_swap_bytes_now=0, host_swap_bytes_peak=0, restore_wall=0.0,
         rep_offset=0.0, corrupt_pages_injected=0, corrupt_pages_detected=0,
         quarantined_pages=0, trie_nodes_invalidated=0,
-        deferred_retries_skipped=0)
+        deferred_retries_skipped=0, load_spikes_seen=0, slow_steps_seen=0,
+        degraded_steps=0, retire_events=0, pages_reclaimed=0,
+        retired_tokens=0, retire_pass_s=0.0, retire_passes=0)
 
     def _push_tables() -> None:
         # with the cache on the device write-protect reads the refcounts;
@@ -268,6 +360,92 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
     blk = attn.decode_block_size(cfg, max_len)
     tile_bytes = 2 * blk * cfg.hd * dtype_bytes
     plan = cache["kv"].get("plan")
+    degrade_log: Dict[int, List] = {}     # request → [(step, rung), ...]
+    retire_log: Dict[int, List] = {}      # request → [(step, pages freed)]
+    qos_dirty = False
+    pressure_now = False
+
+    # --- SLO degradation ladder over the per-slot plan knob vectors
+    qosctl: Optional[QoSController] = None
+    if cfg.sata.qos.ladder:
+        if plan is None or "budget" not in plan:
+            raise ValueError(
+                "sata_qos_ladder degrades the SATA decode plan — turn on "
+                "sata_decode routing (the cache carries no qos plan)")
+        nkb0 = max_len // blk
+        p0 = cfg.sata.decode.blocks or nkb0
+        qosctl = QoSController(batch_slots, p0=min(int(p0), nkb0),
+                               iv0=attn._resolve_replan(cfg)[0],
+                               clear_steps=cfg.sata.qos.clear_steps)
+
+    # --- cascade token retirement: cold blocks' pages return to the
+    # pool mid-stream
+    retire_on = cfg.sata.retire.mode == "on"
+    if retire_on:
+        if alloc is None or plan is None or "imp" not in plan:
+            raise ValueError(
+                "sata_retire='on' frees pages through the paged allocator "
+                "and ranks blocks by the decode plan's importance "
+                "accumulator — it needs kv_cache_layout='paged' AND sata "
+                "decode routing")
+        retire_keep = float(cfg.sata.retire.keep)
+        retire_mark = float(cfg.sata.retire.watermark)
+
+    def _log_rungs(changed: List[int]) -> None:
+        """Record rung transitions on the occupying requests' timelines
+        and mark the device knob vectors stale."""
+        nonlocal qos_dirty
+        for i in changed:
+            qos_dirty = True
+            r = slots[i]
+            if r is not None:
+                degrade_log.setdefault(r, []).append((steps, qosctl.rung[i]))
+
+    def _retire_pass(force: bool) -> bool:
+        """One retirement sweep: every active slot past its live-token
+        watermark (every active slot when ``force``, pool pressure this
+        step) retires its coldest completed blocks down to the ``keep``
+        budget.  Importance is the plan's decayed selection accumulator
+        summed over layers and kv heads; coldest first, ties retire the
+        oldest block.  Never candidates: the block holding the write
+        position and later ones, holes, and (``retire_compact``) pinned
+        pages.  Returns True when a page was freed."""
+        imp = None
+        freed_any = False
+        for i in range(batch_slots):
+            r = slots[i]
+            if r is None:
+                continue
+            ret = alloc.retired[i]
+            live_tok = int(pos_h[i]) + 1 - page * len(ret)
+            if not (force or live_tok >= retire_mark * max_len):
+                continue
+            cur_blk = int(pos_h[i]) // page
+            live_lps = [lp for lp in range(int(alloc.n_mapped[i]))
+                        if lp not in ret]
+            cand = [lp for lp in live_lps if lp < cur_blk]
+            keep_n = max(1, int(np.ceil(retire_keep * len(live_lps))))
+            n_ret = min(len(live_lps) - keep_n, len(cand))
+            if n_ret <= 0:
+                continue
+            if imp is None:                   # one device pull per sweep
+                imp = plan["imp"].cpu().numpy()       # (L, B, KV, nkb)
+            score = imp[:, i].sum(axis=(0, 1))         # (nkb,)
+            cand.sort(key=lambda lp: (float(score[lp]), lp))
+            chosen = cand[:n_ret]
+            freed, skipped = alloc.retire_compact(i, chosen)
+            retired_lps = [lp for lp in chosen if lp not in skipped]
+            if not retired_lps:
+                continue                      # every candidate was pinned
+            dec.retire_plan(cfg, cache, i, retired_lps)
+            if freed:
+                dec.retire_phys_pages(cache, freed)
+                freed_any = True
+            ctr.retire_events += 1
+            ctr.pages_reclaimed += len(freed)
+            ctr.retired_tokens += page * len(retired_lps)
+            retire_log.setdefault(r, []).append((steps, len(freed)))
+        return freed_any
 
     def _clear_backoff() -> None:
         """Pool capacity may have grown: deferred claims re-check now."""
@@ -306,6 +484,8 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
         return n
 
     def _defer(r0: int) -> None:
+        nonlocal pressure_now
+        pressure_now = True                   # organic pool pressure
         ctr.deferred_claims += 1                      # backpressure: wait
         bo = min(max(defer_backoff.get(r0, 0) * 2, 1), 8)
         defer_backoff[r0] = bo
@@ -464,7 +644,7 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
         scatter back into fresh pages, its plan reinstalls reset-free,
         and decode resumes at the swapped position with the swapped next
         token.  False = deferred (the pool cannot back it yet)."""
-        nonlocal admit_clock
+        nonlocal admit_clock, qos_dirty
         rec = swapped_recs[r0]
         needed = alloc.swap_pages_needed(rec["handle"]) + reserve
         if not alloc.can_admit(needed):
@@ -484,6 +664,8 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
         admit_clock += 1
         defer_until.pop(r0, None)
         defer_backoff.pop(r0, None)
+        if qosctl is not None and qosctl.reset(i):
+            qos_dirty = True                  # a fresh episode: rung 0
         pos_h[i] = rec["pos"]
         tokens_h[i, 0] = rec["token"]
         snap = rec["plan"].get("kv")
@@ -595,6 +777,8 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
             defer_until, defer_backoff = m["defer_until"], \
                 m["defer_backoff"]
             last_rep, rep_base = m["last_rep"], m["rep_base"]
+            qosctl, degrade_log = m["qosctl"], m["degrade_log"]
+            retire_log = m["retire_log"]
             rng.bit_generator.state = m["rng"]
             vars(ctr).update(m["ctrs"])
             # wall clocks re-anchor: resumed latencies measure this
@@ -621,6 +805,8 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
                     "defer_until": defer_until,
                     "defer_backoff": defer_backoff,
                     "last_rep": last_rep, "rep_base": rep_base,
+                    "qosctl": qosctl, "degrade_log": degrade_log,
+                    "retire_log": retire_log,
                     "rng": rng.bit_generator.state,
                     "t_claim_reqs": list(t_claim), "ctrs": dict(vars(ctr)),
                 }
@@ -634,6 +820,7 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
                 raise ServeKilled(f"injected process kill at loop step "
                                   f"{steps}")
             defer_now = False
+            pressure_now = False
             for kind, arg in (faults.at(steps) if faults is not None
                               else ()):
                 if kind == "pool_squeeze":
@@ -642,16 +829,26 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
                     alloc.unsqueeze(arg)
                     _clear_backoff()              # capacity returned
                 elif kind == "load_spike":
-                    # the QoS ladder is not ported: shed load by one
-                    # preemption per severity unit
-                    for _ in range(1 if arg is None else max(1, int(arg))):
-                        if not _held():
-                            break
-                        _preempt(_pick_victim(_held(), slots, outputs,
-                                              admit_seq, _protected()))
-                        _push_tables()
+                    ctr.load_spikes_seen += 1
+                    sev = 1 if arg is None else max(1, int(arg))
+                    if qosctl is not None:
+                        # shed quality, not requests: every active slot
+                        # steps down ``sev`` rungs in place
+                        _log_rungs(qosctl.press(_held(), sev))
+                        pressure_now = True
+                    else:
+                        # no ladder: one preemption per severity unit
+                        for _ in range(sev):
+                            if not _held():
+                                break
+                            _preempt(_pick_victim(_held(), slots, outputs,
+                                                  admit_seq, _protected()))
+                            _push_tables()
                 elif kind == "slow_step":
-                    pass          # a pressure tick for the QoS ladder only
+                    ctr.slow_steps_seen += 1
+                    if qosctl is not None:        # deadline pressure
+                        _log_rungs(qosctl.press(_held(), 1))
+                        pressure_now = True
                 elif kind == "corrupt_page":
                     _corrupt(0 if arg is None else int(arg))
                 elif kind == "defer_admission":
@@ -712,6 +909,8 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
                 admit_clock += 1
                 defer_until.pop(r, None)
                 defer_backoff.pop(r, None)
+                if qosctl is not None and qosctl.reset(i):
+                    qos_dirty = True          # a fresh episode: rung 0
                 if protected:
                     ctr.protected_admissions += 1
                 if preempt_count.get(r, 0) and use_prefill:
@@ -748,6 +947,17 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
                 ctr.stalled_steps += len(stalled)
                 _push_tables()
                 active = _held()
+            if qosctl is not None:
+                if stalled:
+                    pressure_now = True           # organic pool pressure
+                # the hysteresis clock ticks once a step, then changed
+                # knobs reach the plan before this step's compute
+                _log_rungs(qosctl.tick(active, pressure_now))
+                ctr.degraded_steps += sum(1 for i in active
+                                          if qosctl.rung[i] > 0)
+                if qos_dirty:
+                    dec.set_qos_knobs(cache, *qosctl.vectors())
+                    qos_dirty = False
             t_step = time.perf_counter()
             logits, cache = dec.serve_step(
                 model, cfg, cache, torch.as_tensor(tokens_h, device=dev),
@@ -762,6 +972,19 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
                 last_rep = rep
                 if live:
                     counts = plan["kv_counts"].cpu().numpy()
+                    pb, qn, sk, lv = cfg.sata.decode.blocks, None, None, None
+                    if qosctl is not None:
+                        # price each live slot at its own rung's budget,
+                        # summary size and re-plan mode
+                        kn = [qosctl.knobs(i) for i in live]
+                        pb = np.asarray([k[0] for k in kn], np.int64)
+                        qn = np.asarray([k[2] for k in kn], bool)
+                        sk = np.asarray([k[3] for k in kn], bool)
+                    if retire_on:
+                        # retired blocks left the ranking set
+                        lv = np.asarray([max_len // blk
+                                         - len(alloc.retired[i])
+                                         for i in live], np.int64)
                     st = decode_fetch_stats(
                         counts[:, live], pos_h[live], k_block=blk, d=cfg.hd,
                         replan=delta[:, live].mean(axis=0),
@@ -769,7 +992,8 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
                         summary=cfg.sata.decode.summary,
                         replan_mode=cfg.sata.decode.replan_mode,
                         sketch_factor=cfg.sata.decode.sketch_factor,
-                        plan_blocks=cfg.sata.decode.blocks)
+                        plan_blocks=pb, quant=qn, sketch=sk,
+                        live_blocks=lv)
                     ctr.fetch_tiles_plan += st["kv_fetch_tiles_plan"]
                     ctr.fetch_tiles_dense += st["kv_fetch_tiles_dense"]
                     ctr.plan_bytes += st["plan_fetch_bytes_step"]
@@ -798,6 +1022,16 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
                     _finish(i, now)
                 elif i not in stalled:
                     tokens_h[i, 0] = int(nxt[i])
+            if retire_on:
+                # after the step: its selection is in the importance
+                # accumulator and completed slots have released
+                t_ret, ev = time.perf_counter(), ctr.retire_events
+                if _retire_pass(pressure_now or bool(stalled)):
+                    _push_tables()
+                    _clear_backoff()          # freed pages: re-check now
+                if ctr.retire_events > ev:    # host clock of a pass that
+                    ctr.retire_passes += 1    # retired blocks
+                    ctr.retire_pass_s += time.perf_counter() - t_ret
             steps += 1
         wall = time.time() - t0
     out: Dict[str, Any] = {
@@ -813,7 +1047,35 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
         if latency else 0.0,
         "timed_out": sorted(timed_out),
         "device": str(dev),
+        # every (step, rung) transition while the request held its slot:
+        # empty means full quality end to end
+        "degradation": {r: list(degrade_log.get(r, [])) for r in outputs},
     }
+    if retire_on:
+        # per-KV-head importance summed over layers, slots and blocks:
+        # report only
+        head_imp = plan["imp"].cpu().numpy().sum(axis=(0, 1, 3))
+        out["retire_pass_ms_mean"] = \
+            1e3 * ctr.retire_pass_s / max(ctr.retire_passes, 1)
+        out["retirement"] = {
+            "events": ctr.retire_events,
+            "pages_reclaimed": ctr.pages_reclaimed,
+            "retired_tokens": ctr.retired_tokens,
+            "timelines": {r: list(retire_log.get(r, [])) for r in outputs},
+            "head_importance": [float(x) for x in head_imp],
+            "keep_budget": retire_keep,
+            "watermark": retire_mark,
+        }
+    if qosctl is not None:
+        out["qos"] = {
+            "rung_downs": qosctl.rung_downs,
+            "rung_ups": qosctl.rung_ups,
+            "degraded_steps": ctr.degraded_steps,
+            "load_spikes": ctr.load_spikes_seen,
+            "slow_steps": ctr.slow_steps_seen,
+            "clear_steps": qosctl.clear_steps,
+            "final_rungs": list(qosctl.rung),
+        }
     if ckpt is not None:
         out["checkpoint"] = {"dir": str(res.checkpoint_dir),
                              "last_saved_step": last_ckpt,

@@ -465,18 +465,20 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype, *, device) -> Dict:
         cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
                  "v": torch.zeros(shape, dtype=dtype, device=device)}
     if sata:
-        if cfg.sata.qos.ladder:
-            raise NotImplementedError(
-                "the QoS ladder is not ported yet: queue A item 16, slice 3 "
-                "of the PyTorch port")
-        if cfg.sata.retire.mode == "on":
-            raise NotImplementedError(
-                "token retirement is not ported yet: queue A item 17, "
-                "slice 3 of the PyTorch port")
+        qos = bool(cfg.sata.qos.ladder)
+        if qos and cfg.sata.decode.replan == "auto":
+            raise ValueError(
+                "sata_qos_ladder drives the re-plan beat through the "
+                "per-slot interval vector — set an integer "
+                "sata_decode_replan, not 'auto'")
+        # the ladder's full-quality rung starts at the configured beat;
+        # the per-slot interval vector owns it from there
         cache["plan"] = init_decode_plan(
             batch, cfg.n_kv_heads, max_len, hd,
             decode_block_size(cfg, max_len), cfg.sata.decode.blocks,
-            summary=cfg.sata.decode.summary, device=device)
+            summary=cfg.sata.decode.summary, device=device, qos=qos,
+            replan_interval=_resolve_replan(cfg)[0] if qos else 1,
+            retire=cfg.sata.retire.mode == "on")
     return cache
 
 
@@ -510,7 +512,8 @@ def _attend_sata_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         plan, qg, k, pos, topk_k=cfg.topk_k, k_block=k_block,
         replan_interval=interval, churn_budget=churn_budget,
         page_table=page_table, replan_mode=cfg.sata.decode.replan_mode,
-        sketch_factor=cfg.sata.decode.sketch_factor)
+        sketch_factor=cfg.sata.decode.sketch_factor,
+        retire_decay=cfg.sata.retire.decay)
     out = sata_decode_attention(qg, k, v, plan["kv_indices"],
                                 plan["kv_counts"], thr, pos,
                                 k_block=k_block, page_table=page_table)

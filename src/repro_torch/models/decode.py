@@ -13,7 +13,10 @@ and the install that seeds the matched blocks' plan summaries from the
 per-page summary cache.  Host-swap preemption moves physical pages'
 rows to host numpy and back (``gather_phys_pages`` /
 ``scatter_phys_pages``) and a slot's plan state with them
-(``capture_plan_state`` / ``restore_plan_state``).  Serving never
+(``capture_plan_state`` / ``restore_plan_state``).  The QoS ladder
+pushes its per-slot knobs (``set_qos_knobs``), and a retirement pass
+scrubs the freed pages (``retire_phys_pages``) and repairs the slot's
+plan (``retire_plan``).  Serving never
 trains: the model's parameters are trainable, and these functions run
 without autograd.
 """
@@ -28,7 +31,8 @@ from repro_torch import resolve_device
 from repro_torch.core.decode_plan import (capture_plan_slot,
                                           install_plan_slot,
                                           plan_from_prefill,
-                                          release_plan_slot, reset_plan_slot)
+                                          release_plan_slot, reset_plan_slot,
+                                          retire_plan_blocks)
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (_dtype, apply_norm, apply_rope,
@@ -49,7 +53,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> Dict[str, Any]:
     """Layer-stacked (L, ...) serving cache: ``{"kv": {...}}`` holding
     contiguous ``k``/``v`` or the paged pool + ``page_table``, and the
-    SATA decode ``plan`` when routing is on (``attn.init_kv_cache``)."""
+    SATA decode ``plan`` when routing is on (``attn.init_kv_cache``),
+    with the QoS knobs under ``sata.qos.ladder`` and the retirement
+    state under ``sata.retire.mode == "on"``."""
     _check_family(cfg)
     dev = resolve_device(device)
     one = attn.init_kv_cache(cfg, batch, max_len, _dtype(cfg), device=dev)
@@ -105,6 +111,34 @@ def set_page_table(cfg: ModelConfig, cache: Dict, table,
     return cache
 
 
+def set_qos_knobs(cache: Dict, budget, interval, quant, sketch) -> Dict:
+    """Push the serve loop's per-slot ladder knobs — budget / interval
+    (B,) int, quant / sketch (B,) bool — into the plan state, in place.
+    A rung degrades the whole slot, so every layer gets the same
+    vectors."""
+    plan = cache["kv"].get("plan")
+    if plan is None or "budget" not in plan:
+        return cache
+    for name, val in (("budget", budget), ("interval", interval),
+                      ("quant", quant), ("sketch", sketch)):
+        t = plan[name]
+        v = torch.as_tensor(np.asarray(val)).to(t.device, t.dtype)
+        t.copy_(v.expand_as(t))
+    return cache
+
+
+def retire_plan(cfg: ModelConfig, cache: Dict, slot: int, blocks) -> Dict:
+    """The plan half of a retirement pass, in place for every layer
+    (``decode_plan.retire_plan_blocks``): the blocks leave the plan,
+    their summaries return to the empty sentinel, their importance is
+    zeroed, and the slot's planned rows are compacted over the
+    survivors."""
+    plan = cache["kv"].get("plan")
+    if plan is not None and "live_blk" in plan:
+        retire_plan_blocks(plan, slot, blocks, batch_axis=1)
+    return cache
+
+
 # Every per-physical-page array a page's rows live in: K/V and the
 # page-summary rows (fp32 bounds, plus scale/zero under int8).  A copy on
 # write or a swap moves them together — a page whose summary row stayed
@@ -130,6 +164,31 @@ def copy_phys_pages(cache: Dict, pairs) -> Dict:
     for f in _PAGE_POOL_FIELDS:
         if f in kv:
             kv[f][:, dst] = kv[f][:, src]
+    return cache
+
+
+def retire_phys_pages(cache: Dict, phys) -> Dict:
+    """The device half of a retirement pass
+    (``PageAllocator.retire_compact``), in place across all layers: the
+    freed pages' K/V rows are zeroed and their page-summary rows return
+    to the empty sentinel (fp32 ±inf; int8 codes 0 with scale −1), one
+    index write per pool field.  A hole maps the overflow page, so
+    nothing reads these rows; the scrub keeps a stale summary row out of
+    a later prefix-cache registration."""
+    if phys is None or not len(phys):
+        return cache
+    kv = cache["kv"]
+    idx = torch.as_tensor(np.asarray(phys, np.int64),
+                          device=kv["k_pages"].device)
+    fill = {"k_pages": 0, "v_pages": 0, "page_k_scale": -1.0,
+            "page_k_zero": 0.0}
+    if "page_k_scale" in kv:                 # int8 codes: 0 is empty
+        fill.update(page_k_min=0, page_k_max=0)
+    else:
+        fill.update(page_k_min=float("inf"), page_k_max=float("-inf"))
+    for f in _PAGE_POOL_FIELDS:
+        if f in kv:
+            kv[f][:, idx] = fill[f]
     return cache
 
 

@@ -176,33 +176,44 @@ def test_slot_reset_and_release_match():
 
 @pytest.mark.parametrize("what", ["int8", "sketch", "auto"])
 def test_slice3_modes_raise(what):
-    """The int8 backend, sketch re-plans and the churn trigger are
-    ported (``test_torch_summary_backend.py`` holds them against the
-    reference): each now runs, while its slice-3 neighbour still unported
-    — the QoS knob vectors (item 16) and the retirement state (item 17)
-    — raises, naming its item."""
+    """The int8 backend, sketch re-plans and the churn trigger run with
+    the slice's later plan state too.  With the retirement state
+    (``imp`` / ``live_blk``) each mode's step equals the reference's;
+    with the QoS knob vectors the int8 and sketch steps equal it, and
+    the churn trigger raises ``AssertionError`` in both packages (the
+    knobs own the re-plan beat)."""
     q, k, pos = _inputs(9)
     summary = "int8" if what == "int8" else "fp32"
-    tp = tdp.init_decode_plan(B, KV, S, D, BLK, summary=summary,
-                              device="cpu")
-    lo, hi = tdp.summaries_from_cache(*_t(k, pos), k_block=BLK)
-    if what == "int8":
-        for name, v in zip(("k_min", "k_max", "k_scale", "k_zero"),
-                           tdp.quantize_summaries(lo, hi)):
-            tp[name].copy_(v)
-    else:
-        tp["k_min"].copy_(lo)
-        tp["k_max"].copy_(hi)
     kw = {"int8": {"replan_interval": 2},
           "sketch": {"replan_mode": "sketch"},
           "auto": {"churn_budget": 0.25}}[what]
-    tdp.decode_plan_update(tp, *_t(q, k), torch.from_numpy(pos),
-                           topk_k=TOPK, k_block=BLK, **kw)
-    assert int(tp["replans"].sum()) == B      # step 0: every slot re-plans
-    extra, item = {"int8": ("budget", "item 16"),
-                   "sketch": ("budget", "item 16"),
-                   "auto": ("live_blk", "item 17")}[what]
-    with pytest.raises(NotImplementedError, match=item):
-        tdp.decode_plan_update({**tp, extra: torch.ones(B)}, *_t(q, k),
-                               torch.from_numpy(pos), topk_k=TOPK,
-                               k_block=BLK, **kw)
+    for extra in ("retire", "qos"):
+        jp = jdp.init_decode_plan(B, KV, S, D, BLK, summary=summary,
+                                  **{extra: True})
+        lo, hi = jdp.summaries_from_cache(jnp.asarray(k), jnp.asarray(pos),
+                                          k_block=BLK)
+        if what == "int8":
+            jp.update(zip(("k_min", "k_max", "k_scale", "k_zero"),
+                          jdp.quantize_summaries(lo, hi)))
+        else:
+            jp.update(k_min=lo, k_max=hi)
+        tp = {n: torch.from_numpy(np.array(v)) for n, v in jp.items()}
+        args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(pos))
+        if extra == "qos" and what == "auto":
+            with pytest.raises(AssertionError, match="beat"):
+                jdp.decode_plan_update(jp, *args, topk_k=TOPK, k_block=BLK,
+                                       **kw)
+            with pytest.raises(AssertionError, match="beat"):
+                tdp.decode_plan_update(tp, *_t(q, k, pos), topk_k=TOPK,
+                                       k_block=BLK, **kw)
+            continue
+        jp, jthr = jdp.decode_plan_update(jp, *args, topk_k=TOPK,
+                                          k_block=BLK, **kw)
+        tp, tthr = tdp.decode_plan_update(tp, *_t(q, k, pos), topk_k=TOPK,
+                                          k_block=BLK, **kw)
+        _check((jp["kv_indices"], jp["kv_counts"], jthr),
+               (tp["kv_indices"], tp["kv_counts"], tthr))
+        assert int(tp["replans"].sum()) == B  # step 0: every slot re-plans
+        if extra == "retire":
+            np.testing.assert_array_equal(tp["imp"].numpy(),
+                                          np.asarray(jp["imp"]))

@@ -196,19 +196,44 @@ def test_default_preemption_is_host_swap(weights, reference_runs):
 
 
 def test_serve_rejects_unported_options():
-    """Every fault and resilience option runs; what stays unported raises
-    naming its queue item: the QoS ladder, retirement and the
-    cross-replica prefix index."""
+    """Every option of the dense main path runs, the QoS ladder and
+    retirement included; only the cross-replica prefix index (slice 5)
+    still raises, naming its slice."""
     _, tc = _cfgs()
-    sata = tc.sata
-    for cfg, item in (
-            (dataclasses.replace(tc, sata=dataclasses.replace(
-                sata, qos=dataclasses.replace(sata.qos, ladder=True))),
-             "item 16"),
-            (dataclasses.replace(tc, sata=dataclasses.replace(
-                sata, retire=dataclasses.replace(sata.retire, mode="on"))),
-             "item 17")):
-        with pytest.raises(NotImplementedError, match=item):
-            tsv.serve("qwen3-4b", cfg=cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 5"):
         tsv.serve("qwen3-4b", cfg=tc, device="cpu", prefix_index=object())
+
+
+def _with(cfg, mode, sata_on, replan):
+    """``cfg`` with the ladder (``mode="ladder"``) or retirement on, SATA
+    decode routing on or off, and the re-plan trigger ``replan``."""
+    sata = cfg.sata
+    if mode == "ladder":
+        sata = dataclasses.replace(sata, qos=dataclasses.replace(
+            sata.qos, ladder=True))
+    else:
+        sata = dataclasses.replace(sata, retire=dataclasses.replace(
+            sata.retire, mode="on"))
+    sata = dataclasses.replace(sata, decode=dataclasses.replace(
+        sata.decode, mode="on" if sata_on else "off", replan=replan))
+    return dataclasses.replace(cfg, sata=sata)
+
+
+@pytest.mark.parametrize("mode,sata_on,replan,match", [
+    ("ladder", False, 1, "sata_qos_ladder degrades the SATA decode plan"),
+    ("ladder", True, "auto", "sata_qos_ladder drives the re-plan beat"),
+    ("retire", True, 1, "sata_retire='on' frees pages through the paged "
+                        "allocator")])
+def test_serve_refuses_what_the_reference_refuses(mode, sata_on, replan,
+                                                  match):
+    """The ladder without a SATA decode plan or with the churn trigger,
+    and retirement without the paged allocator, raise the reference's
+    ``ValueError`` in both packages."""
+    jc, tc = _cfgs()                     # contiguous layout
+    kw = dict(n_requests=1, batch_slots=1, gen_len=2, max_len=64)
+    with pytest.raises(ValueError, match=match):
+        jsv.serve("qwen3-4b", cfg=_with(jc, mode, sata_on, replan),
+                  options=jsv.ServeOptions(**kw))
+    with pytest.raises(ValueError, match=match):
+        tsv.serve("qwen3-4b", cfg=_with(tc, mode, sata_on, replan),
+                  options=tsv.ServeOptions(**kw), device="cpu")

@@ -481,21 +481,27 @@ def test_plan_churn_matches():
 
 
 def test_unported_plan_state_raises():
-    """The QoS knob vectors (item 16) and retirement (item 17) keep
-    raising, naming their item."""
-    tp = tdp.init_decode_plan(1, 1, 16, 4, 8, device="cpu")
+    """The QoS knob vectors and retirement are ported: a plan carrying
+    them steps, the churn trigger beside the knobs raises the
+    reference's ``AssertionError``, and ``decode_fetch_stats`` prices
+    ``quant`` / ``live_blocks`` exactly as the reference does."""
     q, k, pos = _t(np.zeros((1, 1, 1, 4), np.float32),
                    np.zeros((1, 16, 1, 4), np.float32),
                    np.zeros(1, np.int32))
-    for extra, item in (("budget", "item 16"), ("live_blk", "item 17")):
-        plan = dict(tp, **{extra: torch.ones(1)})
-        with pytest.raises(NotImplementedError, match=item):
-            tdp.decode_plan_update(plan, q, k, pos, topk_k=2, k_block=8)
-    for kw, item in (({"quant": [True]}, "item 16"),
-                     ({"live_blocks": [1]}, "item 17")):
-        with pytest.raises(NotImplementedError, match=item):
-            tops.decode_fetch_stats(np.ones((1, 1)), [3], k_block=8, d=4,
-                                    replan=1.0, **kw)
+    for extra in ("qos", "retire"):
+        tp = tdp.init_decode_plan(1, 1, 16, 4, 8, device="cpu",
+                                  **{extra: True})
+        tdp.decode_plan_update(tp, q, k, pos, topk_k=2, k_block=8)
+        assert tp["kv_counts"].tolist() == [[1]]
+    with pytest.raises(AssertionError, match="beat"):
+        tdp.decode_plan_update(
+            tdp.init_decode_plan(1, 1, 16, 4, 8, device="cpu", qos=True),
+            q, k, pos, topk_k=2, k_block=8, churn_budget=0.25)
+    for kw in ({"quant": [True]}, {"live_blocks": [1]}):
+        args = (np.ones((1, 1)), [3])
+        fkw = dict(k_block=8, d=4, replan=1.0, nkb=2, **kw)
+        assert tops.decode_fetch_stats(*args, **fkw) == \
+            jops.decode_fetch_stats(*args, **fkw)
 
 
 # ---------------------------------------------------------------------------
