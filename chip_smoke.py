@@ -7,7 +7,9 @@ prefill kernels, serves it again through the shared-prefix page cache
 and the int8 / sketch summary backends and under host swaps, a crash
 and a corrupted swap handle, kills and resumes a serve from its
 checkpoint, serves it under the QoS degradation ladder and with cascade
-token retirement, and times every kernel at its main path's shape.
+token retirement, serves full-width olmo-1b and full-width
+qwen3-moe-235b-a22b (depth cut to MOE_LAYERS layers, the decode kernel
+at G = 16), and times every kernel at its main path's shape.
 
     python3 chip_smoke.py            # needs one CUDA GPU (an H100 here)
     python3 chip_smoke.py --mutants  # phases 2 and 6 (and 8 for the
@@ -17,21 +19,25 @@ token retirement, and times every kernel at its main path's shape.
                                      # and prefill kernels and DIR's (an
                                      # earlier checkout) timed in turns
 
-Phases (any failure exits non-zero; none is caught so a later one runs):
+Phases (any failure exits non-zero; none is caught so a later one runs;
+each prints its host seconds as a ``[phase]`` line):
   1. device and build — card name and power limit, torch/CUDA versions,
      one nvcc per kernel source, all started together;
   2. kernel vs plain version on the card, both layouts, at the main-path
      shape, at the main shape over aliased page tables (two slots' rows
      share 16 physical pages, one row maps a page twice in a row: the
-     tables the prefix cache makes) and edge cases (fp32 <= 1e-5 max abs;
+     tables the prefix cache makes), at qwen3-moe's shape (B8 KV4 G16
+     D128, page 64, bf16 and fp32), edge cases (G = 12 among them), and
+     the refusal of G = 17 before any launch (fp32 <= 1e-5 max abs;
      bf16 <= 2e-2 max abs and at most 1% of the outputs off the plain
      version's bits; paged == contiguous bitwise, the contiguous cache
      being the pool's logical view);
   3. serve qwen3-4b paged (page 64) through ``repro_torch.launch.serve``;
      the paged kernel's launch count must equal layers x decode steps;
   4. the same requests on the contiguous layout: equal token streams;
-  5. decode kernel timing at the main-path shape, at one slot (B1) and
-     at a long row (pos ~4000): CUDA events (median of 30 runs, L2
+  5. decode kernel timing at the main-path shape, at qwen3-moe's G = 16
+     shape, at one slot (B1) and at a long row (pos ~4000): CUDA events
+     (median of 30 runs, L2
      flushed before each, queued behind a device sleep so the events
      time the device, not the host) and the profiler's device time over
      the same calls (which also fails if the wrapper launches anything
@@ -58,7 +64,10 @@ Phases (any failure exits non-zero; none is caught so a later one runs):
      kernel and the device's idle share;
   8. one forward + backward at full width (4 layers) with the kernel
      route on and off (``_attend``): the same loss and grad norm within
-     ROUTE_RTOL, layer 0's attention output within ROUTE_ATTN_RTOL;
+     ROUTE_RTOL, layer 0's attention output within ROUTE_ATTN_RTOL; then
+     with ``remat`` "none", "dots" and "full": loss and grad norm within
+     ROUTE_RTOL of "none"'s (bitwise equality reported), peak memory
+     of each;
   9. the dense-selection route: ``make_prefill_step`` with
      ``topk_impl="sort"`` at full width, 4 layers, S = 2048, on the
      compacted and the dense grid: equal logits bitwise; layer 0's
@@ -96,7 +105,8 @@ Phases (any failure exits non-zero; none is caught so a later one runs):
      next decode step and device memory around the rebuild; (b) at CKPT_LAYERS layers, a serve killed after a
      checkpoint and resumed from disk equals the uninterrupted run;
  14. overload: (a) the QoS ladder at plan width SKETCH_BLOCKS, 12
-     requests of 32 tokens through 8 slots: with the ladder and no
+     requests of 32 tokens through 8 slots, at LADDER_LAYERS of the 36
+     layers (full width): with the ladder and no
      faults, with the ladder under ``ladder_spikes()`` (every request
      complete, no preemption, requeue or timeout, rungs down and up,
      every never-degraded request's stream equal to the fault-free
@@ -112,7 +122,20 @@ Phases (any failure exits non-zero; none is caught so a later one runs):
      than retirement off, and the never-firing twin equal to phase 3's
      streams; the paged kernel's launches = layers x decode steps in
      every run, and held to its plain version on one recorded call of
-     each (a row at rung >= 1; a table with holes).
+     each (a row at rung >= 1; a table with holes);
+ 15. olmo-1b at full width (16 layers, d_model 2048, 16 heads over 16 KV
+     heads: G = 1, the non-parametric norm), phase 3's workload paged
+     then contiguous: equal token streams, the kernel's launches = layers
+     x steps;
+ 16. qwen3-moe-235b-a22b at full width (64 heads over 4 KV heads: G =
+     16, 128 experts, top-8, d_ff 1536, group 128), its 94 layers cut to
+     MOE_LAYERS (the weights fill ~62 GB), phase 3's workload paged then
+     contiguous: equal token streams, launches = layers x steps, B1 on
+     one recorded call within phase 2's limits, one recorded decode and
+     one recorded prefill FFN call's expert ids and kept mask equal to
+     the reference's one-hot form (``models.moe.moe_apply_ref``) and its
+     output within MOE_TOL; the FFN's share of a step (CUDA events),
+     prefill ms, capacity drops a step and peak memory.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the ``kernels`` JSON, and the card's name and power limit are
@@ -160,6 +183,21 @@ ROUTE_ATTN_RTOL = 1e-2
 
 def log(*a):
     print(*a, flush=True)
+
+
+class PhaseClock:
+    """Host seconds per phase, printed as each phase ends."""
+
+    def __init__(self):
+        self.t0 = self.t = time.time()
+
+    def done(self, phase):
+        now = time.time()
+        log(f"[phase] {phase}: {now - self.t:.1f} s")
+        self.t = now
+
+    def total(self):
+        log(f"[phase] all phases: {time.time() - self.t0:.1f} s")
 
 
 def card_line() -> str:
@@ -255,8 +293,8 @@ def check_case(torch, sd, name, c):
 
 
 def edge_cases(torch, device):
-    """Small shapes covering G in 1..8, D in {9, 16, 20, 24, 64, 128}
-    (every copy width), pages of 8..128 rows, fp32 and bf16, P == 0,
+    """Small shapes covering G in 1..8 and 12, D in {9, 16, 20, 24, 64,
+    128} (every copy width), pages of 8..128 rows, fp32 and bf16, P == 0,
     count-0 rows, padding slots past the count, and pos inside a page
     with the key at pos selected."""
     f32, bf16 = torch.float32, torch.bfloat16
@@ -273,6 +311,10 @@ def edge_cases(torch, device):
         (2, 2, 5, 9, 8, 64, f32),
         (2, 1, 3, 9, 8, 64, bf16),
         (2, 2, 4, 128, 48, 480, bf16),
+        # G past 8 and not a power of two: two PV head groups of 8, heads
+        # 12..15 padding
+        (2, 2, 12, 64, 16, 256, bf16),
+        (2, 2, 12, 128, 64, 512, f32),
     ]
     for n, (b, kv, g, d, page, s, dt) in enumerate(specs):
         c = make_case(torch, b=b, kv=kv, g=g, d=d, page=page, s=s, dtype=dt,
@@ -376,9 +418,12 @@ def profiled_ms(torch, fn, kernel, reps=30, warm=3):
     anything beside its kernel.  Returns (event ms, device ms or None
     when the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):               # outside the trace: a later
+        fn()                            # trace may drop its first events
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        ms = time_ms(torch, fn, reps=reps, warm=warm)
+        ms = time_ms(torch, fn, reps=reps, warm=0)
     cuda = torch.autograd.DeviceType.CUDA
     evs = [e for e in prof.key_averages()
            if getattr(e, "device_type", None) == cuda and device_ms(e) > 0]
@@ -389,7 +434,7 @@ def profiled_ms(torch, fn, kernel, reps=30, warm=3):
         return ms, None
     n = sum(e.count for e in ours)
     others = {e.key[:70]: e.count for e in evs if kernel not in e.key}
-    assert n == reps + warm, f"{kernel}: {n} launches, {reps + warm} calls"
+    assert n == reps, f"{kernel}: {n} launches, {reps} calls"
     assert sum(others.values()) <= reps + 1, \
         f"other kernels in the window: {others}"
     return ms, sum(device_ms(e) for e in ours) / n
@@ -478,29 +523,61 @@ def aliased_case(torch, dev):
     return c
 
 
+MAIN = "main_B8_KV8_G4_D128_page64_bf16"
+# qwen3-moe-235b-a22b's serving shape: 64 query heads over 4 KV heads
+G16 = "moe_B8_KV4_G16_D128_page64_bf16"
+
+
 def kernel_cases(torch, dev):
     """Phase 2's inputs: the main-path shape, the main shape over aliased
-    page tables, then the edge cases."""
-    yield "main_B8_KV8_G4_D128_page64_bf16", make_case(
+    page tables, the moe serving shape (G = 16) in bf16 and fp32, then
+    the edge cases."""
+    yield MAIN, make_case(
         torch, b=8, kv=8, g=4, d=128, page=64, s=4096, dtype=torch.bfloat16,
         seed=0, device=dev, pos_lo=1024, pos_hi=1088)
     yield "aliased_pages_B8_KV8_G4_D128_page64_bf16", aliased_case(torch,
                                                                    dev)
+    for dt, suffix in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        yield G16.removesuffix("bf16") + suffix, make_case(
+            torch, b=8, kv=4, g=16, d=128, page=64, s=4096, dtype=dt,
+            seed=4, device=dev, pos_lo=1024, pos_hi=1088)
     yield from edge_cases(torch, dev)
 
 
+def check_refusal(torch, sd, dev):
+    """A G with no kernel layout (17: past the 16 heads a row's layout
+    holds) must raise before launching, naming G, D and k_block."""
+    c = make_case(torch, b=1, kv=1, g=17, d=128, page=64, s=256,
+                  dtype=torch.bfloat16, seed=9, device=dev, topk=8)
+    for paged in (True, False):
+        fn = sd.sata_decode_attention_paged_kernel if paged \
+            else sd.sata_decode_attention_kernel
+        before = fn.launches
+        try:
+            run_kernel(sd, c, paged)
+        except ValueError as e:
+            assert "G=17, D=128, k_block=64" in str(e), e
+            msg = str(e)
+        else:
+            raise AssertionError("the kernel took G = 17")
+        assert fn.launches == before, "a refused shape counted a launch"
+    log(f"[kernel] G=17 refused before launch: {msg}")
+
+
 def check_kernels(torch, sd, dev):
-    """Phase 2: the kernel against its plain version on every case.
-    Returns the main case and the errors."""
-    errs, main_case = {}, None
+    """Phase 2: the kernel against its plain version on every case, and
+    the refusal of a shape no layout fits.  Returns the main-path and
+    the G = 16 bf16 cases and the errors."""
+    errs, keep = {}, {}
     for cname, c in kernel_cases(torch, dev):
-        if main_case is None:
-            main_case = c
-            log(f"[kernel] main-path plan: kv_counts mean "
+        if cname in (MAIN, G16):
+            keep[cname] = c
+            log(f"[kernel] {cname} plan: kv_counts mean "
                 f"{float(c['cnt'].float().mean()):.2f} of "
                 f"{c['idx'].shape[-1]} pages, pos {c['pos'].tolist()}")
         errs[cname] = check_case(torch, sd, cname, c)
-    return main_case, errs
+    check_refusal(torch, sd, dev)
+    return keep, errs
 
 
 def extra_decode_cases(torch, dev):
@@ -1054,6 +1131,54 @@ def route_on_off(torch, sa, dev, base, tag, *, layers=4, seq=4096):
     assert not bad, f"kernel route vs _attend differ in {bad}: {rel}"
 
 
+def remat_policies(torch, sa, dev, base, tag, *, layers=4, seq=4096):
+    """Phase 8, second part: one forward + backward on the kernel route
+    with ``remat`` "none", "dots" and "full": the same loss and grad norm
+    within ROUTE_RTOL, reporting where they are bitwise equal (a
+    recompute that runs the same kernels at the same shapes gives the
+    same bits), the compacted-grid launches (the forward, plus the
+    recompute under "dots" and "full") and each policy's peak memory."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import DenseModel, loss_fn
+    cfg = main_path_cfg(dataclasses.replace(base, topk_impl="bisect",
+                                            n_layers=layers))
+    model = DenseModel(cfg, device=dev, seed=1)
+    batch = {k: torch.from_numpy(a).to(dev) for k, a in
+             SyntheticLM(cfg, 1, seq, seed=1).next_batch().items()}
+    res = {}
+    for remat in ("none", "dots", "full"):
+        rcfg = dataclasses.replace(cfg, remat=remat)
+        model.zero_grad(set_to_none=True)
+        reset_attn_counts(sa)
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        loss, _ = loss_fn(model, rcfg, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        secs = time.time() - t
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+        gn = torch.sqrt(sum(torch.sum(p.grad.float() ** 2)
+                            for p in model.parameters()))
+        res[remat] = (loss.detach(), gn, attn_counts(sa)[0])
+        log(f"[remat] {remat}: loss {loss.item():.6f}, grad norm "
+            f"{gn.item():.6f}, fwd+bwd {secs:.2f} s, peak memory above the "
+            f"weights {peak:.2f} GiB, compacted-grid launches "
+            f"{res[remat][2]} {tag}")
+    l0, g0, _ = res["none"]
+    for remat in ("dots", "full"):
+        l1, g1, n = res[remat]
+        rel = (abs(l1 - l0) / abs(l0)).item(), (abs(g1 - g0) / g0).item()
+        assert max(rel) <= ROUTE_RTOL, f"remat {remat} vs none: {rel}"
+        assert n == 2 * layers, f"remat {remat}: {n} launches"
+        log(f"[remat] {remat} vs none: loss {rel[0]:.3e}, grad norm "
+            f"{rel[1]:.3e} relative (limit {ROUTE_RTOL:g}); bitwise equal: "
+            f"loss {bool(torch.equal(l1, l0))}, grad norm "
+            f"{bool(torch.equal(g1, g0))}")
+    assert res["none"][2] == layers
+
+
 def prefill_schedules(torch, sa, dev, base, tag, *, layers=4, seq=2048):
     """Phase 9: the dense-selection route through ``make_prefill_step`` on
     both grids: equal logits bitwise.  Returns layer 0's recorded
@@ -1134,14 +1259,19 @@ def time_attn(torch, sa, c, name, tag, *, dense_grid=False):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms), a_k
 
 
-def prefill_phases(torch, sa, dev, base, tag):
+def prefill_phases(torch, sa, dev, base, tag, clock):
     """Phases 7-10; returns the two prefill kernels' ``kernels`` rows."""
     c3, n_b3 = train_main_path(torch, sa, dev, base, tag)
     torch.cuda.empty_cache()
+    clock.done("7 train qwen3-4b")
     route_on_off(torch, sa, dev, base, tag)
     torch.cuda.empty_cache()
+    remat_policies(torch, sa, dev, base, tag)
+    torch.cuda.empty_cache()
+    clock.done("8 kernel route and remat policies")
     c4, n_b4 = prefill_schedules(torch, sa, dev, base, tag)
     torch.cuda.empty_cache()
+    clock.done("9 dense-selection prefill")
     rows = []
     for fn, c, launches, dense_grid in (
             (sa.sata_block_attention_compact, c3, n_b3, False),
@@ -1155,6 +1285,7 @@ def prefill_phases(torch, sa, dev, base, tag):
                      "replaces": REPLACES["dense" if dense_grid
                                           else "compact"],
                      "launches": launches, **t})
+    clock.done("10 prefill kernel timing")
     return rows
 
 
@@ -1693,6 +1824,10 @@ def checkpoint_phase(torch, sd, cfg, opts, dev, root, tag):
 # ---------------------------------------------------------------------------
 
 LADDER_REQUESTS, LADDER_GEN = 12, 32    # through phase 3's 8 slots
+# 14a's depth: the per-slot planner runs once a layer, ~1.7 s of each
+# ladder step at 36 layers; 8 keep full width, the requests, the spikes
+# and every check, at ~8/36 of the time
+LADDER_LAYERS = 8
 LADDER_CLEAR = 4
 # run 2's loop steps whose per-slot plans are held to the plain budget
 # rank: rung 3 (incremental steps, int8 ranking) and rung 1 (an exact
@@ -2097,17 +2232,283 @@ def retire_phase(torch, sd, serve, cfg, model, opts, phase3, tag):
 
 
 def overload_phases(torch, sd, serve, cfg, opts, phase3, dev, tag):
-    """Phases 14a and 14b on a fresh full-width model; returns kernel 1's
-    launches on their paths and its error on their recorded calls."""
+    """Phase 14a on a fresh full-width model cut to LADDER_LAYERS layers,
+    14b on a fresh one at full depth (its never-firing twin must serve
+    phase 3's streams); returns kernel 1's launches on their paths and
+    its error on their recorded calls."""
     from repro_torch.models.model import DenseModel
+    lcfg = dataclasses.replace(cfg, n_layers=LADDER_LAYERS)
+    log(f"[ladder] depth cut: {LADDER_LAYERS} of qwen3-4b's "
+        f"{cfg.n_layers} layers at full width (the per-slot planner's "
+        f"time scales with the layers); requests, spikes and checks as "
+        f"before")
+    model = DenseModel(lcfg, device=dev, seed=0)
+    err_a, n_a = ladder_phase(torch, sd, serve, lcfg, model, opts, tag)
+    del model
+    torch.cuda.empty_cache()
     model = DenseModel(cfg, device=dev, seed=0)
-    err_a, n_a = ladder_phase(torch, sd, serve, cfg, model, opts, tag)
     err_b, n_b = retire_phase(torch, sd, serve, cfg, model, opts, phase3,
                               tag)
     del model
     torch.cuda.empty_cache()
     return {"paths": {**n_a, **n_b},
             "recorded_calls": {"14a": err_a, "14b": err_b}}
+
+
+# ---------------------------------------------------------------------------
+# phases 15-16: the rest of the dense family and the moe family
+# ---------------------------------------------------------------------------
+
+# qwen3-moe-235b-a22b at full width holds 3 x 128 x 4096 x 1536 bf16 expert
+# weights a layer (4.83 GB), 0.14 GB of attention, 2.49 GB of embeddings:
+# 12 of its 94 layers are ~62 GB of the card's 80 GB, with room left for
+# the page pool, the prefill's workspace and the init's fp32 temporaries
+MOE_LAYERS = 12
+MOE_TOL = 2e-2          # bf16 moe FFN output: index form vs one-hot einsums
+MOE_PROBE_STEP = 10     # the decode step whose layer-0 FFN call is held
+
+
+def serve_cfg(base, layout="paged"):
+    """Phase 3's serving settings on ``base``: SATA decode on, bisect,
+    decode block = page = 64, an exact re-plan every step."""
+    from repro_torch.models.config import KVCacheConfig, SataDecodeConfig
+    return dataclasses.replace(
+        base, topk_impl="bisect",
+        sata=dataclasses.replace(base.sata, decode=SataDecodeConfig(
+            mode="on", block=64, replan=1)),
+        kv=KVCacheConfig(layout=layout,
+                         page_size=64 if layout == "paged" else 0))
+
+
+def serve_layouts(torch, sd, serve, cfg, model, opts, label, tag,
+                  wrap=contextlib.nullcontext):
+    """Serve ``opts`` paged, then contiguous (``wrap(layout)`` open around
+    each run): every request complete with in-vocabulary tokens, the
+    layout's kernel launched layers × decode steps times and the other
+    never, fewer tiles fetched than dense, and equal token streams.
+    Returns {layout: (report, launches)}."""
+    runs = {}
+    for layout in ("paged", "contiguous"):
+        lcfg = cfg if layout == "paged" else serve_cfg(cfg, "contiguous")
+        sd.sata_decode_attention_kernel.launches = 0
+        sd.sata_decode_attention_paged_kernel.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        with wrap(layout):
+            out = serve(cfg.name, smoke=False, cfg=lcfg, model=model,
+                        options=opts, device=model_device(model))
+        torch.cuda.synchronize()
+        n_paged = sd.sata_decode_attention_paged_kernel.launches
+        n_contig = sd.sata_decode_attention_kernel.launches
+        outs = out["outputs"]
+        assert sorted(outs) == list(range(opts.n_requests)), sorted(outs)
+        for r, toks in outs.items():
+            assert len(toks) == opts.gen_len, (r, len(toks))
+            assert all(0 <= x < cfg.vocab_size for x in toks), r
+        want = cfg.n_layers * out["steps"]
+        got, other = (n_paged, n_contig) if layout == "paged" \
+            else (n_contig, n_paged)
+        assert got == want, f"{label} {layout}: {got} launches != {want}"
+        assert other == 0, f"{label} {layout}: the other layout's kernel ran"
+        f = out["decode_fetch"]
+        assert f["kv_fetch_tiles_plan"] < f["kv_fetch_tiles_dense"], f
+        occ = out.get("page_occupancy", {})
+        log(f"[{label}] {layout}: {out['tokens_generated']} tokens, "
+            f"{out['steps']} decode steps, {out['tok_per_s']:.2f} tok/s, "
+            f"mean decode step {out['step_ms_mean']:.2f} ms, mean prefill "
+            f"{out['prefill_ms_mean']['miss']:.1f} ms, kernel launches "
+            f"{got} (= {cfg.n_layers} layers x {out['steps']} steps), "
+            f"fetch reduction {f['fetch_reduction']:.3f}x "
+            f"({f['kv_fetch_tiles_plan']} vs {f['kv_fetch_tiles_dense']} "
+            f"tiles), peak pages {occ.get('pages_in_use_peak', 'n/a')}/"
+            f"{occ.get('n_pages', 'n/a')}, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB {tag}")
+        runs[layout] = (out, got)
+    assert runs["paged"][0]["outputs"] == runs["contiguous"][0]["outputs"], \
+        f"{label}: paged and contiguous token streams differ"
+    log(f"[{label}] paged == contiguous token streams: True")
+    return runs
+
+
+def describe(cfg) -> str:
+    return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+            f"{cfg.n_kv_heads} heads x {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab_size}, norm {cfg.norm_type}, qk_norm {cfg.qk_norm}, "
+            f"{cfg.dtype}")
+
+
+def olmo_phase(torch, sd, serve, opts, dev, tag):
+    """Phase 15: olmo-1b at full width (the repo's config, the
+    non-parametric norm, G = 1), random weights from a seed, phase 3's
+    workload paged then contiguous.  Returns the paged kernel's
+    launches."""
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.models.model import DenseModel
+    cfg = serve_cfg(ARCHS["olmo-1b"])
+    model = DenseModel(cfg, device=dev, seed=0)
+    assert not any(".ln" in n or "final_ln" in n
+                   for n, _ in model.named_parameters())
+    log(f"[olmo] olmo-1b: {describe(cfg)}; random weights (seed 0)")
+    runs = serve_layouts(torch, sd, serve, cfg, model, opts, "olmo", tag)
+    del model
+    torch.cuda.empty_cache()
+    return runs["paged"][1]
+
+
+class MoEProbe:
+    """Wraps ``models.decode.moe_apply`` in a serve: CUDA events around
+    every call (decode and prefill apart), the routing's drops (device
+    counters, read once at the end), and the arguments and outputs of
+    one decode call (layer 0 of decode step MOE_PROBE_STEP) and one
+    prefill call (the first) for the check against the one-hot form."""
+
+    def __init__(self, torch, n_layers):
+        self.torch, self.n_layers = torch, n_layers
+        self.events = {"decode": [], "prefill": []}
+        self.dropped_pairs = self.dropped_tokens = None
+        self.routed = 0
+        self.calls = {"decode": 0, "prefill": 0}
+        self.recorded = {}
+
+    def route(self, fn):
+        def wrapped(p, cfg, tokens):
+            r = fn(p, cfg, tokens)
+            if tokens.shape[1] < cfg.moe_group_size:      # a decode group
+                pairs, toks = (~r.keep).sum(), (~r.keep).all(-1).sum()
+                if self.dropped_pairs is None:
+                    self.dropped_pairs, self.dropped_tokens = pairs, toks
+                else:
+                    self.dropped_pairs += pairs
+                    self.dropped_tokens += toks
+                self.routed += r.keep.numel()
+            return r
+        return wrapped
+
+    def apply(self, fn):
+        torch = self.torch
+
+        def wrapped(p, cfg, x):
+            kind = "decode" if x.shape[1] == 1 else "prefill"
+            a, z = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            a.record()
+            y, aux = fn(p, cfg, x)
+            z.record()
+            self.events[kind].append((a, z))
+            step = self.calls[kind] // self.n_layers
+            if kind not in self.recorded and (
+                    kind == "prefill" or step == MOE_PROBE_STEP):
+                self.recorded[kind] = (p, x.clone(), y.clone())
+            self.calls[kind] += 1
+            return y, aux
+        return wrapped
+
+    def ms(self, kind):
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(z) for a, z in self.events[kind])
+
+
+def check_moe_call(torch, cfg, p, x, y, label):
+    """The recorded FFN call: the index form again on its input (bitwise
+    its recorded output) against ``moe_apply_ref``, the reference's
+    one-hot einsums in plain PyTorch: equal expert ids and kept mask, the
+    output within MOE_TOL."""
+    from repro_torch.models import moe
+    with torch.inference_mode():            # as the serve that recorded it
+        again, _ = moe.moe_apply(p, cfg, x)
+        r = moe.route(p, cfg, moe._groups(cfg, x))
+        want, _, ids, keep = moe.moe_apply_ref(p, cfg, x)
+    torch.cuda.synchronize()
+    assert torch.equal(again, y), f"{label}: a second run differs"
+    assert torch.equal(r.expert_ids, ids), f"{label}: expert ids differ"
+    assert torch.equal(r.keep, keep), f"{label}: kept masks differ"
+    assert torch.isfinite(y).all()
+    err = float((y.float() - want.float()).abs().max())
+    off = float((y != want).float().mean())
+    log(f"[moe] {label} ({x.shape[0] * x.shape[1]} tokens, "
+        f"{ids.shape[0]} group(s) of {ids.shape[1]}, capacity {r.cap}): "
+        f"expert ids and kept mask == "
+        f"the one-hot form; {int((~keep).sum())} of {keep.numel()} "
+        f"(token, k-slot) pairs dropped; output max_abs_err={err:.3e} "
+        f"(tol {MOE_TOL:g}), {off:.4%} of outputs off its bits")
+    assert err <= MOE_TOL, f"{label}: {err} > {MOE_TOL}"
+
+
+def moe_phase(torch, sd, serve, opts, dev, tag, n_layers=MOE_LAYERS):
+    """Phase 16: qwen3-moe-235b-a22b at full width cut to ``n_layers``
+    layers (random weights from a seed), phase 3's workload paged then
+    contiguous through the decode kernel at G = 16.  Checks the streams,
+    the launches, the kernel against its plain version on one recorded
+    call, and one decode and one prefill FFN call against the one-hot
+    form; reports the step, the FFN's share of it, prefill and the
+    capacity drops.  Returns the paged run's report and the kernel's error
+    on the recorded call."""
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode as dec
+    from repro_torch.models import moe
+    from repro_torch.models.model import DenseModel
+    full = ARCHS["qwen3-moe-235b-a22b"]
+    cfg = serve_cfg(dataclasses.replace(full, n_layers=n_layers))
+    g = cfg.n_heads // cfg.n_kv_heads
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    model = DenseModel(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[moe] qwen3-moe-235b-a22b: {describe(cfg)}, {cfg.n_experts} "
+        f"experts, top-{cfg.experts_per_token}, group {cfg.moe_group_size}, "
+        f"capacity factor {cfg.capacity_factor}, G = {g}; depth cut "
+        f"{full.n_layers} -> {n_layers} layers (the most whose weights fit "
+        f"one 80 GB card with the serving state); random weights (seed 0) "
+        f"{weights / 1e9:.2f} GB built in {time.time() - t:.1f} s; device "
+        f"memory allocated before {before / 2 ** 30:.2f} GiB {tag}")
+    probes = {}
+    kprobe = KernelProbe(torch, sd)
+    kprobe.arm(lambda table, idx, cnt, pos: (
+        f"kv_counts max {int(cnt.max())} mean "
+        f"{float(cnt.float().mean()):.2f}"))
+
+    @contextlib.contextmanager
+    def wrap(layout):
+        probes[layout] = probe = MoEProbe(torch, cfg.n_layers)
+        with patched(dec, "moe_apply", probe.apply), \
+                patched(moe, "route", probe.route), \
+                patched(ops, "sata_decode_attention_paged_kernel", kprobe):
+            yield
+
+    runs = serve_layouts(torch, sd, serve, cfg, model, opts, "moe", tag,
+                         wrap=wrap)
+    peak = torch.cuda.max_memory_allocated()
+    assert kprobe.result is not None, "B1's recorded call was not checked"
+    kerr, koff, note = kprobe.result
+    log(f"[moe] B1 on a recorded call at G = {g} ({note}): max_abs_err="
+        f"{kerr:.3e}, {koff:.4%} of outputs off the plain version's bits")
+    out, _ = runs["paged"]
+    probe = probes["paged"]
+    steps = out["steps"]
+    dec_ms, pre_ms = probe.ms("decode"), probe.ms("prefill")
+    assert probe.calls["decode"] == n_layers * steps, probe.calls
+    dropped, gone = int(probe.dropped_pairs), int(probe.dropped_tokens)
+    for kind in ("decode", "prefill"):
+        p, x, y = probe.recorded[kind]
+        check_moe_call(torch, cfg, p, x, y,
+                       f"recorded {kind} call (layer 0)")
+    log(f"[moe] paged: mean decode step {out['step_ms_mean']:.2f} ms, of "
+        f"it the moe FFN {dec_ms / steps:.2f} ms a step on CUDA events "
+        f"({100 * dec_ms / steps / out['step_ms_mean']:.1f}%; "
+        f"{n_layers} layers, every expert's weights read each step); "
+        f"prefill {out['prefill_ms_mean']['miss']:.1f} ms a request, of it "
+        f"the moe FFN {pre_ms / opts.n_requests:.1f} ms; capacity drops a "
+        f"decode step, over its {n_layers} layers: {dropped / steps:.2f} "
+        f"(token, k-slot) pairs of {probe.routed // steps} routed "
+        f"({100 * dropped / probe.routed:.2f}%), {gone / steps:.2f} tokens "
+        f"with every slot dropped; device "
+        f"memory at peak {peak / 2 ** 30:.2f} GiB {tag}")
+    del model, runs
+    torch.cuda.empty_cache()
+    return out, kerr
 
 
 def _tensors(tree):
@@ -2299,9 +2700,9 @@ def run_ab(root: str, parent: str) -> int:
     build_all(build, root)
     old, _ = parent_kernel(build, parent, "sata_decode",
                            "sata_decode_attention", sd.ARGTYPES)
-    main_case, _ = check_kernels(torch, sd, dev)
-    cases = [("main_B8_KV8_G4_D128_page64_bf16", main_case),
-             *extra_decode_cases(torch, dev)]
+    keep, _ = check_kernels(torch, sd, dev)
+    main_case = keep[MAIN]
+    cases = [(MAIN, main_case), *extra_decode_cases(torch, dev)]
     rows = []
     for name, c in cases:
         for paged in (True, False):
@@ -2324,7 +2725,7 @@ def run_ab(root: str, parent: str) -> int:
                 f"parent); bound {bound_ms:.5f} ms {tag}")
             rows.append(dict(case=name, layout=lay, bound_ms=bound_ms, **ts))
     probes = probe_decode(torch, sd, build, root, main_case, tag)
-    del main_case, cases
+    del main_case, cases, keep
     prefill = ab_prefill(torch, sa, build, parent, dev, tag)
     log(card)
     log(json.dumps({"ab": rows, "probes": probes, "ab_prefill": prefill}))
@@ -2543,7 +2944,6 @@ def main() -> int:
     from repro_torch.kernels import sata_attention as sa
     from repro_torch.kernels import sata_decode as sd
     from repro_torch.launch.serve import ServeOptions, serve
-    from repro_torch.models.config import KVCacheConfig, SataDecodeConfig
     from repro_torch.models.model import DenseModel
 
     # no fp32 product on the path may run in TF32
@@ -2555,85 +2955,50 @@ def main() -> int:
     tag = f"[{card}]"
 
     # --- 1. device and build
+    clock = PhaseClock()
     log(f"[device] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s); "
         f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     build_all(build, root)
+    clock.done("1 device and build")
 
     # --- 2. kernel vs plain on the card
-    main_case, errs = check_kernels(torch, sd, dev)
+    keep, errs = check_kernels(torch, sd, dev)
+    main_case = keep[MAIN]
+    clock.done("2 kernel checks")
 
-    # --- 3. serve qwen3-4b at full width, paged
+    # --- 3.-4. serve qwen3-4b at full width, paged, then contiguous
     base = ARCHS["qwen3-4b"]
-    cfg = dataclasses.replace(
-        base, topk_impl="bisect",
-        sata=dataclasses.replace(base.sata, decode=SataDecodeConfig(
-            mode="on", block=64, replan=1)),
-        kv=KVCacheConfig(layout="paged", page_size=64))
+    cfg = serve_cfg(base)
     opts = ServeOptions(n_requests=16, batch_slots=8, prompt_len=1024,
                         gen_len=64, max_len=4096)
     t = time.time()
     model = DenseModel(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
-    log(f"[serve] qwen3-4b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.hd}, d_ff {cfg.d_ff}, "
-        f"vocab {cfg.vocab_size}, qk_norm {cfg.qk_norm}, {cfg.dtype}; random "
-        f"weights (seed 0) built in {time.time() - t:.1f} s")
-    runs = {}
-    for layout in ("paged", "contiguous"):
-        lcfg = cfg if layout == "paged" else dataclasses.replace(
-            cfg, kv=KVCacheConfig(layout="contiguous"))
-        sd.sata_decode_attention_kernel.launches = 0
-        sd.sata_decode_attention_paged_kernel.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        out = serve("qwen3-4b", smoke=False, cfg=lcfg, model=model,
-                    options=opts, device=dev)
-        torch.cuda.synchronize()
-        n_paged = sd.sata_decode_attention_paged_kernel.launches
-        n_contig = sd.sata_decode_attention_kernel.launches
-        outs = out["outputs"]
-        assert sorted(outs) == list(range(opts.n_requests)), sorted(outs)
-        for r, toks in outs.items():
-            assert len(toks) == opts.gen_len, (r, len(toks))
-            assert all(0 <= x < cfg.vocab_size for x in toks), r
-        want = cfg.n_layers * out["steps"]
-        got, other = (n_paged, n_contig) if layout == "paged" \
-            else (n_contig, n_paged)
-        assert got == want, f"{layout}: {got} launches != {want}"
-        assert other == 0, f"{layout}: the other layout's kernel ran"
-        f = out["decode_fetch"]
-        assert f["kv_fetch_tiles_plan"] < f["kv_fetch_tiles_dense"], f
-        occ = out.get("page_occupancy", {})
-        log(f"[serve] {layout}: {out['tokens_generated']} tokens, "
-            f"{out['steps']} decode steps, {out['tok_per_s']:.2f} tok/s, "
-            f"mean decode step {out['step_ms_mean']:.2f} ms, kernel "
-            f"launches {got} (= {cfg.n_layers} layers x {out['steps']} "
-            f"steps), fetch reduction {f['fetch_reduction']:.3f}x "
-            f"({f['kv_fetch_tiles_plan']} vs {f['kv_fetch_tiles_dense']} "
-            f"tiles), peak pages {occ.get('pages_in_use_peak', 'n/a')}/"
-            f"{occ.get('n_pages', 'n/a')}, peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB {tag}")
-        runs[layout] = (out, got)
-
-    # --- 4. paged and contiguous serve the same token streams
-    assert runs["paged"][0]["outputs"] == runs["contiguous"][0]["outputs"], \
-        "paged and contiguous token streams differ"
-    log("[serve] paged == contiguous token streams: True")
+    log(f"[serve] qwen3-4b: {describe(cfg)}; random weights (seed 0) "
+        f"built in {time.time() - t:.1f} s")
+    runs = serve_layouts(torch, sd, serve, cfg, model, opts, "serve", tag)
     del model
     torch.cuda.empty_cache()
+    clock.done("3-4 serve qwen3-4b")
 
-    # --- 5. kernel timing at the main-path shape, at B1 and at a long row
+    # --- 5. kernel timing at the main-path shape, the moe shape (G = 16),
+    # at B1 and at a long row
     kernels = []
     for layout in ("paged", "contiguous"):
+        paged = layout == "paged"
         t = time_decode(torch, sd, main_case, "B8 KV8 G4 D128 page64 bf16",
-                        layout == "paged", tag)
-        fn = sd.sata_decode_attention_paged_kernel if layout == "paged" \
+                        paged, tag)
+        t16 = time_decode(torch, sd, keep[G16], "B8 KV4 G16 D128 page64 "
+                          "bf16 (qwen3-moe)", paged, tag)
+        fn = sd.sata_decode_attention_paged_kernel if paged \
             else sd.sata_decode_attention_kernel
         kernels.append({
             "name": fn.__name__, "route": "cuda", "source": SRC_CU,
             "replaces": REPLACES[layout], "launches": runs[layout][1],
-            "max_abs_err": max(errs.values()), **t})
+            "max_abs_err": max(errs.values()), **t, "g16": t16})
+    del keep
     for cname, c in extra_decode_cases(torch, dev):
         check_case(torch, sd, cname, c)
         for paged in (True, False):
@@ -2666,29 +3031,47 @@ def main() -> int:
         f" x {cfg.n_layers} layers = {cfg.n_layers * per_layer:.2f} ms of "
         f"the {step_ms:.2f} ms mean decode step "
         f"({100 * cfg.n_layers * per_layer / step_ms:.1f}%) {tag}")
+    clock.done("5 decode kernel timing")
     # --- 6. the SATA prefill kernels against their plain versions
     check_attn_kernels(torch, sa, dev, tag)
+    clock.done("6 prefill kernel checks")
 
     # --- 7.-10. the training path and the prefill kernels' timing
-    kernels += prefill_phases(torch, sa, dev, base, tag)
+    kernels += prefill_phases(torch, sa, dev, base, tag, clock)
 
     # --- 11.-12. the shared-prefix cache and the summary backends
     model = DenseModel(cfg, device=dev, seed=0)
     phase11 = prefix_cache_phase(torch, sd, serve, cfg, model, opts, tag)
     summary_phase(torch, sd, serve, cfg, model, opts,
                   runs["paged"][0]["outputs"], main_case, tag)
+    clock.done("11-12 prefix cache and summary backends")
 
     # --- 13. host swap, crash, quarantine; serve checkpoint / resume
     fault_phase(torch, sd, cfg, model, opts, phase11, tag)
     del model
     torch.cuda.empty_cache()
     checkpoint_phase(torch, sd, cfg, opts, dev, root, tag)
+    clock.done("13 faults and checkpoint")
 
     # --- 14. the QoS ladder and cascade retirement
     kernels[0].update(overload_phases(torch, sd, serve, cfg, opts,
                                       runs["paged"][0], dev, tag))
+    clock.done("14 ladder and retirement")
+
+    # --- 15. olmo-1b: the non-parametric norm, G = 1
+    kernels[0]["paths"]["15 olmo-1b"] = olmo_phase(torch, sd, serve, opts,
+                                                   dev, tag)
+    clock.done("15 serve olmo-1b")
+
+    # --- 16. qwen3-moe-235b-a22b: the moe FFN, the decode kernel at G = 16
+    moe_out, kerr = moe_phase(torch, sd, serve, opts, dev, tag)
+    kernels[0]["paths"]["16 qwen3-moe"] = \
+        MOE_LAYERS * moe_out["steps"]
+    kernels[0]["recorded_calls"]["16"] = kerr
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     *kernels[0]["recorded_calls"].values())
+    clock.done("16 serve qwen3-moe")
+    clock.total()
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

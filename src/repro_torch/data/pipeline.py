@@ -26,14 +26,15 @@ class SyntheticLM:
 
     Tokens follow a noisy arithmetic progression per sequence; labels are
     the next token.  ``loss_mask`` is all ones.  Batches are numpy arrays
-    (dense family: tokens, labels, loss_mask).
+    (dense and moe families: tokens, labels, loss_mask).
     """
 
     def __init__(self, cfg: ModelConfig, batch: int, seq: int, seed: int = 0):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"family {cfg.family!r}: the port's pipeline makes dense-"
-                f"family batches; vlm/audio inputs are slice 4")
+                f"family {cfg.family!r}: the port's pipeline makes dense/"
+                f"moe batches; vlm and audio inputs are ROADMAP queue A "
+                f"item 4")
         self.cfg, self.batch, self.seq = cfg, batch, seq
         self.state = PipelineState(seed=seed, step=0)
 

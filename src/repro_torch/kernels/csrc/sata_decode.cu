@@ -47,13 +47,19 @@
 //  - Scoring, the largest share of the instructions: bf16 scores on the
 //    tensor cores (mma.sync m16n8k16, fp32 accumulation; K tiles by
 //    ldmatrix from rows padded to an odd multiple of 16 bytes, so without
-//    bank conflicts; q, heads padded to 8, as the B operand in registers).
+//    bank conflicts; q as the B operand in registers, one n-tile of 8 heads
+//    per 8 grouped heads, so a K tile read from shared memory scores all G).
 //    That is not for the flops (the bound is bytes) but for the
 //    instruction path: 16 instructions score 16 rows for all heads.  fp32
 //    stays exact on the CUDA cores: the lanes of a row group split D into
 //    16-byte vectors (no bank conflicts), q stays in registers, and a
 //    reduce-scatter butterfly leaves each head's sum in its own lanes
 //    (log2(lanes) + G - 1 shuffles a row group instead of G·log2(lanes)).
+//  - Any G up to 16 in one pass over the row's K/V: the softmax steps give
+//    each warp G / warps heads in turn, and the PV product splits the heads
+//    above 8 into two groups of threads (a thread's accumulators stay those
+//    of 8 heads).  G <= 8 is instantiated as such; 9..16 share one
+//    instantiation padded to 16 with G read at run time.
 //  - Windows instead of a softmax step per block: the scores of up to
 //    `win_blocks` blocks stay in shared memory; when the window closes the
 //    steps of all its blocks run at once from the prefix max over its
@@ -79,7 +85,10 @@ namespace {
 // threads a block: 512 for G <= 4 (more warps to hide the latencies of
 // scoring), 256 above (the registers of q and the accumulators)
 __host__ __device__ constexpr int threads_for(int G) { return G <= 4 ? 512 : 256; }
-constexpr int kMaxG = 8;          // <= warps: one warp per head in the softmax step
+// head groups of the PV product: a thread accumulates one 16-byte column
+// vector for the heads of its group, at most 8 heads (the registers)
+__host__ __device__ constexpr int head_groups(int G) { return G <= 8 ? 1 : 2; }
+constexpr int kMaxG = 16;
 constexpr int kMaxD = 128;
 constexpr int kMaxBlock = 128;
 constexpr int kPlanWin = 1024;    // plan entries kept in shared memory
@@ -113,7 +122,7 @@ __host__ __device__ inline Layout make_layout(int G, int D, int kb, int es, int 
   // ldmatrix reads fall on eight different bank groups
   L.rk = es == 2 ? (D * 2 + 31) / 32 * 32 + 16 : L.rs;
   L.nvec = L.rs / 16;
-  L.nrs = threads_for(G) / L.nvec;
+  L.nrs = threads_for(G) / (L.nvec * head_groups(G));
   L.wrows = wp * kb;
   int off = 0;
   const int ring = stages * chunk * L.rk;                   // K ring, then the
@@ -212,7 +221,7 @@ struct Args {
   const float* thr;          // (B*KV, G)
   const int32_t* pos;        // (B,)
   void* out;                 // (B, KV, G, D)
-  int n_kv, D, P, kb, nkb, chunk, stages, wp, vr, copy_bytes;
+  int n_kv, G, D, P, kb, nkb, chunk, stages, wp, vr, copy_bytes;
   float sm_scale;
 };
 
@@ -225,16 +234,20 @@ struct Args {
 // max over its blocks (m after block j = max(m before the window, the
 // window's block maxima up to j)), which gives every block the max the
 // sequential step would have used, so p is rounded exactly as there.
-template <typename T, int G>
-__global__ void __launch_bounds__(threads_for(G))
+// GC: G itself for G <= 8, 16 for G in 9..16 (then G comes from a.G).
+template <typename T, int GC>
+__global__ void __launch_bounds__(threads_for(GC))
 sata_decode_kernel(const Args a) {
-  constexpr int kThreads = threads_for(G), kWarps = kThreads / 32;
+  constexpr int kThreads = threads_for(GC), kWarps = kThreads / 32;
+  const int G = GC <= 8 ? GC : a.G;
   using V = Vec<T>;
   constexpr int E = V::E;                        // elements per 16-byte vector
   constexpr int LPR = kMaxD * (int)sizeof(T) / 16;   // lanes per row: 16 bf16, 32 fp32
   constexpr int RPW = 32 / LPR;                  // rows per warp per pass
   constexpr int U = 1024 / kThreads;             // passes scored together
-  constexpr int GP = G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8;
+  constexpr int GP = GC <= 1 ? 1 : GC <= 2 ? 2 : GC <= 4 ? 4 : GC <= 8 ? 8 : 16;
+  constexpr int NT = (GC + 7) / 8;               // n-tiles of 8 heads (tensor cores)
+  constexpr int NHG = head_groups(GC), HPG = GC / NHG;   // PV head groups, heads each
   constexpr int es = sizeof(T);
   constexpr bool use_mma = es == 2;              // bf16 scores on the tensor cores
   extern __shared__ __align__(16) unsigned char smem[];
@@ -362,12 +375,14 @@ sata_decode_kernel(const Args a) {
     commit_group();
   }
 
-  float acc[GP][E];
+  // PV: column vector cv of heads hg * HPG .. + HPG, over row subset rs_id
+  const int cv = tid % nvec, hg = (tid / nvec) % NHG, rs_id = tid / (nvec * NHG);
+  const int h0 = hg * HPG;
+  float acc[HPG][E];
 #pragma unroll
-  for (int g = 0; g < GP; ++g)
+  for (int g = 0; g < HPG; ++g)
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
-  const int cv = tid % nvec, rs_id = tid / nvec;  // PV: column vector, row subset
 
   // V copies of the packed rows [v0, v0 + n) into the V buffer
   auto issue_v = [&](int j0, int v0, int n) {
@@ -430,10 +445,9 @@ sata_decode_kernel(const Args a) {
       pm[x] = mx;
     }
     __syncthreads();
-    // prefix max over the blocks, one warp per head; block weights
+    // prefix max over the blocks, one warp per head in turn; block weights
     // exp(m_j - m_last) and the earlier windows' weight exp(m - m_last)
-    if (warp < G) {
-      const int g = warp;
+    for (int g = warp; g < G; g += kWarps) {
       const float m_prev = m_sh[g];
       float carry = m_prev;
       for (int j = 0; j < nw; j += 32) {
@@ -483,8 +497,7 @@ sata_decode_kernel(const Args a) {
     }
     __syncthreads();
     // l = l * cw + sum_j psum_j * w_j; acc = acc * cw + the V rows' terms
-    if (warp < G) {
-      const int g = warp;
+    for (int g = warp; g < G; g += kWarps) {
       float part = 0.f;
       for (int j = lane; j < nw; j += 32) part += psum[j * G + g] * pw[j * G + g];
       part = warp_sum(part);
@@ -492,10 +505,12 @@ sata_decode_kernel(const Args a) {
     }
     if (rs_id < L.nrs) {
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float c = cw_sh[g];
+      for (int g = 0; g < HPG; ++g) {
+        if (h0 + g < G) {
+          const float c = cw_sh[h0 + g];
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[g][e] *= c;
+          for (int e = 0; e < E; ++e) acc[g][e] *= c;
+        }
       }
     }
     for (int v0 = 0; v0 < nv; v0 += VR) {
@@ -510,10 +525,12 @@ sata_decode_kernel(const Args a) {
           float vf[E];
           V::load(vb + i * RS, vf);
 #pragma unroll
-          for (int g = 0; g < G; ++g) {
-            const float w = s_w[g * WR + fw] * pw[jw * G + g];
+          for (int g = 0; g < HPG; ++g) {
+            if (h0 + g < G) {
+              const float w = s_w[(h0 + g) * WR + fw] * pw[jw * G + h0 + g];
 #pragma unroll
-            for (int e = 0; e < E; ++e) acc[g][e] += w * vf[e];
+              for (int e = 0; e < E; ++e) acc[g][e] += w * vf[e];
+            }
           }
         }
       }
@@ -530,23 +547,27 @@ sata_decode_kernel(const Args a) {
   const float thr_hd = hd < G ? thr_sh[hd] : 0.f;
   const unsigned row_mask = (LPR == 32 ? 0xffffffffu : ((1u << (LPR & 31)) - 1u))
                             << (row_in_warp * LPR);
-  // bf16 scores on the tensor cores: q as the B operand, head lane/4 of
-  // k-step ks in qb[ks], heads past G and d past D zero (fp32 uses qr)
-  uint32_t qb[kMaxD / 16][2];
-  float thr_mma[2];
+  // bf16 scores on the tensor cores: q as the B operand, head
+  // nt * 8 + lane/4 of k-step ks in qb[nt][ks], heads past G and d past D
+  // zero (fp32 uses qr)
+  uint32_t qb[NT][kMaxD / 16][2];
+  float thr_mma[NT][2];
 #pragma unroll
-  for (int ks = 0; ks < kMaxD / 16; ++ks) {
-    const int n = lane >> 2, d0 = ks * 16 + (lane & 3) * 2;
-    auto qv = [&](int d) {
-      return n < G && d < D ? to_f32(q[((size_t)row * G + n) * D + d]) : 0.f;
-    };
-    qb[ks][0] = pack_bf16(qv(d0), qv(d0 + 1));
-    qb[ks][1] = pack_bf16(qv(d0 + 8), qv(d0 + 9));
-  }
+  for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int h = 2 * (lane & 3) + e;
-    thr_mma[e] = h < G ? thr_sh[h] : 0.f;
+    for (int ks = 0; ks < kMaxD / 16; ++ks) {
+      const int n = nt * 8 + (lane >> 2), d0 = ks * 16 + (lane & 3) * 2;
+      auto qv = [&](int d) {
+        return n < G && d < D ? to_f32(q[((size_t)row * G + n) * D + d]) : 0.f;
+      };
+      qb[nt][ks][0] = pack_bf16(qv(d0), qv(d0 + 1));
+      qb[nt][ks][1] = pack_bf16(qv(d0 + 8), qv(d0 + 9));
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int h = nt * 8 + 2 * (lane & 3) + e;
+      thr_mma[nt][e] = h < G ? thr_sh[h] : 0.f;
+    }
   }
   int j0 = 0;                                    // first block of the window
   for (int i = 0; i < n_chunks; ++i) {
@@ -563,9 +584,12 @@ sata_decode_kernel(const Args a) {
     const int fw0 = f0 - j0 * kb;                // the chunk's first row in the window
     if constexpr (use_mma) {
       // tensor cores: each warp takes 16-row tiles; a lane's accumulators
-      // hold rows lane/4 and lane/4 + 8 for heads 2 (lane % 4) and + 1
+      // hold rows lane/4 and lane/4 + 8 for heads nt * 8 + 2 (lane % 4)
+      // and + 1 of each n-tile nt
       for (int mt = warp; mt * 16 < C; mt += kWarps) {
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
+        float c[NT][4];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
         const int lr = min(mt * 16 + (lane & 7) + (lane & 8), C - 1);
         const unsigned char* ap = kt + lr * RK + (lane >> 4) * 16;
 #pragma unroll
@@ -573,7 +597,8 @@ sata_decode_kernel(const Args a) {
           if (ks * 16 < D) {
             uint32_t af[4];
             ldmatrix_x4(af, ap + ks * 32);
-            mma_bf16(c, af, qb[ks][0], qb[ks][1]);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) mma_bf16(c[nt], af, qb[nt][ks][0], qb[nt][ks][1]);
           }
         }
 #pragma unroll
@@ -582,15 +607,18 @@ sata_decode_kernel(const Args a) {
           const int flag = r < C ? lv[r] : 0;
           bool any = false;
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int h = 2 * (lane & 3) + e;
-            const float s = c[2 * half + e] * a.sm_scale;
-            const bool sel = flag == 2 && h < G && admit(s, thr_mma[e]);
-            if (h < G && flag != 0) {
-              s_w[h * WR + fw0 + r] = sel ? s : kNegInf;
-              sel_w[h * WR + fw0 + r] = sel;
+          for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int h = nt * 8 + 2 * (lane & 3) + e;
+              const float s = c[nt][2 * half + e] * a.sm_scale;
+              const bool sel = flag == 2 && h < G && admit(s, thr_mma[nt][e]);
+              if (h < G && flag != 0) {
+                s_w[h * WR + fw0 + r] = sel ? s : kNegInf;
+                sel_w[h * WR + fw0 + r] = sel;
+              }
+              any |= sel;
             }
-            any |= sel;
           }
           const unsigned bal = __ballot_sync(0xffffffffu, any);
           if ((lane & 3) == 0 && flag != 0)
@@ -655,9 +683,11 @@ sata_decode_kernel(const Args a) {
   const int dpad = RS / es;
   if (rs_id < L.nrs) {
 #pragma unroll
-    for (int g = 0; g < G; ++g)
+    for (int g = 0; g < HPG; ++g)
+      if (h0 + g < G)
 #pragma unroll
-      for (int e = 0; e < E; ++e) red[(rs_id * G + g) * dpad + cv * E + e] = acc[g][e];
+        for (int e = 0; e < E; ++e)
+          red[(rs_id * G + h0 + g) * dpad + cv * E + e] = acc[g][e];
   }
   __syncthreads();
   for (int x = tid; x < G * D; x += kThreads) {
@@ -669,13 +699,13 @@ sata_decode_kernel(const Args a) {
   }
 }
 
-template <typename T, int G>
+template <typename T, int GC>
 int launch(const Args& a, int rows, int smem_bytes, cudaStream_t s) {
-  auto* fn = sata_decode_kernel<T, G>;
+  auto* fn = sata_decode_kernel<T, GC>;
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  fn<<<rows, threads_for(G), smem_bytes, s>>>(a);
+  fn<<<rows, threads_for(GC), smem_bytes, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -691,6 +721,7 @@ int launch_g(const Args& a, int G, int rows, int smem_bytes, cudaStream_t s) {
     case 7: return launch<T, 7>(a, rows, smem_bytes, s);
     case 8: return launch<T, 8>(a, rows, smem_bytes, s);
   }
+  if (G > 8 && G <= kMaxG) return launch<T, 16>(a, rows, smem_bytes, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -731,7 +762,7 @@ extern "C" int sata_decode_attention(
   a.thr = static_cast<const float*>(thresholds);
   a.pos = static_cast<const int32_t*>(pos);
   a.out = out;
-  a.n_kv = n_kv; a.D = D; a.P = P; a.kb = k_block; a.nkb = nkb;
+  a.n_kv = n_kv; a.G = G; a.D = D; a.P = P; a.kb = k_block; a.nkb = nkb;
   a.chunk = chunk; a.stages = stages; a.wp = win_blocks; a.vr = v_rows;
   a.copy_bytes = copy_bytes;
   // rounded once from double, as the plain version's fp32 scale is

@@ -36,7 +36,7 @@ import torch
 from repro_torch.core.blockmap import bisect_select
 from repro_torch.core.selection import NEG_INF
 
-MAX_G, MAX_D, MAX_BLOCK = 8, 128, 128     # csrc/sata_decode.cu limits
+MAX_G, MAX_D, MAX_BLOCK = 16, 128, 128    # csrc/sata_decode.cu limits
 # csrc/sata_decode.cu's plan window and ring limit, and the shared memory
 # a block may use on an H100 (sm_90: 227 KB)
 PLAN_WIN, MAX_STAGES = 1024, 8
@@ -69,6 +69,12 @@ def threads_for(g: int) -> int:
     return 512 if g <= 4 else 256
 
 
+def head_groups(g: int) -> int:
+    """csrc/sata_decode.cu's head groups in the PV product: a thread
+    accumulates the heads of one group, at most 8."""
+    return 1 if g <= 8 else 2
+
+
 def smem_bytes(g: int, d: int, k_block: int, elem_bytes: int, chunk: int,
                stages: int, win_blocks: int, v_rows: int) -> int:
     """Shared-memory bytes of ``csrc/sata_decode.cu``'s layout
@@ -77,7 +83,7 @@ def smem_bytes(g: int, d: int, k_block: int, elem_bytes: int, chunk: int,
     # a K row in the ring: bf16 rows padded to the tensor cores' k-step
     # and 16 bytes more (ldmatrix without bank conflicts)
     rk = (-(-d * 2 // 32) * 32 + 16) if elem_bytes == 2 else rs
-    nrs = threads_for(g) // (rs // 16)       # PV row subsets
+    nrs = threads_for(g) // (rs // 16 * head_groups(g))   # PV row subsets
     wrows = win_blocks * k_block
     regions = [
         max(stages * chunk * rk,             # K ring, then the final
@@ -100,12 +106,18 @@ def launch_config(g: int, d: int, k_block: int,
     fit CHUNK_BYTES of K (at most 256 rows), or the largest divisor
     of a k-block that does; a ring of RING_BYTES of chunks (2 to
     MAX_STAGES); V_BYTES of V rows at a time; and a window of as many
-    k-blocks' scores as the rest of SMEM_MAX holds."""
+    k-blocks' scores as the rest of SMEM_MAX holds.  Raises ValueError,
+    naming G, D and k_block, for a shape outside the kernel's limits or
+    one no layout fits."""
     return _launch_config(g, d, k_block, dtype.itemsize)
 
 
 @functools.cache
 def _launch_config(g: int, d: int, k_block: int, es: int) -> LaunchConfig:
+    if not (1 <= g <= MAX_G and 1 <= d <= MAX_D and 1 <= k_block <= MAX_BLOCK):
+        raise ValueError(f"no decode kernel layout at G={g}, D={d}, "
+                         f"k_block={k_block}: the kernel takes G <= {MAX_G}, "
+                         f"D <= {MAX_D}, k_block <= {MAX_BLOCK}")
     rs = _round16(d * es)
     if k_block * rs <= CHUNK_BYTES:
         chunk = k_block * max(1, min(CHUNK_BYTES // (k_block * rs),
@@ -240,10 +252,6 @@ def _launch(owner, q, k, v, page_table, kv_indices, kv_counts, thresholds,
         raise TypeError(f"q/k/v dtypes differ: {q.dtype}/{k.dtype}/{v.dtype}")
     if thresholds.dtype != torch.float32:
         raise TypeError(f"thresholds must be float32, got {thresholds.dtype}")
-    if not (g <= MAX_G and d <= MAX_D and 1 <= k_block <= MAX_BLOCK):
-        raise ValueError(f"kernel limits: G <= {MAX_G}, D <= {MAX_D}, "
-                         f"k_block <= {MAX_BLOCK}; got G={g}, D={d}, "
-                         f"k_block={k_block}")
     if kv_indices.shape != (b, n_kv, p) or kv_counts.shape != (b, n_kv) \
             or thresholds.shape != (b, n_kv, g, 1) or pos.shape != (b,):
         raise ValueError(f"plan shapes {tuple(kv_indices.shape)}, "
@@ -253,6 +261,7 @@ def _launch(owner, q, k, v, page_table, kv_indices, kv_counts, thresholds,
     for name, t in (("q", q), ("k", k), ("v", v), ("thresholds", thresholds)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    cfg = launch_config(g, d, k_block, q.dtype)     # raises past the limits
     out = torch.empty_like(q)
     if p == 0 or b * n_kv == 0:
         return out.zero_()
@@ -260,7 +269,6 @@ def _launch(owner, q, k, v, page_table, kv_indices, kv_counts, thresholds,
            for t in (kv_indices, kv_counts, pos)]
     tbl = None if page_table is None else \
         page_table.to(torch.int32).contiguous()
-    cfg = launch_config(g, d, k_block, q.dtype)
     err = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if tbl is None else tbl.data_ptr(),

@@ -339,7 +339,7 @@ def attention_apply(params, cfg, x: torch.Tensor,
     if kv_src is not None:
         raise NotImplementedError(
             "cross-attention (kv_src) belongs to the vlm and audio "
-            "families: slice 4 of the PyTorch port")
+            "families: ROADMAP queue A item 4 of the PyTorch port")
     b, s, _ = x.shape
     causal = cfg.causal if causal is None else causal
     q, k, v = _project_qkv(params, cfg, x)

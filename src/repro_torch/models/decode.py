@@ -1,6 +1,7 @@
-"""Serving path, dense family — port of ``repro.models.decode``: cache
-init, slot reset/release, page-table pushes, the prompt prefill →
-decode handoff, and the single-token ``serve_step``.
+"""Serving path, dense and moe families — port of
+``repro.models.decode``: cache init, slot reset/release, page-table
+pushes, the prompt prefill → decode handoff, and the single-token
+``serve_step``.
 
 The serving cache stacks every field over layers (``(L, ...)``, as the
 reference's scanned cache does); each layer's decode step gets a dict
@@ -37,16 +38,11 @@ from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (_dtype, apply_norm, apply_rope,
                                        embed_apply, mlp_apply, unembed_apply)
+from repro_torch.models.model import _check_family
+from repro_torch.models.moe import moe_apply
 
 _SEED_FIELDS = ("k_min", "k_max", "k_scale", "k_zero", "kv_indices",
                 "kv_counts", "step", "churn")
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: slice 1 of the PyTorch port serves the "
-            f"dense family; moe and the others are slice 4")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -275,7 +271,11 @@ def gather_prefix_kv(cache: Dict, table_row, prefix_len: int) -> Dict:
 
 
 def _dec_mlp(p, cfg, x):
-    return x + mlp_apply(p["mlp"], cfg, apply_norm(p["ln2"], cfg, x))
+    h = apply_norm(p["ln2"], cfg, x)
+    if cfg.moe:
+        y, _ = moe_apply(p["moe"], cfg, h)
+        return x + y
+    return x + mlp_apply(p["mlp"], cfg, h)
 
 
 # prefill rows run in blocks of this many, aligned to absolute positions
@@ -309,7 +309,14 @@ def prefill_prompt(model, cfg: ModelConfig, tokens: torch.Tensor,
     rows goes through the operations, at the shapes, that a full prefill
     gives that row.  On the card cuBLAS and the reductions choose their
     summation order by shape, so only this makes a cache hit's tail,
-    logits and plan bitwise a miss's."""
+    logits and plan bitwise a miss's.
+
+    The moe FFN is the exception: capacity couples the tokens of a
+    group, so it runs once over exactly the rows the reference's call
+    sees (the whole prompt on a miss, the unmatched tail on a hit, in
+    order), never by block and never on the pad rows.  A moe hit's tail
+    therefore equals the reference's continuation prefill, not a miss
+    (the reference's own hit and miss differ there too)."""
     _check_family(cfg)
     b, sp = tokens.shape
     m = 0 if prefix_kv is None else int(prefix_kv["k"].shape[2])
@@ -355,7 +362,13 @@ def prefill_prompt(model, cfg: ModelConfig, tokens: torch.Tensor,
             q, positions[None])
         y = by_block(lambda t: t.reshape(b, t.shape[1], cfg.n_heads * hd)
                      @ p["attn"]["wo"], out)
-        x = by_block(lambda t, u: _dec_mlp(p, cfg, t + u), x, y)
+        if cfg.moe:
+            x = by_block(lambda t, u: t + u, x, y)
+            hn = by_block(lambda t: apply_norm(p["ln2"], cfg, t), x)
+            f, _ = moe_apply(p["moe"], cfg, hn[:, pad:])
+            x = torch.cat([x[:, :pad], x[:, pad:] + f], dim=1)
+        else:
+            x = by_block(lambda t, u: _dec_mlp(p, cfg, t + u), x, y)
         ks.append(kc)
         vs.append(vc)
         if seed_plan:

@@ -33,6 +33,16 @@ class ParamModule(nn.Module):
         return getattr(self, name, default)
 
 
+def argsort_descending(x: torch.Tensor) -> torch.Tensor:
+    """Indices sorting the last dim in descending order (int32, no
+    gradient).  As the reference's: a stable ascending sort, then
+    flipped, so among equal values the HIGHER index comes first
+    (``torch.argsort(descending=True, stable=True)`` would put the lower
+    one first and route ties to other experts)."""
+    idx = torch.argsort(x.detach(), dim=-1, stable=True)
+    return torch.flip(idx, dims=(-1,)).to(torch.int32)
+
+
 def apply_norm(params, cfg, x: torch.Tensor, eps: float = 1e-6
                ) -> torch.Tensor:
     xf = x.float()

@@ -26,7 +26,8 @@ def test_import_loads_no_jax_and_no_reference_package():
     for m in ("repro_torch.launch.serve", "repro_torch.launch.train",
               "repro_torch.kernels.sata_attention", "repro_torch.core.sorting",
               "repro_torch.train.step", "repro_torch.optim.adamw",
-              "repro_torch.checkpoint.manager", "repro_torch.data.pipeline"):
+              "repro_torch.checkpoint.manager", "repro_torch.data.pipeline",
+              "repro_torch.models.moe"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"

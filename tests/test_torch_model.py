@@ -198,3 +198,176 @@ def test_logical_kv_view_matches():
     np.testing.assert_array_equal(
         tview(torch.from_numpy(pages), torch.from_numpy(tbl)).numpy(),
         np.asarray(jview(jnp.asarray(pages), jnp.asarray(tbl))))
+
+
+# ---------------------------------------------------------------------------
+# the rest of the dense family (olmo-1b's non-parametric norm, layernorm)
+# and the moe family, through the whole model
+# ---------------------------------------------------------------------------
+
+LOSS_RTOL = 1e-5
+GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4      # fp32 summation order over 4 layers
+
+
+def _family_cfgs(arch, **kw):
+    """SMOKE ``arch`` on both sides (4 layers, d_model 64, fp32)."""
+    return [dataclasses.replace(s[arch], **kw) for s in (JSMOKE, TSMOKE)]
+
+
+def _np_tree(tree):
+    return jax.tree.map(lambda a: np.array(a), tree)
+
+
+def _batch(seed, b=2, s=16, vocab=256):
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, vocab, (b, s + 1)).astype(np.int32)
+    return {"tokens": tok[:, :-1], "labels": tok[:, 1:],
+            "loss_mask": np.ones((b, s), np.float32)}
+
+
+def _grads_by_path(params, jg, model):
+    """[(path, JAX grad, port grad)] over every reference leaf."""
+    out = []
+    for path, g in jax.tree_util.tree_flatten_with_path(jg)[0]:
+        keys = [p.key for p in path]
+        if keys[0] == "layers":
+            tg = torch.stack([model.layers[i][keys[1]][keys[2]].grad
+                              for i in range(len(model.layers))])
+        else:
+            tg = model[keys[0]][keys[1]].grad
+        out.append((tuple(keys), np.asarray(g), tg))
+    return out
+
+
+@pytest.mark.parametrize("norm_type", ["rmsnorm", "layernorm",
+                                       "nonparam_ln"])
+def test_norm_params_and_apply_for_every_norm_type(norm_type):
+    """``Norm`` holds the reference's ``norm_init`` leaves (none for
+    nonparam_ln) and ``apply_norm`` matches with non-trivial scale and
+    bias; ``params_from_jax`` loads a model of each type."""
+    from repro.models import model as jmdl
+    from repro_torch.models.model import Norm, _Init, params_from_jax
+    jc, tc = _family_cfgs("qwen3-4b", norm_type=norm_type)
+    want = jl.norm_init(jc, 64)
+    norm = Norm(tc, _Init(tc, torch.device("cpu"), None))
+    assert sorted(n for n, _ in norm.named_parameters()) == sorted(want)
+    x = _rand(50, 2, 5, 64)
+    p = {n: 1.0 + 0.1 * _rand(51 + i, 64) for i, n in enumerate(want)}
+    _close(tl.apply_norm({n: torch.from_numpy(a) for n, a in p.items()},
+                         tc, torch.from_numpy(x)),
+           jl.apply_norm({n: jnp.asarray(a) for n, a in p.items()}, jc,
+                         jnp.asarray(x)), ELEM_ATOL)
+    params = jmdl.init_params(jax.random.PRNGKey(0), jc)
+    model = params_from_jax(_np_tree(params), tc, device="cpu")
+    n_leaves = 0
+    for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+        keys = [k.key for k in path]
+        if keys[0] == "layers":
+            got = torch.stack([model.layers[i][keys[1]][keys[2]]
+                               for i in range(tc.n_layers)])
+        else:
+            got = model[keys[0]][keys[1]]
+        np.testing.assert_array_equal(got.detach().numpy(),
+                                      np.asarray(leaf))
+        n_leaves += tc.n_layers if keys[0] == "layers" else 1
+    assert n_leaves == len(model.state_dict())
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-moe-235b-a22b"])
+def test_family_forward_loss_and_grads_match(arch):
+    """``forward`` / ``loss_fn`` of SMOKE olmo-1b (nonparam_ln) and SMOKE
+    qwen3-moe (the MoE FFN in every layer, its aux loss summed over the
+    layers and added at 0.01) against the reference: logits, loss, the
+    parts, and every parameter's gradient."""
+    from repro.models import model as jmdl
+    from repro_torch.models import model as tmdl
+    jc, tc = _family_cfgs(arch)
+    params = jmdl.init_params(jax.random.PRNGKey(1), jc)
+    model = tmdl.params_from_jax(_np_tree(params), tc, device="cpu")
+    batch = _batch(7)
+    tb = {k: torch.from_numpy(a) for k, a in batch.items()}
+    jlogits, jaux = jmdl.forward(params, jc, batch)
+    tlogits, taux = tmdl.forward(model, tc, tb)
+    _close(tlogits, jlogits, 1e-4)
+    (jl_, jparts), jg = jax.value_and_grad(
+        lambda p: jmdl.loss_fn(p, jc, batch), has_aux=True)(params)
+    tl_, tparts = tmdl.loss_fn(model, tc, tb)
+    tl_.backward()
+    np.testing.assert_allclose(tl_.item(), float(jl_), rtol=LOSS_RTOL)
+    for k in ("nll", "aux"):
+        np.testing.assert_allclose(tparts[k].item(), float(jparts[k]),
+                                   rtol=LOSS_RTOL, atol=1e-7)
+    if arch == "olmo-1b":
+        assert taux.item() == 0.0 and not any(
+            n.startswith("layers.0.ln") for n in model.state_dict())
+    else:
+        assert taux.item() > 0 and np.isclose(taux.item(), float(jaux),
+                                              rtol=LOSS_RTOL)
+    for path, g, tg in _grads_by_path(params, jg, model):
+        np.testing.assert_allclose(tg.numpy(), g, atol=GRAD_ATOL,
+                                   rtol=GRAD_RTOL, err_msg=str(path))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen3-moe-235b-a22b"])
+def test_remat_dots_equals_none_and_the_reference(arch):
+    """``remat="dots"`` saves the outputs of the no-batch-dim products and
+    recomputes the rest in the backward: on the CPU the recompute runs
+    the same ops at the same shapes, so loss and gradients equal
+    ``"none"``'s bitwise, and the reference's ``"dots"`` within the fp32
+    tolerances."""
+    from repro.models import model as jmdl
+    from repro_torch.models import model as tmdl
+    jc, _ = _family_cfgs(arch, remat="dots")
+    params = jmdl.init_params(jax.random.PRNGKey(2), jc)
+    batch = _batch(8)
+    tb = {k: torch.from_numpy(a) for k, a in batch.items()}
+    runs = {}
+    for remat in ("none", "dots"):
+        _, tc = _family_cfgs(arch, remat=remat)
+        model = tmdl.params_from_jax(_np_tree(params), tc, device="cpu")
+        loss, _ = tmdl.loss_fn(model, tc, tb)
+        loss.backward()
+        runs[remat] = (loss.detach(), {n: p.grad for n, p in
+                                       model.named_parameters()}, model)
+    assert torch.equal(runs["none"][0], runs["dots"][0])
+    for n, g in runs["none"][1].items():
+        assert torch.equal(g, runs["dots"][1][n]), n
+    (jl_, _), jg = jax.value_and_grad(
+        lambda p: jmdl.loss_fn(p, jc, batch), has_aux=True)(params)
+    np.testing.assert_allclose(runs["dots"][0].item(), float(jl_),
+                               rtol=LOSS_RTOL)
+    for path, g, tg in _grads_by_path(params, jg, runs["dots"][2]):
+        np.testing.assert_allclose(tg.numpy(), g, atol=GRAD_ATOL,
+                                   rtol=GRAD_RTOL, err_msg=str(path))
+
+
+def test_remat_dots_saves_only_the_unbatched_products():
+    """Under ``"dots"`` the backward recomputes a layer but replays the
+    projections' and MLP's mm outputs from the forward: counting the
+    aten.mm calls run while the backward recomputes shows none."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.models import model as tmdl
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n[func] = self.n.get(func, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    tb = {k: torch.from_numpy(a) for k, a in _batch(9).items()}
+    counts = {}
+    for remat in ("full", "dots"):
+        _, tc = _family_cfgs("qwen3-4b", remat=remat)
+        model = tmdl.DenseModel(tc, device="cpu", seed=0)
+        loss, _ = tmdl.loss_fn(model, tc, tb)
+        with Count() as c:
+            loss.backward()
+        counts[remat] = c.n
+    mm, bmm = torch.ops.aten.mm.default, torch.ops.aten.bmm.default
+    # "full" recomputes every projection of every layer; "dots" none, so
+    # its backward runs fewer mm calls (the gradient products only)
+    assert counts["dots"].get(mm, 0) < counts["full"].get(mm, 0)
+    assert counts["dots"].get(bmm, 0) == counts["full"].get(bmm, 0) > 0

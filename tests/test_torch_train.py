@@ -123,7 +123,7 @@ def _loss_and_grads(remat):
     return float(jl), tl.item(), grads
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
 def test_forward_and_loss_match(remat):
     jl, tl, grads = _loss_and_grads(remat)
     np.testing.assert_allclose(tl, jl, rtol=TRAIN_RTOL)
@@ -133,12 +133,14 @@ def test_forward_and_loss_match(remat):
 
 
 def test_remat_dots_is_queued_not_ported():
-    _, tc = _cfgs(remat="dots")
-    model = tmodel.DenseModel(tc, device="cpu", seed=0)
-    batch = {k: torch.from_numpy(a) for k, a in
-             TLM(tc, 1, S).next_batch().items()}
-    with pytest.raises(NotImplementedError, match="dots"):
-        tmodel.forward(model, tc, batch)
+    """The ``"dots"`` policy, once queued, is ported: through the SATA
+    kernel route its loss and gradients equal ``"none"``'s bitwise (the
+    recompute runs the same ops at the same shapes)."""
+    jl_none, tl_none, g_none = _loss_and_grads("none")
+    _, tl_dots, g_dots = _loss_and_grads("dots")
+    assert tl_dots == tl_none
+    for (path, _, a), (_, _, b) in zip(g_none, g_dots):
+        assert torch.equal(a, b), path
 
 
 @pytest.mark.parametrize("micro_steps", [1, 2])
@@ -161,6 +163,43 @@ def test_train_three_steps_matches_reference(monkeypatch, micro_steps):
         np.testing.assert_allclose(_port_leaf(model, path).numpy(), a,
                                    atol=PARAM_ATOL, rtol=0,
                                    err_msg=str(path))
+
+
+def test_moe_train_steps_and_aux_metric_match_reference(monkeypatch):
+    """SMOKE qwen3-moe (4 experts, top-2, group 16; remat="dots"), batch
+    2 × 16 tokens (two groups): three ``train()`` steps give the
+    reference's losses and grad norms, and one ``make_train_step`` gives
+    its metrics, the router's aux loss among them."""
+    from repro.train.step import make_train_step as jstep
+    from repro_torch.train.step import make_train_step as tstep
+    jc, tc = (dataclasses.replace(s["qwen3-moe-235b-a22b"], remat="dots")
+              for s in (jarchs.SMOKE, TSMOKE))
+    monkeypatch.setitem(jarchs.SMOKE, "tiny-moe", jc)
+    kw = dict(steps=3, batch=2, seq=16, log_every=10, seed=0)
+    want = jtrain("tiny-moe", smoke=True, **kw)
+    model = _port_model(_jax_params(jc, seed=0), tc)
+    got = ttrain("tiny-moe", cfg=tc, model=model, device="cpu", **kw)
+    np.testing.assert_allclose(got["losses"], want["losses"],
+                               rtol=TRAIN_RTOL)
+    np.testing.assert_allclose(got["gnorms"], want["gnorms"],
+                               rtol=TRAIN_RTOL)
+    dctx.clear()
+    params = _jax_params(jc, seed=1)
+    batch = JLM(jc, 2, 16, seed=1).next_batch()
+    opt = jadam.OptConfig(warmup_steps=2, decay_steps=3)
+    _, jm = jstep(jc, opt)({"params": params,
+                            "opt": jadam.init_opt_state(params)}, batch)
+    model = _port_model(params, tc)
+    topt = tadam.OptConfig(warmup_steps=2, decay_steps=3)
+    state = {"params": model,
+             "opt": tadam.init_opt_state(dict(model.named_parameters()))}
+    _, tm = tstep(tc, topt)(state, {k: torch.from_numpy(a)
+                                    for k, a in batch.items()})
+    assert sorted(tm) == sorted(jm)
+    assert float(tm["aux"]) > 0
+    for k in ("loss", "nll", "aux", "grad_norm"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]),
+                                   rtol=TRAIN_RTOL, err_msg=k)
 
 
 def test_compressed_adamw_step_matches_on_equal_gradients():
