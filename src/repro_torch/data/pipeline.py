@@ -25,16 +25,17 @@ class SyntheticLM:
     """Markov-ish token stream with enough structure that loss decreases.
 
     Tokens follow a noisy arithmetic progression per sequence; labels are
-    the next token.  ``loss_mask`` is all ones.  Batches are numpy arrays
-    (dense and moe families: tokens, labels, loss_mask).
+    the next token.  ``loss_mask`` is all ones.  Batches are numpy arrays:
+    tokens, labels, loss_mask, and the modality context drawn after them
+    (vlm: ``image_embeds``, audio: ``audio_embeds``, fp32).
     """
 
     def __init__(self, cfg: ModelConfig, batch: int, seq: int, seed: int = 0):
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in ("dense", "moe", "vlm", "audio"):
             raise NotImplementedError(
-                f"family {cfg.family!r}: the port's pipeline makes dense/"
-                f"moe batches; vlm and audio inputs are ROADMAP queue A "
-                f"item 4")
+                f"family {cfg.family!r}: the port's pipeline makes dense, "
+                f"moe, vlm and audio batches; hybrid and ssm are ROADMAP "
+                f"queue A item 4")
         self.cfg, self.batch, self.seq = cfg, batch, seq
         self.state = PipelineState(seed=seed, step=0)
 
@@ -56,8 +57,17 @@ class SyntheticLM:
         noise = rng.integers(0, v, toks.shape)
         keep = rng.random(toks.shape) > 0.05
         toks = np.where(keep, toks, noise).astype(np.int32)
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
-                "loss_mask": np.ones((self.batch, self.seq), np.float32)}
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                 "loss_mask": np.ones((self.batch, self.seq), np.float32)}
+        if self.cfg.family == "vlm":
+            batch["image_embeds"] = rng.standard_normal(
+                (self.batch, self.cfg.n_image_tokens, self.cfg.d_model)
+            ).astype(np.float32)
+        if self.cfg.family == "audio":
+            batch["audio_embeds"] = rng.standard_normal(
+                (self.batch, self.cfg.encoder_len, self.cfg.d_model)
+            ).astype(np.float32)
+        return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         while True:

@@ -46,6 +46,12 @@ live-token watermark, or every slot under pool pressure, retires its
 coldest completed blocks down to the ``keep`` budget and their pages
 return to the pool mid-stream.
 
+Families: dense and moe; vlm (contiguous cache only) and audio, whose
+slots each hold a cross-attention context filled once before the first
+claim, with one-token prompts; an audio slot under pool pressure is
+requeued, as in the reference (host swap covers the families whose
+per-slot state is pages + plan).
+
 The report carries outputs, tokens, tok/s, steps, per-request latencies,
 the SATA decode fetch accounting (per summary backend, re-plan mode,
 rung and live block count), the page occupancy with every fault
@@ -75,7 +81,7 @@ from repro_torch.launch.faults import FaultPlan
 from repro_torch.models import attention as attn
 from repro_torch.models import decode as dec
 from repro_torch.models.layers import _dtype
-from repro_torch.models.model import DenseModel
+from repro_torch.models.model import Model
 
 
 class QoSController:
@@ -223,13 +229,17 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
           resilience: Optional[ResilienceOptions] = None,
           prefix_index=None) -> Dict[str, Any]:
     """Serve ``options.n_requests`` requests through ``batch_slots``
-    decode slots on ``device``.  ``model`` defaults to a ``DenseModel``
-    with random weights from ``seed``; prompts come from
+    decode slots on ``device``.  ``model`` defaults to the family's
+    ``Model`` with random weights from ``seed``; prompts come from
     ``numpy.random.default_rng(seed)`` as in the reference, so a model
     built with ``params_from_jax`` serves the reference's exact
-    workload.  ``faults`` is a step-keyed ``FaultPlan``; ``resilience``
-    defaults to ``ResilienceOptions()``, as in the reference (host swap
-    on, unbounded, audits after every allocator mutation)."""
+    workload.  vlm and audio first draw each slot's context (image or
+    frame embeddings, before the prompts, as the reference does) and
+    fill the cross-attention K/V from it; their prompts are one token
+    (they have no prompt prefill, as in the reference).  ``faults`` is
+    a step-keyed ``FaultPlan``; ``resilience`` defaults to
+    ``ResilienceOptions()``, as in the reference (host swap on,
+    unbounded, audits after every allocator mutation)."""
     if prefix_index is not None:
         raise _unported("serve(prefix_index=...)", "queue A slice 5")
     dev = resolve_device(device)
@@ -243,11 +253,23 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
     preempt_retry_limit = res.preempt_retry_limit
     cfg = cfg or (SMOKE if smoke else ARCHS)[arch]
     if model is None:
-        model = DenseModel(cfg, device=dev, seed=seed)
+        model = Model(cfg, device=dev, seed=seed)
     rng = np.random.default_rng(seed)
     dtype_bytes = torch.tensor([], dtype=_dtype(cfg)).element_size()
 
     cache = dec.init_cache(cfg, batch_slots, max_len, device=dev)
+    # layers holding a self-attention cache (vlm: its n_self)
+    n_kv_layers = int(next(iter(cache["kv"].values())).shape[0])
+    if cfg.family in ("vlm", "audio"):
+        # one context per slot, drawn before the prompts (the reference's
+        # rng order)
+        key, n_ctx = (("image_embeds", cfg.n_image_tokens)
+                      if cfg.family == "vlm"
+                      else ("audio_embeds", cfg.encoder_len))
+        ctx = rng.standard_normal((batch_slots, n_ctx, cfg.d_model))
+        with torch.inference_mode():
+            dec.prefill_context(model, cfg, cache, {key: torch.from_numpy(
+                ctx.astype(np.float32)).to(dev)})
 
     # --- paged-pool allocator (host-side; the device reads the table)
     alloc: Optional[PageAllocator] = None
@@ -271,7 +293,7 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
     can_swap = (alloc is not None and cfg.family in ("dense", "moe")
                 and (host_swap_bytes is None or host_swap_bytes > 0))
     swap_page_bytes = (2 * cfg.n_kv_heads * cfg.hd * dtype_bytes * page
-                       * cfg.n_layers)
+                       * n_kv_layers)
     if faults is not None and not faults.empty:
         if alloc is None:
             raise ValueError(
@@ -282,7 +304,11 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
                 "crash_step recovery restores every live slot from host "
                 "swap, which needs the dense/moe paged serving path")
 
-    use_prefill = prompt_len > 1
+    use_prefill = prompt_len > 1 and cfg.family in ("dense", "moe")
+    if prompt_len > 1 and not use_prefill:
+        raise NotImplementedError(
+            f"prompt_len > 1 needs the dense/moe prefill path "
+            f"(family {cfg.family!r})")
     # --- shared-prefix page cache (prompt-prefix trie over the pool)
     pcache: Optional[PrefixCache] = None
     if attn.prefix_cache_on(cfg):
@@ -1099,9 +1125,9 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
         }
     if alloc is not None:
         row_bytes = 2 * cfg.n_kv_heads * cfg.hd * dtype_bytes
-        occ = alloc.stats(row_bytes=row_bytes, layers=cfg.n_layers)
+        occ = alloc.stats(row_bytes=row_bytes, layers=n_kv_layers)
         occ["contiguous_reserved_bytes"] = \
-            batch_slots * max_len * row_bytes * cfg.n_layers
+            batch_slots * max_len * row_bytes * n_kv_layers
         occ["reserved_vs_contiguous"] = (occ["contiguous_reserved_bytes"]
                                          / max(occ["hbm_reserved_bytes"], 1))
         for k in ("deferred_claims", "stalled_steps", "preemptions",

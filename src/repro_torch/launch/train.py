@@ -62,7 +62,7 @@ def train(arch: str, smoke: bool = True, steps: int = 20,
           model=None, device="cuda") -> Dict[str, Any]:
     """Train ``steps`` steps of next-token loss on ``SyntheticLM``
     batches.  ``cfg`` overrides ``(SMOKE if smoke else ARCHS)[arch]``;
-    ``model`` overrides the ``DenseModel`` built from ``seed`` (its
+    ``model`` overrides the ``Model`` built from ``seed`` (its
     parameters are trained in place).  Returns per-step ``losses``,
     ``gnorms`` and ``step_s`` (host seconds per step, synchronized),
     the ``final_state`` and the straggler count."""

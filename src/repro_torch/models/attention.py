@@ -3,7 +3,9 @@ qk-norm, the dense top-k reference (``_attend``), full-sequence
 attention for training and prefill (``attention_apply``) through the
 SATA block-sparse kernels, and single-token decode over the contiguous
 or paged KV cache through the incremental SATA plan + the decode gather
-kernel.
+kernel.  Cross-attention (the vlm and audio families: ``kv_src``,
+``cross_attention_decode`` over ``precompute_cross_kv``) stays on the
+dense top-k reference, as in the reference.
 
 Heads are kv-major: query head ``h`` belongs to KV head ``h // G``.
 
@@ -38,12 +40,16 @@ from repro_torch.models.layers import apply_rope, rms_head_norm
 BISECT_AUTO_MIN_S = 8192     # "auto" switches sort → bisect at this row len
 
 
-def _project_qkv(params, cfg, x: torch.Tensor):
+def _project_qkv(params, cfg, x: torch.Tensor,
+                 kv_src: Optional[torch.Tensor] = None):
+    """q from ``x``; k/v from ``kv_src`` (cross-attention's context) or
+    ``x``."""
     b, s = x.shape[:2]
     hd = cfg.hd
+    src = x if kv_src is None else kv_src
     q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ params["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ params["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    k = (src @ params["wk"]).reshape(b, src.shape[1], cfg.n_kv_heads, hd)
+    v = (src @ params["wv"]).reshape(b, src.shape[1], cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_head_norm(q, params["q_scale"])
         k = rms_head_norm(k, params["k_scale"])
@@ -333,26 +339,26 @@ def attention_apply(params, cfg, x: torch.Tensor,
                     kv_src: Optional[torch.Tensor] = None,
                     causal: Optional[bool] = None,
                     use_rope: bool = True) -> torch.Tensor:
-    """Full-sequence self-attention (training / prefill), x: (B, S, D).
-    Through the SATA kernels when ``_sata_kernel_ok``, else the dense
-    top-k reference per query chunk of ``cfg.q_chunk`` rows."""
-    if kv_src is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_src) belongs to the vlm and audio "
-            "families: ROADMAP queue A item 4 of the PyTorch port")
+    """Full-sequence attention (training / prefill), x: (B, S, D).
+    ``kv_src`` (B, S_ctx, D) switches to cross-attention: keys and
+    values from the context, not causal, no RoPE.  Self-attention goes
+    through the SATA kernels when ``_sata_kernel_ok``; everything else
+    through the dense top-k reference per query chunk of ``cfg.q_chunk``
+    rows (cross-attention has no kernel in the reference either)."""
     b, s, _ = x.shape
-    causal = cfg.causal if causal is None else causal
-    q, k, v = _project_qkv(params, cfg, x)
+    cross = kv_src is not None
+    causal = (cfg.causal and not cross) if causal is None else causal
+    q, k, v = _project_qkv(params, cfg, x, kv_src)
     q_pos = torch.arange(s, device=x.device) if positions is None \
         else positions
-    k_pos = torch.arange(s, device=x.device)
-    if use_rope:
+    k_pos = torch.arange(k.shape[1], device=x.device)
+    if use_rope and not cross:
         q = apply_rope(q, q_pos, cfg.rope_theta)
         k = apply_rope(k, k_pos, cfg.rope_theta)
     qc = min(cfg.q_chunk, s)
     if s % qc != 0:
         qc = s                                       # fallback: single chunk
-    if _sata_kernel_ok(cfg, s, cross=False):
+    if _sata_kernel_ok(cfg, s, cross):
         out = _attend_sata_kernel(q, k, v, cfg, q_pos, k_pos, causal)
     else:
         out = torch.cat([_attend(q[:, i:i + qc], k, v, cfg, q_pos[i:i + qc],
@@ -596,3 +602,34 @@ def _paged_decode_step(params, cfg, cache: Dict, q: torch.Tensor,
                             logical_kv_view(vp, tbl), cfg, pos)
     y = out.reshape(b, 1, cfg.n_heads * cfg.hd) @ params["wo"]
     return y, cache
+
+
+def cross_attention_decode(params, cfg, x: torch.Tensor,
+                           context_kv: Dict) -> torch.Tensor:
+    """Decode-time cross-attention over precomputed context K/V
+    (``precompute_cross_kv``), x: (B, 1, D).  ``context_kv`` may carry
+    ``"valid"`` (B, S_ctx) bool, the length mask of a padded context;
+    without it every context position attends.  Dense top-k over the
+    context (``_attend``): the reference sends no cross-attention to a
+    kernel."""
+    b = x.shape[0]
+    q = (x @ params["wq"]).reshape(b, 1, cfg.n_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = rms_head_norm(q, params["q_scale"])
+    k, v = context_kv["k"], context_kv["v"]
+    out = _attend(q, k, v, cfg, torch.zeros((1,), dtype=torch.int32,
+                                            device=x.device),
+                  torch.arange(k.shape[1], device=x.device),
+                  valid_k=context_kv.get("valid"), causal=False)
+    return out.reshape(b, 1, cfg.n_heads * cfg.hd) @ params["wo"]
+
+
+def precompute_cross_kv(params, cfg, context: torch.Tensor) -> Dict:
+    """Context K/V for ``cross_attention_decode``: {"k", "v"}
+    (B, S_ctx, KV, hd), qk-norm on k, no RoPE."""
+    b, s, _ = context.shape
+    k = (context @ params["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    v = (context @ params["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        k = rms_head_norm(k, params["k_scale"])
+    return {"k": k, "v": v}

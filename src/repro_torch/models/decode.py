@@ -1,12 +1,15 @@
-"""Serving path, dense and moe families — port of
+"""Serving path, dense, moe, vlm and audio families — port of
 ``repro.models.decode``: cache init, slot reset/release, page-table
-pushes, the prompt prefill → decode handoff, and the single-token
-``serve_step``.
+pushes, the prompt prefill → decode handoff (dense and moe), the
+cross-attention context (``prefill_context``: vlm's image embeddings,
+audio's encoder output) and the single-token ``serve_step``.
 
 The serving cache stacks every field over layers (``(L, ...)``, as the
-reference's scanned cache does); each layer's decode step gets a dict
-of views into it and updates them in place, so a step never copies the
-cache.  Host-side bookkeeping (slot claim, allocation) stays in
+reference's scanned cache does; vlm's self-attention cache is one flat
+stack over its n_self layers, where the reference nests it as (n_cross,
+per_group), so every slot function takes batch axis 1); each layer's
+decode step gets a dict of views into it and updates them in place, so
+a step never copies the cache.  Host-side bookkeeping (slot claim, allocation) stays in
 ``launch/serve.py``.  The shared-prefix cache's device side lives here
 too: the copy-on-write page copy (``copy_phys_pages``), the gather of a
 matched prefix (``gather_prefix_kv``), the continuation prefill over it
@@ -38,7 +41,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (_dtype, apply_norm, apply_rope,
                                        embed_apply, mlp_apply, unembed_apply)
-from repro_torch.models.model import _check_family
+from repro_torch.models.model import _check_family, _run_encoder, vlm_groups
 from repro_torch.models.moe import moe_apply
 
 _SEED_FIELDS = ("k_min", "k_max", "k_scale", "k_zero", "kv_indices",
@@ -51,17 +54,84 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     contiguous ``k``/``v`` or the paged pool + ``page_table``, and the
     SATA decode ``plan`` when routing is on (``attn.init_kv_cache``),
     with the QoS knobs under ``sata.qos.ladder`` and the retirement
-    state under ``sata.retire.mode == "on"``."""
+    state under ``sata.retire.mode == "on"``.  vlm stacks the
+    self-attention cache over its n_self layers and adds ``cross_kv``
+    {"k", "v"} (n_cross, B, n_image_tokens, KV, hd); audio adds
+    ``cross_kv`` (n_layers, B, encoder_len, KV, hd).  vlm refuses the
+    paged layout, as the reference does."""
     _check_family(cfg)
+    if attn.paged_kv_on(cfg) and cfg.family == "vlm":
+        raise NotImplementedError(
+            "paged KV serving does not cover the vlm family's nested "
+            "(n_cross, n_inner) cache grouping yet — use "
+            "kv_cache_layout='contiguous'")
     dev = resolve_device(device)
-    one = attn.init_kv_cache(cfg, batch, max_len, _dtype(cfg), device=dev)
+    dt = _dtype(cfg)
+    one = attn.init_kv_cache(cfg, batch, max_len, dt, device=dev)
+    n_kv, n_ctx, s_ctx = cfg.n_layers, 0, 0
+    if cfg.family == "vlm":
+        n_ctx, per_group = vlm_groups(cfg)
+        n_kv, s_ctx = n_ctx * per_group, cfg.n_image_tokens
+    elif cfg.family == "audio":
+        n_ctx, s_ctx = cfg.n_layers, cfg.encoder_len
 
     def stack(t):
-        return t.expand(cfg.n_layers, *t.shape).clone()
+        return t.expand(n_kv, *t.shape).clone()
 
     kv = {k: ({n: stack(t) for n, t in v.items()} if isinstance(v, dict)
               else stack(v)) for k, v in one.items()}
-    return {"kv": kv}
+    cache = {"kv": kv}
+    if n_ctx:
+        shape = (n_ctx, batch, s_ctx, cfg.n_kv_heads, cfg.hd)
+        cache["cross_kv"] = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                             "v": torch.zeros(shape, dtype=dt, device=dev)}
+    return cache
+
+
+def _context_valid(batch: Dict, s_ctx: int, n_layers: int, device
+                   ) -> Optional[torch.Tensor]:
+    """The optional per-request context-length mask: ``context_lengths``
+    (B,) in the batch marks how many of the padded ``s_ctx`` positions
+    are real.  Returns (L, B, S_ctx) bool, or None without lengths (all
+    positions attend)."""
+    lengths = batch.get("context_lengths")
+    if lengths is None:
+        return None
+    lengths = torch.as_tensor(lengths, device=device)
+    valid = torch.arange(s_ctx, device=device)[None, :] < lengths[:, None]
+    return valid.expand(n_layers, *valid.shape).clone()
+
+
+@torch.no_grad()
+def prefill_context(model, cfg: ModelConfig, cache: Dict,
+                    batch: Dict[str, torch.Tensor]) -> Dict:
+    """Fill the cross-attention K/V (in place) from the modality context:
+    vlm's ``batch["image_embeds"]`` through each cross layer's
+    projections, audio's ``batch["audio_embeds"]`` through the encoder
+    once, then each decoder layer's ``attn_cross`` projections.  An
+    optional ``batch["context_lengths"]`` (B,) masks the padded context
+    positions in every decode-time cross-attention (``cross_kv["valid"]``);
+    without it the mask is dropped.  Other families: a no-op."""
+    if cfg.family not in ("vlm", "audio"):
+        return cache
+    dt = _dtype(cfg)
+    ckv = cache["cross_kv"]
+    if cfg.family == "vlm":
+        ctx = batch["image_embeds"].to(dt)
+        layers = [p["attn"] for p in model["cross_layers"]]
+    else:
+        ctx = _run_encoder(model, cfg, batch["audio_embeds"].to(dt))
+        layers = [p["attn_cross"] for p in model["layers"]]
+    for i, p in enumerate(layers):
+        kv = attn.precompute_cross_kv(p, cfg, ctx)
+        ckv["k"][i] = kv["k"]
+        ckv["v"][i] = kv["v"]
+    valid = _context_valid(batch, ctx.shape[1], len(layers), ctx.device)
+    if valid is None:
+        ckv.pop("valid", None)
+    else:
+        ckv["valid"] = valid
+    return cache
 
 
 def _layer_view(kvc: Dict, layer: int) -> Dict:
@@ -75,7 +145,9 @@ def reset_slot(cfg: ModelConfig, cache: Dict, slot: int) -> Dict:
     """Clear one slot's decode plan across all layers (in place) for a
     newly claimed request.  The K/V rows need no zeroing: every read
     path masks key positions ``<= pos``, and the new request rewrites
-    each position before it becomes readable."""
+    each position before it becomes readable.  The cross-attention
+    context (``cross_kv``) stays: it belongs to the slot, filled once by
+    ``prefill_context``."""
     if "plan" in cache["kv"]:
         reset_plan_slot(cache["kv"]["plan"], slot, batch_axis=1)
     return cache
@@ -317,7 +389,11 @@ def prefill_prompt(model, cfg: ModelConfig, tokens: torch.Tensor,
     order), never by block and never on the pad rows.  A moe hit's tail
     therefore equals the reference's continuation prefill, not a miss
     (the reference's own hit and miss differ there too)."""
-    _check_family(cfg)
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"prefill_prompt covers the dense/moe serving families "
+            f"(got {cfg.family!r}) — other families prefill token-by-"
+            f"token through serve_step")
     b, sp = tokens.shape
     m = 0 if prefix_kv is None else int(prefix_kv["k"].shape[2])
     # strictly less: the first decode step writes at pos == m + sp
@@ -468,13 +544,38 @@ def _seed_page_summaries(kv: Dict, seed: Dict, row: np.ndarray,
 def serve_step(model, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
                pos) -> Tuple[torch.Tensor, Dict]:
     """tokens: (B, 1) current token ids; pos: scalar or (B,) per-slot
-    positions.  → (logits (B, 1, V) fp32, cache updated in place)."""
+    positions.  → (logits (B, 1, V) fp32, cache updated in place).  vlm
+    runs a gated cross layer over ``cross_kv`` after each group of self
+    layers; audio a cross-attention in every layer."""
     _check_family(cfg)
     x = embed_apply(model["embed"], tokens).to(_dtype(cfg))
+    ckv = cache.get("cross_kv")
+
+    def context(i):
+        return {n: t[i] for n, t in ckv.items()}
+
+    per_group = (len(model["layers"]) // len(model["cross_layers"])
+                 if cfg.family == "vlm" else 0)
     for i, p in enumerate(model["layers"]):
         hn = apply_norm(p["ln1"], cfg, x)
         y, _ = attn.attention_decode(p["attn"], cfg, hn,
                                      _layer_view(cache["kv"], i), pos)
+        if cfg.family == "audio":
+            x = x + y
+            hn = apply_norm(p["lnx"], cfg, x)
+            x = x + attn.cross_attention_decode(p["attn_cross"], cfg, hn,
+                                                context(i))
+            x = x + mlp_apply(p["mlp"], cfg, apply_norm(p["ln2"], cfg, x))
+            continue
         x = _dec_mlp(p, cfg, x + y)
+        if per_group and (i + 1) % per_group == 0:
+            g = i // per_group
+            cp = model["cross_layers"][g]
+            hn = apply_norm(cp["ln1"], cfg, x)
+            y = attn.cross_attention_decode(cp["attn"], cfg, hn, context(g))
+            x = x + torch.tanh(cp["gate"]).to(x.dtype) * y
+            hn = apply_norm(cp["ln2"], cfg, x)
+            x = x + torch.tanh(cp["gate_mlp"]).to(x.dtype) * mlp_apply(
+                cp["mlp"], cfg, hn)
     x = apply_norm(model["final_ln"], cfg, x)
     return unembed_apply(model["embed"], cfg, x), cache

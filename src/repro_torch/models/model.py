@@ -1,6 +1,13 @@
-"""Dense- and moe-family decoder as ``nn.Module``s — port of the
-dense/moe part of ``repro.models.model``: the parameters, ``forward``
-and ``loss_fn``.
+"""The dense, moe, vlm and audio families as ``nn.Module``s — port of
+``repro.models.model``: the parameters, ``forward`` and ``loss_fn``.
+
+The vlm family (llama-3.2-vision) runs a gated cross-attention layer
+over the image context after every ``n_self // n_cross`` self layers;
+the port keeps the self layers in one flat ``ModuleList`` (the
+reference nests them as (n_cross, per_group)).  The audio family
+(whisper) runs an encoder of decoder blocks without the causal mask
+over the frame embeddings, then decoder layers with self- and
+cross-attention.  The hybrid and ssm families are not ported yet.
 
 Weights keep the reference's (in, out) layout, so every projection is
 ``x @ w`` on both sides and ``params_from_jax`` is a plain copy.  The
@@ -57,8 +64,9 @@ class _Init:
     def ones(self, n: int):
         return _param(torch.ones(n, dtype=torch.float32, device=self.dev))
 
-    def zeros(self, n: int):
-        return _param(torch.zeros(n, dtype=torch.float32, device=self.dev))
+    def zeros(self, *shape: int):
+        return _param(torch.zeros(shape, dtype=torch.float32,
+                                  device=self.dev))
 
 
 class Norm(ParamModule):
@@ -89,15 +97,15 @@ class Attention(ParamModule):
 
 
 class MLP(ParamModule):
+    """SwiGLU (``wi``, ``wg``, ``wo``) or tanh-GELU (``wi``, ``wo``)."""
+
     def __init__(self, cfg: ModelConfig, init: _Init):
         super().__init__()
-        if cfg.mlp_variant != "swiglu":
-            raise NotImplementedError(
-                f"mlp_variant={cfg.mlp_variant!r}: the port runs SwiGLU; "
-                f"GELU comes with the audio family (ROADMAP queue A "
-                f"item 4)")
+        if cfg.mlp_variant not in ("swiglu", "gelu"):
+            raise ValueError(cfg.mlp_variant)
         self.wi = init.dense(cfg.d_model, cfg.d_ff)
-        self.wg = init.dense(cfg.d_model, cfg.d_ff)
+        if cfg.mlp_variant == "swiglu":
+            self.wg = init.dense(cfg.d_model, cfg.d_ff)
         self.wo = init.dense(cfg.d_ff, cfg.d_model)
 
 
@@ -113,6 +121,35 @@ class DecoderLayer(ParamModule):
             self.mlp = MLP(cfg, init)
 
 
+class CrossLayer(ParamModule):
+    """vlm gated cross-attention layer (llama-3.2-vision): attention over
+    the image context and an MLP, each scaled by ``tanh`` of its gate,
+    which starts at 0 (closed)."""
+
+    def __init__(self, cfg: ModelConfig, init: _Init):
+        super().__init__()
+        self.ln1 = Norm(cfg, init)
+        self.attn = Attention(cfg, init)
+        self.gate = init.zeros()
+        self.ln2 = Norm(cfg, init)
+        self.mlp = MLP(cfg, init)
+        self.gate_mlp = init.zeros()
+
+
+class EncDecLayer(ParamModule):
+    """audio decoder layer (whisper): self-attention, cross-attention
+    over the encoder output, MLP."""
+
+    def __init__(self, cfg: ModelConfig, init: _Init):
+        super().__init__()
+        self.ln1 = Norm(cfg, init)
+        self.attn = Attention(cfg, init)
+        self.lnx = Norm(cfg, init)
+        self.attn_cross = Attention(cfg, init)
+        self.ln2 = Norm(cfg, init)
+        self.mlp = MLP(cfg, init)
+
+
 class Embed(ParamModule):
     def __init__(self, cfg: ModelConfig, init: _Init):
         super().__init__()
@@ -121,15 +158,28 @@ class Embed(ParamModule):
             self.unembed = init.dense(cfg.d_model, cfg.vocab_size)
 
 
-class DenseModel(ParamModule):
-    """Pre-norm decoder (attention + SwiGLU MLP, or the MoE FFN when
-    ``cfg.moe``) with a ``ModuleList`` of layers — the dense family
-    (qwen3-4b, olmo-1b and kin) and the moe family
-    (qwen3-moe-235b-a22b, grok-1-314b).  ``forward`` /
-    ``loss_fn`` train it; the serving functions (``models.decode``) run
-    it layer by layer against the KV cache.  ``params["layers"][i]``
-    reads like the reference's stacked params sliced at layer i.
-    ``device`` defaults to ``"cuda"`` and raises without a GPU."""
+def vlm_groups(cfg: ModelConfig) -> Tuple[int, int]:
+    """vlm: (cross layers, self layers per group) — a cross layer follows
+    every group of self layers."""
+    n_cross = cfg.n_layers // cfg.cross_attn_period
+    return n_cross, (cfg.n_layers - n_cross) // n_cross
+
+
+class Model(ParamModule):
+    """The family's stack with ``ModuleList``s of layers:
+
+    * dense / moe: pre-norm decoder layers (attention + SwiGLU MLP, or
+      the MoE FFN when ``cfg.moe``) — qwen3-4b, olmo-1b, qwen3-moe;
+    * vlm: ``layers`` (the n_self self layers, flat) and
+      ``cross_layers`` (one ``CrossLayer`` per group);
+    * audio: ``enc_layers`` and ``enc_ln`` (the encoder), and ``layers``
+      of ``EncDecLayer``.
+
+    ``forward`` / ``loss_fn`` train it; the serving functions
+    (``models.decode``) run it layer by layer against the KV cache.
+    ``params["layers"][i]`` reads like the reference's stacked params
+    sliced at layer i.  ``device`` defaults to ``"cuda"`` and raises
+    without a GPU."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
                  generator: Optional[torch.Generator] = None):
@@ -141,15 +191,31 @@ class DenseModel(ParamModule):
         init = _Init(cfg, dev, generator)
         self.embed = Embed(cfg, init)
         self.final_ln = Norm(cfg, init)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, init)
-                                    for _ in range(cfg.n_layers))
+        if cfg.family == "vlm":
+            n_cross, per_group = vlm_groups(cfg)
+            self.layers = nn.ModuleList(DecoderLayer(cfg, init)
+                                        for _ in range(n_cross * per_group))
+            self.cross_layers = nn.ModuleList(CrossLayer(cfg, init)
+                                              for _ in range(n_cross))
+        elif cfg.family == "audio":
+            self.enc_layers = nn.ModuleList(
+                DecoderLayer(cfg, init) for _ in range(cfg.encoder_layers))
+            self.enc_ln = Norm(cfg, init)
+            self.layers = nn.ModuleList(EncDecLayer(cfg, init)
+                                        for _ in range(cfg.n_layers))
+        else:
+            self.layers = nn.ModuleList(DecoderLayer(cfg, init)
+                                        for _ in range(cfg.n_layers))
 
+
+# the name the dense-family slices gave the model; it builds every family
+DenseModel = Model
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm", "audio"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: the PyTorch port runs the dense and "
-            f"moe families; vlm, audio, hybrid and ssm are ROADMAP queue A "
+            f"family {cfg.family!r}: the PyTorch port runs the dense, moe, "
+            f"vlm and audio families; hybrid and ssm are ROADMAP queue A "
             f"item 4")
 
 
@@ -161,27 +227,41 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)     # owning copy
 
 
+def _flat_leaves(tree: Mapping, prefix: str = ""):
+    """(dotted path, array) of a nested params dict."""
+    for name, sub in tree.items():
+        if isinstance(sub, Mapping):
+            yield from _flat_leaves(sub, f"{prefix}{name}.")
+        else:
+            yield prefix + name, sub
+
+
 def params_from_jax(np_params: Mapping, cfg: ModelConfig,
-                    device="cuda") -> DenseModel:
+                    device="cuda") -> Model:
     """Build the port's model from the reference's parameter pytree
     (``repro.models.model.init_params`` output with leaves converted to
-    numpy by the caller; ``params["layers"]`` stacked on a leading layer
-    axis), so both sides compute with identical weights."""
+    numpy by the caller), so both sides compute with identical weights.
+    The stacked groups (``layers``, and ``cross_layers`` / ``enc_layers``)
+    carry a leading layer axis; vlm's ``layers`` carry two, (n_cross,
+    per_group), flattened here in that order.  A missing or unexpected
+    leaf raises."""
     dev = resolve_device(device)
-    model = DenseModel(cfg, device="meta")
+    model = Model(cfg, device="meta")
     loaded = {}
-
-    def put(path: str, a):
-        loaded[path] = _param(_to_tensor(a, dev))
-
-    for group in ("embed", "final_ln"):
-        for name, a in np_params[group].items():
-            put(f"{group}.{name}", a)
-    for group, leaves in np_params["layers"].items():
-        for name, a in leaves.items():
+    for group, tree in np_params.items():
+        stacked = group in ("layers", "cross_layers", "enc_layers")
+        lead = 2 if (group == "layers" and cfg.family == "vlm") else 1
+        leaves = (_flat_leaves(tree) if isinstance(tree, Mapping)
+                  else [("", tree)])
+        for path, a in leaves:
+            if not stacked:
+                name = f"{group}.{path}" if path else group
+                loaded[name] = _param(_to_tensor(a, dev))
+                continue
             a = np.asarray(a)
-            for i in range(cfg.n_layers):
-                put(f"layers.{i}.{group}.{name}", a[i])
+            a = a.reshape((-1,) + a.shape[lead:])
+            for i in range(a.shape[0]):
+                loaded[f"{group}.{i}.{path}"] = _param(_to_tensor(a[i], dev))
     missing = set(model.state_dict()) - set(loaded)
     extra = set(loaded) - set(model.state_dict())
     if missing or extra:
@@ -195,17 +275,42 @@ def params_from_jax(np_params: Mapping, cfg: ModelConfig,
 # forward / loss
 # ---------------------------------------------------------------------------
 
-def _decoder_block_apply(p, cfg: ModelConfig, x: torch.Tensor
+def _decoder_block_apply(p, cfg: ModelConfig, x: torch.Tensor,
+                         causal: Optional[bool] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """→ (x, the layer's aux loss: the router's, 0 for a dense layer)."""
+    """→ (x, the layer's aux loss: the router's, 0 for a dense layer).
+    ``causal=False`` is the audio encoder's block."""
     h = apply_norm(p["ln1"], cfg, x)
-    x = x + attn.attention_apply(p["attn"], cfg, h)
+    x = x + attn.attention_apply(p["attn"], cfg, h, causal=causal)
     h = apply_norm(p["ln2"], cfg, x)
     if cfg.moe:
         y, aux = moe_apply(p["moe"], cfg, h)
         return x + y, aux
     return (x + mlp_apply(p["mlp"], cfg, h),
             torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def _cross_block_apply(p, cfg: ModelConfig, x: torch.Tensor,
+                       context: torch.Tensor) -> torch.Tensor:
+    """vlm gated cross-attention layer over the image context."""
+    h = apply_norm(p["ln1"], cfg, x)
+    y = attn.attention_apply(p["attn"], cfg, h, kv_src=context)
+    x = x + torch.tanh(p["gate"]).to(x.dtype) * y
+    h = apply_norm(p["ln2"], cfg, x)
+    return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * mlp_apply(
+        p["mlp"], cfg, h)
+
+
+def _encdec_dec_block_apply(p, cfg: ModelConfig, x: torch.Tensor,
+                            context: torch.Tensor) -> torch.Tensor:
+    """audio decoder layer: self-attention, cross-attention over the
+    encoder output, MLP."""
+    h = apply_norm(p["ln1"], cfg, x)
+    x = x + attn.attention_apply(p["attn"], cfg, h)
+    h = apply_norm(p["lnx"], cfg, x)
+    x = x + attn.attention_apply(p["attn_cross"], cfg, h, kv_src=context)
+    h = apply_norm(p["ln2"], cfg, x)
+    return x + mlp_apply(p["mlp"], cfg, h)
 
 
 # remat="dots" (the reference's checkpoint_dots_with_no_batch_dims): the
@@ -235,23 +340,55 @@ def _remat(cfg: ModelConfig, fn):
     return run
 
 
-def forward(model: DenseModel, cfg: ModelConfig,
+def _run_encoder(model: Model, cfg: ModelConfig,
+                 audio_embeds: torch.Tensor) -> torch.Tensor:
+    """The audio encoder: decoder blocks without the causal mask over the
+    frame embeddings, then ``enc_ln``."""
+    block = _remat(cfg, lambda p, h: _decoder_block_apply(p, cfg, h,
+                                                          causal=False)[0])
+    x = audio_embeds
+    for p in model["enc_layers"]:
+        x = block(p, x)
+    return apply_norm(model["enc_ln"], cfg, x)
+
+
+def forward(model: Model, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (logits fp32 (B, S, V), aux_loss: the layers' router losses
-    summed in layer order, 0 for the dense family)."""
+    summed in layer order, 0 without moe).  vlm reads
+    ``batch["image_embeds"]`` (B, n_image_tokens, d_model), audio
+    ``batch["audio_embeds"]`` (B, encoder_len, d_model)."""
     _check_family(cfg)
-    x = embed_apply(model["embed"], batch["tokens"]).to(_dtype(cfg))
+    dt = _dtype(cfg)
+    x = embed_apply(model["embed"], batch["tokens"]).to(dt)
     block = _remat(cfg, lambda p, h: _decoder_block_apply(p, cfg, h))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in model["layers"]:
-        x, a = block(p, x)
-        aux = aux + a
+    if cfg.family == "vlm":
+        context = batch["image_embeds"].to(dt)
+        cross = _remat(cfg, lambda p, h: _cross_block_apply(p, cfg, h,
+                                                            context))
+        per_group = len(model["layers"]) // len(model["cross_layers"])
+        for i, p in enumerate(model["layers"]):
+            x, a = block(p, x)
+            aux = aux + a
+            if (i + 1) % per_group == 0:
+                x = cross(model["cross_layers"][i // per_group], x)
+    elif cfg.family == "audio":
+        context = _run_encoder(model, cfg, batch["audio_embeds"].to(dt))
+        dec = _remat(cfg, lambda p, h: _encdec_dec_block_apply(p, cfg, h,
+                                                               context))
+        for p in model["layers"]:
+            x = dec(p, x)
+    else:
+        for p in model["layers"]:
+            x, a = block(p, x)
+            aux = aux + a
     x = apply_norm(model["final_ln"], cfg, x)
     return unembed_apply(model["embed"], cfg, x), aux
 
 
-def loss_fn(model: DenseModel, cfg: ModelConfig,
+def loss_fn(model: Model, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy (labels pre-shifted by the pipeline)."""

@@ -70,13 +70,13 @@ def make_prefill_step(cfg: ModelConfig):
 
 def init_train_state(cfg: ModelConfig, opt: OptConfig, *, seed: int = 0,
                      device="cuda", model=None) -> Dict[str, Any]:
-    """A fresh train state: ``model`` or a ``DenseModel`` with random
+    """A fresh train state: ``model`` or the family's ``Model`` with random
     weights from ``seed`` on ``device`` (default ``"cuda"``; raises
     without a GPU), zero fp32 moments, and zero error-feedback buffers
     with ``opt.compress_grads``."""
     dev = resolve_device(device)
     if model is None:
-        model = mdl.DenseModel(cfg, device=dev, seed=seed)
+        model = mdl.Model(cfg, device=dev, seed=seed)
     params = dict(model.named_parameters())
     state = {"params": model, "opt": init_opt_state(params)}
     if opt.compress_grads:
