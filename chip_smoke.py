@@ -11,7 +11,9 @@ token retirement, serves full-width olmo-1b and full-width
 qwen3-moe-235b-a22b (depth cut to MOE_LAYERS layers, the decode kernel
 at G = 16), trains qwen3-moe at full width, serves full-width
 llama-3.2-vision-90b (depth cut to VLM_LAYERS) and whisper-base (the
-decode kernel at D = 64) through their cross-attention, and times every
+decode kernel at D = 64) through their cross-attention, serves
+full-width zamba2-2.7b (the Mamba2 backbone, the decode kernel at D =
+80 in its shared block) and rwkv6-1.6b (no attention), and times every
 kernel at its main path's shape.
 
     python3 chip_smoke.py            # needs one CUDA GPU (an H100 here)
@@ -31,7 +33,9 @@ each prints its host seconds as a ``[phase]`` line):
      share 16 physical pages, one row maps a page twice in a row: the
      tables the prefix cache makes), at qwen3-moe's shape (B8 KV4 G16
      D128, page 64, bf16 and fp32), at whisper-base's (B8 KV8 G1 D64,
-     page 64, bf16 and fp32), edge cases (G = 12 among them), and
+     page 64, bf16 and fp32), at zamba2-2.7b's (B8 KV32 G1 D80, page
+     64, pos 192-255 of 512, bf16 and fp32), edge cases (G = 12 among
+     them), and
      the refusal of G = 17 before any launch (fp32 <= 1e-5 max abs;
      bf16 <= 2e-2 max abs and at most 1% of the outputs off the plain
      version's bits; paged == contiguous bitwise, the contiguous cache
@@ -40,8 +44,8 @@ each prints its host seconds as a ``[phase]`` line):
      the paged kernel's launch count must equal layers x decode steps;
   4. the same requests on the contiguous layout: equal token streams;
   5. decode kernel timing at the main-path shape, at qwen3-moe's G = 16
-     shape, at whisper-base's D = 64 shape, at one slot (B1) and at a
-     long row (pos ~4000): CUDA events
+     shape, at whisper-base's D = 64 and zamba2-2.7b's D = 80 shapes, at
+     one slot (B1) and at a long row (pos ~4000): CUDA events
      (median of 30 runs, L2
      flushed before each, queued behind a device sleep so the events
      time the device, not the host) and the profiler's device time over
@@ -167,7 +171,23 @@ each prints its host seconds as a ``[phase]`` line):
      max_len 448 (7 pages of 64), paged then contiguous: equal token
      streams, each layout's kernel launched layers x steps, one B1 call
      at D = 64 held to its plain version; mean step, cross-attention ms a
-     step and the encoder's ms.
+     step and the encoder's ms;
+ 20. zamba2-2.7b at full width and depth (54 Mamba2 layers, d_model 2560,
+     d_inner 5120, 80 SSM heads x 64, state 64, conv 4; the shared
+     decoder block after every 6, 9 applications, each with its own KV
+     cache: 32 heads over 32 KV heads of 80, G = 1, D = 80): 8 requests
+     of one prompt token, ZAMBA_GEN (256) generated, through 8 slots,
+     max_len 512 (rows reach 4 pages), paged then contiguous: equal
+     token streams, each layout's kernel launched 9 x steps, one B1 call
+     at D = 80 held to its plain version; mean step, the 54
+     ``mamba2_decode`` calls' and the 9 shared blocks' ms a step (CUDA
+     events), the fetch reduction, peak memory;
+ 21. rwkv6-1.6b at full width and depth (24 layers, d_model 2048, 32
+     heads x 64, d_ff 7168, vocab 65536): 8 requests of one prompt
+     token, RWKV_GEN (128) generated, through 8 slots on the contiguous
+     layout (no KV cache): every request complete, every step's logits
+     finite, no kernel of the port launched (the family has no
+     attention); mean step and the time mix's ms a step (CUDA events).
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the ``kernels`` JSON, and the card's name and power limit are
@@ -561,12 +581,17 @@ G16 = "moe_B8_KV4_G16_D128_page64_bf16"
 # whisper-base's serving shape: 8 heads over 8 KV heads of 64 (G = 1,
 # D = 64), a 448-token decoder context in 7 pages of 64
 D64 = "whisper_B8_KV8_G1_D64_page64_bf16"
+# zamba2-2.7b's shared block: 32 heads over 32 KV heads of 2560 / 32 =
+# 80 (G = 1, D = 80: 10 column vectors of 16 bytes, K rows of 160 bytes,
+# five k-steps of 16), phase 20's 512-token context in 8 pages of 64
+D80 = "zamba2_B8_KV32_G1_D80_page64_bf16"
 
 
 def kernel_cases(torch, dev):
     """Phase 2's inputs: the main-path shape, the main shape over aliased
-    page tables, the moe serving shape (G = 16) and whisper-base's (G =
-    1, D = 64) in bf16 and fp32, then the edge cases."""
+    page tables, the moe serving shape (G = 16), whisper-base's (G = 1,
+    D = 64) and zamba2-2.7b's (G = 1, D = 80) in bf16 and fp32, then the
+    edge cases."""
     yield MAIN, make_case(
         torch, b=8, kv=8, g=4, d=128, page=64, s=4096, dtype=torch.bfloat16,
         seed=0, device=dev, pos_lo=1024, pos_hi=1088)
@@ -580,6 +605,10 @@ def kernel_cases(torch, dev):
         yield D64.removesuffix("bf16") + suffix, make_case(
             torch, b=8, kv=8, g=1, d=64, page=64, s=448, dtype=dt, seed=5,
             device=dev, pos_lo=256, pos_hi=384)
+    for dt, suffix in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        yield D80.removesuffix("bf16") + suffix, make_case(
+            torch, b=8, kv=32, g=1, d=80, page=64, s=512, dtype=dt, seed=6,
+            device=dev, pos_lo=192, pos_hi=256)
     yield from edge_cases(torch, dev)
 
 
@@ -606,10 +635,10 @@ def check_refusal(torch, sd, dev):
 def check_kernels(torch, sd, dev):
     """Phase 2: the kernel against its plain version on every case, and
     the refusal of a shape no layout fits.  Returns the main-path, the
-    G = 16 and the D = 64 bf16 cases and the errors."""
+    G = 16, the D = 64 and the D = 80 bf16 cases and the errors."""
     errs, keep = {}, {}
     for cname, c in kernel_cases(torch, dev):
-        if cname in (MAIN, G16, D64):
+        if cname in (MAIN, G16, D64, D80):
             keep[cname] = c
             log(f"[kernel] {cname} plan: kv_counts mean "
                 f"{float(c['cnt'].float().mean()):.2f} of "
@@ -1864,9 +1893,10 @@ def checkpoint_phase(torch, sd, cfg, opts, dev, root, tag):
 
 LADDER_REQUESTS, LADDER_GEN = 12, 32    # through phase 3's 8 slots
 # 14a's depth: the per-slot planner runs once a layer, ~1.7 s of each
-# ladder step at 36 layers; 8 keep full width, the requests, the spikes
-# and every check, at ~8/36 of the time
-LADDER_LAYERS = 8
+# ladder step at 36 layers (~0.5 s at 8); 4 keep full width, the
+# requests, the spikes and every check, at ~4/36 of the time, so the
+# whole run stays inside its time limit on a slow host
+LADDER_LAYERS = 4
 LADDER_CLEAR = 4
 # run 2's loop steps whose per-slot plans are held to the plain budget
 # rank: rung 3 (incremental steps, int8 ranking) and rung 1 (an exact
@@ -1875,9 +1905,10 @@ LADDER_PROBE_STEPS = (6, 18)
 LADDER_KERNEL_STEP = 6                  # B1's recorded call (rung 3)
 RETIRE_POOL = 80        # pages: below the 8 x 17 that the slots need
 RETIRE_KEEP, RETIRE_MARK = 0.5, 0.4
-# 14b's depth (full width): at 36 layers its serves took ~190 s of a
-# 1,181 s run on a slow host; the pool arithmetic is per layer
-RETIRE_LAYERS = 12
+# 14b's depth (full width), for the run's time limit: at 36 layers its
+# serves took ~190 s of a 1,181 s run on a slow host; the pool
+# arithmetic is per layer
+RETIRE_LAYERS = 6
 
 
 def ladder_spikes():
@@ -2347,12 +2378,14 @@ def serve_layouts(torch, sd, serve, cfg, model, opts, label, tag,
     """Serve ``opts`` paged, then contiguous (vlm: contiguous only, the
     reference's one layout for it; ``wrap(layout)`` open around each
     run): every request complete with in-vocabulary tokens, the layout's
-    kernel launched self-attention layers × decode steps times and the
+    kernel launched self-attention layers × decode steps times (hybrid:
+    the shared block's applications, n_layers / hybrid_period) and the
     other never, fewer tiles fetched than dense (no more with
     ``fewer_tiles=False``: at a short context nearly every block holds a
     selected key), and equal token streams.  Returns {layout: (report,
     launches)}."""
-    kv_layers = len(model.layers)
+    kv_layers = (cfg.n_layers // cfg.hybrid_period
+                 if cfg.family == "hybrid" else len(model.layers))
     layouts = ("contiguous",) if cfg.family == "vlm" \
         else ("paged", "contiguous")
     runs = {}
@@ -2912,6 +2945,149 @@ def whisper_phase(torch, sd, serve, dev, tag):
     return runs["paged"][1], runs["contiguous"][1], kerr
 
 
+# zamba2: 8 one-token requests through 8 slots, 256 generated over a
+# 512-token context (8 pages of 64; rows reach 4), so the planner selects
+ZAMBA_GEN, ZAMBA_MAX_LEN = 256, 512
+ZAMBA_PROBE_STEP = 200          # the decode step whose first B1 call is held
+RWKV_GEN, RWKV_MAX_LEN = 128, 256
+
+
+def zamba2_phase(torch, sd, serve, dev, tag):
+    """Phase 20: zamba2-2.7b at full width and depth (54 Mamba2 layers,
+    d_model 2560, d_inner 5120, 80 SSM heads x 64, state 64, conv 4;
+    the shared decoder block after every 6, 9 applications, 32 heads
+    over 32 KV heads of 80: G = 1, D = 80), random weights from a seed:
+    8 one-token requests through 8 slots, paged then contiguous: equal
+    token streams, B1 / B2 launched 9 x steps, one B1 call held to its
+    plain version; the mamba layers' and the shared blocks' ms a step
+    on CUDA events.  Returns the two kernels' launches and the recorded
+    call's error."""
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import ServeOptions
+    from repro_torch.models import decode as dec
+    from repro_torch.models.model import Model
+    cfg = serve_cfg(ARCHS["zamba2-2.7b"])
+    t = time.time()
+    model = Model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_shared = cfg.n_layers // cfg.hybrid_period
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[zamba2] zamba2-2.7b: {describe(cfg)}, d_inner {cfg.d_inner}, "
+        f"{cfg.ssm_heads} SSM heads x {cfg.ssm_head_dim}, state "
+        f"{cfg.ssm_state}, conv {cfg.ssm_conv}, the shared block after "
+        f"every {cfg.hybrid_period} layers ({n_shared} applications); "
+        f"random weights (seed 0), {nbytes / 1e9:.2f} GB, built in "
+        f"{time.time() - t:.1f} s {tag}")
+    opts = ServeOptions(n_requests=8, batch_slots=8, prompt_len=1,
+                        gen_len=ZAMBA_GEN, max_len=ZAMBA_MAX_LEN)
+    kprobe = KernelProbe(torch, sd)
+    clocks = {}
+
+    @contextlib.contextmanager
+    def wrap(layout):
+        mamba = CrossClock(torch, lambda i: layout == "paged"
+                           and i == ZAMBA_PROBE_STEP
+                           and kprobe.arm(kv_note(i)))
+        shared = CrossClock(torch)
+        clocks[layout] = (mamba, shared)
+        with patched(dec, "mamba2_decode", mamba.cross), \
+                patched(dec, "shared_block_decode", shared.cross), \
+                patched(dec, "serve_step", mamba.step), \
+                patched(ops, "sata_decode_attention_paged_kernel", kprobe):
+            yield
+
+    runs = serve_layouts(torch, sd, serve, cfg, model, opts, "zamba2", tag,
+                         wrap=wrap, fewer_tiles=False)
+    assert kprobe.result is not None, "B1's recorded call was not checked"
+    kerr, koff, note = kprobe.result
+    log(f"[zamba2] B1 on a recorded call at G = 1, D = {cfg.hd} ({note}): "
+        f"max_abs_err={kerr:.3e}, {koff:.4%} of outputs off the plain "
+        f"version's bits")
+    for layout, (out, n) in runs.items():
+        mamba, shared = clocks[layout]
+        assert len(mamba.events) == cfg.n_layers * out["steps"]
+        assert len(shared.events) == n_shared * out["steps"]
+        m_ms, s_ms = mamba.ms() / out["steps"], shared.ms() / out["steps"]
+        log(f"[zamba2] {layout}: mean decode step {out['step_ms_mean']:.2f}"
+            f" ms; on CUDA events the {cfg.n_layers} mamba2_decode calls "
+            f"{m_ms:.2f} ms a step ({m_ms / cfg.n_layers:.3f} ms a layer), "
+            f"the {n_shared} shared blocks (planner + decode kernel + MLP) "
+            f"{s_ms:.2f} ms a step ({s_ms / n_shared:.3f} ms each) {tag}")
+    del model
+    torch.cuda.empty_cache()
+    return runs["paged"][1], runs["contiguous"][1], kerr
+
+
+def rwkv_phase(torch, sd, sa, serve, dev, tag):
+    """Phase 21: rwkv6-1.6b at full width and depth (24 layers, d_model
+    2048, 32 heads x 64, d_ff 7168, vocab 65536), random weights from a
+    seed, 8 one-token requests through 8 slots on the contiguous layout
+    (the family has no KV cache to page): every request complete, every
+    step's logits finite; the time mix's share of a step on CUDA
+    events.  The family has no attention, so no kernel of the port may
+    launch."""
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.launch.serve import ServeOptions
+    from repro_torch.models import decode as dec
+    from repro_torch.models.model import Model
+    cfg = ARCHS["rwkv6-1.6b"]
+    t = time.time()
+    model = Model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    heads = cfg.d_model // cfg.rwkv_head_dim
+    log(f"[rwkv6] rwkv6-1.6b: {describe(cfg)}, {heads} heads x "
+        f"{cfg.rwkv_head_dim}; random weights "
+        f"(seed 0), {nbytes / 1e9:.2f} GB, built in {time.time() - t:.1f} "
+        f"s {tag}")
+    opts = ServeOptions(n_requests=8, batch_slots=8, prompt_len=1,
+                        gen_len=RWKV_GEN, max_len=RWKV_MAX_LEN)
+    kernels = (sd.sata_decode_attention_paged_kernel,
+               sd.sata_decode_attention_kernel,
+               sa.sata_block_attention_compact, sa.sata_block_attention)
+    for k in kernels:
+        k.launches = 0
+    tmix = CrossClock(torch)
+    finite = []
+
+    def checked(fn):
+        def step(*a, **kw):
+            logits, cache = fn(*a, **kw)
+            finite.append(torch.isfinite(logits).all())
+            return logits, cache
+        return step
+
+    torch.cuda.reset_peak_memory_stats()
+    with patched(dec, "rwkv6_time_mix", tmix.cross), \
+            patched(dec, "serve_step", checked):
+        out = serve(cfg.name, smoke=False, cfg=cfg, model=model,
+                    options=opts, device=dev)
+    torch.cuda.synchronize()
+    outs = out["outputs"]
+    assert sorted(outs) == list(range(opts.n_requests)), sorted(outs)
+    for r, toks in outs.items():
+        assert len(toks) == opts.gen_len, (r, len(toks))
+        assert all(0 <= x < cfg.vocab_size for x in toks), r
+    assert len(finite) == out["steps"] and bool(torch.stack(finite).all()), \
+        "non-finite logits"
+    launched = [k.launches for k in kernels]
+    assert launched == [0, 0, 0, 0], launched
+    assert len(tmix.events) == cfg.n_layers * out["steps"]
+    t_ms = tmix.ms() / out["steps"]
+    share = 100 * t_ms / out["step_ms_mean"]
+    log(f"[rwkv6] contiguous: {out['tokens_generated']} tokens, "
+        f"{out['steps']} decode steps, {out['tok_per_s']:.2f} tok/s, mean "
+        f"decode step {out['step_ms_mean']:.2f} ms, of it the time mix "
+        f"{t_ms:.2f} ms on CUDA events ({share:.1f}%, "
+        f"{t_ms / cfg.n_layers:.3f} ms a layer); every step's "
+        f"logits finite; no kernel of the port launched (the family has "
+        f"no attention); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB {tag}")
+    del model
+    torch.cuda.empty_cache()
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3395,13 +3571,15 @@ def main() -> int:
                           "bf16 (qwen3-moe)", paged, tag)
         t64 = time_decode(torch, sd, keep[D64], "B8 KV8 G1 D64 page64 "
                           "bf16 (whisper-base)", paged, tag)
+        t80 = time_decode(torch, sd, keep[D80], "B8 KV32 G1 D80 page64 "
+                          "bf16 (zamba2-2.7b)", paged, tag)
         fn = sd.sata_decode_attention_paged_kernel if paged \
             else sd.sata_decode_attention_kernel
         kernels.append({
             "name": fn.__name__, "route": "cuda", "source": SRC_CU,
             "replaces": REPLACES[layout], "launches": runs[layout][1],
             "max_abs_err": max(errs.values()), **t, "g16": t16,
-            "d64": t64})
+            "d64": t64, "d80": t80})
     del keep
     for cname, c in extra_decode_cases(torch, dev):
         check_case(torch, sd, cname, c)
@@ -3490,10 +3668,21 @@ def main() -> int:
     kernels[0]["paths"]["19 whisper-base"] = n_b1
     kernels[1]["paths"]["19 whisper-base"] = n_b2
     kernels[0]["recorded_calls"]["19"] = kerr
+    clock.done("19 serve whisper-base")
+
+    # --- 20. zamba2-2.7b: the mamba backbone, B1 / B2 at D = 80
+    n_b1, n_b2, kerr = zamba2_phase(torch, sd, serve, dev, tag)
+    kernels[0]["paths"]["20 zamba2-2.7b"] = n_b1
+    kernels[1]["paths"]["20 zamba2-2.7b"] = n_b2
+    kernels[0]["recorded_calls"]["20"] = kerr
+    clock.done("20 serve zamba2-2.7b")
+
+    # --- 21. rwkv6-1.6b: the recurrent state, no kernel
+    rwkv_phase(torch, sd, sa, serve, dev, tag)
     for k in kernels[:2]:
         k["max_abs_err"] = max(k["max_abs_err"],
                                *k.get("recorded_calls", {}).values())
-    clock.done("19 serve whisper-base")
+    clock.done("21 serve rwkv6-1.6b")
     clock.total()
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -27,15 +27,11 @@ class SyntheticLM:
     Tokens follow a noisy arithmetic progression per sequence; labels are
     the next token.  ``loss_mask`` is all ones.  Batches are numpy arrays:
     tokens, labels, loss_mask, and the modality context drawn after them
-    (vlm: ``image_embeds``, audio: ``audio_embeds``, fp32).
+    (vlm: ``image_embeds``, audio: ``audio_embeds``, fp32); the other
+    families take tokens only.
     """
 
     def __init__(self, cfg: ModelConfig, batch: int, seq: int, seed: int = 0):
-        if cfg.family not in ("dense", "moe", "vlm", "audio"):
-            raise NotImplementedError(
-                f"family {cfg.family!r}: the port's pipeline makes dense, "
-                f"moe, vlm and audio batches; hybrid and ssm are ROADMAP "
-                f"queue A item 4")
         self.cfg, self.batch, self.seq = cfg, batch, seq
         self.state = PipelineState(seed=seed, step=0)
 

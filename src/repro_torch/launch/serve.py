@@ -48,9 +48,13 @@ return to the pool mid-stream.
 
 Families: dense and moe; vlm (contiguous cache only) and audio, whose
 slots each hold a cross-attention context filled once before the first
-claim, with one-token prompts; an audio slot under pool pressure is
-requeued, as in the reference (host swap covers the families whose
-per-slot state is pages + plan).
+claim, with one-token prompts; hybrid (zamba2: the shared block's KV
+caches under ``shared_kv``, one per application) and ssm (rwkv6: no KV
+cache, so contiguous only), with one-token prompts, whose recurrent
+state rides in the cache (and its checkpoint).  A slot of a family
+other than dense and moe is requeued under pool pressure, as in the
+reference: host swap covers the families whose per-slot state is
+pages + plan.
 
 The report carries outputs, tokens, tok/s, steps, per-request latencies,
 the SATA decode fetch accounting (per summary backend, re-plan mode,
@@ -258,8 +262,12 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
     dtype_bytes = torch.tensor([], dtype=_dtype(cfg)).element_size()
 
     cache = dec.init_cache(cfg, batch_slots, max_len, device=dev)
+    # the self-attention cache: "kv", hybrid's "shared_kv" (one per
+    # application of the shared block), none for ssm
+    kv_name = dec.kv_group(cache)
     # layers holding a self-attention cache (vlm: its n_self)
-    n_kv_layers = int(next(iter(cache["kv"].values())).shape[0])
+    n_kv_layers = (0 if kv_name is None else
+                   int(next(iter(cache[kv_name].values())).shape[0]))
     if cfg.family in ("vlm", "audio"):
         # one context per slot, drawn before the prompts (the reference's
         # rng order)
@@ -275,8 +283,13 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
     alloc: Optional[PageAllocator] = None
     page = max_len
     if attn.paged_kv_on(cfg):
+        if kv_name is None:
+            raise ValueError(
+                f"kv.layout='paged' pages a KV cache, and the "
+                f"{cfg.family!r} family has none — serve it with "
+                f"kv.layout='contiguous'")
         page = attn.kv_page_size(cfg, max_len)
-        n_pages = int(cache["kv"]["k_pages"].shape[1])
+        n_pages = int(cache[kv_name]["k_pages"].shape[1])
         alloc = PageAllocator(n_pages, batch_slots, max_len // page, page,
                               audit=res.audit_pages)
         alloc.lazy_cow = bool(cfg.kv.lazy_cow)
@@ -289,7 +302,9 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
                 f"cannot hold one request's worst-case working set "
                 f"({need} pages of {page} tokens)")
     # host swap covers the families whose whole per-slot decode state is
-    # pages + plan; the estimate sizes one page of K/V over all layers
+    # pages + plan (not vlm / audio's context, nor hybrid / ssm's
+    # recurrent state): the others requeue; the estimate sizes one page
+    # of K/V over all layers
     can_swap = (alloc is not None and cfg.family in ("dense", "moe")
                 and (host_swap_bytes is None or host_swap_bytes > 0))
     swap_page_bytes = (2 * cfg.n_kv_heads * cfg.hd * dtype_bytes * page
@@ -385,7 +400,7 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
     defer_backoff: Dict[int, int] = {}
     blk = attn.decode_block_size(cfg, max_len)
     tile_bytes = 2 * blk * cfg.hd * dtype_bytes
-    plan = cache["kv"].get("plan")
+    plan = None if kv_name is None else cache[kv_name].get("plan")
     degrade_log: Dict[int, List] = {}     # request → [(step, rung), ...]
     retire_log: Dict[int, List] = {}      # request → [(step, pages freed)]
     qos_dirty = False
@@ -603,10 +618,10 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
         handles = alloc.swapped
         squeezed_n = len(alloc.squeezed)
         # drop the old pool before the new one exists, as a crash would
-        cache["kv"].clear()
+        cache[kv_name].clear()
         plan = None
         cache = dec.init_cache(cfg, batch_slots, max_len, device=dev)
-        plan = cache["kv"].get("plan")
+        plan = cache[kv_name].get("plan")
         # lazy_cow stays at its default here, as in the reference's
         # rebuild
         alloc = PageAllocator(n_pages, batch_slots, max_len // page, page,
@@ -694,7 +709,7 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
             qos_dirty = True                  # a fresh episode: rung 0
         pos_h[i] = rec["pos"]
         tokens_h[i, 0] = rec["token"]
-        snap = rec["plan"].get("kv")
+        snap = rec["plan"].get(kv_name)
         if last_rep is not None:
             if rec["pos"] > 0 and (snap is None
                                    or not np.asarray(snap["active"]).any()):

@@ -152,3 +152,11 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def d_inner(self) -> int:                 # mamba2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim

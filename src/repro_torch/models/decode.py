@@ -1,8 +1,13 @@
-"""Serving path, dense, moe, vlm and audio families — port of
-``repro.models.decode``: cache init, slot reset/release, page-table
-pushes, the prompt prefill → decode handoff (dense and moe), the
-cross-attention context (``prefill_context``: vlm's image embeddings,
-audio's encoder output) and the single-token ``serve_step``.
+"""Serving path, every family — port of ``repro.models.decode``: cache
+init, slot reset/release, page-table pushes, the prompt prefill →
+decode handoff (dense and moe), the cross-attention context
+(``prefill_context``: vlm's image embeddings, audio's encoder output)
+and the single-token ``serve_step``.  hybrid (zamba2) keeps each mamba
+layer's recurrent state under ``mamba`` and one KV cache per
+application of its shared block under ``shared_kv``; ssm (rwkv6) keeps
+only its recurrent state, under ``rwkv``.  The functions on pages and
+plans act on the cache's one self-attention group, ``kv`` or
+``shared_kv`` (``kv_group``).
 
 The serving cache stacks every field over layers (``(L, ...)``, as the
 reference's scanned cache does; vlm's self-attention cache is one flat
@@ -41,8 +46,11 @@ from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (_dtype, apply_norm, apply_rope,
                                        embed_apply, mlp_apply, unembed_apply)
+from repro_torch.models.mamba2 import init_mamba_cache, mamba2_decode
 from repro_torch.models.model import _check_family, _run_encoder, vlm_groups
 from repro_torch.models.moe import moe_apply
+from repro_torch.models.rwkv6 import (init_rwkv_cache, rwkv6_channel_mix,
+                                      rwkv6_time_mix)
 
 _SEED_FIELDS = ("k_min", "k_max", "k_scale", "k_zero", "kv_indices",
                 "kv_counts", "step", "churn")
@@ -57,8 +65,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     state under ``sata.retire.mode == "on"``.  vlm stacks the
     self-attention cache over its n_self layers and adds ``cross_kv``
     {"k", "v"} (n_cross, B, n_image_tokens, KV, hd); audio adds
-    ``cross_kv`` (n_layers, B, encoder_len, KV, hd).  vlm refuses the
-    paged layout, as the reference does."""
+    ``cross_kv`` (n_layers, B, encoder_len, KV, hd).  hybrid holds
+    ``mamba`` {"ssm", "conv"} stacked over its n_layers and the
+    self-attention cache under ``shared_kv``, stacked over the shared
+    block's n_layers // hybrid_period applications; ssm holds ``rwkv``
+    {"state", "tm_x", "cm_x"} stacked over its layers and no KV cache,
+    in either layout.  vlm refuses the paged layout, as the reference
+    does."""
     _check_family(cfg)
     if attn.paged_kv_on(cfg) and cfg.family == "vlm":
         raise NotImplementedError(
@@ -67,9 +80,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "kv_cache_layout='contiguous'")
     dev = resolve_device(device)
     dt = _dtype(cfg)
+
+    def stacked(n, one):
+        return {k: t.expand(n, *t.shape).clone() for k, t in one.items()}
+
+    if cfg.family == "ssm":
+        return {"rwkv": stacked(cfg.n_layers, init_rwkv_cache(
+            cfg, batch, dt, device=dev))}
     one = attn.init_kv_cache(cfg, batch, max_len, dt, device=dev)
     n_kv, n_ctx, s_ctx = cfg.n_layers, 0, 0
-    if cfg.family == "vlm":
+    if cfg.family == "hybrid":
+        n_kv = cfg.n_layers // cfg.hybrid_period
+    elif cfg.family == "vlm":
         n_ctx, per_group = vlm_groups(cfg)
         n_kv, s_ctx = n_ctx * per_group, cfg.n_image_tokens
     elif cfg.family == "audio":
@@ -80,12 +102,31 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
     kv = {k: ({n: stack(t) for n, t in v.items()} if isinstance(v, dict)
               else stack(v)) for k, v in one.items()}
+    if cfg.family == "hybrid":
+        # one KV cache per application of the shared block: the weights
+        # are shared, the attention histories are not
+        return {"mamba": stacked(cfg.n_layers, init_mamba_cache(
+            cfg, batch, dt, device=dev)), "shared_kv": kv}
     cache = {"kv": kv}
     if n_ctx:
         shape = (n_ctx, batch, s_ctx, cfg.n_kv_heads, cfg.hd)
         cache["cross_kv"] = {"k": torch.zeros(shape, dtype=dt, device=dev),
                              "v": torch.zeros(shape, dtype=dt, device=dev)}
     return cache
+
+
+def kv_group(cache: Dict) -> Optional[str]:
+    """The name of the cache's self-attention group: ``"kv"``, hybrid's
+    ``"shared_kv"``, or None (ssm has none)."""
+    for name in ("kv", "shared_kv"):
+        if name in cache:
+            return name
+    return None
+
+
+def _kv(cache: Dict) -> Dict:
+    name = kv_group(cache)
+    return {} if name is None else cache[name]
 
 
 def _context_valid(batch: Dict, s_ctx: int, n_layers: int, device
@@ -143,13 +184,18 @@ def _layer_view(kvc: Dict, layer: int) -> Dict:
 
 def reset_slot(cfg: ModelConfig, cache: Dict, slot: int) -> Dict:
     """Clear one slot's decode plan across all layers (in place) for a
-    newly claimed request.  The K/V rows need no zeroing: every read
-    path masks key positions ``<= pos``, and the new request rewrites
-    each position before it becomes readable.  The cross-attention
-    context (``cross_kv``) stays: it belongs to the slot, filled once by
-    ``prefill_context``."""
-    if "plan" in cache["kv"]:
-        reset_plan_slot(cache["kv"]["plan"], slot, batch_axis=1)
+    newly claimed request, and zero its recurrent state (``mamba``,
+    ``rwkv``: no position axis masks it, so zeroing is the reset).  The
+    K/V rows need no zeroing: every read path masks key positions
+    ``<= pos``, and the new request rewrites each position before it
+    becomes readable.  The cross-attention context (``cross_kv``)
+    stays: it belongs to the slot, filled once by ``prefill_context``."""
+    kv = _kv(cache)
+    if "plan" in kv:
+        reset_plan_slot(kv["plan"], slot, batch_axis=1)
+    for name in ("mamba", "rwkv"):
+        for t in cache.get(name, {}).values():
+            t[:, slot] = 0
     return cache
 
 
@@ -157,8 +203,9 @@ def release_slot(cfg: ModelConfig, cache: Dict, slot: int) -> Dict:
     """Mark a slot's plan inactive (in place) when its request completes
     or is preempted: an empty slot must not age onto re-plan beats or
     count re-plans.  The next claim re-activates it (``reset_slot``)."""
-    if "plan" in cache["kv"]:
-        release_plan_slot(cache["kv"]["plan"], slot, batch_axis=1)
+    kv = _kv(cache)
+    if "plan" in kv:
+        release_plan_slot(kv["plan"], slot, batch_axis=1)
     return cache
 
 
@@ -169,7 +216,7 @@ def set_page_table(cfg: ModelConfig, cache: Dict, table,
     in lockstep).  ``page_ref`` (n_pages,) pushes the per-page refcounts
     alongside when the prefix cache is on — the paged write path
     write-protects shared pages (refcount > 1) with them."""
-    kv = cache["kv"]
+    kv = _kv(cache)
     pt = kv["page_table"]
     tbl = torch.as_tensor(np.asarray(table), dtype=torch.int32)
     pt.copy_(tbl.to(pt.device).expand_as(pt))
@@ -184,7 +231,7 @@ def set_qos_knobs(cache: Dict, budget, interval, quant, sketch) -> Dict:
     (B,) int, quant / sketch (B,) bool — into the plan state, in place.
     A rung degrades the whole slot, so every layer gets the same
     vectors."""
-    plan = cache["kv"].get("plan")
+    plan = _kv(cache).get("plan")
     if plan is None or "budget" not in plan:
         return cache
     for name, val in (("budget", budget), ("interval", interval),
@@ -201,7 +248,7 @@ def retire_plan(cfg: ModelConfig, cache: Dict, slot: int, blocks) -> Dict:
     their summaries return to the empty sentinel, their importance is
     zeroed, and the slot's planned rows are compacted over the
     survivors."""
-    plan = cache["kv"].get("plan")
+    plan = _kv(cache).get("plan")
     if plan is not None and "live_blk" in plan:
         retire_plan_blocks(plan, slot, blocks, batch_axis=1)
     return cache
@@ -223,7 +270,7 @@ def copy_phys_pages(cache: Dict, pairs) -> Dict:
     position are masked on every read, so a whole-page copy is exact."""
     if not pairs:
         return cache
-    kv = cache["kv"]
+    kv = _kv(cache)
     dev = kv["k_pages"].device
     src = torch.as_tensor([s for s, _ in pairs], dtype=torch.long,
                           device=dev)
@@ -245,7 +292,7 @@ def retire_phys_pages(cache: Dict, phys) -> Dict:
     a later prefix-cache registration."""
     if phys is None or not len(phys):
         return cache
-    kv = cache["kv"]
+    kv = _kv(cache)
     idx = torch.as_tensor(np.asarray(phys, np.int64),
                           device=kv["k_pages"].device)
     fill = {"k_pages": 0, "v_pages": 0, "page_k_scale": -1.0,
@@ -262,14 +309,15 @@ def retire_phys_pages(cache: Dict, phys) -> Dict:
 
 def gather_phys_pages(cache: Dict, phys) -> Dict[str, np.ndarray]:
     """Copy physical pages' rows to host numpy — the gather callback of
-    ``PageAllocator.swap_out``.  Keys are ``"kv.<field>"``, as in the
-    reference; each value holds the field's rows at ``phys``, in order,
-    as an owning copy taken after the device work that wrote them
-    (``.cpu()`` synchronises).  bf16 rows travel as their 16-bit
-    patterns (``int16``): numpy has no bfloat16, and the checksums must
-    see the real bits (they equal the reference's, whose ml_dtypes
-    bfloat16 has the same bytes)."""
-    kv = cache["kv"]
+    ``PageAllocator.swap_out``.  Keys are ``"<group>.<field>"``
+    (``kv_group``), as in the reference; each value holds the field's
+    rows at ``phys``, in order, as an owning copy taken after the device
+    work that wrote them (``.cpu()`` synchronises).  bf16 rows travel as
+    their 16-bit patterns (``int16``): numpy has no bfloat16, and the
+    checksums must see the real bits (they equal the reference's, whose
+    ml_dtypes bfloat16 has the same bytes)."""
+    name = kv_group(cache)
+    kv = cache[name]
     idx = torch.as_tensor(np.asarray(phys, np.int64),
                           device=kv["k_pages"].device)
     out: Dict[str, np.ndarray] = {}
@@ -278,7 +326,7 @@ def gather_phys_pages(cache: Dict, phys) -> Dict[str, np.ndarray]:
             rows = kv[f][:, idx]                 # indexing copies
             if rows.dtype == torch.bfloat16:
                 rows = rows.view(torch.int16)
-            out[f"kv.{f}"] = rows.cpu().numpy()
+            out[f"{name}.{f}"] = rows.cpu().numpy()
     return out
 
 
@@ -289,11 +337,12 @@ def scatter_phys_pages(cache: Dict, phys, payload: Dict[str, np.ndarray]
     need not be the pages the payload came from: the table maps logical
     to physical and the plan indexes logical blocks, so any pages are
     exact."""
-    kv = cache["kv"]
+    name = kv_group(cache)
+    kv = cache[name]
     dev = kv["k_pages"].device
     idx = torch.as_tensor(np.asarray(phys, np.int64), device=dev)
     for f in _PAGE_POOL_FIELDS:
-        key = f"kv.{f}"
+        key = f"{name}.{f}"
         if f in kv and key in payload:
             rows = torch.from_numpy(np.ascontiguousarray(payload[key]))
             if kv[f].dtype == torch.bfloat16:
@@ -308,10 +357,11 @@ def capture_plan_state(cfg: ModelConfig, cache: Dict, slot: int
     a host swap's piece besides the pages.  ``restore_plan_state`` puts
     it back reset-free: summaries, selected blocks, beat phase, churn
     and the re-plan counter resume where the victim left off."""
-    kv = cache["kv"]
-    if "plan" not in kv:
+    name = kv_group(cache)
+    if name is None or "plan" not in cache[name]:
         return {}
-    return {"kv": capture_plan_slot(kv["plan"], slot, batch_axis=1)}
+    return {name: capture_plan_slot(cache[name]["plan"], slot,
+                                    batch_axis=1)}
 
 
 def restore_plan_state(cfg: ModelConfig, cache: Dict, slot: int,
@@ -540,15 +590,81 @@ def _seed_page_summaries(kv: Dict, seed: Dict, row: np.ndarray,
             kv[page_f][:, ph] = seed[plan_f][:, 0, :, :n_full].transpose(1, 2)
 
 
+def _write_state(view: Dict, new: Dict) -> None:
+    for n, t in new.items():
+        view[n].copy_(t)
+
+
+def shared_block_decode(model, cfg: ModelConfig, x: torch.Tensor,
+                        x0: torch.Tensor, kvc: Dict, pos) -> torch.Tensor:
+    """hybrid: one application of the shared decoder block to
+    ``concat(x, x0) @ shared_in`` against its own KV cache ``kvc`` (a
+    layer view, updated in place); only the block's delta is added to
+    ``x``."""
+    cat = torch.cat([x, x0], dim=-1) @ model["shared_in"]
+    sp = model["shared_attn"]
+    y, _ = attn.attention_decode(sp["attn"], cfg, apply_norm(sp["ln1"], cfg,
+                                                             cat), kvc, pos)
+    return x + (_dec_mlp(sp, cfg, cat + y) - cat)
+
+
+def _hybrid_layers(model, cfg: ModelConfig, cache: Dict, x: torch.Tensor,
+                   pos) -> torch.Tensor:
+    x0 = x               # the current token's embedding, as in forward
+    for i, p in enumerate(model["layers"]):
+        view = _layer_view(cache["mamba"], i)
+        y, new = mamba2_decode(p["mixer"], cfg, apply_norm(p["ln"], cfg, x),
+                               view)
+        _write_state(view, new)
+        x = x + y
+        if (i + 1) % cfg.hybrid_period == 0:
+            x = shared_block_decode(
+                model, cfg, x, x0, _layer_view(
+                    cache["shared_kv"], i // cfg.hybrid_period), pos)
+    return x
+
+
+def _ssm_layers(model, cfg: ModelConfig, cache: Dict, x: torch.Tensor
+                ) -> torch.Tensor:
+    for i, p in enumerate(model["layers"]):
+        c = _layer_view(cache["rwkv"], i)
+        y, state, tm_x = rwkv6_time_mix(p["tmix"], cfg,
+                                        apply_norm(p["ln1"], cfg, x),
+                                        state=c["state"], last_x=c["tm_x"])
+        x = x + y
+        y, cm_x = rwkv6_channel_mix(p["tmix"], cfg,
+                                    apply_norm(p["ln2"], cfg, x),
+                                    last_x=c["cm_x"])
+        x = x + y
+        _write_state(c, {"state": state, "tm_x": tm_x, "cm_x": cm_x})
+    return x
+
+
 @torch.no_grad()
 def serve_step(model, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
                pos) -> Tuple[torch.Tensor, Dict]:
     """tokens: (B, 1) current token ids; pos: scalar or (B,) per-slot
     positions.  → (logits (B, 1, V) fp32, cache updated in place).  vlm
     runs a gated cross layer over ``cross_kv`` after each group of self
-    layers; audio a cross-attention in every layer."""
+    layers; audio a cross-attention in every layer; hybrid the shared
+    block after every ``hybrid_period`` mamba steps; ssm the rwkv6 time
+    and channel mix of every layer."""
     _check_family(cfg)
     x = embed_apply(model["embed"], tokens).to(_dtype(cfg))
+    if cfg.family == "hybrid":
+        x = _hybrid_layers(model, cfg, cache, x, pos)
+    elif cfg.family == "ssm":
+        x = _ssm_layers(model, cfg, cache, x)
+    else:
+        x = _attention_layers(model, cfg, cache, x, pos)
+    x = apply_norm(model["final_ln"], cfg, x)
+    return unembed_apply(model["embed"], cfg, x), cache
+
+
+def _attention_layers(model, cfg: ModelConfig, cache: Dict, x: torch.Tensor,
+                      pos) -> torch.Tensor:
+    """dense / moe / vlm / audio: a self-attention decode step per layer
+    (and vlm's cross layers, audio's cross-attention)."""
     ckv = cache.get("cross_kv")
 
     def context(i):
@@ -577,5 +693,4 @@ def serve_step(model, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
             hn = apply_norm(cp["ln2"], cfg, x)
             x = x + torch.tanh(cp["gate_mlp"]).to(x.dtype) * mlp_apply(
                 cp["mlp"], cfg, hn)
-    x = apply_norm(model["final_ln"], cfg, x)
-    return unembed_apply(model["embed"], cfg, x), cache
+    return x

@@ -1,0 +1,158 @@
+"""Mamba2 (SSD) block — port of ``repro.models.mamba2``: the chunked
+matmul form for training and prefill, and the O(1) recurrent step for
+decode.
+
+Within a chunk the output is a masked, decay-weighted attention-like
+product; across chunks a small recurrent state (B, H, N, P) is carried
+by a Python loop over the chunks (the reference's ``lax.scan``).  The
+recurrence has no Pallas kernel in the reference, so it stays plain
+PyTorch here: einsums and elementwise ops.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import ParamModule
+
+
+class Mamba2(ParamModule):
+    """The reference's leaves: ``in_proj`` (d, 2·di + 2·n + h) → [z (di),
+    x (di), B (n), C (n), dt (h)], the depthwise causal ``conv_w`` (K,
+    di + 2·n), ``a_log`` / ``d_skip`` / ``dt_bias`` (h,) and
+    ``norm_scale`` (di,) in fp32, ``out_proj`` (di, d).  ``init`` is the
+    model's weight factory."""
+
+    def __init__(self, cfg, init):
+        super().__init__()
+        d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        self.in_proj = init.dense(d, 2 * di + 2 * n + h)
+        self.conv_w = init.normal((cfg.ssm_conv, di + 2 * n), 0.1)
+        self.a_log = init.fixed(torch.log(torch.linspace(1.0, 16.0, h)))
+        self.d_skip = init.ones(h)
+        self.dt_bias = init.zeros(h)
+        self.norm_scale = init.ones(di)
+        self.out_proj = init.dense(di, d)
+
+
+def _split_proj(cfg, zxbcdt: torch.Tensor):
+    di, n = cfg.d_inner, cfg.ssm_state
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di:di + di + 2 * n]
+    dt = zxbcdt[..., di + di + 2 * n:]
+    return z, xbc, dt
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over time.  xbc: (B, S, C), w: (K, C)."""
+    k, s = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    out = sum(pad[:, i:i + s, :] * w[i] for i in range(k))
+    return F.silu(out)
+
+
+def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    y = y * F.silu(z.float())
+    rms = torch.sqrt((y * y).mean(dim=-1, keepdim=True) + eps)
+    return y / rms * scale
+
+
+def mamba2_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Training / prefill forward.  x: (B, S, D)."""
+    b, s, _ = x.shape
+    di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    q = min(cfg.ssm_chunk, s)
+    if s % q != 0:
+        q = s
+    nc = s // q
+
+    z, xbc, dt_raw = _split_proj(cfg, x @ params["in_proj"])
+    xbc = _causal_conv(xbc, params["conv_w"])
+    xs = xbc[..., :di].reshape(b, s, h, p).float()
+    bmat = xbc[..., di:di + n].float()                        # (B,S,N)
+    cmat = xbc[..., di + n:].float()                          # (B,S,N)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])       # (B,S,H)
+    a = -torch.exp(params["a_log"])                           # (H,) < 0
+    log_decay = dt * a                                        # (B,S,H) <= 0
+
+    xs_c = xs.reshape(b, nc, q, h, p)
+    b_c = bmat.reshape(b, nc, q, n)
+    c_c = cmat.reshape(b, nc, q, n)
+    dt_c = dt.reshape(b, nc, q, h)
+    lcum = torch.cumsum(log_decay.reshape(b, nc, q, h), dim=2)  # (B,C,Q,H)
+
+    # intra-chunk: decay(i, j) = exp(lcum_i - lcum_j) for i >= j.  The
+    # upper triangle is set to -inf BEFORE exp, so it gives exact zeros
+    # and zero gradients (exp of a positive difference could overflow)
+    dec = lcum[:, :, :, None, :] - lcum[:, :, None, :, :]     # (B,C,Qi,Qj,H)
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                   device=x.device))
+    dec = torch.where(causal[None, None, :, :, None], dec, float("-inf"))
+    gij = torch.exp(dec)
+    cb = torch.einsum("bcin,bcjn->bcij", c_c, b_c)            # (B,C,Qi,Qj)
+    w_ij = cb[..., None] * gij * dt_c[:, :, None, :, :]       # × dt_j
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", w_ij, xs_c)
+
+    # chunk states S_c = Σ_j exp(lQ - l_j)·dt_j·B_j ⊗ x_j, then the
+    # inter-chunk recurrence over the states BEFORE each chunk
+    tail = torch.exp(lcum[:, :, -1:, :] - lcum)               # (B,C,Q,H)
+    sc = torch.einsum("bcjh,bcjn,bcjhp->bchnp", tail * dt_c, b_c, xs_c)
+    chunk_decay = torch.exp(lcum[:, :, -1, :])                # (B,C,H)
+    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + sc[:, c]
+    h_prev = torch.stack(h_prev, dim=1)                       # (B,C,H,N,P)
+
+    y_inter = torch.einsum("bcin,bchnp->bcihp", c_c, h_prev) \
+        * torch.exp(lcum)[..., None]
+    y = (y_intra + y_inter).reshape(b, s, h, p)
+    y = y + params["d_skip"][None, None, :, None] * xs
+    y = _gated_rmsnorm(y.reshape(b, s, di), z, params["norm_scale"])
+    return y.to(x.dtype) @ params["out_proj"]
+
+
+# ---------------------------------------------------------------------------
+# Decode (recurrent, O(1) per token)
+# ---------------------------------------------------------------------------
+
+def init_mamba_cache(cfg, batch: int, dtype, *, device
+                     ) -> Dict[str, torch.Tensor]:
+    """One layer's decode state: the SSM state (B, H, N, P) in fp32 and
+    the last K - 1 conv inputs (B, K - 1, di + 2·n) in the model dtype."""
+    di, n = cfg.d_inner, cfg.ssm_state
+    return {
+        "ssm": torch.zeros((batch, cfg.ssm_heads, n, cfg.ssm_head_dim),
+                           dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, di + 2 * n),
+                            dtype=dtype, device=device),
+    }
+
+
+def mamba2_decode(params, cfg, x: torch.Tensor, cache: Dict
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token recurrent step.  x: (B, 1, D) → (out (B, 1, D), the new
+    state {"ssm", "conv"}); ``cache`` is not modified."""
+    b = x.shape[0]
+    di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    z, xbc, dt_raw = _split_proj(cfg, x @ params["in_proj"])
+    hist = torch.cat([cache["conv"], xbc.to(cache["conv"].dtype)],
+                     dim=1)                                   # (B, K, C)
+    conv_out = F.silu((hist * params["conv_w"][None]).sum(dim=1,
+                                                          keepdim=True))
+    xs = conv_out[..., :di].reshape(b, h, p).float()
+    bvec = conv_out[:, 0, di:di + n].float()
+    cvec = conv_out[:, 0, di + n:].float()
+    dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])
+    decay = torch.exp(dt * -torch.exp(params["a_log"]))       # (B,H)
+    state = cache["ssm"] * decay[..., None, None] + torch.einsum(
+        "bh,bn,bhp->bhnp", dt, bvec, xs)
+    y = torch.einsum("bn,bhnp->bhp", cvec, state)
+    y = y + params["d_skip"][None, :, None] * xs
+    y = _gated_rmsnorm(y.reshape(b, 1, di), z, params["norm_scale"])
+    return y.to(x.dtype) @ params["out_proj"], {"ssm": state,
+                                                "conv": hist[:, 1:]}

@@ -1,4 +1,4 @@
-"""The dense, moe, vlm and audio families as ``nn.Module``s — port of
+"""The six model families as ``nn.Module``s — port of
 ``repro.models.model``: the parameters, ``forward`` and ``loss_fn``.
 
 The vlm family (llama-3.2-vision) runs a gated cross-attention layer
@@ -7,7 +7,11 @@ the port keeps the self layers in one flat ``ModuleList`` (the
 reference nests them as (n_cross, per_group)).  The audio family
 (whisper) runs an encoder of decoder blocks without the causal mask
 over the frame embeddings, then decoder layers with self- and
-cross-attention.  The hybrid and ssm families are not ported yet.
+cross-attention.  The hybrid family (zamba2) runs a Mamba2 backbone
+with one *shared* decoder block after every ``hybrid_period`` layers,
+applied to ``concat(h, x0) @ shared_in`` (x0: the token embeddings),
+of which only the block's delta feeds back; the ssm family (rwkv6) a
+stack of RWKV6 time-mix + channel-mix layers.
 
 Weights keep the reference's (in, out) layout, so every projection is
 ``x @ w`` on both sides and ``params_from_jax`` is a plain copy.  The
@@ -33,7 +37,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (ParamModule, _dtype, apply_norm,
                                        embed_apply, mlp_apply,
                                        unembed_apply)
+from repro_torch.models.mamba2 import Mamba2, mamba2_apply
 from repro_torch.models.moe import MoE, moe_apply
+from repro_torch.models.rwkv6 import (RWKV6, rwkv6_channel_mix,
+                                      rwkv6_time_mix)
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -48,7 +55,8 @@ class _Init:
     def __init__(self, cfg: ModelConfig, device, generator):
         self.dt, self.dev, self.gen = _dtype(cfg), device, generator
 
-    def _normal(self, shape, scale: float, dtype):
+    def normal(self, shape, scale: float,
+               dtype: Optional[torch.dtype] = None):
         w = torch.randn(shape, generator=self.gen, device=self.dev,
                         dtype=torch.float32)
         return _param((w * scale).to(dtype or self.dt))
@@ -56,17 +64,25 @@ class _Init:
     def dense(self, d_in: int, d_out: int, scale: Optional[float] = None,
               dtype: Optional[torch.dtype] = None):
         s = scale if scale is not None else 1.0 / np.sqrt(d_in)
-        return self._normal((d_in, d_out), s, dtype)
+        return self.normal((d_in, d_out), s, dtype)
 
     def experts(self, e: int, d_in: int, d_out: int):
-        return self._normal((e, d_in, d_out), 1.0 / np.sqrt(d_in), None)
+        return self.normal((e, d_in, d_out), 1.0 / np.sqrt(d_in))
 
     def ones(self, n: int):
-        return _param(torch.ones(n, dtype=torch.float32, device=self.dev))
+        return self.full(n, 1.0)
+
+    def full(self, n: int, value: float):
+        return _param(torch.full((n,), value, dtype=torch.float32,
+                                 device=self.dev))
 
     def zeros(self, *shape: int):
         return _param(torch.zeros(shape, dtype=torch.float32,
                                   device=self.dev))
+
+    def fixed(self, t: torch.Tensor):
+        """A parameter with a fixed fp32 initial value (no draw)."""
+        return _param(t.to(device=self.dev, dtype=torch.float32))
 
 
 class Norm(ParamModule):
@@ -150,6 +166,27 @@ class EncDecLayer(ParamModule):
         self.mlp = MLP(cfg, init)
 
 
+class MambaLayer(ParamModule):
+    """hybrid backbone layer (zamba2): pre-norm Mamba2 mixer."""
+
+    def __init__(self, cfg: ModelConfig, init: _Init):
+        super().__init__()
+        self.ln = Norm(cfg, init)
+        self.mixer = Mamba2(cfg, init)
+
+
+class RwkvLayer(ParamModule):
+    """ssm layer (rwkv6): time mix after ``ln1``, channel mix after
+    ``ln2``; both read the one ``tmix`` leaf group, as in the
+    reference."""
+
+    def __init__(self, cfg: ModelConfig, init: _Init):
+        super().__init__()
+        self.ln1 = Norm(cfg, init)
+        self.tmix = RWKV6(cfg, init)
+        self.ln2 = Norm(cfg, init)
+
+
 class Embed(ParamModule):
     def __init__(self, cfg: ModelConfig, init: _Init):
         super().__init__()
@@ -173,7 +210,10 @@ class Model(ParamModule):
     * vlm: ``layers`` (the n_self self layers, flat) and
       ``cross_layers`` (one ``CrossLayer`` per group);
     * audio: ``enc_layers`` and ``enc_ln`` (the encoder), and ``layers``
-      of ``EncDecLayer``.
+      of ``EncDecLayer``;
+    * hybrid: ``layers`` of ``MambaLayer``, one ``shared_attn``
+      (``DecoderLayer``) and ``shared_in`` (2·d_model, d_model);
+    * ssm: ``layers`` of ``RwkvLayer``.
 
     ``forward`` / ``loss_fn`` train it; the serving functions
     (``models.decode``) run it layer by layer against the KV cache.
@@ -203,6 +243,14 @@ class Model(ParamModule):
             self.enc_ln = Norm(cfg, init)
             self.layers = nn.ModuleList(EncDecLayer(cfg, init)
                                         for _ in range(cfg.n_layers))
+        elif cfg.family == "hybrid":
+            self.layers = nn.ModuleList(MambaLayer(cfg, init)
+                                        for _ in range(cfg.n_layers))
+            self.shared_attn = DecoderLayer(cfg, init)
+            self.shared_in = init.dense(2 * cfg.d_model, cfg.d_model)
+        elif cfg.family == "ssm":
+            self.layers = nn.ModuleList(RwkvLayer(cfg, init)
+                                        for _ in range(cfg.n_layers))
         else:
             self.layers = nn.ModuleList(DecoderLayer(cfg, init)
                                         for _ in range(cfg.n_layers))
@@ -212,11 +260,8 @@ class Model(ParamModule):
 DenseModel = Model
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "vlm", "audio"):
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the PyTorch port runs the dense, moe, "
-            f"vlm and audio families; hybrid and ssm are ROADMAP queue A "
-            f"item 4")
+    if cfg.family not in ("dense", "moe", "vlm", "audio", "hybrid", "ssm"):
+        raise ValueError(cfg.family)
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -243,8 +288,9 @@ def params_from_jax(np_params: Mapping, cfg: ModelConfig,
     numpy by the caller), so both sides compute with identical weights.
     The stacked groups (``layers``, and ``cross_layers`` / ``enc_layers``)
     carry a leading layer axis; vlm's ``layers`` carry two, (n_cross,
-    per_group), flattened here in that order.  A missing or unexpected
-    leaf raises."""
+    per_group), flattened here in that order.  hybrid's ``shared_attn``
+    and ``shared_in`` are one block, not stacked.  A missing or
+    unexpected leaf raises."""
     dev = resolve_device(device)
     model = Model(cfg, device="meta")
     loaded = {}
@@ -313,6 +359,17 @@ def _encdec_dec_block_apply(p, cfg: ModelConfig, x: torch.Tensor,
     return x + mlp_apply(p["mlp"], cfg, h)
 
 
+def _mamba_block_apply(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    return x + mamba2_apply(p["mixer"], cfg, apply_norm(p["ln"], cfg, x))
+
+
+def _rwkv_block_apply(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    y, _, _ = rwkv6_time_mix(p["tmix"], cfg, apply_norm(p["ln1"], cfg, x))
+    x = x + y
+    y, _ = rwkv6_channel_mix(p["tmix"], cfg, apply_norm(p["ln2"], cfg, x))
+    return x + y
+
+
 # remat="dots" (the reference's checkpoint_dots_with_no_batch_dims): the
 # products with no batch dimension, which are these ops under autograd
 # (a projection or MLP matmul of a (tokens, d) operand folds to mm); the
@@ -358,7 +415,9 @@ def forward(model: Model, cfg: ModelConfig,
     """→ (logits fp32 (B, S, V), aux_loss: the layers' router losses
     summed in layer order, 0 without moe).  vlm reads
     ``batch["image_embeds"]`` (B, n_image_tokens, d_model), audio
-    ``batch["audio_embeds"]`` (B, encoder_len, d_model)."""
+    ``batch["audio_embeds"]`` (B, encoder_len, d_model).  hybrid runs
+    the shared block after every ``hybrid_period`` mamba layers, outside
+    the layers' remat, as the reference's outer scan does."""
     _check_family(cfg)
     dt = _dtype(cfg)
     x = embed_apply(model["embed"], batch["tokens"]).to(dt)
@@ -380,6 +439,21 @@ def forward(model: Model, cfg: ModelConfig,
                                                                context))
         for p in model["layers"]:
             x = dec(p, x)
+    elif cfg.family == "hybrid":
+        x0 = x
+        mamba = _remat(cfg, lambda p, h: _mamba_block_apply(p, cfg, h))
+        for i, p in enumerate(model["layers"]):
+            x = mamba(p, x)
+            if (i + 1) % cfg.hybrid_period == 0:
+                # only the shared block's delta feeds back (zamba2)
+                cat = torch.cat([x, x0], dim=-1) @ model["shared_in"]
+                y, a = _decoder_block_apply(model["shared_attn"], cfg, cat)
+                x = x + (y - cat)
+                aux = aux + a
+    elif cfg.family == "ssm":
+        rwkv = _remat(cfg, lambda p, h: _rwkv_block_apply(p, cfg, h))
+        for p in model["layers"]:
+            x = rwkv(p, x)
     else:
         for p in model["layers"]:
             x, a = block(p, x)

@@ -225,10 +225,3 @@ def test_paged_vlm_is_refused_as_in_the_reference():
     with pytest.raises(NotImplementedError, match="vlm family"):
         tsv.serve(VLM, smoke=True, cfg=tc, model=_weights(VLM)[1],
                   options=tsv.ServeOptions(**EXAMPLE), device="cpu")
-
-
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-1.6b"])
-def test_hybrid_and_ssm_serving_is_still_refused(arch):
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        tsv.serve(arch, smoke=True, options=tsv.ServeOptions(**EXAMPLE),
-                  device="cpu")

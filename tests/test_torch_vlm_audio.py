@@ -227,17 +227,3 @@ def test_train_three_steps_matches_reference(arch):
                                rtol=TRAIN_RTOL)
     if arch == VLM:
         assert float(model.cross_layers[0].gate.detach().abs()) > 0
-
-
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-1.6b"])
-def test_hybrid_and_ssm_are_still_refused(arch):
-    """The next slice's families: the model, the cache and the pipeline
-    refuse them, naming the queue item."""
-    from repro_torch.models import decode as tdec
-    cfg = TSMOKE[arch]
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        tmdl.Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        tdec.init_cache(cfg, 2, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        TLM(cfg, 2, 16)
