@@ -13,8 +13,10 @@ at G = 16), trains qwen3-moe at full width, serves full-width
 llama-3.2-vision-90b (depth cut to VLM_LAYERS) and whisper-base (the
 decode kernel at D = 64) through their cross-attention, serves
 full-width zamba2-2.7b (the Mamba2 backbone, the decode kernel at D =
-80 in its shared block) and rwkv6-1.6b (no attention), and times every
-kernel at its main path's shape.
+80 in its shared block) and rwkv6-1.6b (no attention), runs the paper's
+SATA scheduler and CIM estimation plane on its four workloads and the
+quickstart's kernel step at a layer's width, and times every kernel at
+its main path's shape and the prefill kernel against its roofline.
 
     python3 chip_smoke.py            # needs one CUDA GPU (an H100 here)
     python3 chip_smoke.py --mutants  # phases 2 and 6 (and 8 for the
@@ -63,7 +65,9 @@ each prints its host seconds as a ``[phase]`` line):
      reported); B3 == B4 bitwise on the same plan, two launches bitwise
      equal;
      at the main shape, the rows where the kernel admits other keys than
-     the chunked route's backward recompute selects (reported);
+     the chunked route's backward recompute selects (reported); the
+     cases include zamba2-2.7b's shared block (BH 32, S 512, D 80, blocks
+     128, causal threshold mode, top-k 64) in bf16 and fp32;
   7. the main path: ``launch.train.train`` on full-width qwen3-4b, 36
      layers, chunked selection (``topk_impl="bisect"``), batch 1,
      S = 4096, 4 steps; the compacted-grid kernel's launches must equal
@@ -81,7 +85,8 @@ each prints its host seconds as a ``[phase]`` line):
      ``topk_impl="sort"`` at full width, 4 layers, S = 2048, on the
      compacted and the dense grid: equal logits bitwise; layer 0's
      dense-grid arguments are recorded on the way;
- 10. prefill kernels on the arguments recorded in phases 7 and 9: kernel
+ 10. prefill kernels on the arguments recorded in phases 7 and 9, and
+     B3 on phase 6's bf16 D = 80 case: kernel
      vs plain version (phase 6's limits), the body the kernel's entry
      point takes (bf16 must take the tensor cores), timing (CUDA events, median,
      L2 flushed), the bound from the flops and bytes this input needs,
@@ -187,7 +192,24 @@ each prints its host seconds as a ``[phase]`` line):
      token, RWKV_GEN (128) generated, through 8 slots on the contiguous
      layout (no KV cache): every request complete, every step's logits
      finite, no kernel of the port launched (the family has no
-     attention); mean step and the time mix's ms a step (CUDA events).
+     attention); mean step and the time mix's ms a step (CUDA events);
+ 22. the paper's scheduler: (a) the four workloads of
+     ``configs/workloads.py`` at their published sizes, seeds 0-2, masks
+     made on the card by ``core.masks.synthetic_masks`` (k keys a row,
+     equal to the CPU's from the same seed), the card's ``sort_keys`` ==
+     ``sort_keys_psum`` head by head, ``coverage_ok`` on every schedule,
+     the reference tests' gates on the modeled CIM numbers; the modeled
+     gains beside the paper's and ``plan``'s host ms; (b) the
+     quickstart's kernel step at qwen3-4b's heads: ``sata_attention`` in
+     mask mode (BH 32, S 2048, D 128, blocks 128, bf16, KERNEL_TRACE
+     masks) with and without the SATA sort on both grids: B3 and B4
+     launched twice each, every output within TOL of
+     ``sata_attention_reference``, the sorted route's recorded calls
+     within phase 6's limits of their plain versions, B3 == B4 bitwise;
+     block skip sorted vs unsorted, ``sata_block_plan``'s host ms; (c)
+     ``launch.roofline.analyse_kernel`` at occupancy 0.25 / 0.5 / 0.75
+     (into ``build/roofline``) and B4 / B3 in block mode on the same
+     maps, timed as in phase 5, beside the modeled speedup.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the ``kernels`` JSON, and the card's name and power limit are
@@ -869,11 +891,23 @@ def recompute_flips(torch, c, admitted, name, tag=""):
     return rows
 
 
+ATTN_D80 = "threshold_causal_D80_qb128_kb128_bfloat16"
+
+
+def d80_case(torch, dev, dtype):
+    """zamba2-2.7b's shared block on the prefill kernel: 32 heads x D 80
+    (zero-padded to 128 in shared memory), causal threshold mode at its
+    top-k 64, blocks 128, S 512."""
+    return attn_case(torch, bh=32, s=512, d=80, qb=128, kb=128, dtype=dtype,
+                     mode="threshold", causal=True, seed=80, device=dev,
+                     topk=64)
+
+
 def attn_cases(torch, dev):
     """Phase 6's inputs: the training shape in threshold mode, the
-    dense-selection shape in mask mode, then edge cases: D in
-    {16, 64, 128}, q/k blocks 16..128 (unequal too), every mode causal
-    and not, fp32 and bf16."""
+    dense-selection shape in mask mode, zamba2's D = 80 shape (bf16 and
+    fp32), then edge cases: D in {16, 32, 64, 128}, q/k blocks 16..128
+    (unequal too), every mode causal and not, fp32 and bf16."""
     f32, bf16 = torch.float32, torch.bfloat16
     yield "main_BH32_S4096_D128_blk128_threshold_causal_bf16", attn_case(
         torch, bh=32, s=4096, d=128, qb=128, kb=128, dtype=bf16,
@@ -881,6 +915,9 @@ def attn_cases(torch, dev):
     yield "BH32_S2048_D128_blk128_mask_bf16", attn_case(
         torch, bh=32, s=2048, d=128, qb=128, kb=128, dtype=bf16,
         mode="mask", causal=False, seed=1, device=dev)
+    for dt in (bf16, f32):
+        name = ATTN_D80.replace("bfloat16", str(dt).split(".")[-1])
+        yield name, d80_case(torch, dev, dt)
     specs = [  # (bh, s, d, qb, kb, dtype, mode, causal)
         (3, 64, 16, 16, 16, f32, "threshold", True),
         (2, 128, 64, 32, 32, f32, "threshold", False),
@@ -1287,17 +1324,19 @@ def prefill_schedules(torch, sa, dev, base, tag, *, layers=4, seq=2048):
     return case, counts["dense"][1]
 
 
-def time_attn(torch, sa, c, name, tag, *, dense_grid=False):
-    """Phase 10 for one kernel on a recorded case: kernel vs plain
-    version (phase 6's limits), then the kernel, the plain version and
-    SDPA with the equivalent mask timed, and the bound.  Returns the
-    ``kernels`` row's numbers and the kernel's admitted-key counts."""
+def time_attn(torch, sa, c, name, tag, *, dense_grid=False,
+              inputs="the main path's layer-0 arguments"):
+    """Phase 10 for one kernel on a case (``inputs`` says which):
+    kernel vs plain version (phase 6's limits), then the kernel, the
+    plain version and SDPA with the equivalent mask timed, and the
+    bound.  Returns the ``kernels`` row's numbers and the kernel's
+    admitted-key counts."""
     a_k, a_p = admitted_buffer(torch, c), admitted_buffer(torch, c)
     got = run_attn(sa, c, plain=False, dense_grid=dense_grid, admitted=a_k)
     want = run_attn(sa, c, plain=True, dense_grid=dense_grid, admitted=a_p)
     torch.cuda.synchronize()
-    err = compare(torch, f"{name} on the main path's layer-0 arguments",
-                  got, want, a_k, a_p, attn_window(torch, sa, c))
+    err = compare(torch, f"{name} on {inputs}", got, want, a_k, a_p,
+                  attn_window(torch, sa, c))
     del got, want
     ms = time_ms(torch, lambda: run_attn(sa, c, plain=False,
                                          dense_grid=dense_grid))
@@ -1353,6 +1392,12 @@ def prefill_phases(torch, sa, dev, base, tag, clock):
                      "replaces": REPLACES["dense" if dense_grid
                                           else "compact"],
                      "launches": launches, **t})
+    c80 = d80_case(torch, dev, torch.bfloat16)
+    rows[0]["d80"], adm = time_attn(
+        torch, sa, c80, "sata_block_attention_compact", tag,
+        inputs=f"phase 6's {ATTN_D80} case (zamba2-2.7b)")
+    recompute_flips(torch, c80, adm, f"{ATTN_D80} (zamba2-2.7b)", tag)
+    del c80
     clock.done("10 prefill kernel timing")
     return rows
 
@@ -3088,6 +3133,244 @@ def rwkv_phase(torch, sd, sa, serve, dev, tag):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the paper's scheduler and estimation plane, the quickstart's
+# kernel step at a layer's width, and the kernel roofline
+# ---------------------------------------------------------------------------
+
+PLANE_SEEDS = (0, 1, 2)
+# phase 22 (b): the quickstart's discrete-cluster trace (8 object regions,
+# cluster scale 3, noise 0.3, the regime SATA's key sort targets) at
+# qwen3-4b's heads and phase 6's mask shape: top-k 128 of 2048 keys
+KERNEL_TRACE = dict(n_tokens=2048, k=128, cluster_scale=3.0,
+                    discrete_clusters=8, noise=0.3)
+ROOF_OCCS = (0.25, 0.5, 0.75)
+
+
+def padded_tiles(tiled):
+    """A tiled plan's local masks zero-padded to S_f x S_f: the masks
+    ``coverage_ok`` resolves the sub-heads' local indices against."""
+    s = tiled.s_f
+    return np.array([np.pad(t.mask, ((0, s - t.mask.shape[0]),
+                                     (0, s - t.mask.shape[1])))
+                     for t in tiled.tiles])
+
+
+def plane_phase(torch, dev, tag):
+    """Phase 22 (a): the four paper workloads at their published sizes,
+    seeds PLANE_SEEDS, masks made on the card: exactly k keys a row, the
+    same masks as the CPU makes from the seed, the card's batched
+    ``sort_keys`` == ``sort_keys_psum`` on the host head by head,
+    ``coverage_ok`` on every schedule, and the reference tests' gates
+    on the modeled CIM numbers (SATA beats dense in throughput and
+    energy; gated saves energy but not time; MACs between the selected
+    work and dense).  Prints the modeled gains beside the paper's and
+    ``plan``'s host ms (the one measured time)."""
+    from repro_torch.configs.workloads import WORKLOADS
+    from repro_torch.core import (HwConfig, coverage_ok, plan,
+                                  simulate_dense, simulate_gated,
+                                  simulate_schedule, simulate_tiled_sata)
+    from repro_torch.core.masks import synthetic_masks
+    from repro_torch.core.sorting import sort_keys, sort_keys_psum
+    hw = HwConfig()
+    for w in WORKLOADS.values():
+        rows = []
+        for seed in PLANE_SEEDS:
+            masks = synthetic_masks(seed, w.trace, w.n_heads, device=dev)
+            assert masks.shape == (w.n_heads, w.n_tokens, w.n_tokens)
+            assert (masks.sum(-1) == w.k).all(), f"{w.name}: not k a row"
+            assert np.array_equal(masks, synthetic_masks(
+                seed, w.trace, w.n_heads, device="cpu")), \
+                f"{w.name} seed {seed}: card masks != CPU masks"
+            order = sort_keys(torch.from_numpy(masks).to(dev)).cpu()
+            order = order.numpy()
+            for h in range(w.n_heads):
+                assert np.array_equal(order[h], sort_keys_psum(masks[h])), \
+                    f"{w.name} seed {seed} head {h}: sort_keys != psum"
+            t = time.perf_counter()
+            p = plan(masks, s_f=w.s_f)
+            plan_ms = 1e3 * (time.perf_counter() - t)
+            if p.tiled is None:
+                assert coverage_ok(p.schedule, masks), w.name
+                r = simulate_schedule(p.schedule, w.d_k, hw)
+            else:
+                assert coverage_ok(p.schedule, padded_tiles(p.tiled)), \
+                    w.name
+                r = simulate_tiled_sata(p.tiled, w.d_k, hw)
+            d = simulate_dense(masks, w.d_k, hw)
+            g = simulate_gated(masks, w.d_k, hw)
+            gains = (r.throughput_gain(d), r.energy_eff_gain(d))
+            assert min(gains) > 1.0, (w.name, seed, gains)
+            assert g.latency_cycles == d.latency_cycles, w.name
+            assert g.energy_pj < d.energy_pj, w.name
+            assert masks.sum() * w.d_k <= r.macs <= d.macs, w.name
+            rows.append((*gains, r.throughput_gain(g), r.energy_eff_gain(g),
+                         p.stats.glob_q_frac, p.stats.avg_s_h_frac,
+                         p.stats.avg_n_decrements, plan_ms))
+        m = np.mean(rows, axis=0)
+        log(f"[plane] {w.name} (N {w.n_tokens}, {w.n_heads} heads, K "
+            f"{w.k}, S_f {w.s_f}, d_k {w.d_k}; seeds {PLANE_SEEDS}): "
+            f"modeled CIM gains vs dense throughput {m[0]:.3f}x (paper "
+            f"{w.paper_throughput_gain}x), energy {m[1]:.3f}x (paper "
+            f"{w.paper_energy_gain}x); vs gated {m[2]:.3f}x, {m[3]:.3f}x; "
+            f"GlobQ {m[4]:.3f} (paper {w.paper_glob_q}), S_h/N {m[5]:.4f} "
+            f"(paper {w.paper_s_h_frac}), decrements {m[6]:.3f} (paper "
+            f"{w.paper_n_dec}); plan {m[7]:.1f} ms on the host clock "
+            f"(per seed {[round(x[7], 1) for x in rows]}) {tag}")
+
+
+def kernel_step_phase(torch, sa, dev, tag):
+    """Phase 22 (b): ``kernels.ops.sata_attention`` in mask mode at BH
+    32, S 2048, D 128, blocks 128, bf16, on KERNEL_TRACE masks made by
+    ``synthetic_masks`` on the card, with and without the SATA sort, on
+    both grids.  Launches: B3 and B4 twice each.  Each output against
+    ``sata_attention_reference`` within TOL (max abs; the oracle rounds
+    p once after the whole softmax, not per tile, so its bits are not
+    the kernel's: the share off them is reported); the sorted route's
+    recorded B3 and B4 calls against their plain versions with phase 6's
+    full limits; B3 == B4 bitwise on each plan.  Returns the launch
+    counts and the recorded calls' errors."""
+    from repro_torch.core.blockmap import (block_skip_fraction,
+                                           sata_block_plan)
+    from repro_torch.core.masks import SyntheticTrace, synthetic_masks
+    from repro_torch.kernels import ops
+    tr = SyntheticTrace(**KERNEL_TRACE)
+    bh, s, d = 32, tr.n_tokens, 128
+    t = time.perf_counter()
+    mask = torch.from_numpy(synthetic_masks(0, tr, bh, device=dev)).to(dev)
+    mask_s = time.perf_counter() - t
+    assert bool((mask.sum(-1) == tr.k).all()), "masks: not k keys a row"
+    g = torch.Generator(device="cpu").manual_seed(22)
+    q, k, v = (torch.randn((bh, s, d), generator=g).to(dev, torch.bfloat16)
+               for _ in range(3))
+    ref = ops.sata_attention_reference(q, k, v, mask)
+    outs, skip, rec = {}, {}, {}
+    reset_attn_counts(sa)
+    for use_sata in (True, False):
+        for sch in ("compact", "dense"):
+            fn = "_block_attention_" + sch
+            with FirstCall(fn) as r:
+                out, bm = ops.sata_attention(q, k, v, mask, q_block=128,
+                                             k_block=128, use_sata=use_sata,
+                                             schedule=sch)
+            outs[use_sata, sch] = out
+            skip[use_sata] = float(block_skip_fraction(bm))
+            if use_sata:
+                rec[sch] = recorded_case(torch, sa, r,
+                                         dense_grid=sch == "dense")
+    torch.cuda.synchronize()
+    n_b3, n_b4 = attn_counts(sa)
+    log(f"[kernel-step] masks (BH {bh}, S {s}, top-k {tr.k}, "
+        f"{tr.discrete_clusters} clusters) on the card in {mask_s:.2f} s; "
+        f"block skip sorted {skip[True]:.4f}, unsorted {skip[False]:.4f}; "
+        f"launches B3 {n_b3}, B4 {n_b4} {tag}")
+    assert (n_b3, n_b4) == (2, 2), (n_b3, n_b4)
+    for (use_sata, sch), out in outs.items():
+        compare_oracle(torch, f"sata_attention use_sata={use_sata} {sch}",
+                       out, ref)
+    for use_sata in (True, False):
+        same = torch.equal(outs[use_sata, "compact"],
+                           outs[use_sata, "dense"])
+        log(f"[kernel-step] use_sata={use_sata}: B3 == B4 bitwise: {same}")
+        assert same, f"use_sata={use_sata}: B3 != B4"
+    del outs, ref
+    errs = {}
+    for sch, c in rec.items():
+        dense_grid = sch == "dense"
+        a_k, a_p = admitted_buffer(torch, c), admitted_buffer(torch, c)
+        got = run_attn(sa, c, plain=False, dense_grid=dense_grid,
+                       admitted=a_k)
+        want = run_attn(sa, c, plain=True, dense_grid=dense_grid,
+                        admitted=a_p)
+        torch.cuda.synchronize()
+        errs[sch] = compare(torch, f"{sch} grid on the sorted route's "
+                            f"recorded call", got, want, a_k, a_p)
+    del rec
+    plan_ms = wall_ms(torch, lambda: sata_block_plan(mask, 128, 128),
+                      reps=3, warm=1)
+    log(f"[kernel-step] sata_block_plan (key sort: {s - 1} sequential "
+        f"argmax steps over {bh} heads; query order; occupancy): "
+        f"{plan_ms:.1f} ms on the host clock {tag}")
+    return (n_b3, n_b4), errs
+
+
+def compare_oracle(torch, name, got, want):
+    """``got`` against the exact top-k oracle: max abs within TOL; the
+    share of outputs off the oracle's bits reported."""
+    tol = TOL[str(want.dtype).split(".")[-1]]
+    assert torch.isfinite(got).all(), f"{name}: non-finite output"
+    e = float((got.float() - want.float()).abs().max())
+    off = float((got != want).float().mean())
+    log(f"[kernel-step] {name} vs sata_attention_reference: max_abs_err="
+        f"{e:.3e} (tol {tol:g}), {off:.4%} of outputs off the oracle's bits")
+    assert e <= tol, f"{name}: {e} > {tol}"
+    return e
+
+
+def roofline_phase(torch, sa, dev, root, tag):
+    """Phase 22 (c): ``launch.roofline.analyse_kernel`` at ROOF_OCCS
+    (S 2048, D 64, BH 8, block 128: the reference's defaults) into
+    ``build/roofline``, then B4 (dense grid) and B3 (compacted grid, P =
+    occ) in block mode on the same ``fixed_occupancy_map`` maps, timed
+    as phase 5 times (CUDA events, median, L2 flushed): B3 == B4
+    bitwise and B3 against its plain version, the measured B4 / B3
+    ratio beside the modeled speedup."""
+    from repro_torch.core.blockmap import (compact_kv_plan,
+                                           fixed_occupancy_map)
+    from repro_torch.launch.roofline import analyse_kernel
+    out_dir = os.path.join(root, "build", "roofline")
+    g = torch.Generator(device="cpu").manual_seed(23)
+    rows = []
+    for occ_frac in ROOF_OCCS:
+        r = analyse_kernel(occ_frac=occ_frac, out_dir=out_dir, verbose=False)
+        sh = r["shape"]
+        bh, s, d, blk = sh["bh"], sh["seq"], sh["d"], sh["block"]
+        nkb = s // blk
+        occ = max(1, int(occ_frac * nkb))
+        bm_np = fixed_occupancy_map(np.random.default_rng(0), bh, nkb, nkb,
+                                    occ)
+        bm = torch.from_numpy(bm_np).to(dev)
+        assert int(bm.sum()) * 2 * blk * d * 2 == \
+            r["fetch"]["kv_fetch_bytes_compact"], "not the roofline's map"
+        q, k, v = (torch.randn((bh, s, d), generator=g).to(dev,
+                                                          torch.bfloat16)
+                   for _ in range(3))
+        idx, cnt = compact_kv_plan(bm, pad_to=occ)
+        c = dict(q=q, k=k, v=v, qb=blk, kb=blk, mode="block", causal=False,
+                 sel={}, bm=bm, idx=idx, cnt=cnt)
+        a_k, a_p = admitted_buffer(torch, c), admitted_buffer(torch, c)
+        b3 = run_attn(sa, c, plain=False, admitted=a_k)
+        want = run_attn(sa, c, plain=True, admitted=a_p)
+        b4 = run_attn(sa, c, plain=False, dense_grid=True)
+        torch.cuda.synchronize()
+        compare(torch, f"roofline occ {occ_frac} B3", b3, want, a_k, a_p)
+        assert torch.equal(b3, b4), f"occ {occ_frac}: B3 != B4"
+        ms3 = time_ms(torch, lambda: run_attn(sa, c, plain=False))
+        ms4 = time_ms(torch, lambda: run_attn(sa, c, plain=False,
+                                              dense_grid=True))
+        t = r["terms_s"]
+        log(f"[roofline] {r['cell']} ({bh} x {s} x {d}, block {blk}, P "
+            f"{occ} of {nkb}): modeled compute {1e3 * t['compute_s']:.4f} "
+            f"ms, memory dense {1e3 * t['memory_dense_s']:.4f} ms, compact "
+            f"{1e3 * t['memory_compact_s']:.4f} ms, modeled speedup "
+            f"{r['modeled_speedup']:.3f}x; measured B4 {ms4:.4f} ms, B3 "
+            f"{ms3:.4f} ms, B4 / B3 {ms4 / ms3:.3f}x; B3 == B4 bitwise; "
+            f"wrote {os.path.relpath(r['path'], root)} {tag}")
+        rows.append({"occ": occ_frac, "b3_ms": ms3, "b4_ms": ms4,
+                     "modeled_speedup": r["modeled_speedup"]})
+        del q, k, v, b3, b4, want
+    return rows
+
+
+def scheduler_phases(torch, sa, dev, root, tag):
+    """Phase 22 (a)-(c); returns B3's and B4's launches in (b), the
+    errors of their recorded calls, and (c)'s timings."""
+    plane_phase(torch, dev, tag)
+    counts, errs = kernel_step_phase(torch, sa, dev, tag)
+    torch.cuda.empty_cache()
+    return counts, errs, roofline_phase(torch, sa, dev, root, tag)
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3679,10 +3962,21 @@ def main() -> int:
 
     # --- 21. rwkv6-1.6b: the recurrent state, no kernel
     rwkv_phase(torch, sd, sa, serve, dev, tag)
-    for k in kernels[:2]:
+    clock.done("21 serve rwkv6-1.6b")
+
+    # --- 22. the paper's scheduler and estimation plane, the quickstart's
+    # kernel step at a layer's width, the kernel roofline
+    (n_b3, n_b4), kerr, roof = scheduler_phases(torch, sa, dev, root, tag)
+    path = "22 quickstart kernel step"
+    kernels[2]["paths"][path] = n_b3
+    kernels[3].setdefault("paths", {})[path] = n_b4
+    kernels[2].setdefault("recorded_calls", {})["22"] = kerr["compact"]
+    kernels[3].setdefault("recorded_calls", {})["22"] = kerr["dense"]
+    kernels[2]["roofline"] = roof
+    for k in kernels:
         k["max_abs_err"] = max(k["max_abs_err"],
                                *k.get("recorded_calls", {}).values())
-    clock.done("21 serve rwkv6-1.6b")
+    clock.done("22 scheduler plane, kernel step and roofline")
     clock.total()
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -3,7 +3,8 @@
 The one selection predicate (``bisect_select``); the SATA plan of the
 dense-selection route (``sata_block_plan``: key sort → query order →
 tile occupancy); the compact per-row schedule the kernels walk
-(``compact_kv_plan``); and the plan-from-chunks constructors of the
+(``compact_kv_plan``); the roofline's fixed-occupancy maps
+(``fixed_occupancy_map``); and the plan-from-chunks constructors of the
 chunked route, which stream ``chunk × Sk`` score tiles so that no
 (BH, Sq, Sk) score tensor or mask is ever held
 (``stream_score_chunks`` and its consumers).
@@ -120,6 +121,22 @@ def sata_block_plan(mask: torch.Tensor, q_block: int, k_block: int,
     permuted = torch.gather(
         sorted_mask, -2, q_order.long()[..., :, None].expand_as(mask))
     return kv_order, q_order, block_occupancy(permuted, q_block, k_block)
+
+
+def fixed_occupancy_map(rng: np.random.Generator, bh: int, nqb: int,
+                        nkb: int, occ: int) -> np.ndarray:
+    """Host-side (numpy) random block map with exactly ``occ`` occupied
+    k-blocks per (bh, q_row) — the concentrated regime SATA's key sort
+    produces, and the shape the kernel roofline uses so the padded
+    compact grid (``P = occ``) actually shrinks (a Bernoulli map almost
+    surely has one fully-occupied row pinning P at ``nkb``).  The
+    reference's draws, in its order: the same generator gives the same
+    map."""
+    bm = np.zeros((bh, nqb, nkb), dtype=bool)
+    for b in range(bh):
+        for i in range(nqb):
+            bm[b, i, rng.choice(nkb, size=occ, replace=False)] = True
+    return bm
 
 
 def identity_block_plan(mask: torch.Tensor, q_block: int, k_block: int

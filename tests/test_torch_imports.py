@@ -1,6 +1,7 @@
-"""The port stands alone: importing it loads neither JAX nor the JAX
-package, no source file under ``src/repro_torch`` imports them, and its
-entry points refuse to run on the CPU unless asked to."""
+"""The port stands alone: importing it (and its examples) loads neither
+JAX nor the JAX package, no source file under ``src/repro_torch`` and no
+``examples/*_torch.py`` imports them (at top level or inside a function),
+and its entry points refuse to run on the CPU unless asked to."""
 import pathlib
 import re
 import subprocess
@@ -12,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
+EXAMPLES = sorted((SRC.parent / "examples").glob("*_torch.py"))
 
 
 def _modules():
@@ -27,12 +29,26 @@ def test_import_loads_no_jax_and_no_reference_package():
               "repro_torch.kernels.sata_attention", "repro_torch.core.sorting",
               "repro_torch.train.step", "repro_torch.optim.adamw",
               "repro_torch.checkpoint.manager", "repro_torch.data.pipeline",
-              "repro_torch.models.moe"):
+              "repro_torch.models.moe", "repro_torch.core.masks",
+              "repro_torch.core.scheduling", "repro_torch.core.tiling",
+              "repro_torch.core.simulator", "repro_torch.core.sata",
+              "repro_torch.configs.workloads",
+              "repro_torch.launch.roofline"):
         assert m in mods, m
+    assert [p.name for p in EXAMPLES] == ["quickstart_torch.py",
+                                          "schedule_demo_torch.py"]
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for p in {[str(p) for p in EXAMPLES]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('ex', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "# the planner's tiled branch and the tiled simulator\n"
+        "import numpy as np\n"
+        "from repro_torch.core import plan, simulate_tiled_sata, HwConfig\n"
+        "m = np.eye(12, dtype=bool)[None]\n"
+        "simulate_tiled_sata(plan(m, s_f=4).tiled, 8, HwConfig())\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"
@@ -48,7 +64,8 @@ def test_source_scan_finds_no_jax_or_reference_import():
     # to end right after ``repro``
     pat = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)[.\s])",
                      re.M)
-    hits = [f"{p}: {m.group(0).strip()}" for p in PORT.rglob("*.py")
+    files = list(PORT.rglob("*.py")) + EXAMPLES
+    hits = [f"{p}: {m.group(0).strip()}" for p in files
             for m in pat.finditer(p.read_text())]
     assert not hits, hits
 
