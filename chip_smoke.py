@@ -3371,6 +3371,118 @@ def scheduler_phases(torch, sa, dev, root, tag):
     return counts, errs, roofline_phase(torch, sa, dev, root, tag)
 
 
+# ---------------------------------------------------------------------------
+# phase 23: two replicas around one cross-replica prefix index
+# ---------------------------------------------------------------------------
+
+REPLICA_LAYERS = 9       # phase 23: full width, 9 of qwen3-4b's 36 layers
+# what a CPU rehearsal of phase 23's page arithmetic gives (the smoke
+# model at page 64, prompt 1024, 1000 shared tokens, 16 requests through
+# 8 slots), per replica: replica 0 publishes the 15 full pages of the
+# shared prefix, replica 1's first claim migrates them (960 tokens), and
+# every other claim hits its own trie at 1000 tokens
+REPLICA_EXPECT = {"cross_replica_hits": (0, 1), "migrated_pages": (0, 15),
+                  "migrated_tokens": (0, 960),
+                  "index_pages_published": (15, 0)}
+REPLICA_INDEX = {"pages_indexed": 15, "publishes": 32,
+                 "pages_published": 15, "lookups": 32, "remote_hits": 1}
+
+
+def replica_phase(torch, sd, cfg, opts, dev, tag):
+    """Phase 23: ``serve_replicated`` of phase 11's workload (phase 3's
+    path, 1000 shared prompt tokens, the prefix cache on) on two replicas
+    around one ``SharedPrefixIndex``, model ``cfg`` at random weights
+    (seed 0).  Every request completes on both; their streams are equal
+    (``serve_replicated``'s own assert); each replica launches the paged
+    kernel layers × steps times and the contiguous one never; each
+    replica's allocator and trie pass ``check_invariants``; the counts
+    equal ``REPLICA_EXPECT`` / ``REPLICA_INDEX``.  Prints each replica's
+    step and prefill ms, the migration's host ms against the miss
+    prefill it replaces, and the publishes' ms and bytes.  Returns the
+    paged kernel's launches over both replicas."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.model import DenseModel
+    cfg = dataclasses.replace(cfg, kv=dataclasses.replace(
+        cfg.kv, prefix_cache=True))
+    sp_opts = dataclasses.replace(opts, shared_prefix_len=SHARED_PREFIX)
+    t = time.time()
+    model = DenseModel(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    log(f"[replicas] qwen3-4b: {describe(cfg)}; random weights (seed 0) "
+        f"built in {time.time() - t:.1f} s")
+    launches = []
+
+    def count(serve):
+        def counted(*a, **kw):
+            sd.sata_decode_attention_paged_kernel.launches = 0
+            sd.sata_decode_attention_kernel.launches = 0
+            out = serve(*a, **kw)
+            torch.cuda.synchronize()
+            launches.append((sd.sata_decode_attention_paged_kernel.launches,
+                             sd.sata_decode_attention_kernel.launches))
+            return out
+        return counted
+
+    tries, idxs = [], []
+    t = time.time()
+    with recording(serve_mod, "PrefixCache", tries), \
+            recording(serve_mod, "SharedPrefixIndex", idxs), \
+            patched(serve_mod, "serve", count):
+        rep = serve_mod.serve_replicated(
+            cfg.name, n_replicas=2, smoke=False, cfg=cfg, model=model,
+            options=sp_opts, device=dev)
+    wall = time.time() - t
+    del model
+    torch.cuda.empty_cache()
+    assert rep["outputs_equal"] and len(launches) == 2 and len(tries) == 2
+    for rid, (out, (n_paged, n_contig), (_, _, trie)) in enumerate(
+            zip(rep["replicas"], launches, tries)):
+        outs = out["outputs"]
+        assert sorted(outs) == list(range(sp_opts.n_requests)), sorted(outs)
+        for r, toks in outs.items():
+            assert len(toks) == sp_opts.gen_len, (rid, r, len(toks))
+            assert all(0 <= x < cfg.vocab_size for x in toks), (rid, r)
+        assert n_paged == cfg.n_layers * out["steps"], \
+            f"replica {rid}: {n_paged} launches != {cfg.n_layers} x " \
+            f"{out['steps']}"
+        assert n_contig == 0, f"replica {rid}: the contiguous kernel ran"
+        trie.alloc.check_invariants(trie)
+        r = out["replica"]
+        for k, want in REPLICA_EXPECT.items():
+            assert r[k] == want[rid], (rid, k, r[k], want[rid])
+        pf, p = out["prefill_ms_mean"], out["prefix_cache"]
+        log(f"[replicas] replica {rid}: {out['steps']} decode steps, mean "
+            f"decode step {out['step_ms_mean']:.2f} ms, paged kernel "
+            f"launches {n_paged} (= {cfg.n_layers} layers x {out['steps']} "
+            f"steps), contiguous 0; mean prefill ms: miss {pf['miss']}, hit "
+            f"{pf['hit']}, migrated {pf['migrated']}; "
+            f"{r['cross_replica_hits']} cross-replica hits "
+            f"({r['migrated_pages']} pages, "
+            f"{r['migrated_tokens']} tokens), {r['index_pages_published']} "
+            f"pages newly indexed; trie hits {p['hits']}/{p['requests']}, "
+            f"prefill tokens saved {p['prefill_tokens_saved']}; "
+            f"check_invariants passed {tag}")
+    assert rep["index"] == REPLICA_INDEX, rep["index"]
+    r0, r1 = (out["replica"] for out in rep["replicas"])
+    miss = rep["replicas"][0]["prefill_ms_mean"]["miss"]
+    publish_mb = (r0["publish_bytes"] + r1["publish_bytes"]) / 1e6
+    n_pub = rep["index"]["publishes"]
+    log(f"[replicas] migration (host clock): lookup "
+        f"{r1['lookup_ms_mean']:.3f} ms a claim + ensure / scatter / "
+        f"register {r1['migrate_ms_mean']:.3f} ms for "
+        f"{r1['migrated_pages']} pages; the migrated claim's prefill "
+        f"{rep['replicas'][1]['prefill_ms_mean']['migrated']:.1f} ms "
+        f"against replica 0's miss prefill {miss:.1f} ms {tag}")
+    log(f"[replicas] publish (gather + index, host clock): "
+        f"{r0['publish_ms_mean']:.3f} / {r1['publish_ms_mean']:.3f} ms "
+        f"a request (replica 0 / 1), {publish_mb:.1f} MB gathered over "
+        f"{n_pub} publishes ({publish_mb / n_pub:.2f} MB each); the index "
+        f"holds {idxs[0][2].host_bytes() / 1e6:.1f} MB on the host; "
+        f"streams equal across replicas: True; both replicas "
+        f"{wall:.1f} s {tag}")
+    return sum(n for n, _ in launches)
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3977,6 +4089,13 @@ def main() -> int:
         k["max_abs_err"] = max(k["max_abs_err"],
                                *k.get("recorded_calls", {}).values())
     clock.done("22 scheduler plane, kernel step and roofline")
+
+    # --- 23. two replicas around the cross-replica prefix index
+    kernels[0]["paths"]["23 replicas"] = replica_phase(
+        torch, sd, serve_cfg(dataclasses.replace(base,
+                                                 n_layers=REPLICA_LAYERS)),
+        opts, dev, tag)
+    clock.done("23 cross-replica prefix index")
     clock.total()
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -14,8 +14,8 @@ Layout: ``<dir>/step_<N>/leaves.npz`` + ``manifest.json``.
 A state is a nested dict whose leaves are tensors or ``nn.Module``s
 (saved through their ``state_dict``).  bf16 tensors are stored as fp32
 (exact) and cast back on restore, which copies into the live state's
-tensors in place.  Elastic restore onto a device mesh waits for slice 5
-of the port.
+tensors in place.  Elastic restore onto a device mesh waits for queue A
+item 4 of the port.
 """
 from __future__ import annotations
 

@@ -34,6 +34,10 @@ cold logical pages mid-stream.  A retired logical page becomes a HOLE
 below ``n_mapped``: its table entry maps the overflow page, ``ensure``
 never remaps it, and ``free_slot`` / ``swap_out`` skip it; a swap handle
 records the holes and ``swap_in`` marks them again.
+
+Across replicas: ``SharedPrefixIndex`` holds the prompt-prefix pages
+each replica published, under the trie's chained digest, as host
+payload that another replica's miss copies into its own pool.
 """
 from __future__ import annotations
 
@@ -930,4 +934,102 @@ class PrefixCache:
             "cached_pages": self.cached_pages,
             "evictions": self.evictions,
             "invalidated": self.invalidated,
+        }
+
+
+class SharedPrefixIndex:
+    """Cross-replica prompt-prefix index, the distributed counterpart of
+    :class:`PrefixCache` — an own copy of the reference's.
+
+    Each serving replica owns its page pool and trie but publishes its
+    prompt-prefix pages here, keyed by the same chained page digest the
+    trie routes on (``_chain_digest``), with the pages' host payload (the
+    ``models.decode.gather_phys_pages`` dict: K/V and summary rows, bf16
+    rows as ``int16`` bit patterns).  A replica whose local trie misses
+    walks the chain here; a hit that ANOTHER replica published is a
+    migration: the caller copies the payload into fresh local pages
+    (``scatter_phys_pages``), registers them in its trie and serves them
+    under the ordinary refcount / copy-on-write rules.  The index is a
+    copy source, never an owner, so no cross-replica refcount exists.
+
+    Host-side and process-local (the N-replica harness runs replicas in
+    one process); the digest chain is what a multi-host index service
+    would shard on."""
+
+    def __init__(self):
+        self.page: Optional[int] = None
+        # chain digest -> (replica_id, page tokens, per-page payload)
+        self._pages: Dict[bytes, Tuple[int, Tuple[int, ...],
+                                       Dict[str, np.ndarray]]] = {}
+        self.publishes = 0
+        self.pages_published = 0
+        self.lookups = 0
+        self.remote_hits = 0
+
+    def publish(self, replica_id: int, tokens: np.ndarray, page: int,
+                payload: Dict[str, np.ndarray]) -> int:
+        """Register a prompt's FULL pages (the payload's page axis, axis
+        1, covers ``len(tokens) // page`` pages in prefix order).  Known
+        digests are skipped — the first publisher wins, so an indexed
+        page's payload never changes (the trie keeps full prompt pages
+        append-frozen).  Returns the pages newly indexed."""
+        if self.page is None:
+            self.page = int(page)
+        assert self.page == int(page), "replicas must agree on page size"
+        toks = np.asarray(tokens, np.int64).reshape(-1)
+        digest, added = b"root", 0
+        for p in range(len(toks) // self.page):
+            page_toks = toks[p * self.page:(p + 1) * self.page]
+            digest = _chain_digest(digest, page_toks)
+            if digest not in self._pages:
+                self._pages[digest] = (
+                    int(replica_id), tuple(page_toks.tolist()),
+                    {k: np.asarray(v[:, p:p + 1])
+                     for k, v in payload.items()})
+                added += 1
+        self.publishes += 1
+        self.pages_published += added
+        return added
+
+    def lookup(self, replica_id: int, tokens: np.ndarray
+               ) -> Optional[Tuple[int, Dict[str, np.ndarray], int]]:
+        """Longest indexed full-page prefix of ``tokens``:
+        ``(matched_tokens, stacked_payload, remote_pages)`` — the
+        payload's page axis in prefix order, ready for
+        ``scatter_phys_pages`` into ``matched_tokens // page`` fresh
+        pages — or ``None`` when no page matches.  ``remote_pages``
+        counts matched pages another replica published (a migration, as
+        against re-reading this replica's own)."""
+        self.lookups += 1
+        if self.page is None:
+            return None
+        toks = np.asarray(tokens, np.int64).reshape(-1)
+        digest, chain = b"root", []
+        for p in range(len(toks) // self.page):
+            page_toks = toks[p * self.page:(p + 1) * self.page]
+            digest = _chain_digest(digest, page_toks)
+            hit = self._pages.get(digest)
+            if hit is None or hit[1] != tuple(page_toks.tolist()):
+                break
+            chain.append(hit)
+        if not chain:
+            return None
+        remote = sum(1 for rid, _, _ in chain if rid != int(replica_id))
+        # concatenate keeps an int16 bit pattern's bits
+        payload = {k: np.concatenate([c[2][k] for c in chain], axis=1)
+                   for k in chain[0][2]}
+        return len(chain) * self.page, payload, remote
+
+    def host_bytes(self) -> int:
+        """Bytes of payload the index holds on the host."""
+        return sum(a.nbytes for _, _, pl in self._pages.values()
+                   for a in pl.values())
+
+    def stats(self) -> Dict[str, float]:
+        return {
+            "pages_indexed": len(self._pages),
+            "publishes": self.publishes,
+            "pages_published": self.pages_published,
+            "lookups": self.lookups,
+            "remote_hits": self.remote_hits,
         }

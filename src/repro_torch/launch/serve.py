@@ -61,16 +61,28 @@ the SATA decode fetch accounting (per summary backend, re-plan mode,
 rung and live block count), the page occupancy with every fault
 counter, the prefix-cache statistics, the degradation timelines and
 ladder counters, and the retirement counters.  The loop runs eagerly on
-``device`` (default ``"cuda"``; the CPU only when asked).  The
-cross-replica prefix index (slice 5) is not ported yet and raises
-``NotImplementedError``.
+``device`` (default ``"cuda"``; the CPU only when asked).
+
+Across replicas (``prefix_index=SharedPrefixIndex``, with the prefix
+cache on): each replica publishes its prompts' full prefix pages to the
+index, and a claim whose local trie matches less than another replica
+published migrates those pages into fresh local pages instead of
+prefilling them; ``serve_replicated`` runs N replicas in sequence around
+one index.  ``serve(**legacy)`` takes the reference's deprecated flat
+kwargs (``n_requests=...``, ``checkpoint_dir=...``).
+
+CLI: ``python -m repro_torch.launch.serve [--paged] [--prefix-cache]
+[--replicas N] [--faults-seed S] [--device cpu]``.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import gc
 import pickle
 import time
 import types
+import warnings
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -79,7 +91,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.archs import ARCHS, SMOKE
 from repro_torch.core.paging import (PageAllocator, PageIntegrityError,
-                                     PrefixCache)
+                                     PrefixCache, SharedPrefixIndex)
 from repro_torch.kernels.ops import decode_fetch_stats
 from repro_torch.launch.faults import FaultPlan
 from repro_torch.models import attention as attn
@@ -209,6 +221,66 @@ class ResilienceOptions:
                                             # checkpoint block
 
 
+_LEGACY_SERVE_KW = {
+    # legacy flat kwarg -> (options group, field)
+    "n_requests": ("options", "n_requests"),
+    "batch_slots": ("options", "batch_slots"),
+    "gen_len": ("options", "gen_len"),
+    "max_len": ("options", "max_len"),
+    "prompt_len": ("options", "prompt_len"),
+    "shared_prefix_len": ("options", "shared_prefix_len"),
+    "host_swap_bytes": ("resilience", "host_swap_bytes"),
+    "max_steps_per_request": ("resilience", "max_steps_per_request"),
+    "preempt_retry_limit": ("resilience", "preempt_retry_limit"),
+    "audit_pages": ("resilience", "audit_pages"),
+    "checkpoint_dir": ("resilience", "checkpoint_dir"),
+    "checkpoint_every": ("resilience", "checkpoint_every"),
+    "resume": ("resilience", "resume"),
+    "kill_at_step": ("resilience", "kill_at_step"),
+}
+
+_warned_serve_legacy = False
+
+# the cross-replica counters: reported, but, as in the reference, not
+# saved by a serve checkpoint (a resumed run counts from 0)
+_REPLICA_CTRS = ("cross_replica_hits", "migrated_pages", "migrated_tokens",
+                 "index_publishes", "migrations_dropped")
+
+
+def _fold_serve_legacy(options: Optional[ServeOptions],
+                       resilience: Optional[ResilienceOptions],
+                       legacy: Dict[str, Any]
+                       ) -> Tuple[ServeOptions, ResilienceOptions]:
+    """Map legacy flat ``serve()`` kwargs onto the options dataclasses
+    (a flat value overrides its group's).  One DeprecationWarning per
+    process, naming every legacy kwarg of that call."""
+    opt = options or ServeOptions()
+    res = resilience or ResilienceOptions()
+    if legacy:
+        unknown = [k for k in legacy if k not in _LEGACY_SERVE_KW]
+        if unknown:
+            raise TypeError(f"serve() got unexpected keyword argument(s) "
+                            f"{unknown}")
+        global _warned_serve_legacy
+        if not _warned_serve_legacy:
+            _warned_serve_legacy = True
+            warnings.warn(
+                f"flat serve() kwargs {sorted(legacy)} are deprecated; "
+                f"pass serve(options=ServeOptions(...), "
+                f"resilience=ResilienceOptions(...))",
+                DeprecationWarning, stacklevel=3)
+        by_group: Dict[str, Dict[str, Any]] = {"options": {},
+                                               "resilience": {}}
+        for k, v in legacy.items():
+            group, field = _LEGACY_SERVE_KW[k]
+            by_group[group][field] = v
+        if by_group["options"]:
+            opt = dataclasses.replace(opt, **by_group["options"])
+        if by_group["resilience"]:
+            res = dataclasses.replace(res, **by_group["resilience"])
+    return opt, res
+
+
 def _pick_victim(stalled: List[int], slots: List[Optional[int]],
                  outputs: Dict[int, List[int]], admit_seq: Dict[int, int],
                  protected=()) -> int:
@@ -222,16 +294,12 @@ def _pick_victim(stalled: List[int], slots: List[Optional[int]],
                                      -admit_seq[slots[i]]))
 
 
-def _unported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: {where} of the "
-                               f"PyTorch port")
-
-
 def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
           cfg=None, options: Optional[ServeOptions] = None,
           device="cuda", faults: Optional[FaultPlan] = None,
           resilience: Optional[ResilienceOptions] = None,
-          prefix_index=None) -> Dict[str, Any]:
+          prefix_index: Optional[SharedPrefixIndex] = None,
+          replica_id: int = 0, **legacy) -> Dict[str, Any]:
     """Serve ``options.n_requests`` requests through ``batch_slots``
     decode slots on ``device``.  ``model`` defaults to the family's
     ``Model`` with random weights from ``seed``; prompts come from
@@ -243,12 +311,21 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
     (they have no prompt prefill, as in the reference).  ``faults`` is
     a step-keyed ``FaultPlan``; ``resilience`` defaults to
     ``ResilienceOptions()``, as in the reference (host swap on,
-    unbounded, audits after every allocator mutation)."""
-    if prefix_index is not None:
-        raise _unported("serve(prefix_index=...)", "queue A slice 5")
+    unbounded, audits after every allocator mutation); the reference's
+    flat kwargs (``n_requests=...``, ``checkpoint_dir=...``) still fold
+    into both through a deprecation shim, and override them.
+
+    ``prefix_index`` (a :class:`SharedPrefixIndex`; needs the prefix
+    cache on) makes this run replica ``replica_id`` of a group: it
+    publishes each prompt's full pages after registering them, and a
+    claim whose local match is shorter than what another replica
+    published copies those pages into fresh local pages
+    (``scatter_phys_pages``), registers them in its trie and prefills
+    only the rest.  ``out["replica"]`` counts the migrations; its
+    counters, as in the reference, are not saved by a checkpoint, and
+    the index is the caller's to keep.  See :func:`serve_replicated`."""
     dev = resolve_device(device)
-    opt = options or ServeOptions()
-    res = resilience or ResilienceOptions()
+    opt, res = _fold_serve_legacy(options, resilience, legacy)
     n_requests, batch_slots = opt.n_requests, opt.batch_slots
     gen_len, max_len = opt.gen_len, opt.max_len
     prompt_len = max(1, int(opt.prompt_len))
@@ -328,8 +405,13 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
     pcache: Optional[PrefixCache] = None
     if attn.prefix_cache_on(cfg):
         pcache = PrefixCache(alloc)
+    if prefix_index is not None and pcache is None:
+        raise ValueError(
+            "prefix_index needs the local shared-prefix cache on "
+            "(kv.prefix_cache=True, paged layout) — migration lands "
+            "remote pages in the local trie")
     # every counter of the report; one namespace, so the checkpoint
-    # saves and restores them together
+    # saves and restores them together (all but _REPLICA_CTRS)
     ctr = types.SimpleNamespace(
         produced=0, deferred_claims=0, stalled_steps=0, preemptions=0,
         fetch_tiles_plan=0, fetch_tiles_dense=0, plan_bytes=0,
@@ -342,7 +424,8 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
         quarantined_pages=0, trie_nodes_invalidated=0,
         deferred_retries_skipped=0, load_spikes_seen=0, slow_steps_seen=0,
         degraded_steps=0, retire_events=0, pages_reclaimed=0,
-        retired_tokens=0, retire_pass_s=0.0, retire_passes=0)
+        retired_tokens=0, retire_pass_s=0.0, retire_passes=0,
+        **dict.fromkeys(_REPLICA_CTRS, 0))
 
     def _push_tables() -> None:
         # with the cache on the device write-protect reads the refcounts;
@@ -388,7 +471,11 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
     tokens_h = np.zeros((batch_slots, 1), np.int32)
     steps = 0
     step_s: List[float] = []
-    prefill_s: Dict[str, List[float]] = {"hit": [], "miss": []}
+    prefill_s: Dict[str, List[float]] = {"hit": [], "miss": [],
+                                         "migrated": []}
+    # host clocks of the index's work (reported, never checkpointed)
+    replica_s: Dict[str, Any] = {"lookup": [], "migrate": [], "publish": [],
+                                 "publish_bytes": 0}
     noted: set = set()               # requests whose hit/miss is counted
     swapped_recs: Dict[int, Dict[str, Any]] = {}  # request → swap record
     preempt_count: Dict[int, int] = {}
@@ -728,19 +815,61 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
         ctr.restore_wall += time.time() - t_res
         return True
 
-    def _claim_prefill(i: int, r: int, m: int, phys_m: List[int]) -> None:
+    def _migrate(i: int, r: int, mig) -> int:
+        """Copy an index hit's pages into slot ``i``'s fresh pages and
+        register them in the local trie; the slot then continues as a
+        local full-page hit (it owns the pages, the trie holds its
+        reference, so copy-on-write is the ordinary owner case).
+        Returns the migrated rows."""
+        t_mig = time.perf_counter()
+        rows, payload, _ = mig
+        npg = rows // page
+        ok = alloc.ensure(i, rows - 1)
+        assert ok, "admission control reserved these pages"
+        _scatter_pages([int(p) for p in alloc.table[i, :npg]], payload)
+        pcache.register(prompts[r, :rows], alloc.table[i])
+        _push_tables()
+        ctr.cross_replica_hits += 1
+        ctr.migrated_pages += npg
+        ctr.migrated_tokens += rows
+        prefix_index.remote_hits += 1
+        replica_s["migrate"].append(time.perf_counter() - t_mig)
+        return rows
+
+    def _publish(i: int, r: int) -> None:
+        """Publish the prompt's matchable full pages (matchers walk
+        ``tokens[:-1]``); the trie keeps full prompt pages append-frozen,
+        so the host copy taken here stays valid.  Every full page is
+        gathered, and the index then skips the digests it knows."""
+        full = ((prompt_len - 1) // page) * page
+        if not full:
+            return
+        t_pub = time.perf_counter()
+        payload = _gather_pages([int(p) for p in
+                                 alloc.table[i, :full // page]])
+        ctr.index_publishes += prefix_index.publish(
+            replica_id, prompts[r, :full], page, payload)
+        replica_s["publish"].append(time.perf_counter() - t_pub)
+        replica_s["publish_bytes"] += sum(a.nbytes for a in payload.values())
+
+    def _claim_prefill(i: int, r: int, m: int, phys_m: List[int],
+                       mig=None) -> None:
         """Prefill request ``r``'s prompt into slot ``i`` and record its
         first token.  With a cached prefix of ``m`` tokens on pages
         ``phys_m`` the slot maps them, copies a partially matched last
         page before the tail writes into it, and prefills the tail over
-        the gathered prefix; the prompt's pages then enter the trie."""
+        the gathered prefix; the prompt's pages then enter the trie.
+        ``mig``, a cross-replica index hit, replaces the local match: its
+        pages are copied in first (``_migrate``)."""
         t_pf = time.perf_counter()
         if pcache is not None and r not in noted:
             # once per REQUEST: a requeued request's re-claim hits its
             # own registered pages and must not count twice
             noted.add(r)
-            pcache.note(m)
-        if m:
+            pcache.note(mig[0] if mig is not None else m)
+        if mig is not None:
+            m, phys_m = _migrate(i, r, mig), []   # the slot maps them
+        if phys_m:
             alloc.map_shared(i, phys_m)
             if m % page:
                 # the tail's first rows land inside the last matched
@@ -771,11 +900,13 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
             # own first append copies it)
             pcache.register(prompts[r], alloc.table[i])
             _push_tables()
+            if prefix_index is not None:
+                _publish(i, r)
         pos_h[i] = prompt_len
         # the prefill's last-position argmax IS the first generated token
         first = int(torch.argmax(lg0[0]))
-        prefill_s["hit" if m else "miss"].append(
-            time.perf_counter() - t_pf)
+        prefill_s["migrated" if mig is not None else "hit" if m
+                  else "miss"].append(time.perf_counter() - t_pf)
         outputs[r].append(first)
         ctr.produced += 1
         tokens_h[i, 0] = first
@@ -849,7 +980,9 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
                     "qosctl": qosctl, "degrade_log": degrade_log,
                     "retire_log": retire_log,
                     "rng": rng.bit_generator.state,
-                    "t_claim_reqs": list(t_claim), "ctrs": dict(vars(ctr)),
+                    "t_claim_reqs": list(t_claim),
+                    "ctrs": {k: v for k, v in vars(ctr).items()
+                             if k not in _REPLICA_CTRS},
                 }
                 # ONE pickle: alloc.swapped, the trie's allocator and each
                 # swap record's handle keep their shared identity (swap_in
@@ -929,10 +1062,27 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
                 # claim's pool demand (match tokens[:-1] so the tail
                 # prefill always yields last-token logits)
                 m, phys_m = 0, []
+                mig = None
                 if pcache is not None and use_prefill:
                     m, phys_m, _ = pcache.match(prompts[r0, :-1])
+                    if prefix_index is not None:
+                        t_look = time.perf_counter()
+                        hit = prefix_index.lookup(replica_id,
+                                                  prompts[r0, :-1])
+                        replica_s["lookup"].append(
+                            time.perf_counter() - t_look)
+                        # migrate only when another replica's pages beat
+                        # the local trie: re-importing this replica's own
+                        # (evicted) pages is just a re-prefill
+                        if hit is not None and hit[0] > m and hit[2] > 0:
+                            mig = hit
                 if alloc is not None:
                     def _need():
+                        if mig is not None:
+                            # migrated pages are fresh local copies: the
+                            # claim pays for every prompt page (the gain
+                            # is prefill compute, not pool pages)
+                            return alloc.pages_for(prompt_len)
                         return max(alloc.pages_for(prompt_len)
                                    - len(phys_m) + (1 if m % page else 0),
                                    0)
@@ -941,6 +1091,13 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
                             pcache.evict(_need() + reserve)
                             # eviction may have dropped matched pages
                             m, phys_m, _ = pcache.match(prompts[r0, :-1])
+                        if mig is not None and \
+                                not alloc.can_admit(_need() + reserve):
+                            # a migration is optional work: under pool
+                            # pressure fall back to the plain (cheaper)
+                            # admission before deferring
+                            mig = None
+                            ctr.migrations_dropped += 1
                         if not alloc.can_admit(_need() + reserve):
                             _defer(r0)
                             break
@@ -960,7 +1117,7 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
                 t_claim[r] = time.time()
                 dec.reset_slot(cfg, cache, i)
                 if use_prefill:
-                    _claim_prefill(i, r, m, phys_m)
+                    _claim_prefill(i, r, m, phys_m, mig)
                     if len(outputs[r]) >= gen_len or pos_h[i] >= max_len:
                         _finish(i, time.time())       # gen_len=1: done
                 else:
@@ -1171,4 +1328,186 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
         pstats["cow_copies"] = ctr.cow_copies
         pstats["shared_pages_peak"] = alloc.shared_pages_peak
         out["prefix_cache"] = pstats
+    if prefix_index is not None:
+        def _ms(v):
+            return 1e3 * float(np.mean(v)) if v else None
+        out["replica"] = {
+            "replica_id": int(replica_id),
+            "cross_replica_hits": ctr.cross_replica_hits,
+            "cross_replica_hit_rate": ctr.cross_replica_hits
+            / max(len(latency), 1),
+            "migrated_pages": ctr.migrated_pages,
+            "migrated_tokens": ctr.migrated_tokens,
+            "index_pages_published": ctr.index_publishes,
+            "index": prefix_index.stats(),
+            # the port's own: migrations given up under pool pressure,
+            # and host clocks of a claim's index lookup, a
+            # migration's ensure + scatter + register, a publish's
+            # gather + publish (its bytes: every full page gathered)
+            "lookup_ms_mean": _ms(replica_s["lookup"]),
+            "migrate_ms_mean": _ms(replica_s["migrate"]),
+            "publish_ms_mean": _ms(replica_s["publish"]),
+            "publish_bytes": replica_s["publish_bytes"],
+            "migrations_dropped": ctr.migrations_dropped,
+        }
     return out
+
+
+def serve_replicated(arch: str, *, n_replicas: int = 2, smoke: bool = True,
+                     seed: int = 0, cfg=None,
+                     options: Optional[ServeOptions] = None,
+                     resilience: Optional[ResilienceOptions] = None,
+                     model=None, device="cuda") -> Dict[str, Any]:
+    """N-replica serve harness around one :class:`SharedPrefixIndex`.
+
+    Each replica owns its page pool, trie and decode state and serves
+    the same seeded workload (N frontends carrying one popular system
+    prompt); they run one after another in this process — the point is
+    the index protocol, not overlap — and each one's pool and cache are
+    freed before the next starts.  Replica 0 prefills its prefixes cold
+    and publishes them; later replicas migrate those pages instead of
+    prefilling the shared prefix.  Asserts that every replica's outputs
+    are bitwise equal (migration moves pages, never what they hold).
+
+    ``model`` serves one set of weights on every replica (the reference
+    builds each replica's identical weights from ``seed``; a model made
+    by ``params_from_jax`` serves the reference's)."""
+    index = SharedPrefixIndex()
+    opt = options or ServeOptions()
+    dev = resolve_device(device)
+    reports = []
+    for rid in range(int(n_replicas)):
+        reports.append(serve(arch, smoke=smoke, seed=seed, model=model,
+                             cfg=cfg, options=opt, device=dev,
+                             resilience=resilience, prefix_index=index,
+                             replica_id=rid))
+        gc.collect()                   # the replica's pool and cache
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    hits = sum(r["replica"]["cross_replica_hits"] for r in reports)
+    requests = sum(len(r["outputs"]) for r in reports)
+    for a, b in zip(reports, reports[1:]):
+        assert a["outputs"] == b["outputs"], \
+            "replicas serving the same workload must agree bitwise"
+    return {
+        "replicas": reports,
+        "n_replicas": int(n_replicas),
+        "requests": requests,
+        "cross_replica_hits": hits,
+        "cross_replica_hit_rate": hits / max(requests, 1),
+        "migrated_pages": sum(r["replica"]["migrated_pages"]
+                              for r in reports),
+        "migrated_tokens": sum(r["replica"]["migrated_tokens"]
+                               for r in reports),
+        "prefill_tokens_saved": sum(
+            r.get("prefix_cache", {}).get("prefill_tokens_saved", 0)
+            for r in reports),
+        "outputs_equal": True,
+        "index": index.stats(),
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=sorted(ARCHS), default="qwen3-4b")
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=1)
+    ap.add_argument("--paged", action="store_true",
+                    help="serve from the paged KV pool")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="shared-prefix page cache (implies --paged)")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="prompts share their first N tokens")
+    ap.add_argument("--faults-seed", type=int, default=None,
+                    help="inject a seeded FaultPlan schedule "
+                         "(implies --paged)")
+    ap.add_argument("--max-steps-per-request", type=int, default=None,
+                    help="deadline watchdog: retire a slot as timed_out "
+                         "after N held steps")
+    ap.add_argument("--replicas", type=int, default=0,
+                    help="run N serve replicas around one shared prefix "
+                         "index (implies --paged --prefix-cache)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (the CPU only when asked)")
+    args = ap.parse_args(argv)
+    cfg = (SMOKE if args.smoke else ARCHS)[args.arch]
+    if args.replicas:
+        args.paged = args.prefix_cache = True
+    if args.paged or args.prefix_cache or args.faults_seed is not None:
+        from repro_torch.models.config import KVCacheConfig
+        cfg = dataclasses.replace(
+            cfg, kv=KVCacheConfig(layout="paged",
+                                  prefix_cache=args.prefix_cache))
+    faults = None
+    if args.faults_seed is not None:
+        faults = FaultPlan.seeded(args.faults_seed,
+                                  steps=args.requests * args.gen_len,
+                                  slots=args.slots)
+        print(f"[serve] fault schedule (seed {args.faults_seed}):")
+        print(faults.describe())
+    opts = ServeOptions(n_requests=args.requests, batch_slots=args.slots,
+                        gen_len=args.gen_len, prompt_len=args.prompt_len,
+                        shared_prefix_len=args.shared_prefix_len)
+    res = ResilienceOptions(
+        max_steps_per_request=args.max_steps_per_request)
+    if args.replicas:
+        rep = serve_replicated(args.arch, n_replicas=args.replicas,
+                               smoke=args.smoke, cfg=cfg, options=opts,
+                               resilience=res, device=args.device)
+        print(f"[serve] {rep['n_replicas']} replicas, "
+              f"{rep['requests']} requests: cross-replica hit rate "
+              f"{rep['cross_replica_hit_rate']:.2f} "
+              f"({rep['cross_replica_hits']} migrations, "
+              f"{rep['migrated_pages']} pages / "
+              f"{rep['migrated_tokens']} tokens migrated), prefill "
+              f"tokens saved {rep['prefill_tokens_saved']}, "
+              f"outputs_equal={rep['outputs_equal']}")
+        return
+    out = serve(args.arch, smoke=args.smoke, cfg=cfg, options=opts,
+                faults=faults, resilience=res, device=args.device)
+    print(f"[serve] generated {out['tokens_generated']} tokens over "
+          f"{len(out['outputs'])} requests "
+          f"({out['tok_per_s']:.1f} tok/s on {out['device']}, "
+          f"mean request latency {out['latency_mean_s'] * 1e3:.1f} ms)")
+    if "decode_fetch" in out:
+        f = out["decode_fetch"]
+        print(f"[serve] SATA decode attention-kernel KV fetch: "
+              f"{f['kv_fetch_bytes_plan']} B vs "
+              f"{f['kv_fetch_bytes_dense']} B dense "
+              f"({f['fetch_reduction']:.2f}x kernel-side); with plan "
+              f"traffic ({f['plan_fetch_bytes']} B, "
+              f"{f['replans']:.0f} re-plans): {f['true_reduction']:.2f}x "
+              f"end-to-end")
+    if "page_occupancy" in out:
+        o = out["page_occupancy"]
+        print(f"[serve] paged pool: {o['pages_in_use_peak']}/{o['n_pages']}"
+              f" pages peak, HBM used {o['hbm_used_peak_bytes']} B of "
+              f"{o['hbm_reserved_bytes']} B reserved "
+              f"({o['reserved_vs_contiguous']:.2f}x less reserved than "
+              f"contiguous would need; {o['deferred_claims']} deferred "
+              f"claims, {o['stalled_steps']} stalled steps)")
+        if o["preemptions"] or o["crashes"]:
+            print(f"[serve] fault tolerance: {o['host_swaps']} host-swaps "
+                  f"({o['tokens_salvaged']} tokens salvaged, "
+                  f"{o['swap_restores']} restores, re_prefill_tokens="
+                  f"{o['re_prefill_tokens']}, cold_replans="
+                  f"{o['swap_cold_replans']}), "
+                  f"{o['requeue_preemptions']} requeues "
+                  f"({o['requeue_tokens_discarded']} tokens discarded), "
+                  f"{o['crashes']} crashes recovered, "
+                  f"{o['audits_run']} invariant audits")
+    if "prefix_cache" in out:
+        p = out["prefix_cache"]
+        print(f"[serve] prefix cache: hit-rate {p['hit_rate']:.2f} "
+              f"({p['hits']}/{p['requests']}), prefill tokens saved "
+              f"{p['prefill_tokens_saved']}/{p['prefill_tokens_total']}, "
+              f"{p['cow_copies']} CoW copies, {p['cached_pages']} cached "
+              f"pages ({p['evictions']} evicted), shared-page peak "
+              f"{p['shared_pages_peak']}")
+
+
+if __name__ == "__main__":
+    main()

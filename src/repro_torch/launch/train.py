@@ -11,7 +11,7 @@ loop on one device.
 
 The loop runs eagerly on ``device`` (default ``"cuda"``; the CPU only
 when asked).  Mesh and sharding set-up and elastic restore wait for
-slice 5 of the port.
+queue A item 4 of the port (``torch.distributed``).
 
 Usage (one GPU, reduced arch):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
@@ -68,8 +68,8 @@ def train(arch: str, smoke: bool = True, steps: int = 20,
     the ``final_state`` and the straggler count."""
     if mesh is not None:
         raise NotImplementedError(
-            "train(mesh=...): mesh and sharding set-up are slice 5 of the "
-            "PyTorch port")
+            "train(mesh=...): mesh and sharding set-up are queue A item 4 "
+            "of the PyTorch port")
     cfg = cfg or (SMOKE if smoke else ARCHS)[arch]
     dev = resolve_device(device)
     opt = OptConfig(warmup_steps=max(2, steps // 10), decay_steps=steps,

@@ -1,12 +1,16 @@
 """Model configuration — the port's own copy of ``repro.models.config``
 (nested frozen dataclasses, so ``cfg.sata.decode.block`` reads the same
-on both sides).  The legacy flat-kwarg shim of the reference is not
-carried over: the port only speaks the nested spelling.
+on both sides).  The reference's legacy flat spellings come along as
+its deprecation shims: ``ModelConfig(..., sata_block=64)`` and
+``dataclasses.replace(cfg, sata_decode="on")`` fold into the nested
+groups (flat values win), and ``cfg.sata_block`` reads
+``cfg.sata.kernel.block``; each flat name warns once per process.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+import warnings
+from typing import Optional, Tuple, Union
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +91,78 @@ class KVCacheConfig:
                 f"sata.decode.block={decode_block}")
 
 
+# flat legacy spelling -> (top-level field, *nested path)
+_FLAT_MAP = {
+    "sata_s_f": ("sata", "kernel", "s_f"),
+    "use_sata_kernel": ("sata", "kernel", "use"),
+    "sata_block": ("sata", "kernel", "block"),
+    "sata_schedule": ("sata", "kernel", "schedule"),
+    "sata_selection": ("sata", "kernel", "selection"),
+    "sata_max_kv_blocks": ("sata", "kernel", "max_kv_blocks"),
+    "sata_bound_fallback": ("sata", "kernel", "bound_fallback"),
+    "sata_decode": ("sata", "decode", "mode"),
+    "sata_decode_block": ("sata", "decode", "block"),
+    "sata_decode_blocks": ("sata", "decode", "blocks"),
+    "sata_decode_replan": ("sata", "decode", "replan"),
+    "sata_decode_churn": ("sata", "decode", "churn"),
+    "sata_summary": ("sata", "decode", "summary"),
+    "sata_replan_mode": ("sata", "decode", "replan_mode"),
+    "sata_sketch_factor": ("sata", "decode", "sketch_factor"),
+    "sata_qos_ladder": ("sata", "qos", "ladder"),
+    "sata_qos_clear_steps": ("sata", "qos", "clear_steps"),
+    "sata_retire": ("sata", "retire", "mode"),
+    "sata_retire_decay": ("sata", "retire", "decay"),
+    "sata_retire_watermark": ("sata", "retire", "watermark"),
+    "sata_retire_keep": ("sata", "retire", "keep"),
+    "kv_cache_layout": ("kv", "layout"),
+    "kv_page_size": ("kv", "page_size"),
+    "kv_pool_pages": ("kv", "pool_pages"),
+    "kv_prefix_cache": ("kv", "prefix_cache"),
+    "kv_lazy_cow": ("kv", "lazy_cow"),
+}
+
+# flat names already warned about: one DeprecationWarning per flat name
+# per process, construction and attribute reads alike
+_warned_flat: set = set()
+
+
+def _warn_flat(name: str, how: str) -> None:
+    if name in _warned_flat:
+        return
+    _warned_flat.add(name)
+    path = ".".join(_FLAT_MAP[name])
+    warnings.warn(
+        f"flat config knob '{name}' ({how}) is deprecated; use the "
+        f"nested 'cfg.{path}' (construction accepts "
+        f"'{path.split('.')[0]}=...' groups)",
+        DeprecationWarning, stacklevel=3)
+
+
+def _fold_flat(kw: dict) -> dict:
+    """Fold the flat kwargs in ``kw`` into the nested ``sata`` / ``kv``
+    groups; a flat value wins over its group's (that is what
+    ``dataclasses.replace(cfg, sata_decode="on")`` means)."""
+    flat = {k: kw.pop(k) for k in list(kw) if k in _FLAT_MAP}
+    if not flat:
+        return kw
+    for name in flat:
+        _warn_flat(name, "constructor kwarg")
+    groups = {"sata": kw.get("sata", SataConfig()),
+              "kv": kw.get("kv", KVCacheConfig())}
+    for name, val in flat.items():
+        top, *inner = _FLAT_MAP[name]
+        node = groups[top]
+        if len(inner) == 2:                   # sata.<group>.<field>
+            sub = dataclasses.replace(getattr(node, inner[0]),
+                                      **{inner[1]: val})
+            node = dataclasses.replace(node, **{inner[0]: sub})
+        else:                                 # kv.<field>
+            node = dataclasses.replace(node, **{inner[0]: val})
+        groups[top] = node
+    kw.update(groups)
+    return kw
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
@@ -160,3 +236,35 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+
+# the flat-kwarg constructor shim: ``dataclasses.replace`` hands unknown
+# keys straight to ``cls(**merged)``, so wrapping ``__init__`` folds both
+# ``ModelConfig(..., sata_block=64)`` and
+# ``dataclasses.replace(cfg, sata_decode="on")``
+_generated_init = ModelConfig.__init__
+
+
+def _compat_init(self, *args, **kw):
+    _generated_init(self, *args, **_fold_flat(kw))
+
+
+_compat_init.__wrapped__ = _generated_init
+ModelConfig.__init__ = _compat_init
+
+
+def _make_flat_property(flat_name: str, path: Tuple[str, ...]):
+    def _get(self):
+        _warn_flat(flat_name, "attribute read")
+        node = self
+        for p in path:
+            node = getattr(node, p)
+        return node
+    _get.__name__ = flat_name
+    _get.__doc__ = f"Deprecated flat alias for ``cfg.{'.'.join(path)}``."
+    return property(_get)
+
+
+for _name, _path in _FLAT_MAP.items():
+    setattr(ModelConfig, _name, _make_flat_property(_name, _path))
+del _name, _path

@@ -36,7 +36,9 @@ def test_import_loads_no_jax_and_no_reference_package():
               "repro_torch.launch.roofline"):
         assert m in mods, m
     assert [p.name for p in EXAMPLES] == ["quickstart_torch.py",
-                                          "schedule_demo_torch.py"]
+                                          "schedule_demo_torch.py",
+                                          "serve_topk_torch.py",
+                                          "train_lm_torch.py"]
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}:\n"
@@ -71,14 +73,14 @@ def test_source_scan_finds_no_jax_or_reference_import():
 
 
 @pytest.mark.parametrize("entry", ["serve", "init_cache", "model", "train",
-                                   "init_train_state"])
+                                   "init_train_state", "serve_replicated"])
 def test_entry_points_default_to_cuda_and_never_fall_back(entry):
     """On a machine without a GPU, a call that does not ask for the CPU
     raises instead of running there."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU: the default device is valid")
     from repro_torch.configs.archs import SMOKE
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve import serve, serve_replicated
     from repro_torch.models.decode import init_cache
     from repro_torch.launch.train import train
     from repro_torch.models.model import DenseModel
@@ -90,6 +92,8 @@ def test_entry_points_default_to_cuda_and_never_fall_back(entry):
             "model": lambda: DenseModel(cfg),
             "train": lambda: train("qwen3-4b", steps=1, batch=1, seq=8),
             "init_train_state": lambda: init_train_state(cfg, OptConfig()),
+            "serve_replicated": lambda: serve_replicated("qwen3-4b",
+                                                         cfg=cfg),
             }[entry]
     with pytest.raises(RuntimeError, match="cuda"):
         call()

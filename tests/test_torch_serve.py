@@ -196,12 +196,17 @@ def test_default_preemption_is_host_swap(weights, reference_runs):
 
 
 def test_serve_rejects_unported_options():
-    """Every option of the dense main path runs, the QoS ladder and
-    retirement included; only the cross-replica prefix index (slice 5)
-    still raises, naming its slice."""
-    _, tc = _cfgs()
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tsv.serve("qwen3-4b", cfg=tc, device="cpu", prefix_index=object())
+    """Every option of the dense main path runs, the cross-replica prefix
+    index included; what the reference refuses the port refuses with
+    the same exception: an index without the local prefix cache (the
+    migration lands pages in the local trie)."""
+    jc, tc = _cfgs("paged")
+    with pytest.raises(ValueError, match="prefix_index needs the local"):
+        jsv.serve("qwen3-4b", cfg=jc,
+                  prefix_index=jsv.SharedPrefixIndex())
+    with pytest.raises(ValueError, match="prefix_index needs the local"):
+        tsv.serve("qwen3-4b", cfg=tc, device="cpu",
+                  prefix_index=tsv.SharedPrefixIndex())
 
 
 def _with(cfg, mode, sata_on, replan):
