@@ -15,8 +15,10 @@ decode kernel at D = 64) through their cross-attention, serves
 full-width zamba2-2.7b (the Mamba2 backbone, the decode kernel at D =
 80 in its shared block) and rwkv6-1.6b (no attention), runs the paper's
 SATA scheduler and CIM estimation plane on its four workloads and the
-quickstart's kernel step at a layer's width, and times every kernel at
-its main path's shape and the prefill kernel against its roofline.
+quickstart's kernel step at a layer's width, times every kernel at
+its main path's shape and the prefill kernel against its roofline, and
+runs the scale-out wrappers (tensor-parallel decode through the decode
+kernel, sequence-sharded selection) on two ranks sharing the card.
 
     python3 chip_smoke.py            # needs one CUDA GPU (an H100 here)
     python3 chip_smoke.py --mutants  # phases 2 and 6 (and 8 for the
@@ -209,7 +211,23 @@ each prints its host seconds as a ``[phase]`` line):
      block skip sorted vs unsorted, ``sata_block_plan``'s host ms; (c)
      ``launch.roofline.analyse_kernel`` at occupancy 0.25 / 0.5 / 0.75
      (into ``build/roofline``) and B4 / B3 in block mode on the same
-     maps, timed as in phase 5, beside the modeled speedup.
+     maps, timed as in phase 5, beside the modeled speedup;
+ 24. ``launch.mesh`` on MESH_RANKS (2) gloo ranks spawned on the one card
+     (NCCL refuses two ranks of one communicator on one GPU), the
+     kernels built in phase 1: (a) MESH_STEPS (3) carried
+     ``tensor_parallel_decode_step``s at qwen3-4b's decode shape (B8 KV8
+     G4 D128, max_len 4096, page 64, top-k 64, bf16), paged then
+     contiguous: every step's output and plan leaves bitwise equal to the
+     one-rank mesh's and to the plain single-device step's (whose kernel
+     output is held to its plain version within phase 2's limits), paged
+     == contiguous, each layout's kernel launched ranks x steps times (the
+     counts read in each rank, summed), the other never; (b)
+     ``sequence_sharded_attention`` at a qwen3-4b layer (BH 32, S 4096, D
+     128, blocks 128, causal, k_sel 64, fp32): out, thresholds and block
+     map bitwise equal to ``sequence_local_attention``'s, the per-shard
+     fetches summing to the local count, every shard > 0; per-step ms a
+     rank, the cache MB a rank copies a step, the attention's ms,
+     host-staged MB and peak memory a rank.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the ``kernels`` JSON, and the card's name and power limit are
@@ -3483,6 +3501,310 @@ def replica_phase(torch, sd, cfg, opts, dev, tag):
     return sum(n for n, _ in launches)
 
 
+# ---------------------------------------------------------------------------
+# 24. scale-out on torch.distributed: two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2
+MESH_STEPS = 3           # carried decode steps a layout
+# qwen3-4b's decode shape (phase 2's main case) and one layer's prefill
+# attention (its 32 heads, S 4096, blocks 128, top-k 64, fp32)
+MESH_DECODE = dict(b=8, kv=8, g=4, d=128, s=4096, page=64, topk=64)
+MESH_SEQ = dict(bh=32, s=4096, d=128, block=128, k_sel=64)
+
+
+def mesh_decode_inputs(torch, dev, shape, seed=24):
+    """The bf16 cache (a CUDA generator's draws, so the parent and every
+    rank make the same), a shuffled page table and its pool, each row's
+    start position spread over the cache as in phase 2, the plan's
+    summaries over the keys before it, and MESH_STEPS steps' queries.
+    Step i appends the cache's key at start + i."""
+    from repro_torch.core.decode_plan import (init_decode_plan,
+                                              summaries_from_cache)
+    b, kv, g, d, s, page = (shape[n] for n in ("b", "kv", "g", "d", "s",
+                                               "page"))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(*size):
+        return torch.randn(size, generator=gen, device=dev).to(torch.bfloat16)
+
+    k, v = draw(b, s, kv, d), draw(b, s, kv, d)
+    qs = [draw(b, kv, g, d) for _ in range(MESH_STEPS)]
+    rng = np.random.default_rng(seed)
+    pos0 = torch.tensor(rng.integers(1, s - MESH_STEPS, b), dtype=torch.int32,
+                        device=dev)
+    nkb = s // page
+    table = torch.tensor(rng.permutation(np.arange(1, b * nkb + 1)).reshape(
+        b, nkb), dtype=torch.int32, device=dev)
+    kp = k.new_zeros((b * nkb + 1, page, kv, d))
+    vp = torch.zeros_like(kp)
+    kp[table.long()] = k.reshape(b, nkb, page, kv, d)
+    vp[table.long()] = v.reshape(b, nkb, page, kv, d)
+    plan = init_decode_plan(b, kv, s, d, page, device=dev)
+    lo, hi = summaries_from_cache(k, pos0 - 1, k_block=page)
+    plan["k_min"].copy_(lo)
+    plan["k_max"].copy_(hi)
+    return dict(k=k, v=v, kp=kp, vp=vp, table=table, qs=qs, pos0=pos0,
+                plan=plan, page=page, topk=shape["topk"])
+
+
+def mesh_decode_run(torch, step, c, layout):
+    """MESH_STEPS carried steps of ``step(qg, k, v, k_new, pos, plan,
+    table)`` in ``layout``; returns each step's (out, plan) on the host
+    and its ms (CUDA events on the card, the host clock on the CPU)."""
+    paged = layout == "paged"
+    k, v = (c["kp"], c["vp"]) if paged else (c["k"], c["v"])
+    table = c["table"] if paged else None
+    rows = torch.arange(c["k"].shape[0], device=c["k"].device)
+    plan, outs, ms = c["plan"], [], []
+    for i, qg in enumerate(c["qs"]):
+        pos = c["pos0"] + i
+        k_new = c["k"][rows, pos.long()][:, None]
+        t = span(torch, k.device)
+        out, plan = step(qg, k, v, k_new, pos, plan, table)
+        ms.append(t())
+        outs.append((out.cpu(), {n: x.cpu() for n, x in plan.items()}))
+    return outs, ms
+
+
+def span(torch, dev):
+    """Start a timer; calling the result gives the ms since: CUDA events
+    on a CUDA device, the host clock on the CPU."""
+    if dev.type != "cuda":
+        t = time.perf_counter()
+        return lambda: 1e3 * (time.perf_counter() - t)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+
+    def stop():
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+    return stop
+
+
+def mesh_seq_inputs(torch, dev, shape, seed=25):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((shape["bh"], shape["s"], shape["d"]), generator=gen,
+                        device=dev) for _ in range(3)]
+
+
+def mesh_rank(rank, world, tmp, device, dshape, sshape):
+    """One rank of phase 24, started by ``mesh_phase`` (spawn): joins the
+    gloo world through a FileStore in ``tmp``, runs the tensor-parallel
+    decode steps in both layouts (the kernels' counts set to 0 just
+    before each and read just after) and the sequence-sharded attention
+    twice (the second timed), and saves everything to
+    ``tmp/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import sata_decode as sd
+    from repro_torch.launch import mesh as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world)
+    try:
+        dev = torch.device(device)
+        mesh = M.make_shard_mesh(world, device=dev)
+        c = mesh_decode_inputs(torch, dev, dshape)
+
+        def tp(qg, k, v, k_new, pos, plan, table):
+            return M.tensor_parallel_decode_step(
+                mesh, qg, k, v, k_new, pos, plan, topk_k=c["topk"],
+                k_block=c["page"], page_table=table)
+
+        res = {}
+        for layout in ("paged", "contiguous"):
+            sd.sata_decode_attention_paged_kernel.launches = 0
+            sd.sata_decode_attention_kernel.launches = 0
+            res[layout] = mesh_decode_run(torch, tp, c, layout)
+            res[f"{layout} launches"] = (
+                sd.sata_decode_attention_paged_kernel.launches,
+                sd.sata_decode_attention_kernel.launches)
+            # the step's copy of the rank's KV / n heads of K and V
+            cache = c["kp"] if layout == "paged" else c["k"]
+            res[f"{layout} copied"] = 2 * cache.nbytes // world
+        res["decode staged"] = mesh.host_staged_bytes
+        del c
+        q, k, v = mesh_seq_inputs(torch, dev, sshape)
+        blk = sshape["block"]
+        kw = dict(k_sel=sshape["k_sel"], q_block=blk, k_block=blk)
+        first = M.sequence_sharded_attention(mesh, q, k, v, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        staged = mesh.host_staged_bytes
+        t = span(torch, dev)
+        out, stats = M.sequence_sharded_attention(mesh, q, k, v, **kw)
+        res["seq ms"] = t()
+        res["seq staged"] = mesh.host_staged_bytes - staged
+        res["seq peak"] = torch.cuda.max_memory_allocated(dev) \
+            if dev.type == "cuda" else 0
+        res["seq repeat"] = torch.equal(first[0], out)
+        res["seq"] = (out.cpu(), {n: x.cpu() for n, x in stats.items()})
+        torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_plain_step(torch, c, sd):
+    """The plain single-device step (phase 2's kind: summaries, exact
+    re-plan, the decode kernel on every head at once) on a copy of the
+    plan; the kernel's output is also held to its plain version on the
+    same plan within phase 2's limits."""
+    from repro_torch.core.decode_plan import (decode_plan_update,
+                                              update_block_summaries)
+    from repro_torch.kernels.ops import sata_decode_attention
+    errs = []
+
+    def step(qg, k, v, k_new, pos, plan, table):
+        plan = {n: x.clone() for n, x in plan.items()}
+        update_block_summaries(plan, k_new, pos, k_block=c["page"])
+        plan, thr = decode_plan_update(plan, qg, k, pos, topk_k=c["topk"],
+                                       k_block=c["page"], page_table=table)
+        args = (qg, k, v, plan["kv_indices"], plan["kv_counts"], thr, pos)
+        out = sata_decode_attention(*args, k_block=c["page"],
+                                    page_table=table)
+        want = sd.sata_decode_attention_ref(*args, k_block=c["page"],
+                                            page_table=table)
+        e = float((out.float() - want.float()).abs().max())
+        off = float((out != want).float().mean())
+        assert e <= TOL["bfloat16"] and off <= BF16_MISMATCH_MAX, (e, off)
+        errs.append(e)
+        return out, plan
+    return step, errs
+
+
+def mesh_equal(a, b, what):
+    """Bitwise equality of a step list [(out, plan), ...] or of a
+    sequence result (out, stats)."""
+    if isinstance(a, dict):
+        assert set(a) == set(b), (what, sorted(a), sorted(b))
+        for n in a:
+            mesh_equal(a[n], b[n], f"{what} {n}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), what
+        for i, (x, y) in enumerate(zip(a, b)):
+            mesh_equal(x, y, f"{what}[{i}]")
+    else:
+        assert a.dtype == b.dtype and a.shape == b.shape and \
+            bool((a == b).all()), f"{what}: not bitwise equal"
+
+
+def mesh_phase(torch, sd, dev, tag, dshape=MESH_DECODE, sshape=MESH_SEQ):
+    """Phase 24: ``launch.mesh`` on two gloo ranks sharing the card (NCCL
+    refuses two ranks of one communicator on one GPU), each with its own
+    CUDA context on the same device, the kernels already built (phase
+    1).  The parent first runs the one-rank references and frees them:
+    (a) MESH_STEPS carried ``tensor_parallel_decode_step``s on
+    ``make_local_mesh()`` and the plain single-device step, both
+    layouts; (b) ``sequence_local_attention``.  The ranks then run the
+    same work sharded: each rank's decode outputs and plan leaves equal
+    the one-rank mesh's and the plain step's bitwise, paged equals
+    contiguous bitwise, each layout's kernel launched exactly ranks x
+    steps times (summed over the ranks), the other never; the sharded
+    attention's out, thresholds and block map equal the local run's
+    bitwise, its per-shard fetches partition the local count, every
+    shard > 0.  Prints per-step ms per rank (CUDA events), the
+    attention's ms, host-staged MB and peak memory per rank.  Returns
+    the launches of the paged and the contiguous kernel."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from repro_torch.launch import mesh as M
+    t0 = time.time()
+    c = mesh_decode_inputs(torch, dev, dshape)
+    local = M.make_local_mesh(device=dev)
+
+    def tp(qg, k, v, k_new, pos, plan, table):
+        return M.tensor_parallel_decode_step(
+            local, qg, k, v, k_new, pos, plan, topk_k=c["topk"],
+            k_block=c["page"], page_table=table)
+
+    plain, errs = mesh_plain_step(torch, c, sd)
+    ref = {}
+    for layout in ("paged", "contiguous"):
+        ref[layout], ms1 = mesh_decode_run(torch, tp, c, layout)
+        steps, _ = mesh_decode_run(torch, plain, c, layout)
+        mesh_equal(ref[layout], steps, f"{layout}: one-rank mesh vs the "
+                   f"plain step")
+        log(f"[mesh] one-rank tensor_parallel_decode_step ({layout}, "
+            f"B{dshape['b']} KV{dshape['kv']} G{dshape['g']} "
+            f"D{dshape['d']} page {dshape['page']} bf16): "
+            f"{', '.join(f'{x:.3f}' for x in ms1)} ms a step (CUDA "
+            f"events); == the plain step bitwise; kernel vs plain version "
+            f"max_abs_err {max(errs):.3e} {tag}")
+    mesh_equal(ref["paged"], ref["contiguous"], "paged vs contiguous")
+    del c
+    q, k, v = mesh_seq_inputs(torch, dev, sshape)
+    blk = sshape["block"]
+    kw = dict(k_sel=sshape["k_sel"], q_block=blk, k_block=blk)
+    first, _ = M.sequence_local_attention(q, k, v, **kw)
+    t = span(torch, dev)
+    lout, lstats = M.sequence_local_attention(q, k, v, **kw)
+    local_ms = t()
+    assert torch.equal(first, lout), "two local calls differ"
+    lseq = (lout.cpu(), {n: x.cpu() for n, x in lstats.items()})
+    del q, k, v, first, lout, lstats
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t_ref = time.time() - t0
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(mesh_rank, args=(MESH_RANKS, tmp, str(dev),
+                                            dshape, sshape),
+                           nprocs=MESH_RANKS, start_method="spawn")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(MESH_RANKS)]
+    t_ranks = time.time() - t0
+    n = {"paged": 0, "contiguous": 0}
+    for r, res in enumerate(ranks):
+        for layout in ("paged", "contiguous"):
+            outs, ms = res[layout]
+            mesh_equal(outs, ref[layout], f"rank {r} {layout}")
+            paged_n, contig_n = res[f"{layout} launches"]
+            n["paged"] += paged_n
+            n["contiguous"] += contig_n
+            want = (MESH_STEPS, 0) if layout == "paged" else (0, MESH_STEPS)
+            assert (paged_n, contig_n) == want, \
+                (r, layout, paged_n, contig_n)
+            log(f"[mesh] rank {r}/{MESH_RANKS} tensor_parallel_decode_step "
+                f"({layout}, {dshape['kv'] // MESH_RANKS} of "
+                f"{dshape['kv']} KV heads): "
+                f"{', '.join(f'{x:.3f}' for x in ms)} ms a step (CUDA "
+                f"events, both ranks on the card at once); == the one-rank "
+                f"mesh and the plain step bitwise; kernel launches "
+                f"{paged_n} paged / {contig_n} contiguous; the rank's "
+                f"heads of the cache copied a step "
+                f"{res[f'{layout} copied'] / 1e6:.1f} MB {tag}")
+        out, stats = res["seq"]
+        assert res["seq repeat"], f"rank {r}: two sharded calls differ"
+        mesh_equal(out, lseq[0], f"rank {r} sequence-sharded out")
+        for name in ("thresholds", "block_map", "kv_counts"):
+            mesh_equal(stats[name], lseq[1][name], f"rank {r} {name}")
+        per = stats["fetched_tiles_per_shard"]
+        assert int(per.sum()) == int(lseq[1]["fetched_tiles"]) and \
+            bool((per > 0).all()), (per, lseq[1]["fetched_tiles"])
+        log(f"[mesh] rank {r}/{MESH_RANKS} sequence_sharded_attention "
+            f"(BH {sshape['bh']}, S {sshape['s']}, D {sshape['d']}, "
+            f"blocks {blk}, causal, k_sel {sshape['k_sel']}, fp32): "
+            f"{res['seq ms']:.2f} ms (CUDA events, second call) against "
+            f"the one-rank sequence_local_attention's {local_ms:.2f} ms; "
+            f"host-staged {res['seq staged'] / 1e6:.1f} MB "
+            f"(decode: {res['decode staged'] / 1e6:.1f} MB over "
+            f"{2 * MESH_STEPS} steps); peak memory "
+            f"{res['seq peak'] / 2 ** 30:.2f} GiB; tiles fetched per shard "
+            f"{per.tolist()} of {int(lseq[1]['fetched_tiles'])}; == the "
+            f"local run bitwise {tag}")
+    assert n == {"paged": MESH_RANKS * MESH_STEPS,
+                 "contiguous": MESH_RANKS * MESH_STEPS}, n
+    log(f"[mesh] one-rank references {t_ref:.1f} s; spawn + {MESH_RANKS} "
+        f"ranks {t_ranks:.1f} s {tag}")
+    return n["paged"], n["contiguous"]
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4096,6 +4418,13 @@ def main() -> int:
                                                  n_layers=REPLICA_LAYERS)),
         opts, dev, tag)
     clock.done("23 cross-replica prefix index")
+
+    # --- 24. tensor-parallel decode and sequence-sharded selection on two
+    # gloo ranks sharing the card
+    n_b1, n_b2 = mesh_phase(torch, sd, dev, tag)
+    kernels[0]["paths"]["24 tensor-parallel decode"] = n_b1
+    kernels[1]["paths"]["24 tensor-parallel decode"] = n_b2
+    clock.done("24 scale-out on two ranks")
     clock.total()
     log(card)
     log(json.dumps({"kernels": kernels}))

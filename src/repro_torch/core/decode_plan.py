@@ -397,8 +397,12 @@ def full_replan(q: torch.Tensor, k_cache: torch.Tensor, pos: torch.Tensor,
     b, s, kv, d = k_cache.shape
     nkb = s // k_block
     sm_scale = 1.0 / np.sqrt(d)
-    keys = k_cache.permute(0, 2, 1, 3).to(
-        torch.float32, memory_format=torch.contiguous_format)
+    # a fresh contiguous fp32 copy whatever the cache's dtype (``.to``
+    # returns an fp32 cache's strided view as it is, and the CPU's BLAS
+    # sums a strided operand in another order)
+    keys = torch.empty((b, kv, s, d), dtype=torch.float32,
+                       device=k_cache.device)
+    keys.copy_(k_cache.permute(0, 2, 1, 3))
     sc = _scores(q, keys, sm_scale)                           # (B,KV,G,S)
     valid = (torch.arange(s, device=sc.device)
              <= pos[:, None])[:, None, None, :]               # (B,1,1,S)

@@ -299,9 +299,11 @@ def serve(arch: str, smoke: bool = True, *, seed: int = 0, model=None,
           device="cuda", faults: Optional[FaultPlan] = None,
           resilience: Optional[ResilienceOptions] = None,
           prefix_index: Optional[SharedPrefixIndex] = None,
-          replica_id: int = 0, **legacy) -> Dict[str, Any]:
+          replica_id: int = 0, mesh=None, **legacy) -> Dict[str, Any]:
     """Serve ``options.n_requests`` requests through ``batch_slots``
-    decode slots on ``device``.  ``model`` defaults to the family's
+    decode slots on ``device``.  ``mesh`` (a ``launch.mesh.ShardMesh``)
+    is accepted and, as in the reference, only bound: serving is the
+    same with it or without it.  ``model`` defaults to the family's
     ``Model`` with random weights from ``seed``; prompts come from
     ``numpy.random.default_rng(seed)`` as in the reference, so a model
     built with ``params_from_jax`` serves the reference's exact

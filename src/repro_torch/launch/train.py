@@ -65,11 +65,14 @@ def train(arch: str, smoke: bool = True, steps: int = 20,
     ``model`` overrides the ``Model`` built from ``seed`` (its
     parameters are trained in place).  Returns per-step ``losses``,
     ``gnorms`` and ``step_s`` (host seconds per step, synchronized),
-    the ``final_state`` and the straggler count."""
-    if mesh is not None:
+    the ``final_state`` and the straggler count.  ``mesh`` may be a
+    one-rank mesh (``launch.mesh.make_local_mesh()``, the reference's
+    default); a larger one raises."""
+    if mesh is not None and mesh.size > 1:
         raise NotImplementedError(
-            "train(mesh=...): mesh and sharding set-up are queue A item 4 "
-            "of the PyTorch port")
+            f"train(mesh=...) over {mesh.size} ranks: the FSDP/TP "
+            f"placements are ROADMAP queue A item 4b of the PyTorch port "
+            f"(a one-rank mesh, make_local_mesh(), trains as mesh=None)")
     cfg = cfg or (SMOKE if smoke else ARCHS)[arch]
     dev = resolve_device(device)
     opt = OptConfig(warmup_steps=max(2, steps // 10), decay_steps=steps,

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 import jax  # noqa: E402
 
 from repro.configs.archs import SMOKE as JSMOKE  # noqa: E402
@@ -335,7 +336,8 @@ def test_cli_replicas_prints_the_reference_counts(monkeypatch, capsys):
 
 
 def _run(args, timeout):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one intra-op thread in the child too (tests/torch_threads.py)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, "-W", "error::DeprecationWarning"]
                           + args, cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=timeout)

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

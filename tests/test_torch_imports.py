@@ -10,6 +10,7 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
@@ -33,7 +34,7 @@ def test_import_loads_no_jax_and_no_reference_package():
               "repro_torch.core.scheduling", "repro_torch.core.tiling",
               "repro_torch.core.simulator", "repro_torch.core.sata",
               "repro_torch.configs.workloads",
-              "repro_torch.launch.roofline"):
+              "repro_torch.launch.roofline", "repro_torch.launch.mesh"):
         assert m in mods, m
     assert [p.name for p in EXAMPLES] == ["quickstart_torch.py",
                                           "schedule_demo_torch.py",
@@ -67,13 +68,15 @@ def test_source_scan_finds_no_jax_or_reference_import():
     pat = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)[.\s])",
                      re.M)
     files = list(PORT.rglob("*.py")) + EXAMPLES
+    assert PORT / "launch" / "mesh.py" in files
     hits = [f"{p}: {m.group(0).strip()}" for p in files
             for m in pat.finditer(p.read_text())]
     assert not hits, hits
 
 
 @pytest.mark.parametrize("entry", ["serve", "init_cache", "model", "train",
-                                   "init_train_state", "serve_replicated"])
+                                   "init_train_state", "serve_replicated",
+                                   "make_local_mesh", "make_shard_mesh"])
 def test_entry_points_default_to_cuda_and_never_fall_back(entry):
     """On a machine without a GPU, a call that does not ask for the CPU
     raises instead of running there."""
@@ -82,6 +85,7 @@ def test_entry_points_default_to_cuda_and_never_fall_back(entry):
     from repro_torch.configs.archs import SMOKE
     from repro_torch.launch.serve import serve, serve_replicated
     from repro_torch.models.decode import init_cache
+    from repro_torch.launch.mesh import make_local_mesh, make_shard_mesh
     from repro_torch.launch.train import train
     from repro_torch.models.model import DenseModel
     from repro_torch.optim.adamw import OptConfig
@@ -94,6 +98,8 @@ def test_entry_points_default_to_cuda_and_never_fall_back(entry):
             "init_train_state": lambda: init_train_state(cfg, OptConfig()),
             "serve_replicated": lambda: serve_replicated("qwen3-4b",
                                                          cfg=cfg),
+            "make_local_mesh": make_local_mesh,
+            "make_shard_mesh": lambda: make_shard_mesh(1),
             }[entry]
     with pytest.raises(RuntimeError, match="cuda"):
         call()

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import blockmap as jbm  # noqa: E402

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 import jax.numpy as jnp  # noqa: E402
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent))

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 import jax  # noqa: E402
 
 from repro.configs.archs import SMOKE as JSMOKE  # noqa: E402

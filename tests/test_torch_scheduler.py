@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 from benchmarks.common import workload_reports  # noqa: E402
 from repro.configs.workloads import WORKLOADS as JW  # noqa: E402

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -243,3 +244,47 @@ def test_moe_host_swap_and_crash_restore_match_reference():
     assert occ["host_swaps"] > 0 and occ["crashes"] == 1
     for k in ("kv_fetch_tiles_plan", "kv_fetch_tiles_dense", "replans"):
         assert got["decode_fetch"][k] == want["decode_fetch"][k], k
+
+
+def test_a_bisection_midpoint_lies_within_a_summation_order_of_a_bf16_edge(
+        monkeypatch):
+    """Why the fault run above needs one intra-op thread (ROADMAP queue
+    C8, closed).  The bisection counts keys with ``bf16(score) >=
+    bf16(mid)``, so a midpoint near the edge where bf16 rounds to the
+    next value decides on bits that the fp32 sums' order sets.  At one
+    thread, request 0's dense top-k prefill has, in its 81st counting
+    pass, a row whose midpoint (-0.35644645) lies within 2e-6 of such an
+    edge (-0.35644531), and moving it across the edge changes the row's
+    key count.  Another summation order moves the scores, and with them
+    the midpoints, by about that much: on an AVX-512 host, 8 threads
+    split the q projection's sums (6×64 @ 64×512) otherwise, 7.2e-7
+    off, that midpoint became -0.35644513, across the edge, the key
+    count flipped, the bisection ended at another threshold and
+    requests 0, 2 and 5 streamed other tokens.  The port computes what
+    the reference does; one thread (``tests/torch_threads.py``) makes
+    its sums the same whatever the host's core count."""
+    from repro_torch.core import selection as tsel
+    _, model = _weights(MOE)
+    _, tc = _cfgs(MOE, "paged", pool_pages=12)
+    prompts = np.random.default_rng(0).integers(0, tc.vocab_size, (6, 6))
+    real = tsel.bisect_select
+    calls = []
+
+    def rec(scores, thr):
+        calls.append((scores, thr.clone()))
+        return real(scores, thr)
+
+    monkeypatch.setattr(tsel, "bisect_select", rec)
+    tdec.prefill_prompt(model, tc, torch.from_numpy(prompts[:1]),
+                        EXAMPLE["max_len"])
+    scores, mid = calls[80]
+    b = mid.to(torch.bfloat16)
+    bits = b.view(torch.int16)
+    a, c = ((bits + 1).view(torch.bfloat16).float(),
+            (bits - 1).view(torch.bfloat16).float())
+    nb = torch.where(mid > b.float(), torch.maximum(a, c),
+                     torch.minimum(a, c))      # the next bf16 past the edge
+    dist = (mid - (b.float() + nb) / 2).abs()[..., 0]
+    crossed = real(scores, nb).sum(-1) != real(scores, mid).sum(-1)
+    assert crossed.any()
+    assert float(dist[crossed].min()) < 2e-6, dist[crossed]
