@@ -70,9 +70,11 @@ each prints its host seconds as a ``[phase]`` line):
      the chunked route's backward recompute selects (reported); the
      cases include zamba2-2.7b's shared block (BH 32, S 512, D 80, blocks
      128, causal threshold mode, top-k 64) in bf16 and fp32;
-  7. the main path: ``launch.train.train`` on full-width qwen3-4b, 36
-     layers, chunked selection (``topk_impl="bisect"``), batch 1,
-     S = 4096, 4 steps; the compacted-grid kernel's launches must equal
+  7. the main path: ``launch.train.train`` on full-width qwen3-4b cut to
+     TRAIN_LAYERS = 9 of its 36 layers (cut to make room for phase
+     25 in the run's time limit), chunked selection
+     (``topk_impl="bisect"``), batch 1, S = 4096, 4 steps; the
+     compacted-grid kernel's launches must equal
      layers x steps x 2 (the forward and the remat recompute), the dense
      grid's 0; layer 0's kernel arguments are recorded on the way; then
      one more step under ``torch.profiler`` for the device time by
@@ -227,7 +229,23 @@ each prints its host seconds as a ``[phase]`` line):
      map bitwise equal to ``sequence_local_attention``'s, the per-shard
      fetches summing to the local count, every shard > 0; per-step ms a
      rank, the cache MB a rank copies a step, the attention's ms,
-     host-staged MB and peak memory a rank.
+     host-staged MB and peak memory a rank;
+ 25. ``launch.train.train(mesh=)`` in phase 24's spawned world: full-width
+     qwen3-4b cut to MESH_TRAIN_LAYERS = 2 layers, the SATA kernel route
+     (B3 at D 128, blocks 128, remat full), batch 2, S 4096,
+     MESH_TRAIN_STEPS = 2 steps, on the ("data", "model") meshes (2, 1)
+     (FSDP: a rank holds half of every weight and takes one batch row)
+     and (1, 2) (tensor parallel: a rank runs 16 of the 32 heads over 4
+     of the 8 KV heads and half of d_ff, the embedding and unembed
+     gathered): losses and grad norms against the parent's one-device
+     ``train`` of the same model and batches (MESH_TRAIN_RTOL, phase 8's
+     2e-3), B3
+     launched layers x steps x 2 a rank (the counts read in each rank
+     right after its ``train``, summed), B4 never, and the rank's first
+     B3 call (recorded by ``FirstCall``: the rank's B x H / m rows) held
+     to its plain version within phase 6's limits; step s, peak memory
+     and host-staged MB a rank, and the leaves kept sharded / gathered
+     over "model".
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the ``kernels`` JSON, and the card's name and power limit are
@@ -1135,13 +1153,17 @@ def attn_counts(sa):
             sa.sata_block_attention.launches)
 
 
+TRAIN_LAYERS = 9       # phase 7: full width, 9 of qwen3-4b's 36 layers
+
+
 def train_main_path(torch, sa, dev, base, tag, *, steps=4, seq=4096):
-    """Phase 7: ``train()`` on full-width qwen3-4b through the compacted
-    grid; returns layer 0's recorded kernel arguments as a case for
-    phase 10 and the kernel's launch count."""
+    """Phase 7: ``train()`` on full-width qwen3-4b (TRAIN_LAYERS deep)
+    through the compacted grid; returns layer 0's recorded kernel
+    arguments as a case for phase 10 and the kernel's launch count."""
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch.train import train
-    cfg = main_path_cfg(dataclasses.replace(base, topk_impl="bisect"))
+    cfg = main_path_cfg(dataclasses.replace(base, topk_impl="bisect",
+                                            n_layers=TRAIN_LAYERS))
     reset_attn_counts(sa)
     torch.cuda.reset_peak_memory_stats()
     t = time.time()
@@ -2747,7 +2769,7 @@ def moe_train_phase(torch, sa, dev, tag, *, steps=MOE_TRAIN_STEPS,
     torch.cuda.reset_peak_memory_stats()
     seen = []
     t = time.time()
-    with recording(mdl, "loss_fn", seen):
+    with recording(mdl, "nll_terms", seen):
         out = train("qwen3-moe-235b-a22b", cfg=cfg, steps=steps, batch=1,
                     seq=seq, log_every=1, device=dev)
     torch.cuda.synchronize()
@@ -2755,7 +2777,7 @@ def moe_train_phase(torch, sa, dev, tag, *, steps=MOE_TRAIN_STEPS,
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
     n_b3, n_b4 = attn_counts(sa)
-    aux = [float(parts["aux"].detach()) for _, _, (_, parts) in seen]
+    aux = [float(terms[2].detach()) for _, _, terms in seen]
     log(f"[moe-train] {n_layers} layer(s), batch 1, S {seq}, chunked "
         f"selection, remat full: losses "
         f"{[round(x, 4) for x in out['losses']]}, grad norms "
@@ -3511,6 +3533,15 @@ MESH_STEPS = 3           # carried decode steps a layout
 # attention (its 32 heads, S 4096, blocks 128, top-k 64, fp32)
 MESH_DECODE = dict(b=8, kv=8, g=4, d=128, s=4096, page=64, topk=64)
 MESH_SEQ = dict(bh=32, s=4096, d=128, block=128, k_sel=64)
+# phase 25: train(mesh=) on full-width qwen3-4b, 2 of its 36 layers
+MESH_TRAIN_LAYERS = 2
+MESH_TRAIN_STEPS = 2     # step 0 and one step after an update
+MESH_TRAIN = dict(batch=2, seq=4096, steps=MESH_TRAIN_STEPS, seed=0)
+MESH_TRAIN_SHAPES = ((2, 1), (1, 2))
+# bf16 mesh vs one device: every loss and grad norm within phase 8's
+# ROUTE_RTOL (the data-parallel and row-parallel sums reorder the bf16
+# model's fp32 accumulations; measured up to 1.4e-4 on an H100)
+MESH_TRAIN_RTOL = ROUTE_RTOL
 
 
 def mesh_decode_inputs(torch, dev, shape, seed=24):
@@ -3589,12 +3620,61 @@ def mesh_seq_inputs(torch, dev, shape, seed=25):
                         device=dev) for _ in range(3)]
 
 
-def mesh_rank(rank, world, tmp, device, dshape, sshape):
-    """One rank of phase 24, started by ``mesh_phase`` (spawn): joins the
-    gloo world through a FileStore in ``tmp``, runs the tensor-parallel
-    decode steps in both layouts (the kernels' counts set to 0 just
-    before each and read just after) and the sequence-sharded attention
-    twice (the second timed), and saves everything to
+def mesh_train_cfg(base):
+    """Phase 25's model: phase 7's (the SATA kernel route, chunked
+    selection, remat full) at MESH_TRAIN_LAYERS layers."""
+    return main_path_cfg(dataclasses.replace(
+        base, topk_impl="bisect", n_layers=MESH_TRAIN_LAYERS))
+
+
+def mesh_train_rank(torch, dev, res, train_shapes):
+    """Phase 25 in one rank: ``train(mesh=)`` on each mesh shape, the
+    prefill kernels' counts set to 0 just before and read just after;
+    then the rank's first B3 call held to its plain version."""
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.distributed.sharding import ShardLayout
+    from repro_torch.kernels import sata_attention as sa
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.train import train
+    cfg = mesh_train_cfg(ARCHS["qwen3-4b"])
+    cuda = dev.type == "cuda"
+    for shape in train_shapes:
+        mesh = M.make_train_mesh(*shape, device=dev)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_attn_counts(sa)
+        with FirstCall("_block_attention_compact") as rec:
+            out = train("qwen3-4b", cfg=cfg, mesh=mesh, log_every=100,
+                        **MESH_TRAIN)
+        counts = attn_counts(sa)
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        staged = mesh.host_staged_bytes
+        del out["final_state"]
+        c = recorded_case(torch, sa, rec, dense_grid=False)
+        del rec
+        a_k, a_p = admitted_buffer(torch, c), admitted_buffer(torch, c)
+        got = run_attn(sa, c, plain=False, admitted=a_k)
+        want = run_attn(sa, c, plain=True, admitted=a_p)
+        err = compare(torch, f"B3 on rank {mesh.index}'s heads, mesh "
+                      f"{shape}", got, want, a_k, a_p,
+                      attn_window(torch, sa, c))
+        res[f"train {shape}"] = dict(
+            losses=out["losses"], gnorms=out["gnorms"], step_s=out["step_s"],
+            launches=counts, peak=peak, staged=staged, err=err,
+            rows=tuple(c["q"].shape),
+            leaves=ShardLayout(cfg, mesh).counts())
+        del c, got, want, a_k, a_p
+
+
+def mesh_rank(rank, world, tmp, device, dshape, sshape, train_shapes=()):
+    """One rank of phases 24 and 25, started by ``mesh_phase`` (spawn):
+    joins the gloo world through a FileStore in ``tmp``, runs the
+    tensor-parallel decode steps in both layouts (the kernels' counts set
+    to 0 just before each and read just after) and the sequence-sharded
+    attention twice (the second timed), then phase 25's training on each
+    of ``train_shapes`` (``mesh_train_rank``), and saves everything to
     ``tmp/rank<r>.pt``."""
     import torch
     import torch.distributed as dist
@@ -3643,6 +3723,8 @@ def mesh_rank(rank, world, tmp, device, dshape, sshape):
             if dev.type == "cuda" else 0
         res["seq repeat"] = torch.equal(first[0], out)
         res["seq"] = (out.cpu(), {n: x.cpu() for n, x in stats.items()})
+        del q, k, v, first, out, stats
+        mesh_train_rank(torch, dev, res, train_shapes)
         torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -3692,7 +3774,71 @@ def mesh_equal(a, b, what):
             bool((a == b).all()), f"{what}: not bitwise equal"
 
 
-def mesh_phase(torch, sd, dev, tag, dshape=MESH_DECODE, sshape=MESH_SEQ):
+def mesh_train_reference(torch, dev, tag):
+    """Phase 25's one-device run in the parent: ``train()`` of the same
+    model on the same batches; returns its losses, grad norms, step s and
+    peak memory."""
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.launch.train import train
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = train("qwen3-4b", cfg=mesh_train_cfg(ARCHS["qwen3-4b"]),
+                device=dev, log_every=100, **MESH_TRAIN)
+    ref = dict(losses=out["losses"], gnorms=out["gnorms"],
+               step_s=out["step_s"],
+               peak=torch.cuda.max_memory_allocated(dev) if cuda else 0)
+    del out
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"[mesh-train] one device: qwen3-4b full width, "
+        f"{MESH_TRAIN_LAYERS} layers, batch {MESH_TRAIN['batch']}, S "
+        f"{MESH_TRAIN['seq']}, SATA kernel route: losses {ref['losses']}, "
+        f"grad norms {ref['gnorms']}, step s "
+        f"{[round(x, 3) for x in ref['step_s']]}, peak memory "
+        f"{ref['peak'] / 2 ** 30:.2f} GiB {tag}")
+    return ref
+
+
+def mesh_train_check(ranks, ref, tag):
+    """Phase 25's checks on the ranks' results; returns B3's launches on
+    the meshes, summed over the ranks."""
+    want = MESH_TRAIN_LAYERS * MESH_TRAIN_STEPS * 2   # forward + recompute
+    total = 0
+    for shape in MESH_TRAIN_SHAPES:
+        for r, res in enumerate(ranks):
+            t = res[f"train {shape}"]
+            n_b3, n_b4 = t["launches"]
+            total += n_b3
+            rel_l = [abs(a - b) / abs(b) for a, b in zip(t["losses"],
+                                                        ref["losses"])]
+            rel_g = [abs(a - b) / abs(b) for a, b in zip(t["gnorms"],
+                                                        ref["gnorms"])]
+            log(f"[mesh-train] rank {r}/{MESH_RANKS} mesh {shape} "
+                f"(data, model): losses {t['losses']}, grad norms "
+                f"{t['gnorms']}; relative to one device: losses "
+                f"{[f'{x:.3e}' for x in rel_l]}, grad norms "
+                f"{[f'{x:.3e}' for x in rel_g]}; step s "
+                f"{[round(x, 3) for x in t['step_s']]} (one device "
+                f"{[round(x, 3) for x in ref['step_s']]}); peak memory "
+                f"{t['peak'] / 2 ** 30:.2f} GiB; host-staged "
+                f"{t['staged'] / 1e6:.1f} MB over {MESH_TRAIN_STEPS} steps; "
+                f"B3 launches {n_b3} (B4 {n_b4}), B3 on the rank's "
+                f"{t['rows'][0]} (B x H / m) rows vs plain max_abs_err "
+                f"{t['err']:.3e}; leaves {t['leaves']} {tag}")
+            assert all(np.isfinite(t["losses"])) and \
+                all(np.isfinite(t["gnorms"])), (shape, r)
+            assert (n_b3, n_b4) == (want, 0), (shape, r, n_b3, n_b4, want)
+            assert max(rel_l) <= MESH_TRAIN_RTOL, (shape, r, rel_l)
+            assert max(rel_g) <= MESH_TRAIN_RTOL, (shape, r, rel_g)
+        assert ranks[0][f"train {shape}"]["losses"] == \
+            ranks[1][f"train {shape}"]["losses"], shape
+    return total
+
+
+def mesh_phase(torch, sd, dev, tag, dshape=MESH_DECODE, sshape=MESH_SEQ,
+               train_shapes=MESH_TRAIN_SHAPES):
     """Phase 24: ``launch.mesh`` on two gloo ranks sharing the card (NCCL
     refuses two ranks of one communicator on one GPU), each with its own
     CUDA context on the same device, the kernels already built (phase
@@ -3707,8 +3853,12 @@ def mesh_phase(torch, sd, dev, tag, dshape=MESH_DECODE, sshape=MESH_SEQ):
     attention's out, thresholds and block map equal the local run's
     bitwise, its per-shard fetches partition the local count, every
     shard > 0.  Prints per-step ms per rank (CUDA events), the
-    attention's ms, host-staged MB and peak memory per rank.  Returns
-    the launches of the paged and the contiguous kernel."""
+    attention's ms, host-staged MB and peak memory per rank.  Phase 25
+    (``train_shapes``) runs in the same world: the parent's one-device
+    ``train`` first (``mesh_train_reference``), then the ranks'
+    ``train(mesh=)`` on each shape (``mesh_train_rank``), checked by
+    ``mesh_train_check``.  Returns the launches of the paged and the
+    contiguous kernel and phase 25's B3 launches and seconds."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -3750,11 +3900,14 @@ def mesh_phase(torch, sd, dev, tag, dshape=MESH_DECODE, sshape=MESH_SEQ):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.time() - t0
+    t0 = time.time()
+    tref = mesh_train_reference(torch, dev, tag) if train_shapes else None
+    t_train_ref = time.time() - t0
 
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         mp.start_processes(mesh_rank, args=(MESH_RANKS, tmp, str(dev),
-                                            dshape, sshape),
+                                            dshape, sshape, train_shapes),
                            nprocs=MESH_RANKS, start_method="spawn")
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
                  for r in range(MESH_RANKS)]
@@ -3800,9 +3953,11 @@ def mesh_phase(torch, sd, dev, tag, dshape=MESH_DECODE, sshape=MESH_SEQ):
             f"local run bitwise {tag}")
     assert n == {"paged": MESH_RANKS * MESH_STEPS,
                  "contiguous": MESH_RANKS * MESH_STEPS}, n
-    log(f"[mesh] one-rank references {t_ref:.1f} s; spawn + {MESH_RANKS} "
-        f"ranks {t_ranks:.1f} s {tag}")
-    return n["paged"], n["contiguous"]
+    n_b3 = mesh_train_check(ranks, tref, tag) if train_shapes else 0
+    log(f"[mesh] one-rank references {t_ref:.1f} s (phase 25's one-device "
+        f"train {t_train_ref:.1f} s); spawn + {MESH_RANKS} ranks "
+        f"{t_ranks:.1f} s (phases 24 and 25) {tag}")
+    return n["paged"], n["contiguous"], n_b3
 
 
 def _tensors(tree):
@@ -4419,12 +4574,13 @@ def main() -> int:
         opts, dev, tag)
     clock.done("23 cross-replica prefix index")
 
-    # --- 24. tensor-parallel decode and sequence-sharded selection on two
-    # gloo ranks sharing the card
-    n_b1, n_b2 = mesh_phase(torch, sd, dev, tag)
+    # --- 24.-25. tensor-parallel decode and sequence-sharded selection on
+    # two gloo ranks sharing the card; then train(mesh=) in the same world
+    n_b1, n_b2, n_b3 = mesh_phase(torch, sd, dev, tag)
     kernels[0]["paths"]["24 tensor-parallel decode"] = n_b1
     kernels[1]["paths"]["24 tensor-parallel decode"] = n_b2
-    clock.done("24 scale-out on two ranks")
+    kernels[2]["paths"]["25 train(mesh=) (2, 1) + (1, 2)"] = n_b3
+    clock.done("24-25 scale-out and mesh training on two ranks")
     clock.total()
     log(card)
     log(json.dumps({"kernels": kernels}))

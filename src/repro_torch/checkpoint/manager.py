@@ -14,8 +14,15 @@ Layout: ``<dir>/step_<N>/leaves.npz`` + ``manifest.json``.
 A state is a nested dict whose leaves are tensors or ``nn.Module``s
 (saved through their ``state_dict``).  bf16 tensors are stored as fp32
 (exact) and cast back on restore, which copies into the live state's
-tensors in place.  Elastic restore onto a device mesh waits for queue A
-item 4 of the port.
+tensors in place.
+
+Sharded states (``train(mesh=)``): in ``save(..., mesh=, specs=)``
+every rank joins the gather of each leaf to its global value and only
+the mesh's rank 0 copies it to the host and writes, so a checkpoint is
+the same files whatever mesh wrote it;
+``restore(..., mesh=, specs=)`` copies each rank's block of every global
+leaf into its sharded state.  Saving on one mesh and restoring on
+another (or on one device) is the reference's elastic restore.
 """
 from __future__ import annotations
 
@@ -29,6 +36,8 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.distributed.sharding import block, gather
 
 
 def _leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
@@ -62,14 +71,26 @@ class CheckpointManager:
     # ------------------------------------------------------------- save
     def save(self, step: int, state: Any, extra: Optional[Dict] = None,
              blocking: bool = True,
-             meta_blob: Optional[bytes] = None) -> None:
+             meta_blob: Optional[bytes] = None, *, mesh=None,
+             specs: Optional[Dict] = None) -> None:
         """Snapshot ``state`` now (owning host copies) and write it as
         ``step_<step>``, on a background thread unless ``blocking``.
         ``extra`` (JSON) goes into the manifest; ``meta_blob``, opaque
         host bytes (the serve loop's pickled control state), is written
-        atomically beside the leaves as ``meta.bin`` (``load_meta``)."""
+        atomically beside the leaves as ``meta.bin`` (``load_meta``).
+        With a ``mesh`` ``state`` holds the rank's blocks (``specs`` per
+        leaf name): every rank must call ``save`` (it gathers), and only
+        rank 0 writes."""
         self.wait()                                   # one in flight max
-        host = {name: _host_copy(t) for name, t in _leaves(state)}
+        writes = mesh is None or mesh.index == 0
+        host = {}
+        for name, t in _leaves(state):
+            if mesh is not None:
+                t = gather(t, specs[name], mesh)      # every rank joins
+            if writes:
+                host[name] = _host_copy(t)
+        if not writes:
+            return
 
         def _write():
             tmp = self.dir / f"step_{step}.tmp"
@@ -119,10 +140,13 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     @torch.no_grad()
-    def restore(self, like: Any, step: Optional[int] = None) -> Any:
+    def restore(self, like: Any, step: Optional[int] = None, *, mesh=None,
+                specs: Optional[Dict] = None) -> Any:
         """Copy the checkpoint at ``step`` (default: the latest) into the
         tensors of ``like``, in place, and return ``like``.  Raises if
-        the leaf names differ."""
+        the leaf names differ.  With a ``mesh`` ``like`` holds the
+        rank's blocks (``specs`` per leaf name): each takes its block of
+        the saved global leaf."""
         self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
@@ -136,7 +160,10 @@ class CheckpointManager:
                     f"{sorted(set(names) - set(data.files))}, unexpected "
                     f"{sorted(set(data.files) - set(names))}")
             for name, t in leaves:
-                t.copy_(torch.from_numpy(data[name]).to(dtype=t.dtype))
+                full = torch.from_numpy(data[name])
+                if mesh is not None:
+                    full = block(full, specs[name], mesh)
+                t.copy_(full.to(dtype=t.dtype))
         return like
 
     def manifest(self, step: Optional[int] = None) -> Dict:

@@ -1,0 +1,531 @@
+"""Logical sharding rules and the rank's view of a sharded model — port
+of ``repro.distributed.sharding``.
+
+Scheme (single pod: mesh (data=16, model=16); multi-pod adds "pod"),
+the reference's:
+  * FSDP: the d_model-sized dim of every weight shards over the data
+    axes (ZeRO-3-style: weights are all-gathered around their use and
+    gradients reduce-scattered);
+  * TP: heads / d_ff / vocab shard over "model";
+  * MoE: experts over "model" (``expert_shard="expert"``) or d_ff over
+    "model" with experts replicated (``"tensor"``);
+  * optimizer moments shard exactly like their parameters.
+
+A spec is a tuple with one entry per dim, as a ``PartitionSpec``'s
+entries: None, an axis name, or a tuple of names (the data axes of a
+multi-pod mesh).  The port's layers are ``ModuleList``s, not stacked
+arrays, so ``layers.3.attn.wq`` takes the reference's
+``("layers", "attn", "wq")`` spec without its leading (unsharded) stack
+dims.  The rules read only ``mesh.axis_names`` and ``mesh.shape``, so a
+``ShardMesh`` or any object with those two does.
+
+There is no GSPMD here to place tensors from specs: a rank holds its
+block of every parameter (``block``), and ``ShardedParams`` reads a
+sharded ``Model`` by key as the layer functions read a ``ParamModule``,
+all-gathering each leaf around its use through an autograd function
+whose backward reduce-scatters the gradient over the data axes.  The
+dense family's attention and MLP keep their "model" shards and run
+tensor-parallel (``TensorParallel``): column-parallel in-projections,
+row-parallel out-projections summed by an all-reduce.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.launch.mesh import (_all_gather, _all_reduce,
+                                     _reduce_scatter, data_axes)
+
+Spec = Tuple[Any, ...]
+
+# the module groups whose leaves the reference stacks over layers
+_STACKED = ("layers", "cross_layers", "enc_layers")
+
+
+def _base_spec(path: Tuple[str, ...], ndim_tail: int, cfg, dp,
+               dp_orig=None) -> Tuple:
+    """Spec for the logical (unstacked) trailing dims of a leaf.
+    ``dp`` is None in infer_tp mode (weights not FSDP-sharded);
+    ``dp_orig`` keeps the data axes for the MoE expert exception."""
+    name = path[-1]
+    in_moe = "moe" in path
+
+    # MoE experts keep their train sharding in every mode (E or d_ff over
+    # model, d_model over data)
+    eff_dp = dp if dp is not None else dp_orig
+    if in_moe and name in ("wi", "wg"):          # (E, D, F)
+        return ((("model",), (eff_dp,), (None,))
+                if cfg.expert_shard == "expert"
+                else ((None,), (eff_dp,), ("model",)))
+    if in_moe and name == "wo":                  # (E, F, D)
+        return ((("model",), (None,), (eff_dp,))
+                if cfg.expert_shard == "expert"
+                else ((None,), ("model",), (eff_dp,)))
+    if in_moe and name == "router":              # (D, E)
+        return ((dp,), (None,))
+
+    table = {
+        # in-projections (D, X): FSDP on D, TP on X
+        "wq": "in", "wk": "in", "wv": "in", "wi": "in", "wg": "in",
+        "wr": "in", "ck": "in", "cr": "in", "in_proj": "in",
+        "shared_in": "in", "wa": "in_rep",
+        # out-projections (X, D): TP on X, FSDP on D
+        "wo": "out", "cv": "out", "out_proj": "out", "wb": "out_rep",
+    }
+    kind = table.get(name)
+    if kind == "in":
+        return ((dp,), ("model",))
+    if kind == "out":
+        return (("model",), (dp,))
+    if kind == "in_rep":
+        return ((dp,), (None,))
+    if kind == "out_rep":
+        return ((None,), (dp,))
+    if name == "embedding":
+        return (("model",), (dp,))
+    if name == "unembed":
+        return ((dp,), ("model",))
+    if name == "conv_w":                         # (K, C)
+        return ((None,), ("model",))
+    if name == "bonus_u" and ndim_tail == 2:     # (H, hd)
+        return (("model",), (None,))
+    return tuple((None,) for _ in range(ndim_tail))
+
+
+def _flatten(spec) -> Tuple:
+    return tuple(s[0] if isinstance(s, tuple) else s for s in spec)
+
+
+def _dp(mesh):
+    axes = data_axes(mesh)
+    return axes if len(axes) > 1 else axes[0]
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """A spec entry as a tuple of axis names (() for None)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _n_shards(mesh, entry) -> int:
+    return math.prod(mesh.shape[a] for a in entry_axes(entry))
+
+
+def _fit(shape, spec, mesh) -> Spec:
+    """Drop the shardings that do not divide their dim (tiny shapes)."""
+    return tuple(None if ax is None or size % _n_shards(mesh, ax) else ax
+                 for size, ax in zip(shape, spec))
+
+
+def _named_shapes(model_or_named_shapes) -> Dict[str, Tuple[int, ...]]:
+    if isinstance(model_or_named_shapes, nn.Module):
+        return {n: tuple(p.shape) for n, p in
+                model_or_named_shapes.named_parameters()}
+    return {n: tuple(getattr(s, "shape", s))
+            for n, s in model_or_named_shapes.items()}
+
+
+def _stack_dims(name: str, cfg) -> int:
+    """How many leading stack dims the reference gives this leaf: one
+    for a layer group, two for vlm's (n_cross, per_group) self layers."""
+    parts = name.split(".")
+    if parts[0] not in _STACKED or len(parts) < 2 or not parts[1].isdigit():
+        return 0
+    return 2 if parts[0] == "layers" and cfg.family == "vlm" else 1
+
+
+def param_specs(model_or_named_shapes, cfg, mesh, mode: str = "train"
+                ) -> Dict[str, Spec]:
+    """Spec per parameter name of a ``Model`` (the meta device will do)
+    or of a {name: shape} mapping.
+
+    mode="train": FSDP(+TP) — d_model dims shard over the data axes.
+    mode="infer_tp": TP only — weights replicated over data, sharded
+    over "model" only (MoE experts keep their train sharding).
+
+    The reference resolves a stacked leaf's spec from its stacked rank
+    (``tail`` below); the port's leaf has the stack dims stripped, so
+    the rank is counted with them and the (None) stack entries are
+    dropped at the end."""
+    if mode not in ("train", "infer_tp"):
+        raise ValueError(f"mode={mode!r}: 'train' or 'infer_tp'")
+    dp_orig = _dp(mesh)
+    dp = None if mode == "infer_tp" else dp_orig
+    specs = {}
+    for name, shape in _named_shapes(model_or_named_shapes).items():
+        path = tuple(p for p in name.split(".") if not p.isdigit())
+        lead_n = _stack_dims(name, cfg)
+        ndim = len(shape) + lead_n                   # the reference's rank
+        if ndim == 0:
+            specs[name] = ()
+            continue
+        leaf = path[-1]
+        moe3 = "moe" in path and leaf in ("wi", "wg", "wo")
+        tail = min(3 if moe3 else (2 if ndim >= 2 else 1), ndim)
+        base = _flatten(_base_spec(path, tail, cfg, dp,
+                                   dp_orig=dp_orig))[:tail]
+        if ndim == 1:
+            base = (None,)
+        spec = (None,) * (ndim - len(base)) + tuple(base)
+        if any(s is not None for s in spec[:lead_n]):
+            raise ValueError(f"{name}: a stack dim would shard ({spec})")
+        specs[name] = _fit(shape, spec[lead_n:], mesh)
+    return specs
+
+
+def batch_specs(batch_shapes: Mapping, mesh) -> Dict[str, Spec]:
+    """Inputs: batch dim over the data axes, everything else replicated.
+    Batches smaller than the data axes replicate."""
+    dp = _dp(mesh)
+    specs = {}
+    for name, s in batch_shapes.items():
+        shape = tuple(getattr(s, "shape", s))
+        if not shape:
+            specs[name] = ()
+            continue
+        lead = dp if shape[0] % _n_shards(mesh, dp) == 0 else None
+        specs[name] = (lead,) + (None,) * (len(shape) - 1)
+    return specs
+
+
+CACHE_SEQ_SHARD = True     # KV caches shard the sequence dim over "model"
+                           # (context-parallel decode); False = the legacy
+                           # kv-head / head-dim sharding
+
+
+def _cache_leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
+    for name, sub in tree.items():
+        if isinstance(sub, Mapping):
+            yield from _cache_leaves(sub, prefix + (name,))
+        else:
+            yield prefix + (name,), tuple(getattr(sub, "shape", sub))
+
+
+def cache_specs(cache_shapes: Mapping, cfg, mesh) -> Dict[Tuple[str, ...],
+                                                          Spec]:
+    """Spec per leaf path of a serving cache (``models.decode.init_cache``:
+    layer-stacked, (L, ...)).  "kv" / "cross_kv" / "shared_kv"
+    (..., B, S, KV, hd): batch over data and the SEQUENCE dim over
+    "model" (or kv heads, or head dim, when it does not divide);
+    "mamba" (L, B, H, ...) and "rwkv" (L, B, H, ...): batch over data,
+    dim 2 over "model"; "x0": batch over data."""
+    dp = _dp(mesh)
+    m = mesh.shape["model"]
+    specs = {}
+    for path, shape in _cache_leaves(cache_shapes):
+        ndim = len(shape)
+        if ndim == 0:
+            specs[path] = ()
+            continue
+        name = path[0]
+        spec = [None] * ndim
+        if name in ("kv", "cross_kv", "shared_kv"):
+            spec[-4] = dp
+            if CACHE_SEQ_SHARD and shape[-3] % m == 0:
+                spec[-3] = "model"
+            elif shape[-2] % m == 0:
+                spec[-2] = "model"
+            elif shape[-1] % m == 0:
+                spec[-1] = "model"
+        elif name == "mamba":
+            spec[1] = dp
+            if shape[2] % m == 0:
+                spec[2] = "model"
+            elif shape[-1] % m == 0:
+                spec[-1] = "model"
+        elif name == "rwkv":
+            spec[1] = dp
+            if ndim >= 3 and shape[2] % m == 0:
+                spec[2] = "model"
+        elif name == "x0":
+            spec[0] = dp
+        specs[path] = _fit(shape, spec, mesh)
+    return specs
+
+
+def leaf_specs(names, pspecs: Mapping[str, Spec]) -> Dict[str, Spec]:
+    """Spec per leaf of a train state (``checkpoint.manager``'s dotted
+    names): ``params.<p>``, ``opt.m.<p>``, ``opt.v.<p>`` and ``err.<p>``
+    take parameter ``p``'s spec; the step counter replicates."""
+    out = {}
+    for name in names:
+        for prefix in ("params.", "opt.m.", "opt.v.", "err."):
+            if name.startswith(prefix) and name[len(prefix):] in pspecs:
+                out[name] = pspecs[name[len(prefix):]]
+                break
+        else:
+            out[name] = ()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# a rank's block, and back
+# ---------------------------------------------------------------------------
+
+def block(full: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's block of ``full`` under ``spec`` (a view)."""
+    out = full
+    for dim, entry in enumerate(spec):
+        n = _n_shards(mesh, entry)
+        if n > 1:
+            size = full.shape[dim] // n
+            out = out.narrow(dim, mesh.coord(entry_axes(entry)) * size, size)
+    return out
+
+
+@torch.no_grad()
+def gather(shard: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The global tensor from every rank's block (collective: every rank
+    calls it with its own block)."""
+    out = shard
+    for dim, entry in enumerate(spec):
+        if _n_shards(mesh, entry) > 1:
+            out = _all_gather(out, mesh, dim, entry_axes(entry))
+    return out
+
+
+def counted_once(spec: Spec, mesh) -> bool:
+    """Whether this rank's block of a leaf is the one that counts in a
+    sum over the whole mesh: the leaf is replicated over every axis its
+    spec does not shard, and only the ranks at coordinate 0 of those
+    axes count it."""
+    sharded = {a for e in spec for a in entry_axes(e)}
+    return all(mesh.coord(a) == 0 for a in mesh.axis_names
+               if a not in sharded and mesh.shape[a] > 1)
+
+
+# ---------------------------------------------------------------------------
+# collectives under autograd
+# ---------------------------------------------------------------------------
+
+class _Gather(torch.autograd.Function):
+    """Forward: all-gather along ``dim`` over ``axes``.  Backward: the
+    gradient's own block, summed over the axes' ranks (``reduce``: a
+    reduce-scatter, for axes whose ranks saw different batch rows) or
+    taken as it is (the axes' ranks computed the same gradient).
+
+    The sum runs in fp32 and is cast to the gradient's dtype once, as
+    one device's bf16 gradient accumulates in fp32 and rounds once."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, axes, reduce):
+        ctx.mesh, ctx.dim, ctx.axes, ctx.reduce = mesh, dim, axes, reduce
+        return _all_gather(x, mesh, dim, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dim, axes = ctx.mesh, ctx.dim, ctx.axes
+        if ctx.reduce:
+            out = _reduce_scatter(g.float(), mesh, dim, axes).to(g.dtype)
+        else:
+            n = mesh.axis_size(axes)
+            size = g.shape[dim] // n
+            out = g.narrow(dim, mesh.coord(axes) * size, size).contiguous()
+        return out, None, None, None, None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """Forward: the sum over ``axes`` (the row-parallel out-projection's
+    partial products); backward: identity."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyIn(torch.autograd.Function):
+    """Forward: identity; backward: the sum over ``axes`` (in fp32,
+    cast once, as ``_Gather``'s) — the conjugate of
+    ``_ReduceOut`` on what enters a tensor-parallel region replicated
+    (its input, and its replicated parameters), whose gradient each rank
+    holds only its heads' share of."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.float(), ctx.mesh, ctx.axes).to(g.dtype), \
+            None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """A tensor-parallel region over ``axis``: the layer function runs
+    with ``cfg`` (the rank's ``n_heads / m`` and ``n_kv_heads / m``
+    heads, head dim kept), ``enter``s its input and leaves through
+    ``row_parallel``, the sum of the ranks' partial out-projections."""
+    mesh: Any
+    cfg: Any
+    axis: str = "model"
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return _CopyIn.apply(x, self.mesh, (self.axis,))
+
+    def row_parallel(self, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``h @ w`` summed over the region's ranks, ``h`` and ``w``
+        the rank's blocks of the contracted dim.  The partial products
+        stay fp32 until the sum (a bf16 model's single-device product
+        accumulates in fp32 and rounds once, too)."""
+        part = torch.matmul(h.float(), w.float())
+        return _ReduceOut.apply(part, self.mesh, (self.axis,)).to(h.dtype)
+
+
+class ShardLayout:
+    """Where every parameter of ``cfg``'s model lives on ``mesh`` (train
+    specs) and which modules run tensor-parallel over "model".
+
+    Tensor parallel: the self-attention of the dense and moe families'
+    decoder layers (``layers.<i>.attn``) and the dense family's MLP
+    (``layers.<i>.mlp``), where the heads (or d_ff) divide by the
+    "model" size and the spec shards the in-projections' columns and the
+    out-projection's rows over it.  Everything else is gathered over
+    "model" around its use and computed whole on every "model" rank:
+    embedding / unembed, norms, the MoE router and experts, the hybrid,
+    ssm, vlm and audio layers (``gathered_modules``)."""
+
+    def __init__(self, cfg, mesh, specs: Optional[Dict[str, Spec]] = None):
+        from repro_torch.models.model import Model
+        self.cfg, self.mesh = cfg, mesh
+        self.specs = specs if specs is not None else param_specs(
+            Model(cfg, device="meta"), cfg, mesh)
+        self.data = tuple(a for a in data_axes(mesh) if mesh.shape[a] > 1)
+        m = mesh.shape.get("model", 1)
+        self._tp = None
+        if m > 1 and cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0:
+            self._tp = TensorParallel(mesh, dataclasses.replace(
+                cfg, n_heads=cfg.n_heads // m,
+                n_kv_heads=cfg.n_kv_heads // m, head_dim=cfg.hd))
+
+    def _layout_ok(self, prefix: str, cols, rows) -> bool:
+        return all(self.specs.get(prefix + n, (None,))[-1] == "model"
+                   for n in cols) and \
+            all(self.specs.get(prefix + n, (None,))[0] == "model"
+                for n in rows)
+
+    def tp_for(self, path: str) -> Optional[TensorParallel]:
+        """The tensor-parallel region of module ``path``, or None."""
+        parts = path.split(".")
+        if self._tp is None or len(parts) != 3 or parts[0] != "layers":
+            return None
+        fam = self.cfg.family
+        if parts[2] == "attn" and fam in ("dense", "moe"):
+            ok = self._layout_ok(path + ".", ("wq", "wk", "wv"), ("wo",))
+        elif parts[2] == "mlp" and fam == "dense":
+            cols = ("wi", "wg") if self.cfg.mlp_variant == "swiglu" \
+                else ("wi",)
+            ok = self.cfg.d_ff % self.mesh.shape["model"] == 0 and \
+                self._layout_ok(path + ".", cols, ("wo",))
+        else:
+            ok = False
+        return self._tp if ok else None
+
+    def counts(self) -> Dict[str, int]:
+        """Leaves kept sharded over "model" in a tensor-parallel region,
+        and leaves gathered over "model" around their use."""
+        tp = gathered = 0
+        for name, spec in self.specs.items():
+            if "model" not in {a for e in spec for a in entry_axes(e)} \
+                    or self.mesh.shape["model"] == 1:
+                continue
+            if self.tp_for(name.rsplit(".", 1)[0]) is not None:
+                tp += 1
+            else:
+                gathered += 1
+        return {"tensor_parallel": tp, "gathered_over_model": gathered}
+
+    def use(self, name: str, shard: torch.Tensor,
+            tp: Optional[TensorParallel]) -> torch.Tensor:
+        """Leaf ``name`` as the layer function reads it: gathered over
+        the data axes (the gradient reduce-scattered back), and over
+        "model" unless it runs in ``tp``; a replicated leaf inside ``tp``
+        enters it through ``_CopyIn``."""
+        spec = self.specs[name]
+        x = shard
+        for reduce in (True, False):          # data axes first, then model
+            for dim, entry in enumerate(spec):
+                axes = entry_axes(entry)
+                if not axes or (("model" in axes) == reduce):
+                    continue
+                if not reduce and tp is not None:
+                    continue                   # the region keeps its shard
+                if self.mesh.axis_size(axes) > 1:
+                    x = _Gather.apply(x, self.mesh, dim, axes, reduce)
+        if tp is not None and all("model" not in entry_axes(e)
+                                  for e in spec):
+            x = tp.enter(x)
+        return x
+
+    def replicated_over_data(self, name: str) -> Tuple[str, ...]:
+        """The data axes leaf ``name`` is replicated over: its gradient
+        must be summed over them after the backward."""
+        sharded = {a for e in self.specs[name] for a in entry_axes(e)}
+        return tuple(a for a in self.data if a not in sharded)
+
+    def view(self, model: nn.Module) -> "ShardedParams":
+        return ShardedParams(model, "", self, None)
+
+    @torch.no_grad()
+    def shard_(self, model: nn.Module) -> nn.Module:
+        """Replace every parameter of the (global) ``model`` by this
+        rank's block, in place (a parameter the mesh does not split
+        stays as it is)."""
+        for name, p in model.named_parameters():
+            part = block(p.data, self.specs[name], self.mesh)
+            if part.shape != p.shape:
+                p.data = part.clone()
+        return model
+
+    @torch.no_grad()
+    def gather_params(self, model: nn.Module) -> Dict[str, torch.Tensor]:
+        """Every global parameter of the sharded ``model`` (collective)."""
+        return {n: gather(p.detach(), self.specs[n], self.mesh)
+                for n, p in model.named_parameters()}
+
+
+class ShardedParams:
+    """A sharded ``Model`` (or one of its modules) read by key, as the
+    layer functions read a ``ParamModule``: a parameter comes back
+    through ``ShardLayout.use``, a submodule as another view, a
+    ``ModuleList`` as a list of views.  ``tp`` is the module's
+    tensor-parallel region, which ``attention_apply`` and ``mlp_apply``
+    read."""
+
+    def __init__(self, module: nn.Module, prefix: str, layout: ShardLayout,
+                 tp: Optional[TensorParallel]):
+        self._module, self._prefix = module, prefix
+        self._layout, self.tp = layout, tp
+
+    def __getitem__(self, name: str):
+        try:
+            obj = getattr(self._module, name)
+        except AttributeError:
+            raise KeyError(name) from None
+        path = self._prefix + name
+        if isinstance(obj, nn.ModuleList):
+            return [ShardedParams(m, f"{path}.{i}.", self._layout,
+                                  self._layout.tp_for(f"{path}.{i}"))
+                    for i, m in enumerate(obj)]
+        if isinstance(obj, nn.Module):
+            return ShardedParams(obj, path + ".", self._layout,
+                                 self._layout.tp_for(path))
+        if isinstance(obj, torch.Tensor):
+            return self._layout.use(path, obj, self.tp)
+        raise KeyError(name)
+
+    def get(self, name: str, default=None):
+        try:
+            return self[name]
+        except KeyError:
+            return default

@@ -33,6 +33,14 @@ single-device run's calls.  The decode planner's products keep their
 per-(slot, head) shape on a rank's heads; only their batch count
 changes.
 
+A mesh may have several axes (``make_train_mesh``'s ("data",
+"model"), the production meshes): ``coord`` reads a rank's coordinate
+on an axis row-major, as a JAX mesh's device array is laid out, and
+the collectives (``_all_gather``, ``_all_reduce``, ``_reduce_scatter``)
+run over one axis, or a tuple of axes read as one, through the process
+group of the ranks that share the other coordinates (``_axis_groups``,
+created collectively when the mesh is built).
+
 The wrappers install no global device context (the reference's
 ``mesh_installed()`` route-off exists for ``pallas_call``'s missing
 SPMD rule, which has no counterpart here): ``activate_mesh`` is a
@@ -42,6 +50,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -74,21 +83,49 @@ class ShardMesh:
     index: int
     device: torch.device
     host_staged_bytes: int = 0
+    # the process group over each proper subset of the axes whose ranks
+    # this rank shares (``_axis_groups``), keyed by the axes in mesh order
+    groups: Dict[Tuple[str, ...], object] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def size(self) -> int:
         return math.prod(self.shape.values())
 
-    def coord(self, axis: str) -> int:
-        """This rank's index along ``axis``: 0 on an axis of size 1,
-        the mesh index on the one axis a 1-D mesh spans."""
-        if self.shape[axis] == 1:
-            return 0
-        if self.shape[axis] != self.size:
-            raise NotImplementedError(
-                "one axis of a multi-axis mesh (the production mesh's "
-                "lowering is ROADMAP queue A item 5)")
-        return self.index
+    def coord(self, axis) -> int:
+        """This rank's index along ``axis`` (a name, or a tuple of names
+        read as one axis, major to minor, as a ``PartitionSpec`` entry
+        is): the mesh index is row-major over ``axis_names``, as a JAX
+        mesh's device array is."""
+        idx = 0
+        for a in _axes(self, axis):
+            stride = math.prod(self.shape[b] for b in
+                               self.axis_names[self.axis_names.index(a) + 1:])
+            idx = idx * self.shape[a] + (self.index // stride) % self.shape[a]
+        return idx
+
+    def axis_size(self, axis) -> int:
+        """The number of ranks along ``axis`` (a name or a tuple)."""
+        return math.prod(self.shape[a] for a in _axes(self, axis))
+
+    def group_of(self, axis):
+        """The process group of the ranks that share this rank's
+        coordinates off ``axis``: the mesh's own group when ``axis``
+        spans the mesh, None on a one-rank axis."""
+        axes = _axes(self, axis)
+        n = self.axis_size(axes)
+        if n == 1:
+            return None
+        if n == self.size:
+            return self.group
+        return self.groups[tuple(a for a in self.axis_names if a in axes)]
+
+
+def _axes(mesh, axis) -> Tuple[str, ...]:
+    """``axis`` as a tuple of names: None is the mesh's first axis."""
+    if axis is None:
+        return (mesh.axis_names[0],)
+    return (axis,) if isinstance(axis, str) else tuple(axis)
 
 
 def _world() -> Tuple[int, int]:
@@ -113,7 +150,32 @@ def _make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device,
             f"process per rank, before building the mesh (a mesh of more "
             f"than one rank spans the whole world)")
     return ShardMesh(tuple(axes), dict(zip(axes, shape)), dist.group.WORLD,
-                     rank, dev)
+                     rank, dev, groups=_axis_groups(shape, axes, rank))
+
+
+def _axis_groups(shape: Tuple[int, ...], axes: Tuple[str, ...], rank: int
+                 ) -> Dict[Tuple[str, ...], object]:
+    """The process groups over every proper subset of the axes that
+    spans more than one rank and less than the mesh: one group for each
+    coordinate of the other axes, its ranks in row-major order of the
+    subset's coordinates.  ``dist.new_group`` is collective: every rank
+    creates every group, in the same order, and keeps the ones it is
+    in."""
+    coords = list(itertools.product(*(range(n) for n in shape)))
+    groups = {}
+    for r in range(1, len(axes)):
+        for sub in itertools.combinations(range(len(axes)), r):
+            n = math.prod(shape[i] for i in sub)
+            if n in (1, len(coords)):
+                continue
+            rest = [i for i in range(len(axes)) if i not in sub]
+            for fixed in itertools.product(*(range(shape[i]) for i in rest)):
+                ranks = [j for j, c in enumerate(coords)
+                         if all(c[i] == f for i, f in zip(rest, fixed))]
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    groups[tuple(axes[i] for i in sub)] = g
+    return groups
 
 
 def make_production_mesh(*, multi_pod: bool = False, device="cuda"
@@ -124,6 +186,14 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda"
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return _make_mesh(shape, axes, device, "the production world")
+
+
+def make_train_mesh(data: int, model: int, *, device="cuda") -> ShardMesh:
+    """A ("data", "model") mesh of ``data × model`` ranks over the
+    initialised world (``train(mesh=)``'s layout: FSDP and batch rows
+    over "data", tensor parallelism over "model"); ``data × model`` must
+    be the world size, or 1."""
+    return _make_mesh((data, model), ("data", "model"), device, "the world")
 
 
 def data_axes(mesh) -> Tuple[str, ...]:
@@ -156,36 +226,87 @@ def make_shard_mesh(n_shards: int, axis: str = "shard", *, device="cuda"
 # the collective transport
 # ---------------------------------------------------------------------------
 
+def _backend(mesh: ShardMesh, group) -> str:
+    backend = dist.get_backend(group)
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"no collectives for the {backend!r} backend "
+                         f"(nccl or gloo)")
+    return backend
+
+
 def _all_gather(x: torch.Tensor, mesh: ShardMesh, dim: int,
-                axis: Optional[str] = None) -> torch.Tensor:
+                axis=None) -> torch.Tensor:
     """``jax.lax.all_gather(x, axis, axis=dim, tiled=True)``: the
-    shards of every rank on the axis, concatenated along ``dim`` in
-    rank order.  NCCL (one GPU per rank) gathers in place on the
-    device; gloo takes host tensors, so a CUDA tensor is staged through
-    the host explicitly and the bytes are counted on the mesh."""
-    ax = axis or mesh.axis_names[0]
-    n = mesh.shape[ax]
+    shards of every rank on the axis (a name or a tuple of names),
+    concatenated along ``dim`` in rank order.  NCCL (one GPU per rank)
+    gathers in place on the device; gloo takes host tensors, so a CUDA
+    tensor is staged through the host explicitly and the bytes are
+    counted on the mesh."""
+    n = mesh.axis_size(_axes(mesh, axis))
     if n == 1:
         return x
-    if n != mesh.size:
-        raise NotImplementedError(
-            "a collective over one axis of a multi-axis mesh (the "
-            "production mesh's lowering is ROADMAP queue A item 5)")
+    group = mesh.group_of(_axes(mesh, axis))
     src = x.movedim(dim, 0).contiguous()
-    backend = dist.get_backend(mesh.group)
-    if backend == "nccl":
+    if _backend(mesh, group) == "nccl":
         out = src.new_empty((n * src.shape[0],) + src.shape[1:])
-        dist.all_gather_into_tensor(out, src, group=mesh.group)
-    elif backend == "gloo":
+        dist.all_gather_into_tensor(out, src, group=group)
+    else:
         host = src.cpu()
         parts = [torch.empty_like(host) for _ in range(n)]
-        dist.all_gather(parts, host, group=mesh.group)
+        dist.all_gather(parts, host, group=group)
         out = torch.cat(parts).to(src.device)
         if src.device.type != "cpu":
             mesh.host_staged_bytes += host.nbytes * (1 + n)
+    return out.movedim(0, dim).contiguous()
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def _all_reduce(x: torch.Tensor, mesh: ShardMesh, axis=None,
+                op: str = "sum") -> torch.Tensor:
+    """``jax.lax.psum`` / ``pmax`` over the axis (a name or a tuple):
+    a new tensor holding the reduction, the same on every rank of the
+    axis (``x`` itself on a one-rank axis).  gloo stages a CUDA tensor
+    through the host and counts the bytes, as ``_all_gather``."""
+    group = mesh.group_of(_axes(mesh, axis))
+    if group is None:
+        return x
+    if _backend(mesh, group) == "nccl":
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=_OPS[op], group=group)
+        return out
+    host = x.detach().to("cpu", copy=True).contiguous()
+    dist.all_reduce(host, op=_OPS[op], group=group)
+    if x.device.type != "cpu":
+        mesh.host_staged_bytes += 2 * host.nbytes
+    return host.to(x.device)
+
+
+def _reduce_scatter(x: torch.Tensor, mesh: ShardMesh, dim: int,
+                    axis=None) -> torch.Tensor:
+    """``jax.lax.psum_scatter(x, axis, scatter_dimension=dim,
+    tiled=True)``: the sum over the axis's ranks of ``x``, of which
+    each rank keeps its block along ``dim`` (``x`` itself on a one-rank
+    axis).  gloo stages through the host and counts the bytes."""
+    n = mesh.axis_size(_axes(mesh, axis))
+    if n == 1:
+        return x
+    group = mesh.group_of(_axes(mesh, axis))
+    src = x.movedim(dim, 0).contiguous()
+    if src.shape[0] % n:
+        raise ValueError(f"reduce-scatter of {src.shape[0]} rows over {n} "
+                         f"ranks")
+    if _backend(mesh, group) == "nccl":
+        out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
+        dist.reduce_scatter_tensor(out, src, group=group)
     else:
-        raise ValueError(f"no all-gather for the {backend!r} backend "
-                         f"(nccl or gloo)")
+        host = src.cpu()
+        part = host.new_empty((src.shape[0] // n,) + src.shape[1:])
+        dist.reduce_scatter_tensor(part, host, group=group)
+        out = part.to(src.device)
+        if src.device.type != "cpu":
+            mesh.host_staged_bytes += host.nbytes + part.nbytes
     return out.movedim(0, dim).contiguous()
 
 

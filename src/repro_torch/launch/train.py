@@ -1,17 +1,25 @@
 """Training loop — port of ``repro.launch.train``: the fault-tolerant
-loop on one device.
+loop, on one device or on the ranks of a ("data", "model") mesh.
 
   * checkpoint/restart (atomic, keep-k, async save cadence);
   * step-time watchdog (straggler logging);
   * failure injection (``fail_at``): the loop raises at that step and a
     second call with the same ``ckpt_dir`` resumes from the latest
     checkpoint with identical training state;
+  * elastic restore: a checkpoint holds global leaves, so a run may
+    resume on another mesh (or on one device);
   * gradient accumulation (``micro_steps``) and int8 gradient
     compression.
 
-The loop runs eagerly on ``device`` (default ``"cuda"``; the CPU only
-when asked).  Mesh and sharding set-up and elastic restore wait for
-queue A item 4 of the port (``torch.distributed``).
+The loop runs eagerly on a mesh: by default the one-rank
+``make_local_mesh(device=device)`` (``"cuda"``; the CPU only when
+asked), as the reference's.  With a larger ``mesh=``
+(``launch.mesh.make_train_mesh`` over an initialised
+``torch.distributed`` world) every rank runs this function
+with the same arguments: the same seed and pipeline, of whose batches
+it takes its rows; the state is sharded by ``distributed.sharding``'s
+train specs (FSDP over the data axes, tensor parallelism over
+"model") and the rank computes on the mesh's device.
 
 Usage (one GPU, reduced arch):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
@@ -26,10 +34,11 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
-from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.checkpoint.manager import CheckpointManager, _leaves
 from repro_torch.configs.archs import ARCHS, SMOKE
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.distributed.sharding import leaf_specs
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.train.step import init_train_state, make_train_step
 
@@ -65,30 +74,36 @@ def train(arch: str, smoke: bool = True, steps: int = 20,
     ``model`` overrides the ``Model`` built from ``seed`` (its
     parameters are trained in place).  Returns per-step ``losses``,
     ``gnorms`` and ``step_s`` (host seconds per step, synchronized),
-    the ``final_state`` and the straggler count.  ``mesh`` may be a
-    one-rank mesh (``launch.mesh.make_local_mesh()``, the reference's
-    default); a larger one raises."""
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"train(mesh=...) over {mesh.size} ranks: the FSDP/TP "
-            f"placements are ROADMAP queue A item 4b of the PyTorch port "
-            f"(a one-rank mesh, make_local_mesh(), trains as mesh=None)")
+    the ``final_state`` and the straggler count.  ``mesh``: default the
+    one-rank ``launch.mesh.make_local_mesh(device=device)``, as the
+    reference's; a mesh names "data" and "model" axes and the run
+    computes on its device; one of more than one rank must span the
+    initialised world (``make_train_mesh``), and then ``final_state``
+    holds the rank's blocks (``ShardLayout.gather_params`` gathers
+    them)."""
     cfg = cfg or (SMOKE if smoke else ARCHS)[arch]
-    dev = resolve_device(device)
+    mesh = make_local_mesh(device=device) if mesh is None else mesh
+    _check_mesh(mesh)
+    dev = mesh.device
     opt = OptConfig(warmup_steps=max(2, steps // 10), decay_steps=steps,
                     compress_grads=compress_grads)
-    state = init_train_state(cfg, opt, seed=seed, device=dev, model=model)
+    state = init_train_state(cfg, opt, seed=seed, device=dev, model=model,
+                             mesh=mesh)
     pipe = SyntheticLM(cfg, batch, seq, seed=seed)
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    step_fn = make_train_step(cfg, opt, micro_steps=micro_steps, mesh=mesh)
+    ck = {"mesh": mesh, "specs": leaf_specs(
+        [n for n, _ in _leaves(state)], step_fn.layout.specs)}
+    if mgr is not None:
+        _barrier(mesh)                # rank 0's last save has landed
     start_step = 0
     if mgr is not None and mgr.latest_step() is not None:
-        mgr.restore(state)
+        mgr.restore(state, **ck)
         man = mgr.manifest()
         pipe.restore_state(man["extra"]["pipeline"])
         start_step = man["step"]
         print(f"[train] resumed from step {start_step}", flush=True)
 
-    step_fn = make_train_step(cfg, opt, micro_steps=micro_steps)
     wd = Watchdog()
     losses, gnorms, step_s = [], [], []
     for step in range(start_step, steps):
@@ -97,6 +112,7 @@ def train(arch: str, smoke: bool = True, steps: int = 20,
                 # the simulated crash kills the compute process; a save
                 # already in flight still lands
                 mgr.wait()
+                _barrier(mesh)
             raise RuntimeError(f"injected failure at step {step}")
         t0 = time.time()
         db = {k: torch.from_numpy(a).to(dev)
@@ -114,12 +130,40 @@ def train(arch: str, smoke: bool = True, steps: int = 20,
                   flush=True)
         if mgr is not None and (step + 1) % ckpt_every == 0:
             mgr.save(step + 1, state, extra={"pipeline": pipe.save_state()},
-                     blocking=False)
+                     blocking=False, **ck)
     if mgr is not None:
-        mgr.save(steps, state, extra={"pipeline": pipe.save_state()})
+        mgr.save(steps, state, extra={"pipeline": pipe.save_state()}, **ck)
         mgr.wait()
+        _barrier(mesh)
     return {"losses": losses, "gnorms": gnorms, "step_s": step_s,
             "final_state": state, "stragglers": wd.flagged}
+
+
+def _check_mesh(mesh) -> None:
+    """The mesh must have the reference's ("data", "model") or ("pod",
+    "data", "model") axes, and one of more than one rank must span the
+    initialised world."""
+    import torch.distributed as dist
+    world = dist.get_world_size() if dist.is_available() and \
+        dist.is_initialized() else 1
+    if mesh.size > 1 and mesh.size != world:
+        raise ValueError(
+            f"train(mesh=...): the mesh has {mesh.size} ranks, the world "
+            f"{world} — start one process per rank with "
+            f"torch.distributed.init_process_group(world_size="
+            f"{mesh.size}) and build the mesh with make_train_mesh")
+    if tuple(mesh.axis_names) not in (("data", "model"),
+                                      ("pod", "data", "model")):
+        raise ValueError(
+            f"train(mesh=...) needs ('data', 'model') or ('pod', 'data', "
+            f"'model') axes, got {tuple(mesh.axis_names)}")
+
+
+def _barrier(mesh) -> None:
+    """Wait for every rank of the mesh (nothing on a one-rank mesh)."""
+    import torch.distributed as dist
+    if mesh.group is not None:
+        dist.barrier(group=mesh.group)
 
 
 def main():

@@ -344,7 +344,15 @@ def attention_apply(params, cfg, x: torch.Tensor,
     values from the context, not causal, no RoPE.  Self-attention goes
     through the SATA kernels when ``_sata_kernel_ok``; everything else
     through the dense top-k reference per query chunk of ``cfg.q_chunk``
-    rows (cross-attention has no kernel in the reference either)."""
+    rows (cross-attention has no kernel in the reference either).
+
+    A ``params`` view with a ``tp`` region (``distributed.sharding``)
+    holds the rank's column blocks of ``wq``/``wk``/``wv`` and row block
+    of ``wo``: the rank's heads run the same path under ``tp.cfg``, and
+    the partial out-projections are summed over the region's ranks."""
+    tp = getattr(params, "tp", None)
+    if tp is not None:
+        cfg, x = tp.cfg, tp.enter(x)
     b, s, _ = x.shape
     cross = kv_src is not None
     causal = (cfg.causal and not cross) if causal is None else causal
@@ -364,7 +372,9 @@ def attention_apply(params, cfg, x: torch.Tensor,
         out = torch.cat([_attend(q[:, i:i + qc], k, v, cfg, q_pos[i:i + qc],
                                  k_pos, causal=causal)
                          for i in range(0, s, qc)], dim=1)
-    return out.reshape(b, s, cfg.n_heads * cfg.hd) @ params["wo"]
+    out = out.reshape(b, s, cfg.n_heads * cfg.hd)
+    return out @ params["wo"] if tp is None \
+        else tp.row_parallel(out, params["wo"])
 
 
 def decode_block_size(cfg, max_len: int) -> int:

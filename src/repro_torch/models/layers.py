@@ -85,11 +85,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 def mlp_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """A ``params`` view with a ``tp`` region holds the rank's d_ff
+    block (columns of ``wi``/``wg``, rows of ``wo``): the partial
+    outputs are summed over the region's ranks."""
+    tp = getattr(params, "tp", None)
+    if tp is not None:
+        x = tp.enter(x)
     if cfg.mlp_variant == "swiglu":
         h = F.silu(x @ params["wg"]) * (x @ params["wi"])
     else:
         h = F.gelu(x @ params["wi"], approximate="tanh")
-    return h @ params["wo"]
+    return h @ params["wo"] if tp is None \
+        else tp.row_parallel(h, params["wo"])
 
 
 def embed_apply(params, tokens: torch.Tensor) -> torch.Tensor:

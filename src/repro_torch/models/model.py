@@ -462,10 +462,12 @@ def forward(model: Model, cfg: ModelConfig,
     return unembed_apply(model["embed"], cfg, x), aux
 
 
-def loss_fn(model: Model, cfg: ModelConfig,
-            batch: Dict[str, torch.Tensor]
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross-entropy (labels pre-shifted by the pipeline)."""
+def nll_terms(model: Model, cfg: ModelConfig,
+              batch: Dict[str, torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``loss_fn``'s parts before the mean: (the masked token NLL summed
+    over ``batch``, the mask's sum, the aux loss).  ``train.step`` weighs
+    a data-parallel rank's rows by the whole batch's token count."""
     logits, aux = forward(model, cfg, batch)
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
@@ -473,5 +475,13 @@ def loss_fn(model: Model, cfg: ModelConfig,
     nll = logz - gold
     mask = batch.get("loss_mask")
     mask = torch.ones_like(nll) if mask is None else mask
-    loss = (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return (nll * mask).sum(), mask.sum(), aux
+
+
+def loss_fn(model: Model, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy (labels pre-shifted by the pipeline)."""
+    nll_sum, n, aux = nll_terms(model, cfg, batch)
+    loss = nll_sum / n.clamp(min=1.0)
     return loss + 0.01 * aux, {"nll": loss, "aux": aux}

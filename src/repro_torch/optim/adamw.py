@@ -52,18 +52,35 @@ def init_opt_state(params: Dict[str, torch.Tensor]) -> Dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def _global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-    sq = [torch.sum(torch.square(g.float())) for g in grads.values()]
-    return torch.sqrt(torch.stack(sq).sum())
+def _global_norm(grads: Dict[str, torch.Tensor], mesh=None,
+                 specs=None) -> torch.Tensor:
+    """The whole gradient's L2 norm.  On a mesh ``grads`` are the rank's
+    blocks (``specs`` per name): the per-leaf sums of squares are summed
+    over the mesh, each block counted once (a leaf replicated over an
+    axis counts only at coordinate 0 of it)."""
+    sq = torch.stack([torch.sum(torch.square(g.float()))
+                      for g in grads.values()])
+    if mesh is not None:
+        from repro_torch.distributed.sharding import counted_once
+        from repro_torch.launch.mesh import _all_reduce
+        own = torch.tensor([counted_once(specs[n], mesh) for n in grads],
+                           device=sq.device)
+        sq = _all_reduce(torch.where(own, sq, 0.0), mesh,
+                         tuple(mesh.axis_names))
+    return torch.sqrt(sq.sum())
 
 
-def compress_int8(g: torch.Tensor, err: torch.Tensor
+def compress_int8(g: torch.Tensor, err: torch.Tensor,
+                  absmax: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Error-feedback int8 quantization: returns (dequantized g, new err).
     The residual feeds back next step, so the compression is unbiased
-    over time."""
+    over time.  ``absmax``: the max |g + err| over the whole leaf, when
+    ``g`` is one rank's block of it (default: over ``g``)."""
     gf = g.float() + err
-    scale = torch.max(torch.abs(gf)) / 127.0 + 1e-12
+    if absmax is None:
+        absmax = torch.max(torch.abs(gf))
+    scale = absmax / 127.0 + 1e-12
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
     deq = q.float() * scale
     return deq, gf - deq
@@ -72,16 +89,31 @@ def compress_int8(g: torch.Tensor, err: torch.Tensor
 @torch.no_grad()
 def adamw_update(opt: OptConfig, params: Dict[str, torch.Tensor],
                  grads: Dict[str, torch.Tensor], state: Dict,
-                 err: Optional[Dict[str, torch.Tensor]] = None
+                 err: Optional[Dict[str, torch.Tensor]] = None, *,
+                 mesh=None, specs=None
                  ) -> Tuple[Dict, Dict, Optional[Dict], Dict]:
     """One AdamW step over name-keyed tensors, updating ``params`` and
-    the moments in place.  Returns (params, state, err, metrics)."""
+    the moments in place.  Returns (params, state, err, metrics).
+
+    On a ``mesh`` every tensor is the rank's block of its leaf
+    (``specs`` per name, ``distributed.sharding``): the update is
+    elementwise, and the two global quantities — the gradient norm for
+    clipping and each leaf's int8 absmax — are reduced over the mesh."""
     step = state["step"] + 1
     if opt.compress_grads and err is not None:
-        pairs = {n: compress_int8(g, err[n]) for n, g in grads.items()}
+        amax = None
+        if mesh is not None:
+            from repro_torch.launch.mesh import _all_reduce
+            amax = _all_reduce(torch.stack([
+                torch.max(torch.abs(g.float() + err[n]))
+                for n, g in grads.items()]), mesh, tuple(mesh.axis_names),
+                op="max")
+        pairs = {n: compress_int8(g, err[n],
+                                  None if amax is None else amax[i])
+                 for i, (n, g) in enumerate(grads.items())}
         grads = {n: pr[0] for n, pr in pairs.items()}
         err = {n: pr[1] for n, pr in pairs.items()}
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, mesh, specs)
     scale = torch.clamp(opt.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = lr_at(opt, step)
     stepf = step.float()

@@ -6,56 +6,114 @@ fp32 moments, all updated in place by the step.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import ShardLayout, block
+from repro_torch.launch.mesh import _all_reduce, make_local_mesh
 from repro_torch.models import model as mdl
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import OptConfig, adamw_update, init_opt_state
 
 
-def make_train_step(cfg: ModelConfig, opt: OptConfig, micro_steps: int = 1):
-    """→ train_step(state, batch) -> (state, metrics).  ``batch`` holds
-    tensors on the model's device.  ``micro_steps > 1`` splits the batch
-    and accumulates the microbatch gradients in fp32 before the update,
-    as the reference's scan does."""
+def make_train_step(cfg: ModelConfig, opt: OptConfig, micro_steps: int = 1,
+                    mesh=None):
+    """→ train_step(state, batch) -> (state, metrics), run by every rank
+    of ``mesh`` (a ("data", "model") ``launch.mesh.ShardMesh``; default
+    the one-rank ``make_local_mesh()``, on which every collective below
+    is the identity) with the same global ``batch`` on the rank's
+    device, ``state`` sharded by ``init_train_state(mesh=)``:
 
-    def grads_of(model, params, batch):
-        loss, parts = mdl.loss_fn(model, cfg, batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        parts = {n: t.detach() for n, t in parts.items()}
-        return loss.detach(), parts, dict(zip(params, grads))
+    * ``micro_steps > 1`` splits the batch and accumulates the
+      microbatch gradients in fp32 before the update, as the reference's
+      scan does;
+    * each microbatch's rows shard over the data axes (a batch that does
+      not divide replicates, as ``batch_specs`` says);
+    * the rank's loss is its share of the global one: its rows' token
+      NLL over the whole microbatch's token count, plus its aux over the
+      data shard count, so the shares sum to the reference's loss;
+    * the forward reads the sharded parameters through
+      ``ShardLayout.view`` (FSDP gathers around each use; tensor
+      parallelism over "model" in the dense family's attention and
+      MLP), and the backward reduce-scatters the gradients over the
+      data axes; leaves replicated over a data axis are summed over it
+      after the backward;
+    * AdamW runs on the rank's blocks, with the global norm and absmax.
+
+    On more than one rank the data-parallel sums and the row-parallel
+    out-projections add fp32 partial sums in another order than one
+    device: not bitwise."""
+    # the step reads only the mesh's axes; the caller's tensors say where
+    # it computes
+    mesh = make_local_mesh(device="meta") if mesh is None else mesh
+    layout = ShardLayout(cfg, mesh)
+    nd = math.prod(mesh.shape[a] for a in layout.data)
+
+    def shard_loss(view, mb):
+        # a microbatch that does not divide by the data shards replicates:
+        # every data rank then takes all of it, at 1 / nd of the weight
+        copies = nd if mb["labels"].shape[0] % nd else 1
+        local = mb if copies > 1 else {k: block(t, (layout.data,), mesh)
+                                       for k, t in mb.items()}
+        total = mb["loss_mask"].sum() if "loss_mask" in mb else \
+            torch.tensor(float(mb["labels"].numel()),
+                         device=mb["labels"].device)
+        nll_sum, _, aux = mdl.nll_terms(view, cfg, local)
+        nll = nll_sum / (total.clamp(min=1.0) * copies)
+        aux = aux / nd
+        return nll + 0.01 * aux, torch.stack([nll.detach(), aux.detach()])
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         model = state["params"]
         params = dict(model.named_parameters())
-        if micro_steps == 1:
-            loss, parts, grads = grads_of(model, params, batch)
-        else:
-            n = next(iter(batch.values())).shape[0] // micro_steps
-            dev = next(iter(params.values())).device
-            loss = torch.zeros((), dtype=torch.float32, device=dev)
-            grads = {name: torch.zeros(p.shape, dtype=torch.float32,
-                                       device=p.device)
-                     for name, p in params.items()}
-            for i in range(micro_steps):
-                mb = {k: t[i * n:(i + 1) * n] for k, t in batch.items()}
-                l_i, _, g_i = grads_of(model, params, mb)
-                loss = loss + l_i
-                for name, g in g_i.items():
+        view = layout.view(model)
+        n = next(iter(batch.values())).shape[0] // micro_steps
+        parts_sum, grads = None, None
+        for i in range(micro_steps):
+            mb = {k: t[i * n:(i + 1) * n] for k, t in batch.items()}
+            loss_r, parts = shard_loss(view, mb)
+            g_i = torch.autograd.grad(loss_r, list(params.values()))
+            if micro_steps == 1:
+                grads = dict(zip(params, g_i))
+            else:
+                if grads is None:
+                    grads = {name: torch.zeros(p.shape, dtype=torch.float32,
+                                               device=p.device)
+                             for name, p in params.items()}
+                for name, g in zip(params, g_i):
                     grads[name] += g
-            loss = loss / micro_steps
+            parts_sum = parts if parts_sum is None else parts_sum + parts
+        if micro_steps > 1:
             grads = {name: g / micro_steps for name, g in grads.items()}
-            parts = {"nll": loss, "aux": torch.zeros((), device=dev)}
-        _, opt_state, err, om = adamw_update(opt, params, grads,
-                                             state["opt"], state.get("err"))
+        # leaves replicated over a data axis: sum their gradients over it
+        # (one flat fp32 all-reduce per set of axes)
+        by_axes: Dict[tuple, list] = {}
+        for name in grads:
+            axes = layout.replicated_over_data(name)
+            if axes:
+                by_axes.setdefault(axes, []).append(name)
+        for axes, names in by_axes.items():
+            flat = _all_reduce(torch.cat([grads[n].float().reshape(-1)
+                                          for n in names]), mesh, axes)
+            for name, g in zip(names, flat.split(
+                    [grads[n].numel() for n in names])):
+                grads[name] = g.reshape(grads[name].shape)
+        nll, aux = _all_reduce(parts_sum, mesh, layout.data) / micro_steps
+        loss = nll + 0.01 * aux
+        _, opt_state, err, om = adamw_update(
+            opt, params, grads, state["opt"], state.get("err"), mesh=mesh,
+            specs=layout.specs)
         state["opt"] = opt_state
         if err is not None:
             state["err"] = err
+        parts = {"nll": nll, "aux": aux} if micro_steps == 1 else \
+            {"nll": loss, "aux": torch.zeros((), device=loss.device)}
         return state, {"loss": loss, **parts, **om}
 
+    train_step.layout = layout
     return train_step
 
 
@@ -69,14 +127,20 @@ def make_prefill_step(cfg: ModelConfig):
 
 
 def init_train_state(cfg: ModelConfig, opt: OptConfig, *, seed: int = 0,
-                     device="cuda", model=None) -> Dict[str, Any]:
+                     device="cuda", model=None, mesh=None) -> Dict[str, Any]:
     """A fresh train state: ``model`` or the family's ``Model`` with random
     weights from ``seed`` on ``device`` (default ``"cuda"``; raises
     without a GPU), zero fp32 moments, and zero error-feedback buffers
-    with ``opt.compress_grads``."""
+    with ``opt.compress_grads``.  On a ``mesh`` every rank builds the
+    same global model and keeps its block of each parameter
+    (``ShardLayout.shard_``; the whole of it on one rank); moments and
+    error buffers are made from the blocks, so they shard like their
+    parameters."""
     dev = resolve_device(device)
     if model is None:
         model = mdl.Model(cfg, device=dev, seed=seed)
+    if mesh is not None:
+        ShardLayout(cfg, mesh).shard_(model)
     params = dict(model.named_parameters())
     state = {"params": model, "opt": init_opt_state(params)}
     if opt.compress_grads:

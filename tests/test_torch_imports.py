@@ -34,7 +34,9 @@ def test_import_loads_no_jax_and_no_reference_package():
               "repro_torch.core.scheduling", "repro_torch.core.tiling",
               "repro_torch.core.simulator", "repro_torch.core.sata",
               "repro_torch.configs.workloads",
-              "repro_torch.launch.roofline", "repro_torch.launch.mesh"):
+              "repro_torch.launch.roofline", "repro_torch.launch.mesh",
+              "repro_torch.distributed.sharding",
+              "repro_torch.distributed.ctx"):
         assert m in mods, m
     assert [p.name for p in EXAMPLES] == ["quickstart_torch.py",
                                           "schedule_demo_torch.py",
@@ -69,6 +71,8 @@ def test_source_scan_finds_no_jax_or_reference_import():
                      re.M)
     files = list(PORT.rglob("*.py")) + EXAMPLES
     assert PORT / "launch" / "mesh.py" in files
+    assert PORT / "distributed" / "sharding.py" in files
+    assert PORT / "distributed" / "ctx.py" in files
     hits = [f"{p}: {m.group(0).strip()}" for p in files
             for m in pat.finditer(p.read_text())]
     assert not hits, hits
@@ -76,7 +80,8 @@ def test_source_scan_finds_no_jax_or_reference_import():
 
 @pytest.mark.parametrize("entry", ["serve", "init_cache", "model", "train",
                                    "init_train_state", "serve_replicated",
-                                   "make_local_mesh", "make_shard_mesh"])
+                                   "make_local_mesh", "make_shard_mesh",
+                                   "make_train_mesh"])
 def test_entry_points_default_to_cuda_and_never_fall_back(entry):
     """On a machine without a GPU, a call that does not ask for the CPU
     raises instead of running there."""
@@ -85,7 +90,8 @@ def test_entry_points_default_to_cuda_and_never_fall_back(entry):
     from repro_torch.configs.archs import SMOKE
     from repro_torch.launch.serve import serve, serve_replicated
     from repro_torch.models.decode import init_cache
-    from repro_torch.launch.mesh import make_local_mesh, make_shard_mesh
+    from repro_torch.launch.mesh import (make_local_mesh, make_shard_mesh,
+                                         make_train_mesh)
     from repro_torch.launch.train import train
     from repro_torch.models.model import DenseModel
     from repro_torch.optim.adamw import OptConfig
@@ -100,6 +106,7 @@ def test_entry_points_default_to_cuda_and_never_fall_back(entry):
                                                          cfg=cfg),
             "make_local_mesh": make_local_mesh,
             "make_shard_mesh": lambda: make_shard_mesh(1),
+            "make_train_mesh": lambda: make_train_mesh(1, 1),
             }[entry]
     with pytest.raises(RuntimeError, match="cuda"):
         call()

@@ -229,7 +229,9 @@ def test_refusals_mirror_the_reference(ranks):
     """``make_shard_mesh`` past the world raises ValueError, as the
     reference's past its devices does; KV heads or Sq that do not tile
     by the shard count fail the reference's asserts; ``train`` refuses a
-    mesh of more than one rank."""
+    mesh without the ("data", "model") axes its placements read (the
+    1-D shard mesh; ``tests/test_torch_mesh_train.py`` trains on
+    ("data", "model") meshes)."""
     got = ranks[0]["refusals"]
     assert got == ranks[1]["refusals"]
     kind, msg = got["make_shard_mesh(4)"]
@@ -240,7 +242,7 @@ def test_refusals_mirror_the_reference(ranks):
     assert got["kv_not_tiling"] == ("AssertionError", "(3, 2)")
     assert got["sq_not_tiling"] == ("AssertionError", "(24, 2, 8)")
     kind, msg = got["train_on_two_ranks"]
-    assert kind == "NotImplementedError" and "item 4b" in msg
+    assert kind == "ValueError" and "('data', 'model')" in msg
     # a one-shard mesh in the 2-rank world: each rank alone, no group
     for r in ranks:
         assert r["one_rank_mesh"] == ({"shard": 1}, None, 0)

@@ -221,7 +221,15 @@ def test_paged_ssm_is_refused():
 def _stepped(arch, b=3, steps=6):
     """``init_cache`` → ``steps`` teacher-forced ``serve_step``s at
     per-slot positions in both packages (the port fed the reference's
-    greedy tokens); logits held to 1e-4 at every step."""
+    greedy tokens); logits held to 1e-4 at every step.
+
+    The reference steps eagerly (``jax.disable_jit()``): the port
+    mirrors its eager arithmetic, op by op, while under ``jit`` XLA
+    fuses and reorders fp32 sums.  SMOKE rwkv6's layer-3 group norm
+    divides a head of variance 1.05e-4, which turns that reordering
+    alone into 3.7e-5 of logit (eager vs jitted reference), so the
+    jitted reference would hold the port to a summation order rather
+    than to the function (ROADMAP C, closed)."""
     params, model = _weights(arch)
     jc, tc = _cfgs(arch)
     jcache = jdec.init_cache(jc, b, 64)
@@ -229,8 +237,9 @@ def _stepped(arch, b=3, steps=6):
     tok = np.array([[5], [17], [200]], np.int32)
     pos = np.array([0, 3, 9], np.int32)
     for _ in range(steps):
-        jlg, jcache = jdec.serve_step(params, jc, jcache, jnp.asarray(tok),
-                                      jnp.asarray(pos))
+        with jax.disable_jit():
+            jlg, jcache = jdec.serve_step(params, jc, jcache,
+                                          jnp.asarray(tok), jnp.asarray(pos))
         tlg, tcache = tdec.serve_step(model, tc, tcache,
                                       torch.from_numpy(tok),
                                       torch.from_numpy(pos))

@@ -418,13 +418,15 @@ def test_decode_plan_update_matches(name, layout):
 
 
 def test_threshold_flip_is_score_rounding():
-    """Queue C3: on ``UPDATES["churn_none_fire"]``'s inputs one
-    incremental threshold row differs from the reference's by one
-    bisection step (1.4e-4 relative) while the plans agree.  The cause
+    """Queue C3: on ``UPDATES["churn_none_fire"]``'s inputs at most one
+    incremental threshold row differs from the reference's, by at most
+    one bisection step (1.4e-4 relative; on an AVX-512 AMD EPYC host
+    2.4e-6, an endpoint's rounding), while the plans agree.  The cause
     is the score einsum's summation order alone: the scores differ by a
     few ulp, the port's bisection run on the reference's scores returns
-    the reference's threshold bit for bit, and both thresholds admit the
-    same keys."""
+    the reference's threshold bit for bit and the reference's run on the
+    port's scores the port's, and both thresholds admit the same
+    keys."""
     from repro_torch.core.blockmap import bisect_select
     from repro_torch.core.selection import NEG_INF, kth_largest_bisect
     b, kv, s, d, blk, p = 3, 2, 64, 8, 16, 2
@@ -443,9 +445,9 @@ def test_threshold_flip_is_score_rounding():
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
     gap = np.abs(gt.numpy() - np.asarray(wt))
     flip = gap > THR_RTOL * np.abs(wt)
-    assert flip.sum() == 1
-    rel = float((gap / np.abs(wt))[flip][0])
-    assert 1e-4 < rel < 2e-4, rel        # one step of a 16-step bisection
+    assert flip.sum() <= 1
+    rel = float((gap / np.abs(wt)).max())
+    assert rel < 2e-4, rel               # at most one step of a 16-step bisection
     sm = 1.0 / np.sqrt(d)
     kg, tok = tdp.gather_planned_keys(torch.from_numpy(cache), gi,
                                       k_block=blk)
@@ -461,6 +463,12 @@ def test_threshold_flip_is_score_rounding():
             & (tok <= torch.from_numpy(pos)[:, None, None]))[:, :, None, :]
     thr_on_ref = kth_largest_bisect(torch.where(live, j_sc, NEG_INF), 8)
     np.testing.assert_array_equal(thr_on_ref.numpy(), np.asarray(wt))
+    # and the other way: the reference's bisection on the port's scores
+    # returns the port's threshold bit for bit
+    from repro.core.selection import kth_largest_bisect as jkth
+    thr_on_port = jkth(jnp.where(jnp.asarray(live.numpy()),
+                                 jnp.asarray(t_sc.numpy()), NEG_INF), 8)
+    np.testing.assert_array_equal(gt.numpy(), np.asarray(thr_on_port))
     masked = torch.where(live, t_sc, float("-inf"))
     assert torch.equal(bisect_select(masked, gt),
                        bisect_select(masked, torch.tensor(np.asarray(wt))))

@@ -1,0 +1,286 @@
+"""The ranks of ``tests/test_torch_mesh_train.py``, the reference's
+``train`` on a forced-device mesh, and the configs both sides use.
+
+    python tests/torch_mesh_train_ranks.py RANK WORLD TMP
+
+joins a gloo world through the ``FileStore`` at TMP/store<WORLD>, runs
+:func:`run_world` and has rank 0 write the results to
+TMP/world<WORLD>.pt (``torch.save``).  The reference's initial
+parameters come from TMP/<case>.npz (written by the test from
+``repro.models.model.init_params``), so both packages start from the
+same weights.  World 4 trains every case on the (2, 2) mesh and runs the
+checkpoint scenario and one step of each of :data:`FAMILIES`, and
+trains bf16 qwen3-4b on (4, 1) (:data:`BF16_MESH`); world 2
+trains on (2, 1) and (1, 2), with gradient
+compression on (2, 1), resumes world 4's checkpoint on (1, 2) and holds
+the sharded AdamW step to the one-device one.
+
+    python tests/torch_mesh_train_ranks.py reference TMP
+
+runs the reference's ``train`` on each mesh shape of :data:`MESHES` in
+a process of its own (``XLA_FLAGS=--xla_force_host_platform_device_count=4``
+must be set before jax starts; the meshes are built with
+``AxisType.Auto``, as ``repro.launch.mesh`` builds them: jax's default
+Explicit axes fail at the embedding gather) and writes
+TMP/reference.npz.
+"""
+import dataclasses
+import os
+import shutil
+import sys
+
+import numpy as np
+
+STEPS, BATCH = 3, 4
+# (arch in SMOKE, seq, kernel-route overrides or None): SMOKE qwen3-4b
+# and qwen3-moe take ``_attend`` (SMOKE's kernel is off); "gqa-kernel"
+# is qwen3-4b's SMOKE config on the SATA kernel route (chunked
+# selection, compacted grid, blocks of 16) with 4 query over 2 KV heads
+CASES = {
+    "qwen3-4b": ("qwen3-4b", 32, None),
+    "qwen3-moe": ("qwen3-moe-235b-a22b", 32, None),
+    "gqa-kernel": ("qwen3-4b", 64, dict(n_kv_heads=2, topk_k=8,
+                                        topk_impl="bisect", q_chunk=16)),
+}
+# the other families, one step each on (2, 2) against the port's one
+# device: every leaf gathered over "model" (olmo-1b's attention and MLP
+# run tensor-parallel), the forward and backward through the gathers
+FAMILIES = {
+    "olmo": ("olmo-1b", 32, None),
+    "zamba2": ("zamba2-2.7b", 32, None),
+    "rwkv6": ("rwkv6-1.6b", 32, None),
+    "vlm": ("llama-3.2-vision-90b", 32, None),
+    "audio": ("whisper-base", 32, None),
+}
+MESHES = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
+CKPT_CASE, CKPT_STEPS, CKPT_FAIL = "qwen3-4b", 5, 3
+# SMOKE qwen3-4b on (2, 1) against one device: int8 gradient
+# compression, two microbatches of 2 rows (a row a data rank each), and
+# a batch of one row, which does not divide over the 2 data ranks and
+# so replicates (each rank takes the row at half the weight)
+COMPRESS_MESH = (2, 1)
+VARIANTS = {"compress": dict(compress_grads=True),
+            "micro2": dict(micro_steps=2),
+            "batch1": dict(batch=1)}
+# SMOKE qwen3-4b in bf16 from the seed's own weights on (4, 1): a data
+# axis of four ranks, over which each bf16 gradient is summed in fp32
+# and rounded once
+BF16_MESH = (4, 1)
+
+
+def case_cfg(smoke, case, kernel_config):
+    """The case's config from a package's ``SMOKE`` and its
+    ``SataKernelConfig``."""
+    arch, _, over = {**CASES, **FAMILIES}[case]
+    cfg = smoke[arch]
+    if over is None:
+        return cfg
+    return dataclasses.replace(
+        cfg, **over, sata=dataclasses.replace(cfg.sata, kernel=kernel_config(
+            use=True, block=16, schedule="compact")))
+
+
+def flat(tree, prefix=""):
+    """{dotted name: array} of a nested params dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def nested(arrays):
+    out = {}
+    for name, a in arrays.items():
+        *path, leaf = name.split(".")
+        d = out
+        for p in path:
+            d = d.setdefault(p, {})
+        d[leaf] = a
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the port's ranks
+# ---------------------------------------------------------------------------
+
+def port_model(tmp, case, cfg):
+    from repro_torch.models.model import params_from_jax
+    with np.load(os.path.join(tmp, f"{case}.npz")) as z:
+        arrays = {n: z[n] for n in z.files}
+    return params_from_jax(nested(arrays), cfg, device="cpu")
+
+
+def train_case(tmp, case, mesh, dtype=None, **kw):
+    """``train`` of the case on ``mesh`` from the reference's weights
+    (with a ``dtype``: from the seed's own, in that dtype): losses, grad
+    norms and the gathered final parameters."""
+    from repro_torch.configs.archs import SMOKE
+    from repro_torch.launch.train import train
+    from repro_torch.models.config import SataKernelConfig
+    cfg = case_cfg(SMOKE, case, SataKernelConfig)
+    model = None
+    if dtype is None:
+        model = port_model(tmp, case, cfg)
+    else:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    _, seq, _ = {**CASES, **FAMILIES}[case]
+    run = dict(steps=STEPS, batch=BATCH, seq=seq, log_every=100, seed=0)
+    run.update(kw)
+    out = train(case, cfg=cfg, model=model, mesh=mesh, device="cpu", **run)
+    res = {"losses": out["losses"], "gnorms": out["gnorms"]}
+    if mesh is not None and mesh.size > 1:
+        from repro_torch.distributed.sharding import ShardLayout
+        layout = ShardLayout(cfg, mesh)
+        res["params"] = layout.gather_params(out["final_state"]["params"])
+        res["counts"] = layout.counts()
+    else:
+        res["params"] = {n: p.detach().clone() for n, p in
+                         out["final_state"]["params"].named_parameters()}
+    return res
+
+
+def error_of(fn):
+    try:
+        fn()
+    except Exception as e:  # the refusal is the result: type and text
+        return type(e).__name__, str(e)
+    return None
+
+
+def adamw_case(mesh):
+    """One compressed AdamW step on the rank's blocks of two leaves
+    (one sharded over "data" on dim 0, one on dim 1) against the same
+    step on the whole leaves, gradients small enough that nothing
+    clips: returns the gathered params, moments and error buffers of
+    both, and what the step gives when each block takes its own absmax
+    (the port before this layout existed)."""
+    import torch
+    from repro_torch.distributed.sharding import block, gather
+    from repro_torch.optim import adamw
+    rng = np.random.default_rng(5)
+    names = ("a", "b")
+    specs = {"a": ("data", None), "b": (None, "data")}
+    full = {n: {k: (s * rng.standard_normal((8, 6))).astype(np.float32)
+                for k, s in (("p", 1.0), ("g", 1e-2), ("e", 1e-4))}
+            for n in names}
+    opt = adamw.OptConfig(warmup_steps=2, decay_steps=3, compress_grads=True)
+
+    def run(mesh_, blk):
+        t = {n: {k: torch.from_numpy(blk(v, n).copy()) for k, v in d.items()}
+             for n, d in full.items()}
+        p = {n: t[n]["p"] for n in names}
+        st = adamw.init_opt_state(p)
+        p, st, e, m = adamw.adamw_update(
+            opt, p, {n: t[n]["g"] for n in names}, st,
+            {n: t[n]["e"] for n in names}, mesh=mesh_, specs=specs)
+        return p, st, e, m
+
+    def sharded_block(a, n):
+        return block(torch.from_numpy(a), specs[n], mesh).numpy()
+
+    p, st, e, m = run(mesh, sharded_block)
+    got = {n: [gather(x, specs[n], mesh) for x in
+               (p[n], st["m"][n], st["v"][n], e[n])] for n in names}
+    p1, st1, e1, m1 = run(None, lambda a, n: a)
+    want = {n: [p1[n], st1["m"][n], st1["v"][n], e1[n]] for n in names}
+    p2, st2, e2, _ = run(None, sharded_block)       # per-block absmax
+    local = {n: [p2[n], e2[n]] for n in names}
+    return {"got": got, "want": want, "local_absmax": local,
+            "gnorm": (float(m["grad_norm"]), float(m1["grad_norm"]))}
+
+
+def run_world(rank, world, tmp):
+    import torch
+    from repro_torch.launch import mesh as M
+    res = {}
+    for shape in MESHES[world]:
+        mesh = M.make_train_mesh(*shape, device="cpu")
+        for case in CASES:
+            res[(shape, case)] = train_case(tmp, case, mesh)
+        if shape == COMPRESS_MESH:
+            for name, kw in VARIANTS.items():
+                res[(shape, name)] = train_case(tmp, "qwen3-4b", mesh, **kw)
+            res["adamw"] = adamw_case(mesh)
+        res[(shape, "staged")] = mesh.host_staged_bytes
+    mesh = M.make_train_mesh(*MESHES[world][-1], device="cpu")
+    ck = dict(steps=CKPT_STEPS, ckpt_every=1)
+    if world == 4:
+        bf16 = M.make_train_mesh(*BF16_MESH, device="cpu")
+        res["bf16"] = train_case(tmp, "qwen3-4b", bf16, dtype="bfloat16")
+        for case in FAMILIES:
+            res[case] = train_case(tmp, case, mesh, steps=1)
+        d = os.path.join(tmp, "ckpt22")
+        res["uninterrupted"] = train_case(tmp, CKPT_CASE, mesh, **ck)
+        res["failed"] = error_of(lambda: train_case(
+            tmp, CKPT_CASE, mesh, ckpt_dir=d, fail_at=CKPT_FAIL, **ck))
+        if rank == 0:                     # the step-3 checkpoint, kept
+            shutil.copytree(d, os.path.join(tmp, "ckpt_at_3"))
+        torch.distributed.barrier()
+        res["resumed"] = train_case(tmp, CKPT_CASE, mesh, ckpt_dir=d, **ck)
+    else:
+        d = os.path.join(tmp, "ckpt12")
+        if rank == 0:
+            shutil.copytree(os.path.join(tmp, "ckpt_at_3"), d)
+        torch.distributed.barrier()
+        res["resumed"] = train_case(tmp, CKPT_CASE, mesh, ckpt_dir=d, **ck)
+    res["refusals"] = {
+        "size_mismatch": error_of(lambda: train_case(
+            tmp, "qwen3-4b", M.ShardMesh(("data", "model"),
+                                         {"data": world, "model": 2},
+                                         mesh.group, rank, mesh.device))),
+        "axes": error_of(lambda: train_case(
+            tmp, "qwen3-4b", M.make_shard_mesh(world, device="cpu"))),
+    }
+    return res
+
+
+def main_rank(rank, world, tmp):
+    import torch_threads  # noqa: F401  (one intra-op thread)
+    import torch
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp}/store{world}", rank=rank,
+        world_size=world)
+    try:
+        res = run_world(rank, world, tmp)
+        if rank == 0:
+            torch.save(res, os.path.join(tmp, f"world{world}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the reference
+# ---------------------------------------------------------------------------
+
+def main_reference(tmp):
+    import jax
+    from repro.configs import archs as jarchs
+    from repro.launch.mesh import _mesh_kwargs
+    from repro.launch.train import train
+    from repro.models.config import SataKernelConfig
+    out = {}
+    for case in CASES:
+        jarchs.SMOKE[case] = case_cfg(jarchs.SMOKE, case, SataKernelConfig)
+    for world, shapes in MESHES.items():
+        for shape in shapes:
+            mesh = jax.make_mesh(shape, ("data", "model"), **_mesh_kwargs(2))
+            for case in CASES:
+                r = train(case, smoke=True, steps=STEPS, batch=BATCH,
+                          seq=CASES[case][1], mesh=mesh, log_every=100,
+                          seed=0)
+                key = f"{shape[0]}x{shape[1]}/{case}"
+                out[key + "/losses"] = np.asarray(r["losses"])
+                out[key + "/gnorms"] = np.asarray(r["gnorms"])
+                for n, a in flat(r["final_state"]["params"]).items():
+                    out[f"{key}/params/{n}"] = a
+    np.savez(os.path.join(tmp, "reference.npz"), **out)
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "reference":
+        main_reference(sys.argv[2])
+    else:
+        main_rank(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
