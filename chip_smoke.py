@@ -27,6 +27,7 @@ kernel, sequence-sharded selection) on two ranks sharing the card.
     python3 chip_smoke.py --ab DIR   # phase 2, then this tree's decode
                                      # and prefill kernels and DIR's (an
                                      # earlier checkout) timed in turns
+    python3 chip_smoke.py --mesh     # phases 1 and 24-25 alone
 
 Phases (any failure exits non-zero; none is caught so a later one runs;
 each prints its host seconds as a ``[phase]`` line):
@@ -71,7 +72,7 @@ each prints its host seconds as a ``[phase]`` line):
      cases include zamba2-2.7b's shared block (BH 32, S 512, D 80, blocks
      128, causal threshold mode, top-k 64) in bf16 and fp32;
   7. the main path: ``launch.train.train`` on full-width qwen3-4b cut to
-     TRAIN_LAYERS = 9 of its 36 layers (cut to make room for phase
+     TRAIN_LAYERS = 2 of its 36 layers (cut to make room for phase
      25 in the run's time limit), chunked selection
      (``topk_impl="bisect"``), batch 1, S = 4096, 4 steps; the
      compacted-grid kernel's launches must equal
@@ -236,16 +237,24 @@ each prints its host seconds as a ``[phase]`` line):
      MESH_TRAIN_STEPS = 2 steps, on the ("data", "model") meshes (2, 1)
      (FSDP: a rank holds half of every weight and takes one batch row)
      and (1, 2) (tensor parallel: a rank runs 16 of the 32 heads over 4
-     of the 8 KV heads and half of d_ff, the embedding and unembed
-     gathered): losses and grad norms against the parent's one-device
-     ``train`` of the same model and batches (MESH_TRAIN_RTOL, phase 8's
-     2e-3), B3
+     of the 8 KV heads and half of d_ff, and half the vocabulary of the
+     embedding, unembed and loss: its (B, S, V / 2) logits); and
+     full-width qwen3-moe-235b-a22b cut to MESH_MOE_LAYERS = 1 layer
+     (phase 17's depth), batch 1, S 4096, on (1, 2): a rank runs 64 of
+     the 128 experts, 32 of 64 heads, half the vocabulary.  Each: losses
+     and grad norms against the parent's one-device ``train`` of the
+     same model and batches (MESH_TRAIN_RTOL, phase 8's 2e-3), B3
      launched layers x steps x 2 a rank (the counts read in each rank
      right after its ``train``, summed), B4 never, and the rank's first
      B3 call (recorded by ``FirstCall``: the rank's B x H / m rows) held
-     to its plain version within phase 6's limits; step s, peak memory
-     and host-staged MB a rank, and the leaves kept sharded / gathered
-     over "model".
+     to its plain version within phase 6's limits; every expert product
+     on the rank's E / m experts and the logits V / m wide
+     (``RegionProbe``), no leaf gathered over "model", and the tokens
+     whose layer-0 top-k set at step 0 differs from one device's
+     (reported); step s, peak
+     memory and host-staged MB a rank (qwen3-4b's (1, 2) beside the
+     gathered embedding's, TP_GATHERED), and the leaves kept sharded over
+     "model".
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the ``kernels`` JSON, and the card's name and power limit are
@@ -1153,7 +1162,7 @@ def attn_counts(sa):
             sa.sata_block_attention.launches)
 
 
-TRAIN_LAYERS = 9       # phase 7: full width, 9 of qwen3-4b's 36 layers
+TRAIN_LAYERS = 2       # phase 7: full width, 2 of qwen3-4b's 36 layers
 
 
 def train_main_path(torch, sa, dev, base, tag, *, steps=4, seq=4096):
@@ -3533,11 +3542,23 @@ MESH_STEPS = 3           # carried decode steps a layout
 # attention (its 32 heads, S 4096, blocks 128, top-k 64, fp32)
 MESH_DECODE = dict(b=8, kv=8, g=4, d=128, s=4096, page=64, topk=64)
 MESH_SEQ = dict(bh=32, s=4096, d=128, block=128, k_sel=64)
-# phase 25: train(mesh=) on full-width qwen3-4b, 2 of its 36 layers
+# phase 25: train(mesh=) on full-width qwen3-4b, 2 of its 36 layers, on
+# (2, 1) and (1, 2) (vocab-parallel embedding, unembed and loss on the
+# latter), and on full-width qwen3-moe-235b-a22b, 1 of its 94 layers
+# (phase 17's depth), on (1, 2): 64 of its 128 experts a rank
 MESH_TRAIN_LAYERS = 2
 MESH_TRAIN_STEPS = 2     # step 0 and one step after an update
 MESH_TRAIN = dict(batch=2, seq=4096, steps=MESH_TRAIN_STEPS, seed=0)
-MESH_TRAIN_SHAPES = ((2, 1), (1, 2))
+MESH_MOE = "qwen3-moe-235b-a22b"
+MESH_MOE_LAYERS = 1
+MESH_MOE_TRAIN = dict(batch=1, seq=4096, steps=MESH_TRAIN_STEPS, seed=0)
+MESH_TRAIN_RUNS = (("qwen3-4b", (2, 1)), ("qwen3-4b", (1, 2)),
+                   (MESH_MOE, (1, 2)))
+# qwen3-4b on (1, 2) as this phase measured it before the vocab-parallel
+# embedding (both ranks gathered the embedding and unembed and computed
+# the whole (B, S, V) logits; H100 80GB HBM3, 700 W): a rank's
+# host-staged MB over the 2 steps, peak GiB and step seconds
+TP_GATHERED = dict(staged_mb=8022.9, peak_gib=29.73, step_s=(5.74, 6.44))
 # bf16 mesh vs one device: every loss and grad norm within phase 8's
 # ROUTE_RTOL (the data-parallel and row-parallel sums reorder the bf16
 # model's fp32 accumulations; measured up to 1.4e-4 on an H100)
@@ -3620,34 +3641,81 @@ def mesh_seq_inputs(torch, dev, shape, seed=25):
                         device=dev) for _ in range(3)]
 
 
-def mesh_train_cfg(base):
-    """Phase 25's model: phase 7's (the SATA kernel route, chunked
-    selection, remat full) at MESH_TRAIN_LAYERS layers."""
-    return main_path_cfg(dataclasses.replace(
-        base, topk_impl="bisect", n_layers=MESH_TRAIN_LAYERS))
-
-
-def mesh_train_rank(torch, dev, res, train_shapes):
-    """Phase 25 in one rank: ``train(mesh=)`` on each mesh shape, the
-    prefill kernels' counts set to 0 just before and read just after;
-    then the rank's first B3 call held to its plain version."""
+def mesh_train_setup(arch):
+    """Phase 25's model and ``train`` arguments for ``arch``: phase 7's
+    route (the SATA kernel route, chunked selection, remat full) at
+    MESH_TRAIN_LAYERS (qwen3-4b) or MESH_MOE_LAYERS (qwen3-moe) layers,
+    full width."""
     from repro_torch.configs.archs import ARCHS
+    n, run = (MESH_MOE_LAYERS, MESH_MOE_TRAIN) if arch == MESH_MOE else \
+        (MESH_TRAIN_LAYERS, MESH_TRAIN)
+    return main_path_cfg(dataclasses.replace(
+        ARCHS[arch], topk_impl="bisect", n_layers=n)), run
+
+
+class RegionProbe:
+    """While open, records how many experts each expert product of the
+    rank runs (``models.moe._experts``), the vocab width of its logits
+    (``models.model.unembed_apply``) and the first routing's top-k
+    expert ids (``models.moe.route``: layer 0's in step 0's forward, on
+    the host); the calls pass through unchanged."""
+
+    def __init__(self):
+        from repro_torch.models import model as mdl
+        from repro_torch.models import moe
+        self.mods = ((moe, "_experts"), (mdl, "unembed_apply"),
+                     (moe, "route"))
+        self.experts, self.vocab, self.route = set(), set(), None
+
+    def __enter__(self):
+        self.fns = [getattr(m, n) for m, n in self.mods]
+        experts, unembed, route = self.fns
+
+        def run_experts(p, xin, *a, **kw):
+            self.experts.add(xin.shape[0])
+            return experts(p, xin, *a, **kw)
+
+        def run_unembed(*a, **kw):
+            out = unembed(*a, **kw)
+            self.vocab.add(out.shape[-1])
+            return out
+
+        def run_route(*a, **kw):
+            out = route(*a, **kw)
+            if self.route is None:
+                self.route = out.expert_ids.cpu()
+            return out
+        for (m, n), f in zip(self.mods, (run_experts, run_unembed,
+                                         run_route)):
+            setattr(m, n, f)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), f in zip(self.mods, self.fns):
+            setattr(m, n, f)
+
+
+def mesh_train_rank(torch, dev, res, train_runs):
+    """Phase 25 in one rank: ``train(mesh=)`` of each (arch, mesh shape)
+    of ``train_runs``, the prefill kernels' counts set to 0 just before
+    and read just after; then the rank's first B3 call held to its plain
+    version."""
     from repro_torch.distributed.sharding import ShardLayout
     from repro_torch.kernels import sata_attention as sa
     from repro_torch.launch import mesh as M
     from repro_torch.launch.train import train
-    cfg = mesh_train_cfg(ARCHS["qwen3-4b"])
     cuda = dev.type == "cuda"
-    for shape in train_shapes:
+    for arch, shape in train_runs:
+        cfg, run = mesh_train_setup(arch)
         mesh = M.make_train_mesh(*shape, device=dev)
         if cuda:
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
         reset_attn_counts(sa)
-        with FirstCall("_block_attention_compact") as rec:
-            out = train("qwen3-4b", cfg=cfg, mesh=mesh, log_every=100,
-                        **MESH_TRAIN)
+        with FirstCall("_block_attention_compact") as rec, \
+                RegionProbe() as probe:
+            out = train(arch, cfg=cfg, mesh=mesh, log_every=100, **run)
         counts = attn_counts(sa)
         peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
         staged = mesh.host_staged_bytes
@@ -3657,25 +3725,25 @@ def mesh_train_rank(torch, dev, res, train_shapes):
         a_k, a_p = admitted_buffer(torch, c), admitted_buffer(torch, c)
         got = run_attn(sa, c, plain=False, admitted=a_k)
         want = run_attn(sa, c, plain=True, admitted=a_p)
-        err = compare(torch, f"B3 on rank {mesh.index}'s heads, mesh "
-                      f"{shape}", got, want, a_k, a_p,
+        err = compare(torch, f"B3 on rank {mesh.index}'s heads, {arch} "
+                      f"mesh {shape}", got, want, a_k, a_p,
                       attn_window(torch, sa, c))
-        res[f"train {shape}"] = dict(
+        res[f"train {arch} {shape}"] = dict(
             losses=out["losses"], gnorms=out["gnorms"], step_s=out["step_s"],
             launches=counts, peak=peak, staged=staged, err=err,
-            rows=tuple(c["q"].shape),
+            rows=tuple(c["q"].shape), experts=sorted(probe.experts),
+            vocab=sorted(probe.vocab), route=probe.route,
             leaves=ShardLayout(cfg, mesh).counts())
         del c, got, want, a_k, a_p
 
 
-def mesh_rank(rank, world, tmp, device, dshape, sshape, train_shapes=()):
+def mesh_rank(rank, world, tmp, device, dshape, sshape, train_runs=()):
     """One rank of phases 24 and 25, started by ``mesh_phase`` (spawn):
     joins the gloo world through a FileStore in ``tmp``, runs the
     tensor-parallel decode steps in both layouts (the kernels' counts set
     to 0 just before each and read just after) and the sequence-sharded
-    attention twice (the second timed), then phase 25's training on each
-    of ``train_shapes`` (``mesh_train_rank``), and saves everything to
-    ``tmp/rank<r>.pt``."""
+    attention twice (the second timed), then phase 25's training runs
+    (``mesh_train_rank``), and saves everything to ``tmp/rank<r>.pt``."""
     import torch
     import torch.distributed as dist
     from repro_torch.kernels import sata_decode as sd
@@ -3724,7 +3792,7 @@ def mesh_rank(rank, world, tmp, device, dshape, sshape, train_shapes=()):
         res["seq repeat"] = torch.equal(first[0], out)
         res["seq"] = (out.cpu(), {n: x.cpu() for n, x in stats.items()})
         del q, k, v, first, out, stats
-        mesh_train_rank(torch, dev, res, train_shapes)
+        mesh_train_rank(torch, dev, res, train_runs)
         torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -3774,48 +3842,67 @@ def mesh_equal(a, b, what):
             bool((a == b).all()), f"{what}: not bitwise equal"
 
 
-def mesh_train_reference(torch, dev, tag):
-    """Phase 25's one-device run in the parent: ``train()`` of the same
-    model on the same batches; returns its losses, grad norms, step s and
-    peak memory."""
-    from repro_torch.configs.archs import ARCHS
+def mesh_train_reference(torch, dev, tag, archs):
+    """Phase 25's one-device runs in the parent: ``train()`` of each of
+    ``archs``' models on the same batches; returns, by arch, the losses,
+    grad norms, step s and peak memory."""
     from repro_torch.launch.train import train
     cuda = dev.type == "cuda"
-    if cuda:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-    out = train("qwen3-4b", cfg=mesh_train_cfg(ARCHS["qwen3-4b"]),
-                device=dev, log_every=100, **MESH_TRAIN)
-    ref = dict(losses=out["losses"], gnorms=out["gnorms"],
-               step_s=out["step_s"],
-               peak=torch.cuda.max_memory_allocated(dev) if cuda else 0)
-    del out
-    if cuda:
-        torch.cuda.empty_cache()
-    log(f"[mesh-train] one device: qwen3-4b full width, "
-        f"{MESH_TRAIN_LAYERS} layers, batch {MESH_TRAIN['batch']}, S "
-        f"{MESH_TRAIN['seq']}, SATA kernel route: losses {ref['losses']}, "
-        f"grad norms {ref['gnorms']}, step s "
-        f"{[round(x, 3) for x in ref['step_s']]}, peak memory "
-        f"{ref['peak'] / 2 ** 30:.2f} GiB {tag}")
-    return ref
+    refs = {}
+    for arch in archs:
+        cfg, run = mesh_train_setup(arch)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        with RegionProbe() as probe:
+            out = train(arch, cfg=cfg, device=dev, log_every=100, **run)
+        ref = refs[arch] = dict(
+            losses=out["losses"], gnorms=out["gnorms"],
+            step_s=out["step_s"], route=probe.route,
+            peak=torch.cuda.max_memory_allocated(dev) if cuda else 0)
+        del out
+        if cuda:
+            torch.cuda.empty_cache()
+        log(f"[mesh-train] one device: {arch} full width, {cfg.n_layers} "
+            f"layer(s), batch {run['batch']}, S {run['seq']}, SATA kernel "
+            f"route: losses {ref['losses']}, grad norms {ref['gnorms']}, "
+            f"step s {[round(x, 3) for x in ref['step_s']]}, peak memory "
+            f"{ref['peak'] / 2 ** 30:.2f} GiB {tag}")
+    return refs
 
 
-def mesh_train_check(ranks, ref, tag):
+def mesh_train_check(ranks, refs, train_runs, tag):
     """Phase 25's checks on the ranks' results; returns B3's launches on
     the meshes, summed over the ranks."""
-    want = MESH_TRAIN_LAYERS * MESH_TRAIN_STEPS * 2   # forward + recompute
     total = 0
-    for shape in MESH_TRAIN_SHAPES:
+    for arch, shape in train_runs:
+        cfg, run = mesh_train_setup(arch)
+        ref, m = refs[arch], shape[1]
+        want = cfg.n_layers * run["steps"] * 2     # forward + recompute
+        key = f"train {arch} {shape}"
         for r, res in enumerate(ranks):
-            t = res[f"train {shape}"]
+            t = res[key]
             n_b3, n_b4 = t["launches"]
             total += n_b3
             rel_l = [abs(a - b) / abs(b) for a, b in zip(t["losses"],
                                                         ref["losses"])]
             rel_g = [abs(a - b) / abs(b) for a, b in zip(t["gnorms"],
                                                         ref["gnorms"])]
-            log(f"[mesh-train] rank {r}/{MESH_RANKS} mesh {shape} "
+            note = ""
+            if cfg.moe:        # tokens whose top-k set differs, layer 0
+                a, b = (x.sort(dim=-1).values for x in (t["route"],
+                                                         ref["route"]))
+                moved = int((a != b).any(dim=-1).sum())
+                note = (f"; layer 0's step-0 routing: {moved} of "
+                          f"{a[..., 0].numel()} tokens with another top-"
+                          f"{cfg.experts_per_token} set than one device")
+            if (arch, shape) == ("qwen3-4b", (1, 2)):
+                note = (f" (with the embedding gathered: "
+                          f"{TP_GATHERED['staged_mb']:,} MB, "
+                          f"{TP_GATHERED['peak_gib']} GiB, step s "
+                          f"{TP_GATHERED['step_s'][0]}-"
+                          f"{TP_GATHERED['step_s'][1]})")
+            log(f"[mesh-train] rank {r}/{MESH_RANKS} {arch} mesh {shape} "
                 f"(data, model): losses {t['losses']}, grad norms "
                 f"{t['gnorms']}; relative to one device: losses "
                 f"{[f'{x:.3e}' for x in rel_l]}, grad norms "
@@ -3823,22 +3910,28 @@ def mesh_train_check(ranks, ref, tag):
                 f"{[round(x, 3) for x in t['step_s']]} (one device "
                 f"{[round(x, 3) for x in ref['step_s']]}); peak memory "
                 f"{t['peak'] / 2 ** 30:.2f} GiB; host-staged "
-                f"{t['staged'] / 1e6:.1f} MB over {MESH_TRAIN_STEPS} steps; "
-                f"B3 launches {n_b3} (B4 {n_b4}), B3 on the rank's "
-                f"{t['rows'][0]} (B x H / m) rows vs plain max_abs_err "
-                f"{t['err']:.3e}; leaves {t['leaves']} {tag}")
+                f"{t['staged'] / 1e6:.1f} MB over {run['steps']} steps"
+                f"{note}; B3 launches {n_b3} (B4 {n_b4}), B3 on the "
+                f"rank's {t['rows'][0]} (B x H / m) rows vs plain "
+                f"max_abs_err {t['err']:.3e}; experts a product "
+                f"{t['experts']} of {cfg.n_experts if cfg.moe else 0}; "
+                f"logits width {t['vocab']} of {cfg.vocab_size}; leaves "
+                f"{t['leaves']} {tag}")
             assert all(np.isfinite(t["losses"])) and \
-                all(np.isfinite(t["gnorms"])), (shape, r)
-            assert (n_b3, n_b4) == (want, 0), (shape, r, n_b3, n_b4, want)
-            assert max(rel_l) <= MESH_TRAIN_RTOL, (shape, r, rel_l)
-            assert max(rel_g) <= MESH_TRAIN_RTOL, (shape, r, rel_g)
-        assert ranks[0][f"train {shape}"]["losses"] == \
-            ranks[1][f"train {shape}"]["losses"], shape
+                all(np.isfinite(t["gnorms"])), (key, r)
+            assert (n_b3, n_b4) == (want, 0), (key, r, n_b3, n_b4, want)
+            assert max(rel_l) <= MESH_TRAIN_RTOL, (key, r, rel_l)
+            assert max(rel_g) <= MESH_TRAIN_RTOL, (key, r, rel_g)
+            assert t["vocab"] == [cfg.vocab_size // m], (key, r, t["vocab"])
+            assert t["experts"] == ([cfg.n_experts // m] if cfg.moe
+                                    else []), (key, r, t["experts"])
+            assert t["leaves"]["gathered_over_model"] == 0, (key, r)
+        assert ranks[0][key]["losses"] == ranks[1][key]["losses"], key
     return total
 
 
 def mesh_phase(torch, sd, dev, tag, dshape=MESH_DECODE, sshape=MESH_SEQ,
-               train_shapes=MESH_TRAIN_SHAPES):
+               train_runs=MESH_TRAIN_RUNS):
     """Phase 24: ``launch.mesh`` on two gloo ranks sharing the card (NCCL
     refuses two ranks of one communicator on one GPU), each with its own
     CUDA context on the same device, the kernels already built (phase
@@ -3854,11 +3947,12 @@ def mesh_phase(torch, sd, dev, tag, dshape=MESH_DECODE, sshape=MESH_SEQ,
     bitwise, its per-shard fetches partition the local count, every
     shard > 0.  Prints per-step ms per rank (CUDA events), the
     attention's ms, host-staged MB and peak memory per rank.  Phase 25
-    (``train_shapes``) runs in the same world: the parent's one-device
-    ``train`` first (``mesh_train_reference``), then the ranks'
-    ``train(mesh=)`` on each shape (``mesh_train_rank``), checked by
-    ``mesh_train_check``.  Returns the launches of the paged and the
-    contiguous kernel and phase 25's B3 launches and seconds."""
+    (``train_runs``) runs in the same world: the parent's one-device
+    ``train`` of each model first (``mesh_train_reference``), then the
+    ranks' ``train(mesh=)`` of each (model, mesh shape)
+    (``mesh_train_rank``), checked by ``mesh_train_check``.  Returns
+    the launches of the paged and the contiguous kernel and phase 25's
+    B3 launches."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -3901,13 +3995,14 @@ def mesh_phase(torch, sd, dev, tag, dshape=MESH_DECODE, sshape=MESH_SEQ,
         torch.cuda.empty_cache()
     t_ref = time.time() - t0
     t0 = time.time()
-    tref = mesh_train_reference(torch, dev, tag) if train_shapes else None
+    tref = mesh_train_reference(torch, dev, tag, dict.fromkeys(
+        arch for arch, _ in train_runs))
     t_train_ref = time.time() - t0
 
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         mp.start_processes(mesh_rank, args=(MESH_RANKS, tmp, str(dev),
-                                            dshape, sshape, train_shapes),
+                                            dshape, sshape, train_runs),
                            nprocs=MESH_RANKS, start_method="spawn")
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
                  for r in range(MESH_RANKS)]
@@ -3953,7 +4048,7 @@ def mesh_phase(torch, sd, dev, tag, dshape=MESH_DECODE, sshape=MESH_SEQ,
             f"local run bitwise {tag}")
     assert n == {"paged": MESH_RANKS * MESH_STEPS,
                  "contiguous": MESH_RANKS * MESH_STEPS}, n
-    n_b3 = mesh_train_check(ranks, tref, tag) if train_shapes else 0
+    n_b3 = mesh_train_check(ranks, tref, train_runs, tag)
     log(f"[mesh] one-rank references {t_ref:.1f} s (phase 25's one-device "
         f"train {t_train_ref:.1f} s); spawn + {MESH_RANKS} ranks "
         f"{t_ranks:.1f} s (phases 24 and 25) {tag}")
@@ -4411,6 +4506,11 @@ def main() -> int:
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     build_all(build, root)
     clock.done("1 device and build")
+    if sys.argv[1:] == ["--mesh"]:
+        mesh_phase(torch, sd, dev, tag)
+        clock.done("24-25 scale-out and mesh training on two ranks")
+        clock.total()
+        return 0
 
     # --- 2. kernel vs plain on the card
     keep, errs = check_kernels(torch, sd, dev)
@@ -4579,7 +4679,8 @@ def main() -> int:
     n_b1, n_b2, n_b3 = mesh_phase(torch, sd, dev, tag)
     kernels[0]["paths"]["24 tensor-parallel decode"] = n_b1
     kernels[1]["paths"]["24 tensor-parallel decode"] = n_b2
-    kernels[2]["paths"]["25 train(mesh=) (2, 1) + (1, 2)"] = n_b3
+    kernels[2]["paths"]["25 train(mesh=): qwen3-4b (2, 1) + (1, 2), "
+                        "qwen3-moe (1, 2)"] = n_b3
     clock.done("24-25 scale-out and mesh training on two ranks")
     clock.total()
     log(card)

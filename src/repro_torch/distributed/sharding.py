@@ -23,10 +23,14 @@ There is no GSPMD here to place tensors from specs: a rank holds its
 block of every parameter (``block``), and ``ShardedParams`` reads a
 sharded ``Model`` by key as the layer functions read a ``ParamModule``,
 all-gathering each leaf around its use through an autograd function
-whose backward reduce-scatters the gradient over the data axes.  The
-dense family's attention and MLP keep their "model" shards and run
-tensor-parallel (``TensorParallel``): column-parallel in-projections,
-row-parallel out-projections summed by an all-reduce.
+whose backward reduce-scatters the gradient over the data axes.  Where
+the specs shard a module over "model", it keeps its "model" shard and
+computes on it (``ShardLayout.tp_for``): the attention and MLP of every
+family that has them run tensor-parallel (``TensorParallel``:
+column-parallel in-projections, row-parallel out-projections summed by
+an all-reduce), the MoE experts expert- or d_ff-parallel
+(``ExpertParallel``), the embedding, unembed and loss vocab-parallel
+(``VocabParallel``).
 """
 from __future__ import annotations
 
@@ -373,6 +377,11 @@ class TensorParallel:
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         return _CopyIn.apply(x, self.mesh, (self.axis,))
 
+    def leaf(self, x: torch.Tensor) -> torch.Tensor:
+        """A leaf replicated over the axis (the q/k-norm scales): each
+        rank's gradient of it is its heads' share, so it enters."""
+        return self.enter(x)
+
     def row_parallel(self, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """``h @ w`` summed over the region's ranks, ``h`` and ``w``
         the rank's blocks of the contracted dim.  The partial products
@@ -382,18 +391,121 @@ class TensorParallel:
         return _ReduceOut.apply(part, self.mesh, (self.axis,)).to(h.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class ExpertParallel:
+    """The MoE FFN over ``axis`` (``models.moe.moe_apply``).  Every rank
+    routes the same tokens (the router and the routing are replicated);
+    under ``mode="expert"`` a rank keeps ``n_experts / m`` whole experts
+    and runs only the slots routed to them, under ``"tensor"`` every
+    expert with its ``d_ff / m`` block (column-parallel ``wi``/``wg``,
+    row-parallel ``wo``).  Either way a rank's combine is a partial sum
+    in fp32, summed over the ranks once (``reduce``)."""
+    mesh: Any
+    mode: str
+    axis: str = "model"
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return _CopyIn.apply(x, self.mesh, (self.axis,))
+
+    def leaf(self, x: torch.Tensor) -> torch.Tensor:
+        """The router: its gradient comes whole on every rank (the gates
+        enter the region, not the router), so it does not enter."""
+        return x
+
+    def experts(self, n_experts: int) -> Tuple[int, int]:
+        """(first expert, count) this rank runs."""
+        if self.mode == "tensor":
+            return 0, n_experts
+        n = n_experts // self.mesh.axis_size((self.axis,))
+        return self.mesh.coord((self.axis,)) * n, n
+
+    def reduce(self, part: torch.Tensor) -> torch.Tensor:
+        return _ReduceOut.apply(part, self.mesh, (self.axis,))
+
+
+@dataclasses.dataclass(frozen=True)
+class VocabParallel:
+    """The embedding, unembed and loss over ``axis``: a rank holds
+    ``vocab / m`` rows of the embedding and columns of the unembed (the
+    embedding's rows, transposed, when tied), looks up the tokens of
+    its range, computes its ``(B, S, V / m)`` logits and takes the
+    cross-entropy through a logsumexp and a gold logit summed over the
+    ranks."""
+    mesh: Any
+    vocab: int
+    axis: str = "model"
+
+    @property
+    def rows(self) -> Tuple[int, int]:
+        """(first vocab row, count) of this rank."""
+        n = self.vocab // self.mesh.axis_size((self.axis,))
+        return self.mesh.coord((self.axis,)) * n, n
+
+    def _local(self, ids: torch.Tensor):
+        lo, n = self.rows
+        local = ids.long() - lo
+        inside = (local >= 0) & (local < n)
+        return local.clamp(0, n - 1), inside
+
+    def _sum(self, x: torch.Tensor) -> torch.Tensor:
+        return _ReduceOut.apply(x, self.mesh, (self.axis,))
+
+    def embed(self, w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """The rows of ``tokens`` from the rank's block ``w`` (V / m, D),
+        zeros outside its range, summed over the ranks: one rank adds
+        the row, the others 0, so the sum is the row exactly (taken in
+        fp32: gloo need not reduce bf16)."""
+        local, inside = self._local(tokens)
+        rows = torch.where(inside[..., None], w[local], 0.0)
+        return self._sum(rows.float()).to(w.dtype)
+
+    def logits(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """The rank's fp32 logits (B, S, V / m); ``x`` enters, so its
+        gradient sums every rank's vocab share."""
+        x = _CopyIn.apply(x, self.mesh, (self.axis,))
+        return torch.matmul(x.float(), w.float())
+
+    def nll(self, logits: torch.Tensor, labels: torch.Tensor
+            ) -> torch.Tensor:
+        """logsumexp - gold over the whole vocabulary from the rank's
+        logits: the row max all-reduced by max (no gradient: the shift
+        cancels), the sum of exp and the gold logit (from the rank that
+        owns the label) summed over the ranks."""
+        with torch.no_grad():
+            mx = _all_reduce(logits.amax(dim=-1), self.mesh, (self.axis,),
+                             op="max")
+        se = self._sum(torch.exp(logits - mx[..., None]).sum(dim=-1))
+        local, inside = self._local(labels)
+        gold = torch.gather(logits, -1, local[..., None])[..., 0]
+        gold = self._sum(torch.where(inside, gold, 0.0))
+        return mx + torch.log(se) - gold
+
+
+_REGIONS = ("attn", "attn_cross", "mlp")     # TensorParallel module names
+
+
 class ShardLayout:
     """Where every parameter of ``cfg``'s model lives on ``mesh`` (train
-    specs) and which modules run tensor-parallel over "model".
+    specs) and which modules compute on their "model" shard.
 
-    Tensor parallel: the self-attention of the dense and moe families'
-    decoder layers (``layers.<i>.attn``) and the dense family's MLP
-    (``layers.<i>.mlp``), where the heads (or d_ff) divide by the
-    "model" size and the spec shards the in-projections' columns and the
-    out-projection's rows over it.  Everything else is gathered over
-    "model" around its use and computed whole on every "model" rank:
-    embedding / unembed, norms, the MoE router and experts, the hybrid,
-    ssm, vlm and audio layers (``gathered_modules``)."""
+    * ``TensorParallel``: every attention (``attn``; audio's
+      ``attn_cross``, on the context's K/V of the rank's KV heads) and
+      MLP (``mlp``) of the decoder, vlm's cross layers, audio's encoder
+      and zamba2's shared block, where the heads (or d_ff) divide by the
+      "model" size and the spec shards the in-projections' columns and
+      the out-projection's rows over it;
+    * ``ExpertParallel``: each layer's ``moe``, where the spec shards
+      the experts (or their d_ff) over "model";
+    * ``VocabParallel``: ``embed``, where the specs shard the vocabulary
+      (a dim the "model" size does not divide stays whole: ``_fit``).
+
+    Everything else is gathered over "model" around its use and computed
+    whole on every "model" rank: mamba2's and rwkv6's projections (their
+    column splits do not follow heads without a re-layout) and zamba2's
+    ``shared_in``, whose "model" split is of the shared block's d_model
+    columns, which the block's norm and residual need whole (kept, it
+    would cost an all-gather of the activation at every application for
+    a (2·d_model, d_model) leaf)."""
 
     def __init__(self, cfg, mesh, specs: Optional[Dict[str, Spec]] = None):
         from repro_torch.models.model import Model
@@ -401,12 +513,20 @@ class ShardLayout:
         self.specs = specs if specs is not None else param_specs(
             Model(cfg, device="meta"), cfg, mesh)
         self.data = tuple(a for a in data_axes(mesh) if mesh.shape[a] > 1)
-        m = mesh.shape.get("model", 1)
-        self._tp = None
-        if m > 1 and cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0:
+        m = self.m = mesh.shape.get("model", 1)
+        self._tp = self._moe = self._vocab = None
+        if m == 1:
+            return
+        if cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0:
             self._tp = TensorParallel(mesh, dataclasses.replace(
                 cfg, n_heads=cfg.n_heads // m,
                 n_kv_heads=cfg.n_kv_heads // m, head_dim=cfg.hd))
+        if cfg.moe:
+            self._moe = ExpertParallel(mesh, cfg.expert_shard)
+        emb = self.specs.get("embed.embedding", (None,))
+        unemb = self.specs.get("embed.unembed", (None, "model"))
+        if emb[0] == "model" and unemb[-1] == "model":
+            self._vocab = VocabParallel(mesh, cfg.vocab_size)
 
     def _layout_ok(self, prefix: str, cols, rows) -> bool:
         return all(self.specs.get(prefix + n, (None,))[-1] == "model"
@@ -414,30 +534,38 @@ class ShardLayout:
             all(self.specs.get(prefix + n, (None,))[0] == "model"
                 for n in rows)
 
-    def tp_for(self, path: str) -> Optional[TensorParallel]:
-        """The tensor-parallel region of module ``path``, or None."""
-        parts = path.split(".")
-        if self._tp is None or len(parts) != 3 or parts[0] != "layers":
+    def tp_for(self, path: str):
+        """The region of module ``path`` (``TensorParallel``,
+        ``ExpertParallel`` or ``VocabParallel``), or None."""
+        kind = path.rsplit(".", 1)[-1]
+        prefix = path + "."
+        if path == "embed":
+            return self._vocab
+        if kind == "moe" and self._moe is not None:
+            if self._moe.mode == "expert":        # (E, ., .) over model
+                ok = self._layout_ok(prefix, (), ("wi", "wg", "wo"))
+            else:                                 # d_ff over model
+                ok = self._layout_ok(prefix, ("wi", "wg"), ()) and \
+                    self.specs.get(prefix + "wo", (None,) * 3)[1] == "model"
+            return self._moe if ok else None
+        if self._tp is None or kind not in _REGIONS:
             return None
-        fam = self.cfg.family
-        if parts[2] == "attn" and fam in ("dense", "moe"):
-            ok = self._layout_ok(path + ".", ("wq", "wk", "wv"), ("wo",))
-        elif parts[2] == "mlp" and fam == "dense":
+        if kind == "mlp":
             cols = ("wi", "wg") if self.cfg.mlp_variant == "swiglu" \
                 else ("wi",)
-            ok = self.cfg.d_ff % self.mesh.shape["model"] == 0 and \
-                self._layout_ok(path + ".", cols, ("wo",))
+            ok = self.cfg.d_ff % self.m == 0 and \
+                self._layout_ok(prefix, cols, ("wo",))
         else:
-            ok = False
+            ok = self._layout_ok(prefix, ("wq", "wk", "wv"), ("wo",))
         return self._tp if ok else None
 
     def counts(self) -> Dict[str, int]:
-        """Leaves kept sharded over "model" in a tensor-parallel region,
-        and leaves gathered over "model" around their use."""
+        """Leaves kept sharded over "model" in a region, and leaves
+        gathered over "model" around their use."""
         tp = gathered = 0
         for name, spec in self.specs.items():
             if "model" not in {a for e in spec for a in entry_axes(e)} \
-                    or self.mesh.shape["model"] == 1:
+                    or self.m == 1:
                 continue
             if self.tp_for(name.rsplit(".", 1)[0]) is not None:
                 tp += 1
@@ -445,12 +573,11 @@ class ShardLayout:
                 gathered += 1
         return {"tensor_parallel": tp, "gathered_over_model": gathered}
 
-    def use(self, name: str, shard: torch.Tensor,
-            tp: Optional[TensorParallel]) -> torch.Tensor:
+    def use(self, name: str, shard: torch.Tensor, tp) -> torch.Tensor:
         """Leaf ``name`` as the layer function reads it: gathered over
         the data axes (the gradient reduce-scattered back), and over
-        "model" unless it runs in ``tp``; a replicated leaf inside ``tp``
-        enters it through ``_CopyIn``."""
+        "model" unless it runs in the region ``tp``; a replicated leaf
+        inside ``tp`` goes through the region's ``leaf``."""
         spec = self.specs[name]
         x = shard
         for reduce in (True, False):          # data axes first, then model
@@ -464,7 +591,7 @@ class ShardLayout:
                     x = _Gather.apply(x, self.mesh, dim, axes, reduce)
         if tp is not None and all("model" not in entry_axes(e)
                                   for e in spec):
-            x = tp.enter(x)
+            x = tp.leaf(x)
         return x
 
     def replicated_over_data(self, name: str) -> Tuple[str, ...]:
@@ -498,9 +625,9 @@ class ShardedParams:
     """A sharded ``Model`` (or one of its modules) read by key, as the
     layer functions read a ``ParamModule``: a parameter comes back
     through ``ShardLayout.use``, a submodule as another view, a
-    ``ModuleList`` as a list of views.  ``tp`` is the module's
-    tensor-parallel region, which ``attention_apply`` and ``mlp_apply``
-    read."""
+    ``ModuleList`` as a list of views.  ``tp`` is the module's region
+    (``ShardLayout.tp_for``), which ``attention_apply``, ``mlp_apply``,
+    ``moe_apply`` and the embedding functions read."""
 
     def __init__(self, module: nn.Module, prefix: str, layout: ShardLayout,
                  tp: Optional[TensorParallel]):

@@ -348,11 +348,14 @@ def attention_apply(params, cfg, x: torch.Tensor,
 
     A ``params`` view with a ``tp`` region (``distributed.sharding``)
     holds the rank's column blocks of ``wq``/``wk``/``wv`` and row block
-    of ``wo``: the rank's heads run the same path under ``tp.cfg``, and
-    the partial out-projections are summed over the region's ranks."""
+    of ``wo``: the rank's heads run the same path under ``tp.cfg`` (K/V
+    of ``kv_src`` on the rank's KV heads), and the partial
+    out-projections are summed over the region's ranks."""
     tp = getattr(params, "tp", None)
     if tp is not None:
         cfg, x = tp.cfg, tp.enter(x)
+        if kv_src is not None:
+            kv_src = tp.enter(kv_src)
     b, s, _ = x.shape
     cross = kv_src is not None
     causal = (cfg.causal and not cross) if causal is None else causal

@@ -100,13 +100,22 @@ def mlp_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed_apply(params, tokens: torch.Tensor) -> torch.Tensor:
+    """A ``params`` view with a ``VocabParallel`` region holds the
+    rank's vocab rows: the rows are summed over the region's ranks."""
+    tp = getattr(params, "tp", None)
+    if tp is not None:
+        return tp.embed(params["embedding"], tokens)
     return params["embedding"][tokens.long()]
 
 
 def unembed_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
     """Logits stay fp32: the operands are upcast exactly, so a bf16
-    model's products are exact and accumulate in fp32."""
+    model's products are exact and accumulate in fp32.  In a
+    ``VocabParallel`` region they are the rank's (B, S, V / m)."""
     w = params.get("unembed")
     if w is None:
         w = params["embedding"].T
+    tp = getattr(params, "tp", None)
+    if tp is not None:
+        return tp.logits(x, w)
     return torch.matmul(x.float(), w.float())

@@ -413,7 +413,8 @@ def forward(model: Model, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (logits fp32 (B, S, V), aux_loss: the layers' router losses
-    summed in layer order, 0 without moe).  vlm reads
+    summed in layer order, 0 without moe).  A sharded view whose
+    ``embed`` is vocab-parallel gives the rank's (B, S, V / m).  vlm reads
     ``batch["image_embeds"]`` (B, n_image_tokens, d_model), audio
     ``batch["audio_embeds"]`` (B, encoder_len, d_model).  hybrid runs
     the shared block after every ``hybrid_period`` mamba layers, outside
@@ -470,9 +471,13 @@ def nll_terms(model: Model, cfg: ModelConfig,
     a data-parallel rank's rows by the whole batch's token count."""
     logits, aux = forward(model, cfg, batch)
     labels = batch["labels"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    nll = logz - gold
+    vocab = getattr(model["embed"], "tp", None)
+    if vocab is not None:            # the rank's logits: a sharded softmax
+        nll = vocab.nll(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        nll = logz - gold
     mask = batch.get("loss_mask")
     mask = torch.ones_like(nll) if mask is None else mask
     return (nll * mask).sum(), mask.sum(), aux

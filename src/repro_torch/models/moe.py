@@ -17,6 +17,13 @@ dispatch and combine einsums, in plain PyTorch: the CPU tests and
 ``chip_smoke.py`` hold the index form to it.  Neither holds a custom
 kernel: the reference's expert products are plain einsums too.
 
+On a mesh (``distributed.sharding.ExpertParallel``) every "model" rank
+routes the same tokens; a rank dispatches only the slots of its own
+experts (``expert_shard="expert"``) or runs every expert on its d_ff
+block (``"tensor"``), and its partial combine is summed over the ranks
+in fp32 before the cast.  The capacity and drops are the routing's,
+computed whole on every rank.
+
 The router runs in fp32 and never in TF32 (``_full_fp32``).
 """
 from __future__ import annotations
@@ -90,6 +97,12 @@ class Route:
     cap: int
 
 
+def _gates(probs: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The top-k probabilities, renormalised over the k slots."""
+    gates = torch.gather(probs, -1, ids.long())
+    return gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+
+
 def route(p, cfg, tokens: torch.Tensor) -> Route:
     """Top-k token-choice routing of ``tokens`` (G, T, D) with capacity."""
     e, k = cfg.n_experts, cfg.experts_per_token
@@ -99,8 +112,7 @@ def route(p, cfg, tokens: torch.Tensor) -> Route:
         logits = torch.einsum("gtd,de->gte", tokens.float(), p["router"])
     probs = torch.softmax(logits, dim=-1)
     ids = argsort_descending(probs)[..., :k]                  # (G, T, k)
-    gates = torch.gather(probs, -1, ids.long())
-    gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+    gates = _gates(probs, ids)
     # position in expert: earlier (token, k-slot) pairs on the same expert
     onehot = F.one_hot(ids.long(), e).reshape(ng, gsz * k, e)
     before = (torch.cumsum(onehot, dim=1) - onehot).reshape(ng, gsz, k, e)
@@ -118,36 +130,55 @@ def _aux_loss(cfg, r: Route) -> torch.Tensor:
     return (density * router_mean).sum(-1).mean() * (e ** 2) / k
 
 
-def _experts(p, xin: torch.Tensor) -> torch.Tensor:
-    """(E, N, D) slots through every expert's SwiGLU: (E, N, D)."""
+def _experts(p, xin: torch.Tensor, partial: bool = False) -> torch.Tensor:
+    """(E, N, D) slots through every expert's SwiGLU: (E, N, D).
+    ``partial``: the experts hold their d_ff block, and the output is
+    the block's fp32 share of the product, for the sum over ranks."""
     h = torch.bmm(xin, p["wi"])
     hg = torch.bmm(xin, p["wg"])
+    if partial:
+        return torch.bmm((F.silu(hg) * h).float(), p["wo"].float())
     return torch.bmm(F.silu(hg) * h, p["wo"])
 
 
 def moe_apply(p, cfg, x: torch.Tensor):
-    """x: (B, S, D) → (out (B, S, D), aux_loss fp32)."""
+    """x: (B, S, D) → (out (B, S, D), aux_loss fp32).  A ``p`` view with
+    an ``ExpertParallel`` region (``p.tp``) runs the rank's share."""
     b, s, d = x.shape
     tokens = _groups(cfg, x)
     r = route(p, cfg, tokens)
     e, k, cap = cfg.n_experts, cfg.experts_per_token, r.cap
+    tp = getattr(p, "tp", None)
+    ids, gates, keep = r.expert_ids, r.gates, r.keep
+    if tp is not None:
+        # the routing and the aux loss stay whole on every rank; the
+        # gates and the dispatched tokens enter the region, so their
+        # gradients sum the ranks' shares of the combine
+        e0, e = tp.experts(e)
+        gates = _gates(tp.enter(r.probs), ids)
+        tokens = tp.enter(tokens)
+        keep = keep & (ids >= e0) & (ids < e0 + e)
+        ids = (ids - e0).clamp(0, e - 1)
     ng, gsz = tokens.shape[:2]
     g_idx = torch.arange(ng, device=x.device)[:, None, None]
-    slot = ((g_idx * e + r.expert_ids) * cap + r.pie).reshape(-1)
-    kept = r.keep.reshape(-1)
+    slot = ((g_idx * e + ids) * cap + r.pie).reshape(-1)
+    kept = keep.reshape(-1)
     # dispatch: each kept (token, k-slot) owns its slot; empty slots are 0
     src = tokens[:, :, None].expand(ng, gsz, k, d).reshape(-1, d)
     xin = tokens.new_zeros((ng * e * cap, d)).index_put(
         (slot[kept],), src[kept])
     xin = xin.view(ng, e, cap, d).transpose(0, 1).reshape(e, ng * cap, d)
-    out = _experts(p, xin).view(e, ng, cap, d).transpose(0, 1)
+    out = _experts(p, xin, partial=tp is not None and tp.mode == "tensor")
+    out = out.view(e, ng, cap, d).transpose(0, 1)
     got = out.reshape(ng * e * cap, d)[slot].view(ng, gsz, k, d)
     # combine: the gate in the activation dtype (the reference's
     # combine.astype(x.dtype)), summed in k-slot order in fp32
-    w = torch.where(r.keep, r.gates, 0.0).to(x.dtype).float()
+    w = torch.where(keep, gates, 0.0).to(x.dtype).float()
     y = w[..., 0, None] * got[:, :, 0].float()
     for j in range(1, k):
         y = y + w[..., j, None] * got[:, :, j].float()
+    if tp is not None:
+        y = tp.reduce(y)
     return y.to(x.dtype).reshape(b, s, d), _aux_loss(cfg, r)
 
 

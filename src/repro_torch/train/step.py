@@ -34,18 +34,22 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, micro_steps: int = 1,
       not divide replicates, as ``batch_specs`` says);
     * the rank's loss is its share of the global one: its rows' token
       NLL over the whole microbatch's token count, plus its aux over the
-      data shard count, so the shares sum to the reference's loss;
+      data shard count, so the shares sum to the reference's loss over
+      the data axes; over "model" every rank holds the whole of its
+      rows' loss (the vocab-parallel NLL and the MoE aux are summed or
+      computed whole on each), so the "model" ranks' shares are equal,
+      not parts;
     * the forward reads the sharded parameters through
-      ``ShardLayout.view`` (FSDP gathers around each use; tensor
-      parallelism over "model" in the dense family's attention and
-      MLP), and the backward reduce-scatters the gradients over the
-      data axes; leaves replicated over a data axis are summed over it
-      after the backward;
+      ``ShardLayout.view`` (FSDP gathers around each use; over "model"
+      the attention, MLP, MoE experts, embedding, unembed and loss
+      compute on the rank's shard), and the backward reduce-scatters
+      the gradients over the data axes; leaves replicated over a data
+      axis are summed over it after the backward;
     * AdamW runs on the rank's blocks, with the global norm and absmax.
 
-    On more than one rank the data-parallel sums and the row-parallel
-    out-projections add fp32 partial sums in another order than one
-    device: not bitwise."""
+    On more than one rank the data-parallel sums, the row-parallel
+    out-projections and the vocab-parallel logsumexp add fp32 partial
+    sums in another order than one device: not bitwise."""
     # the step reads only the mesh's axes; the caller's tensors say where
     # it computes
     mesh = make_local_mesh(device="meta") if mesh is None else mesh

@@ -5,14 +5,21 @@
 A world of 4 ranks trains on the (2, 2) mesh and a world of 2 on (2, 1)
 and (1, 2), each started once for the module through a ``FileStore``
 under the test's temp directory; the reference's ``train`` runs on the
-same mesh shapes in a subprocess with 4 forced host devices and
-``AxisType.Auto`` meshes; all three start together.  Cases
-(``CASES``): SMOKE qwen3-4b (tensor-parallel attention and MLP on 2 of
-4 heads), SMOKE qwen3-moe (tensor-parallel attention, the experts
-gathered by the ``expert_shard`` rule) and qwen3-4b's SMOKE config on
-the SATA kernel route (the compacted-grid kernel's plain version on the
-rank's 2 of 4 query heads over 1 of 2 KV heads), 3 steps each from the
-reference's weights.
+same mesh shapes in REF_PARTS subprocesses (each a share of the runs)
+with 4 forced host devices and ``AxisType.Auto`` meshes, started with
+world 4; the test process writes the weights meanwhile and runs the
+port's one-device cases while world 2 and the reference run.  Cases
+(``CASES``, on every mesh): SMOKE qwen3-4b (tensor-parallel attention
+and MLP on 2 of 4 heads), SMOKE qwen3-moe (tensor-parallel attention,
+2 of the 4 experts a rank under ``expert_shard="expert"``) and
+qwen3-4b's SMOKE config on the SATA kernel route (the compacted-grid
+kernel's plain version on the rank's 2 of 4 query heads over 1 of 2 KV
+heads); (``MODEL_CASES``) SMOKE grok-1 (every expert on half its d_ff,
+``"tensor"``) on (1, 2) and (2, 2), llama-3.2-vision (cross layers),
+whisper-base (encoder, cross-attention), zamba2 (the shared block) and
+qwen3-4b with a tied embedding on (1, 2).  Every case runs its
+embedding, unembed and loss vocab-parallel where "model" is 2.  3 steps
+each from the reference's weights.
 
 Not bitwise: the data-parallel gradient sums (reduce-scatter over the
 data ranks), the row-parallel out-projections' all-reduce and the
@@ -20,7 +27,12 @@ sharded sums of squares of the gradient norm add fp32 partial sums in
 another order than one device.  Against the port's one-rank run and
 against the reference's ``train`` on the same mesh: losses and grad
 norms 1e-4 relative, final parameters 1e-5 absolute (fp32 summation
-order; ``tests/test_torch_train.py``'s ``TRAIN_RTOL`` / ``PARAM_ATOL``).
+order; ``tests/test_torch_train.py``'s ``TRAIN_RTOL`` / ``PARAM_ATOL``),
+but for one claim (ROADMAP C12, ``_first_update_accounts``): a
+parameter whose clipped first gradient lies inside AdamW's eps on both
+sides takes a first update ``lr · g / (|g| + eps)`` that turns the
+gradients' fp32 summation order into up to ~1e-5; there the gap less
+that first update's difference is held to 1e-5.
 The reference's mesh training routes attention through ``_attend`` (its
 kernel has no SPMD rule): the kernel case holds the port's kernel route
 to it, as ``test_torch_train.py`` does on one device.  Bitwise: a run
@@ -45,8 +57,13 @@ import torch_mesh_train_ranks as R  # noqa: E402
 from repro.configs import archs as jarchs  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro.models.config import SataKernelConfig as JK  # noqa: E402
+from repro_torch.optim.adamw import OptConfig, lr_at  # noqa: E402
 
 TRAIN_RTOL, PARAM_ATOL = 1e-4, 1e-5
+# ``train``'s AdamW for STEPS steps, and its learning rate at the first
+# update
+OPT = OptConfig(warmup_steps=max(2, R.STEPS // 10), decay_steps=R.STEPS)
+LR1 = float(lr_at(OPT, torch.tensor(1)))
 BF16_STEP0, BF16_LOSS_RTOL, BF16_GNORM_RTOL, BF16_PARAM_ATOL = \
     1e-5, 2e-3, 2e-2, 2 ** -8
 WORKER = pathlib.Path(R.__file__)
@@ -70,41 +87,93 @@ def _finish(procs):
         assert p.returncode == 0, log[-4000:]
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """(world 4's results, world 2's, the reference's arrays, tmp)."""
-    tmp = tmp_path_factory.mktemp("mesh_train")
-    for case in {**R.CASES, **R.FAMILIES}:
-        cfg = R.case_cfg(jarchs.SMOKE, case, JK)
-        params = jmodel.init_params(jax.random.PRNGKey(0), cfg)
-        np.savez(tmp / f"{case}.npz", **R.flat(params))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(SRC), str(WORKER.parent), os.environ.get("PYTHONPATH", "")]))
-    ref = _start(["reference", tmp], dict(
-        env, JAX_PLATFORMS="cpu",
-        XLA_FLAGS="--xla_force_host_platform_device_count=4"))
-    _finish([_start([r, 4, tmp], env) for r in range(4)])
-    # world 2 resumes world 4's checkpoint
-    _finish([_start([r, 2, tmp], env) for r in range(2)] + [ref])
-    with np.load(tmp / "reference.npz") as z:
-        want = {n: z[n] for n in z.files}
-    return (torch.load(tmp / "world4.pt"), torch.load(tmp / "world2.pt"),
-            want, tmp)
+REF_PARTS = 3      # reference processes, each on a third of its runs
 
 
-@pytest.fixture(scope="module")
-def one_rank(runs):
+def _one_rank(tmp):
     """Every case on one device, and the uninterrupted checkpoint run."""
-    tmp = str(runs[3])
-    out = {case: R.train_case(tmp, case, None) for case in R.CASES}
+    out = {case: R.train_case(tmp, case, None, moments=True)
+           for case in [*R.CASES, *R.MODEL_CASES]}
     for name, kw in R.VARIANTS.items():
         out[name] = R.train_case(tmp, "qwen3-4b", None, **kw)
     out["bf16"] = R.train_case(tmp, "qwen3-4b", None, dtype="bfloat16")
     return out
 
 
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(world 4's results, world 2's, the reference's arrays, tmp, the
+    one-device runs).  The test process writes the reference's weights
+    while world 4 starts, and runs the one-device cases while world 2
+    and the reference run."""
+    tmp = tmp_path_factory.mktemp("mesh_train")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC), str(WORKER.parent), os.environ.get("PYTHONPATH", "")]))
+    refs = [_start(["reference", tmp, i, REF_PARTS], dict(
+        env, JAX_PLATFORMS="cpu",
+        XLA_FLAGS="--xla_force_host_platform_device_count=4"))
+        for i in range(REF_PARTS)]
+    world4 = [_start([r, 4, tmp], env) for r in range(4)]
+    try:          # the ranks wait for each case's weights as they come
+        R.write_weights(str(tmp), jarchs.SMOKE, jmodel.init_params,
+                        jax.random.PRNGKey(0), JK)
+    except BaseException:
+        for p in world4 + refs:
+            p.kill()
+        raise
+    _finish(world4)
+    # world 2 resumes world 4's checkpoint
+    world2 = [_start([r, 2, tmp], env) for r in range(2)]
+    try:
+        one = _one_rank(str(tmp))
+    finally:
+        _finish(world2 + refs)
+    want = {}
+    for i in range(REF_PARTS):
+        with np.load(tmp / f"reference{i}.npz") as z:
+            want.update({n: z[n] for n in z.files})
+    return (torch.load(tmp / "world4.pt"), torch.load(tmp / "world2.pt"),
+            want, tmp, one)
+
+
+@pytest.fixture(scope="module")
+def one_rank(runs):
+    return runs[4]
+
+
 def _results(runs, shape):
     return runs[0] if shape == (2, 2) else runs[1]
+
+
+def _first_step(m1):
+    """AdamW's first normalised step from its first moment ``0.1 · g``
+    (g the clipped first gradient): ``g / (|g| + eps)``."""
+    g = m1.astype(np.float64) / (1 - OPT.b1)
+    return g / (np.abs(g) + OPT.eps)
+
+
+def _first_update_accounts(got, want, m1_got, m1_want, what):
+    """Final parameters within PARAM_ATOL, but for ROADMAP C12: where
+    one misses, both runs' clipped first gradients lie inside AdamW's
+    eps (there ``g / (|g| + eps)`` is steep: a near-zero gradient's
+    fp32 summation order moves the first update by up to lr · 0.07), and
+    the gap less the two first updates' difference is within
+    PARAM_ATOL.  Without first moments every element is held to
+    PARAM_ATOL."""
+    gap = got.astype(np.float64) - want
+    off = np.abs(gap) > PARAM_ATOL
+    if not off.any():
+        return
+    if m1_got is None:
+        np.testing.assert_allclose(got, want, atol=PARAM_ATOL, rtol=0,
+                                   err_msg=what)
+    g_got = m1_got[off] / (1 - OPT.b1)
+    g_want = m1_want[off] / (1 - OPT.b1)
+    assert np.abs(g_got).max() < OPT.eps and \
+        np.abs(g_want).max() < OPT.eps, (what, g_got, g_want, gap[off])
+    rest = gap[off] + LR1 * (_first_step(m1_got[off])
+                             - _first_step(m1_want[off]))
+    assert np.abs(rest).max() <= PARAM_ATOL, (what, gap[off], rest)
 
 
 def _close(got, want, what):
@@ -113,14 +182,17 @@ def _close(got, want, what):
     np.testing.assert_allclose(got["gnorms"], want["gnorms"],
                                rtol=TRAIN_RTOL, err_msg=what)
     assert set(got["params"]) == set(want["params"]), what
+    m1 = "m1" in got and "m1" in want
     for n, p in got["params"].items():
-        np.testing.assert_allclose(p.numpy(), want["params"][n].numpy(),
-                                   atol=PARAM_ATOL, rtol=0,
-                                   err_msg=f"{what} {n}")
+        _first_update_accounts(
+            p.float().numpy(), want["params"][n].float().numpy(),
+            got["m1"][n].numpy() if m1 else None,
+            want["m1"][n].numpy() if m1 else None,
+            f"{what} {n}")
 
 
 MESH_CASES = [(shape, case) for shapes in R.MESHES.values()
-              for shape in shapes for case in R.CASES]
+              for shape in shapes for case in R.mesh_cases(shape)]
 
 
 @pytest.mark.parametrize("shape,case", MESH_CASES,
@@ -144,26 +216,34 @@ def test_mesh_matches_reference_on_the_same_mesh(runs, shape, case):
                                rtol=TRAIN_RTOL)
     names = {n[len(key + "/params/"):] for n in want
              if n.startswith(key + "/params/")}
-    stacked = _stacked(got["params"])
+    cfg = R.case_cfg(jarchs.SMOKE, case, JK)
+    stacked = _stacked(got["params"], cfg)
+    m1 = _stacked(got["m1"], cfg)
     assert names == set(stacked)
     for n in names:
-        np.testing.assert_allclose(stacked[n], want[f"{key}/params/{n}"],
-                                   atol=PARAM_ATOL, rtol=0, err_msg=n)
+        _first_update_accounts(stacked[n], want[f"{key}/params/{n}"],
+                               m1[n], want[f"{key}/m1/{n}"], n)
 
 
-def _stacked(params):
-    """The port's parameters under the reference's names: ``layers.<i>.x``
-    stacked into ``layers.x`` (L, ...)."""
-    out, layers = {}, {}
+def _stacked(params, cfg):
+    """The port's parameters (tensors or arrays) under the reference's
+    names: ``<group>.<i>.x`` stacked into ``<group>.x`` (L, ...) for the
+    layer groups, vlm's self layers as (n_cross, per_group, ...)."""
+    out, groups = {}, {}
     for n, p in params.items():
+        p = p.float().numpy() if isinstance(p, torch.Tensor) else p
         parts = n.split(".")
-        if parts[0] == "layers":
-            layers.setdefault(".".join(["layers"] + parts[2:]), {})[
-                int(parts[1])] = p.numpy()
+        if parts[0] in ("layers", "cross_layers", "enc_layers"):
+            groups.setdefault(".".join([parts[0]] + parts[2:]), {})[
+                int(parts[1])] = p
         else:
-            out[n] = p.numpy()
-    for n, per in layers.items():
-        out[n] = np.stack([per[i] for i in range(len(per))])
+            out[n] = p
+    for n, per in groups.items():
+        a = np.stack([per[i] for i in range(len(per))])
+        if n.startswith("layers.") and cfg.family == "vlm":
+            a = a.reshape((cfg.n_layers // cfg.cross_attn_period, -1)
+                          + a.shape[1:])
+        out[n] = a
     return out
 
 
@@ -179,20 +259,53 @@ def test_other_families_take_one_step_on_the_mesh(runs, case):
 
 
 def test_tensor_parallel_and_gathered_leaves(runs):
-    """Under "model" = 2 the dense layers' attention and MLP projections
-    stay sharded (7 a layer), qwen3-moe's attention projections (4 a
-    layer) while its experts and router, the embedding and unembed are
-    gathered; "model" = 1 shards nothing over it."""
+    """Under "model" = 2 every leaf with a "model" spec of the dense,
+    moe, vlm and audio families stays sharded in its region: the
+    attention and MLP projections (7 a dense layer), qwen3-moe's and
+    grok's attention and experts (4 + 3 a layer; the router is
+    replicated), the embedding and unembed (2; the tied embedding 1);
+    zamba2 keeps its shared block's 7 and the 2 and gathers its mamba
+    layers' in_proj / out_proj / conv_w (3 a layer) and ``shared_in``;
+    "model" = 1 shards nothing over it."""
     n = jarchs.SMOKE["qwen3-4b"].n_layers
     w2 = runs[1]
-    assert w2[((1, 2), "qwen3-4b")]["counts"] == {
-        "tensor_parallel": 7 * n, "gathered_over_model": 2}
-    assert w2[((1, 2), "qwen3-moe")]["counts"] == {
-        "tensor_parallel": 4 * n, "gathered_over_model": 2 + 3 * n}
+    for case in ("qwen3-4b", "qwen3-moe", "grok"):
+        assert w2[((1, 2), case)]["counts"] == {
+            "tensor_parallel": 7 * n + 2, "gathered_over_model": 0}, case
+    assert w2[((1, 2), "tied")]["counts"] == {
+        "tensor_parallel": 7 * n + 1, "gathered_over_model": 0}
+    vlm = jarchs.SMOKE["llama-3.2-vision-90b"]
+    assert w2[((1, 2), "vlm")]["counts"] == {
+        "tensor_parallel": 7 * vlm.n_layers + 2, "gathered_over_model": 0}
+    audio = jarchs.SMOKE["whisper-base"]     # gelu MLPs: wi, wo
+    assert w2[((1, 2), "audio")]["counts"] == {
+        "tensor_parallel": 6 * audio.encoder_layers + 10 * audio.n_layers
+        + 2, "gathered_over_model": 0}
+    zamba2 = jarchs.SMOKE["zamba2-2.7b"]
+    assert w2[((1, 2), "zamba2")]["counts"] == {
+        "tensor_parallel": 7 + 2,
+        "gathered_over_model": 3 * zamba2.n_layers + 1}
     assert w2[((2, 1), "qwen3-4b")]["counts"] == {
         "tensor_parallel": 0, "gathered_over_model": 0}
     # CPU tensors go through gloo without a host copy
     assert w2[((2, 1), "staged")] == w2[((1, 2), "staged")] == 0
+
+
+@pytest.mark.parametrize("case", R.SHAPES_CASES)
+def test_a_rank_computes_its_experts_and_vocab_shard(runs, case):
+    """A (1, 2) rank's forward: every expert product sees only the
+    rank's shard — 2 of qwen3-moe's 4 experts (``"expert"``), all 4 of
+    grok's on half of d_ff (``"tensor"``) — and the logits are the
+    rank's (B, S, V / 2)."""
+    cfg = jarchs.SMOKE[R.ROWS[case][0]]
+    got = runs[1]["shapes"][case]
+    e, d, f, m = cfg.n_experts, cfg.d_model, cfg.d_ff, 2
+    wi, wo = ((e // m, d, f), (e // m, f, d)) if case == "qwen3-moe" \
+        else ((e, d, f // m), (e, f // m, d))
+    assert len(got["experts"]) == cfg.n_layers
+    for xin, w_in, w_out in got["experts"]:
+        assert (xin[0], w_in, w_out) == (wi[0], wi, wo), got["experts"]
+    assert got["logits"] == (R.BATCH, R.ROWS[case][1], cfg.vocab_size // m)
 
 
 def test_compressed_adamw_uses_the_global_absmax(runs, one_rank):
@@ -252,7 +365,7 @@ def test_elastic_restore_resumes_to_the_uninterrupted_losses(runs):
     """A checkpoint saved on (2, 2) at step 3 (by the injected failure):
     resumed on (2, 2) it gives the uninterrupted run's last two steps
     bit for bit; on one device and on (1, 2) within the tolerances."""
-    w4, w2, _, tmp = runs
+    w4, w2, _, tmp, _ = runs
     assert w4["failed"] == ("RuntimeError", "injected failure at step 3")
     full = w4["uninterrupted"]
     res = w4["resumed"]

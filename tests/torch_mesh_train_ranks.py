@@ -7,22 +7,27 @@ joins a gloo world through the ``FileStore`` at TMP/store<WORLD>, runs
 :func:`run_world` and has rank 0 write the results to
 TMP/world<WORLD>.pt (``torch.save``).  The reference's initial
 parameters come from TMP/<case>.npz (written by the test from
-``repro.models.model.init_params``), so both packages start from the
-same weights.  World 4 trains every case on the (2, 2) mesh and runs the
-checkpoint scenario and one step of each of :data:`FAMILIES`, and
-trains bf16 qwen3-4b on (4, 1) (:data:`BF16_MESH`); world 2
-trains on (2, 1) and (1, 2), with gradient
-compression on (2, 1), resumes world 4's checkpoint on (1, 2) and holds
-the sharded AdamW step to the one-device one.
+``repro.models.model.init_params`` while the ranks start,
+``write_weights``), so both packages start from the same weights.  World 4 trains every case of :func:`mesh_cases` on the
+(2, 2) mesh and runs the checkpoint scenario and one step of each of
+:data:`FAMILIES`, and trains bf16 qwen3-4b on (4, 1)
+(:data:`BF16_MESH`); world 2 trains on (2, 1) and (1, 2), with gradient
+compression on (2, 1), records the shapes a (1, 2) rank's expert
+products and logits see, resumes world 4's checkpoint on (1, 2) and
+holds the sharded AdamW step to the one-device one.  Every
+:func:`mesh_cases` run, on both packages, also keeps its first AdamW
+moment after step 1 (the reference's from a step-1 checkpoint of its
+``train``): ``0.1 ×`` the clipped first gradient, which the test reads
+where a parameter misses ``PARAM_ATOL`` (ROADMAP C12).
 
-    python tests/torch_mesh_train_ranks.py reference TMP
+    python tests/torch_mesh_train_ranks.py reference TMP PART PARTS
 
-runs the reference's ``train`` on each mesh shape of :data:`MESHES` in
-a process of its own (``XLA_FLAGS=--xla_force_host_platform_device_count=4``
-must be set before jax starts; the meshes are built with
-``AxisType.Auto``, as ``repro.launch.mesh`` builds them: jax's default
-Explicit axes fail at the embedding gather) and writes
-TMP/reference.npz.
+runs the reference's ``train`` on part PART of PARTS of the (mesh shape
+of :data:`MESHES`, case) pairs (``reference_jobs``), the parts at once
+(``XLA_FLAGS=--xla_force_host_platform_device_count=4`` must be set
+before jax starts; the meshes are built with ``AxisType.Auto``, as
+``repro.launch.mesh`` builds them: jax's default Explicit axes fail at
+the embedding gather) and writes TMP/reference<PART>.npz.
 """
 import dataclasses
 import os
@@ -52,7 +57,33 @@ FAMILIES = {
     "vlm": ("llama-3.2-vision-90b", 32, None),
     "audio": ("whisper-base", 32, None),
 }
+# the modules that compute on their "model" shard in the expert-, vocab-
+# and tensor-parallel regions beyond the dense attention and MLP, 3 steps
+# each against the port's one device and the reference on the same mesh:
+# SMOKE grok-1's experts split by d_ff (``expert_shard="tensor"``) on
+# (1, 2) and (2, 2); llama-3.2-vision's cross layers, whisper's encoder
+# and cross-attention, zamba2's shared block and a tied embedding on
+# (1, 2).  Every case also runs its embedding, unembed and loss
+# vocab-parallel over "model".
+MODEL_CASES = {"grok": ((1, 2), (2, 2)), "vlm": ((1, 2),),
+               "audio": ((1, 2),), "zamba2": ((1, 2),), "tied": ((1, 2),)}
+# "tied": SMOKE qwen3-4b with ``tie_embeddings``: the unembed is the
+# rank's embedding rows, transposed
+ROWS = {**CASES, **FAMILIES, "grok": ("grok-1-314b", 32, None),
+        "tied": ("qwen3-4b", 32, dict(tie_embeddings=True))}
+KERNEL_CASES = ("gqa-kernel",)     # the SATA kernel route, blocks of 16
 MESHES = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
+# cases whose reference ``train`` runs a step a call, each resumed from
+# the last one's checkpoint: its jit pins no output shardings, and on a
+# model-split mesh GSPMD hands SMOKE zamba2's final_ln and shared-block
+# norm scales back split over "model", which its second call refuses
+# (``ValueError: Sharding passed to jit does not match``); a resumed
+# call restores onto its input shardings.  ``train`` at ``steps`` k
+# takes step k - 1 at the learning rate ``steps = 3`` gives it (warmup 2
+# steps, then the cosine from step 2 to ``decay_steps``)
+REF_STEPWISE = ("zamba2",)
+# the forward whose region shapes a (1, 2) rank records (``region_shapes``)
+SHAPES_MESH, SHAPES_CASES = (1, 2), ("qwen3-moe", "grok")
 CKPT_CASE, CKPT_STEPS, CKPT_FAIL = "qwen3-4b", 5, 3
 # SMOKE qwen3-4b on (2, 1) against one device: int8 gradient
 # compression, two microbatches of 2 rows (a row a data rank each), and
@@ -68,13 +99,21 @@ VARIANTS = {"compress": dict(compress_grads=True),
 BF16_MESH = (4, 1)
 
 
+def mesh_cases(shape):
+    """The cases trained 3 steps on mesh ``shape``."""
+    return [*CASES] + [c for c, shapes in MODEL_CASES.items()
+                       if shape in shapes]
+
+
 def case_cfg(smoke, case, kernel_config):
     """The case's config from a package's ``SMOKE`` and its
     ``SataKernelConfig``."""
-    arch, _, over = {**CASES, **FAMILIES}[case]
+    arch, _, over = ROWS[case]
     cfg = smoke[arch]
     if over is None:
         return cfg
+    if case not in KERNEL_CASES:
+        return dataclasses.replace(cfg, **over)
     return dataclasses.replace(
         cfg, **over, sata=dataclasses.replace(cfg.sata, kernel=kernel_config(
             use=True, block=16, schedule="compact")))
@@ -106,17 +145,39 @@ def nested(arrays):
 # the port's ranks
 # ---------------------------------------------------------------------------
 
-def port_model(tmp, case, cfg):
+def write_weights(tmp, smoke, init_params, key, kernel_config):
+    """TMP/<case>.npz of every case, in the order the ranks first need
+    them, each made whole before it appears (``port_model`` waits)."""
+    order = [*CASES, *MODEL_CASES, *FAMILIES]
+    for case in order + [c for c in ROWS if c not in order]:
+        cfg = case_cfg(smoke, case, kernel_config)
+        path = os.path.join(tmp, f"{case}.npz")
+        np.savez(path + ".part.npz", **flat(init_params(key, cfg)))
+        os.replace(path + ".part.npz", path)
+
+
+def port_model(tmp, case, cfg, timeout=600.0):
+    """The port's model from the reference's weights in TMP/<case>.npz,
+    once ``write_weights`` has written them."""
+    import time
     from repro_torch.models.model import params_from_jax
-    with np.load(os.path.join(tmp, f"{case}.npz")) as z:
+    path, t0 = os.path.join(tmp, f"{case}.npz"), time.time()
+    while not os.path.exists(path):
+        if time.time() - t0 > timeout:
+            raise TimeoutError(f"{path} did not appear in {timeout} s")
+        time.sleep(0.1)
+    with np.load(path) as z:
         arrays = {n: z[n] for n in z.files}
     return params_from_jax(nested(arrays), cfg, device="cpu")
 
 
-def train_case(tmp, case, mesh, dtype=None, **kw):
+def train_case(tmp, case, mesh, dtype=None, moments=False, **kw):
     """``train`` of the case on ``mesh`` from the reference's weights
     (with a ``dtype``: from the seed's own, in that dtype): losses, grad
-    norms and the gathered final parameters."""
+    norms and the gathered final parameters; with ``moments``, also
+    AdamW's first moment after step 1 (``0.1 ×`` the clipped first
+    gradient), copied as the step leaves it."""
+    import repro_torch.train.step as step
     from repro_torch.configs.archs import SMOKE
     from repro_torch.launch.train import train
     from repro_torch.models.config import SataKernelConfig
@@ -126,19 +187,37 @@ def train_case(tmp, case, mesh, dtype=None, **kw):
         model = port_model(tmp, case, cfg)
     else:
         cfg = dataclasses.replace(cfg, dtype=dtype)
-    _, seq, _ = {**CASES, **FAMILIES}[case]
+    _, seq, _ = ROWS[case]
     run = dict(steps=STEPS, batch=BATCH, seq=seq, log_every=100, seed=0)
     run.update(kw)
-    out = train(case, cfg=cfg, model=model, mesh=mesh, device="cpu", **run)
+    first, update = {}, step.adamw_update
+
+    def recording(*args, **kwargs):
+        out = update(*args, **kwargs)
+        if not first:
+            first.update({n: m.clone() for n, m in out[1]["m"].items()})
+        return out
+
+    step.adamw_update = recording if moments else update
+    try:
+        out = train(case, cfg=cfg, model=model, mesh=mesh, device="cpu",
+                    **run)
+    finally:
+        step.adamw_update = update
     res = {"losses": out["losses"], "gnorms": out["gnorms"]}
     if mesh is not None and mesh.size > 1:
-        from repro_torch.distributed.sharding import ShardLayout
+        from repro_torch.distributed.sharding import ShardLayout, gather
         layout = ShardLayout(cfg, mesh)
         res["params"] = layout.gather_params(out["final_state"]["params"])
         res["counts"] = layout.counts()
+        if moments:
+            res["m1"] = {n: gather(m, layout.specs[n], mesh)
+                         for n, m in first.items()}
     else:
         res["params"] = {n: p.detach().clone() for n, p in
                          out["final_state"]["params"].named_parameters()}
+        if moments:
+            res["m1"] = first
     return res
 
 
@@ -192,14 +271,53 @@ def adamw_case(mesh):
             "gnorm": (float(m["grad_norm"]), float(m1["grad_norm"]))}
 
 
+def region_shapes(tmp, mesh):
+    """A forward of each of SHAPES_CASES on ``mesh`` from the
+    reference's weights: the shapes of the slots, ``wi`` and ``wo`` at
+    every expert product of the rank, and of its logits."""
+    import torch
+    from repro_torch.configs.archs import SMOKE
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.sharding import ShardLayout, block
+    from repro_torch.models import model as mdl
+    from repro_torch.models import moe
+    from repro_torch.models.config import SataKernelConfig
+    out, run = {}, moe._experts
+
+    def seen(p, xin, partial=False):
+        out[case]["experts"].append(
+            (tuple(xin.shape), tuple(p["wi"].shape), tuple(p["wo"].shape)))
+        return run(p, xin, partial)
+
+    moe._experts = seen
+    try:
+        for case in SHAPES_CASES:
+            cfg = case_cfg(SMOKE, case, SataKernelConfig)
+            layout = ShardLayout(cfg, mesh)
+            model = layout.shard_(port_model(tmp, case, cfg))
+            batch = SyntheticLM(cfg, BATCH, ROWS[case][1],
+                                seed=0).next_batch()
+            local = {k: block(torch.from_numpy(a), (layout.data,), mesh)
+                     for k, a in batch.items()}
+            out[case] = {"experts": []}
+            with torch.no_grad():
+                logits, _ = mdl.forward(layout.view(model), cfg, local)
+            out[case]["logits"] = tuple(logits.shape)
+    finally:
+        moe._experts = run
+    return out
+
+
 def run_world(rank, world, tmp):
     import torch
     from repro_torch.launch import mesh as M
     res = {}
     for shape in MESHES[world]:
         mesh = M.make_train_mesh(*shape, device="cpu")
-        for case in CASES:
-            res[(shape, case)] = train_case(tmp, case, mesh)
+        for case in mesh_cases(shape):
+            res[(shape, case)] = train_case(tmp, case, mesh, moments=True)
+        if shape == SHAPES_MESH:
+            res["shapes"] = region_shapes(tmp, mesh)
         if shape == COMPRESS_MESH:
             for name, kw in VARIANTS.items():
                 res[(shape, name)] = train_case(tmp, "qwen3-4b", mesh, **kw)
@@ -255,32 +373,55 @@ def main_rank(rank, world, tmp):
 # the reference
 # ---------------------------------------------------------------------------
 
-def main_reference(tmp):
+def reference_jobs(part, parts):
+    """Part ``part`` of the (mesh shape, case) pairs the reference trains,
+    split over ``parts`` processes by their count of ``train`` calls
+    (the longest first, each to the least loaded part)."""
+    jobs = [(shape, case) for shapes in MESHES.values() for shape in shapes
+            for case in mesh_cases(shape)]
+    calls = {job: STEPS if job[1] in REF_STEPWISE else 1 for job in jobs}
+    load, out = [0] * parts, [[] for _ in range(parts)]
+    for job in sorted(jobs, key=lambda j: -calls[j]):
+        i = load.index(min(load))
+        out[i].append(job)
+        load[i] += calls[job]
+    return out[part]
+
+
+def main_reference(tmp, part, parts):
     import jax
+    from repro.checkpoint.manager import CheckpointManager
     from repro.configs import archs as jarchs
     from repro.launch.mesh import _mesh_kwargs
     from repro.launch.train import train
     from repro.models.config import SataKernelConfig
     out = {}
-    for case in CASES:
+    for case in ROWS:
         jarchs.SMOKE[case] = case_cfg(jarchs.SMOKE, case, SataKernelConfig)
-    for world, shapes in MESHES.items():
-        for shape in shapes:
-            mesh = jax.make_mesh(shape, ("data", "model"), **_mesh_kwargs(2))
-            for case in CASES:
-                r = train(case, smoke=True, steps=STEPS, batch=BATCH,
-                          seq=CASES[case][1], mesh=mesh, log_every=100,
-                          seed=0)
-                key = f"{shape[0]}x{shape[1]}/{case}"
-                out[key + "/losses"] = np.asarray(r["losses"])
-                out[key + "/gnorms"] = np.asarray(r["gnorms"])
-                for n, a in flat(r["final_state"]["params"]).items():
-                    out[f"{key}/params/{n}"] = a
-    np.savez(os.path.join(tmp, "reference.npz"), **out)
+    for shape, case in reference_jobs(part, parts):
+        mesh = jax.make_mesh(shape, ("data", "model"), **_mesh_kwargs(2))
+        key = f"{shape[0]}x{shape[1]}/{case}"
+        d = os.path.join(tmp, "refm1", key)
+        losses, gnorms = [], []
+        for steps in ((STEPS,) if case not in REF_STEPWISE
+                      else range(1, STEPS + 1)):
+            r = train(case, smoke=True, steps=steps, batch=BATCH,
+                      seq=ROWS[case][1], mesh=mesh, log_every=100, seed=0,
+                      ckpt_dir=d, ckpt_every=1)
+            losses += r["losses"]
+            gnorms += r["gnorms"]
+        out[key + "/losses"] = np.asarray(losses)
+        out[key + "/gnorms"] = np.asarray(gnorms)
+        for n, a in flat(r["final_state"]["params"]).items():
+            out[f"{key}/params/{n}"] = a
+        m1 = CheckpointManager(d).restore(r["final_state"], step=1)
+        for n, a in flat(m1["opt"]["m"]).items():
+            out[f"{key}/m1/{n}"] = a
+    np.savez(os.path.join(tmp, f"reference{part}.npz"), **out)
 
 
 if __name__ == "__main__":
     if sys.argv[1] == "reference":
-        main_reference(sys.argv[2])
+        main_reference(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
     else:
         main_rank(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
