@@ -7,18 +7,21 @@ prefill kernels, serves it again through the shared-prefix page cache
 and the int8 / sketch summary backends and under host swaps, a crash
 and a corrupted swap handle, kills and resumes a serve from its
 checkpoint, serves it under the QoS degradation ladder and with cascade
-token retirement, serves full-width olmo-1b and full-width
-qwen3-moe-235b-a22b (depth cut to MOE_LAYERS layers, the decode kernel
-at G = 16), trains qwen3-moe at full width, serves full-width
-llama-3.2-vision-90b (depth cut to VLM_LAYERS) and whisper-base (the
-decode kernel at D = 64) through their cross-attention, serves
-full-width zamba2-2.7b (the Mamba2 backbone, the decode kernel at D =
-80 in its shared block) and rwkv6-1.6b (no attention), runs the paper's
-SATA scheduler and CIM estimation plane on its four workloads and the
-quickstart's kernel step at a layer's width, times every kernel at
-its main path's shape and the prefill kernel against its roofline, and
-runs the scale-out wrappers (tensor-parallel decode through the decode
-kernel, sequence-sharded selection) on two ranks sharing the card.
+token retirement, serves full-width olmo-1b (depth cut to OLMO_LAYERS)
+and full-width qwen3-moe-235b-a22b (depth cut to MOE_LAYERS layers, the
+decode kernel at G = 16), trains qwen3-moe at full width, serves
+full-width llama-3.2-vision-90b (depth cut to VLM_LAYERS) and
+whisper-base (the decode kernel at D = 64) through their
+cross-attention, serves full-width zamba2-2.7b (the Mamba2 backbone,
+depth cut to ZAMBA_LAYERS, the decode kernel at D = 80 in its shared
+block) and rwkv6-1.6b (no attention), runs the paper's SATA scheduler
+and CIM estimation plane on its four workloads and the quickstart's
+kernel step at a layer's width, times every kernel at its main path's
+shape and the prefill kernel against its roofline, runs the scale-out
+wrappers (tensor-parallel decode through the decode kernel,
+sequence-sharded selection) on two ranks sharing the card, and trains
+on a (data, model) mesh of those ranks: qwen3-4b, qwen3-moe, zamba2
+and rwkv6, each against one device.
 
     python3 chip_smoke.py            # needs one CUDA GPU (an H100 here)
     python3 chip_smoke.py --mutants  # phases 2 and 6 (and 8 for the
@@ -143,10 +146,11 @@ each prints its host seconds as a ``[phase]`` line):
      the run without retirement; the paged kernel's launches = layers x decode steps in
      every run, and held to its plain version on one recorded call of
      each (a row at rung >= 1; a table with holes);
- 15. olmo-1b at full width (16 layers, d_model 2048, 16 heads over 16 KV
-     heads: G = 1, the non-parametric norm), phase 3's workload paged
-     then contiguous: equal token streams, the kernel's launches = layers
-     x steps;
+ 15. olmo-1b at full width (d_model 2048, 16 heads over 16 KV heads: G =
+     1, the non-parametric norm), its 16 layers cut to OLMO_LAYERS = 8
+     (for phase 25's time), phase 3's workload paged then
+     contiguous: equal token streams, the kernel's launches = layers x
+     steps;
  16. qwen3-moe-235b-a22b at full width (64 heads over 4 KV heads: G =
      16, 128 experts, top-8, d_ff 1536, group 128), its 94 layers cut to
      MOE_LAYERS (the weights fill ~62 GB), phase 3's workload paged then
@@ -182,16 +186,17 @@ each prints its host seconds as a ``[phase]`` line):
      streams, each layout's kernel launched layers x steps, one B1 call
      at D = 64 held to its plain version; mean step, cross-attention ms a
      step and the encoder's ms;
- 20. zamba2-2.7b at full width and depth (54 Mamba2 layers, d_model 2560,
-     d_inner 5120, 80 SSM heads x 64, state 64, conv 4; the shared
-     decoder block after every 6, 9 applications, each with its own KV
-     cache: 32 heads over 32 KV heads of 80, G = 1, D = 80): 8 requests
-     of one prompt token, ZAMBA_GEN (256) generated, through 8 slots,
-     max_len 512 (rows reach 4 pages), paged then contiguous: equal
-     token streams, each layout's kernel launched 9 x steps, one B1 call
-     at D = 80 held to its plain version; mean step, the 54
-     ``mamba2_decode`` calls' and the 9 shared blocks' ms a step (CUDA
-     events), the fetch reduction, peak memory;
+ 20. zamba2-2.7b at full width, depth cut to ZAMBA_LAYERS = 36 of its 54
+     Mamba2 layers (for phase 25's time; d_model 2560, d_inner
+     5120, 80 SSM heads x 64, state 64, conv 4; the shared decoder block
+     after every 6, 6 applications, each with its own KV cache: 32 heads
+     over 32 KV heads of 80, G = 1, D = 80): 8 requests of one prompt
+     token, ZAMBA_GEN (256) generated, through 8 slots, max_len 512 (rows
+     reach 4 pages), paged then contiguous: equal token streams, each
+     layout's kernel launched 6 x steps, one B1 call at D = 80 held to
+     its plain version; mean step, the 36 ``mamba2_decode`` calls' and
+     the 6 shared blocks' ms a step (CUDA events), the fetch reduction,
+     peak memory;
  21. rwkv6-1.6b at full width and depth (24 layers, d_model 2048, 32
      heads x 64, d_ff 7168, vocab 65536): 8 requests of one prompt
      token, RWKV_GEN (128) generated, through 8 slots on the contiguous
@@ -254,7 +259,25 @@ each prints its host seconds as a ``[phase]`` line):
      (reported); step s, peak
      memory and host-staged MB a rank (qwen3-4b's (1, 2) beside the
      gathered embedding's, TP_GATHERED), and the leaves kept sharded over
-     "model".
+     "model".  Then full-width zamba2-2.7b cut to MESH_ZAMBA_LAYERS = 6
+     layers (one application of the shared block), batch 1, S 4096, and
+     full-width rwkv6-1.6b cut to MESH_RWKV_LAYERS = 2 layers, batch 1,
+     S 1024 (its time scan is a per-position loop, replayed by the
+     checkpoint: rwkv_chunk 256), in bf16 and in fp32 from the same
+     weights (MESH_RWKV32), 2 steps each on one device (zamba2 and bf16
+     rwkv6 a third step under ``torch.profiler``: device time by
+     kernel) and on (1, 2): a rank runs 40 of zamba2's 80 ssm heads (B
+     and C gathered after the conv, the gated norm's sum of squares
+     summed) and 16 of its shared block's 32 heads on B3 at D 80, and
+     16 of rwkv6's 32 heads and half its d_ff; losses and grad norms
+     within MESH_TRAIN_RTOL of one device (rwkv6's grad norm after the
+     first update within MESH_RWKV_TRAJ_RTOL: its trajectory is
+     chaotic; bf16 rwkv6's step 0 within MESH_RWKV_BF16_RTOL, beside
+     the witness: one device's bf16 step 0 against the fp32 run's),
+     the leaves gathered over "model"
+     (MESH_GATHERED: zamba2's ``shared_in``, nothing of rwkv6's), and B3
+     launched the shared block's applications x steps a rank (outside
+     the layers' remat: no recompute), never for rwkv6.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the ``kernels`` JSON, and the card's name and power limit are
@@ -1202,16 +1225,19 @@ def train_main_path(torch, sa, dev, base, tag, *, steps=4, seq=4096):
     return recorded_case(torch, sa, rec, dense_grid=False), n_b3
 
 
-def profile_step(torch, cfg, state, batch, tag, top=12):
+def profile_step(torch, cfg, state, batch, tag, top=12, host_ops=True):
     """One more training step under ``torch.profiler``: device time by
     kernel (summed over launches; the top ones and the port's own) and
-    the device's busy share of the step's wall time."""
+    the device's busy share of the step's wall time.  ``host_ops=False``
+    records the device's kernels only (rwkv6's step runs ~10^5 eager ops,
+    whose host-side events took the profiler 90 s to tabulate)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train.step import make_train_step
     step_fn = make_train_step(cfg, OptConfig())
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    acts = [ProfilerActivity.CPU] if host_ops else []
+    with profile(activities=acts + [ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t = time.time()
         step_fn(state, batch)
@@ -2536,14 +2562,18 @@ def describe(cfg) -> str:
             f"{cfg.dtype}")
 
 
+OLMO_LAYERS = 8          # phase 15: full width, 8 of olmo-1b's 16 layers
+
+
 def olmo_phase(torch, sd, serve, opts, dev, tag):
     """Phase 15: olmo-1b at full width (the repo's config, the
-    non-parametric norm, G = 1), random weights from a seed, phase 3's
-    workload paged then contiguous.  Returns the paged kernel's
-    launches."""
+    non-parametric norm, G = 1) and OLMO_LAYERS layers, random weights
+    from a seed, phase 3's workload paged then contiguous.  Returns the
+    paged kernel's launches."""
     from repro_torch.configs.archs import ARCHS
     from repro_torch.models.model import DenseModel
-    cfg = serve_cfg(ARCHS["olmo-1b"])
+    cfg = serve_cfg(dataclasses.replace(ARCHS["olmo-1b"],
+                                        n_layers=OLMO_LAYERS))
     model = DenseModel(cfg, device=dev, seed=0)
     assert not any(".ln" in n or "final_ln" in n
                    for n, _ in model.named_parameters())
@@ -3042,17 +3072,18 @@ def whisper_phase(torch, sd, serve, dev, tag):
 # zamba2: 8 one-token requests through 8 slots, 256 generated over a
 # 512-token context (8 pages of 64; rows reach 4), so the planner selects
 ZAMBA_GEN, ZAMBA_MAX_LEN = 256, 512
+ZAMBA_LAYERS = 36        # of 54: six applications of the shared block
 ZAMBA_PROBE_STEP = 200          # the decode step whose first B1 call is held
 RWKV_GEN, RWKV_MAX_LEN = 128, 256
 
 
 def zamba2_phase(torch, sd, serve, dev, tag):
-    """Phase 20: zamba2-2.7b at full width and depth (54 Mamba2 layers,
-    d_model 2560, d_inner 5120, 80 SSM heads x 64, state 64, conv 4;
-    the shared decoder block after every 6, 9 applications, 32 heads
+    """Phase 20: zamba2-2.7b at full width, ZAMBA_LAYERS of its 54 Mamba2
+    layers (d_model 2560, d_inner 5120, 80 SSM heads x 64, state 64, conv
+    4; the shared decoder block after every 6, 6 applications, 32 heads
     over 32 KV heads of 80: G = 1, D = 80), random weights from a seed:
     8 one-token requests through 8 slots, paged then contiguous: equal
-    token streams, B1 / B2 launched 9 x steps, one B1 call held to its
+    token streams, B1 / B2 launched 6 x steps, one B1 call held to its
     plain version; the mamba layers' and the shared blocks' ms a step
     on CUDA events.  Returns the two kernels' launches and the recorded
     call's error."""
@@ -3061,7 +3092,8 @@ def zamba2_phase(torch, sd, serve, dev, tag):
     from repro_torch.launch.serve import ServeOptions
     from repro_torch.models import decode as dec
     from repro_torch.models.model import Model
-    cfg = serve_cfg(ARCHS["zamba2-2.7b"])
+    cfg = serve_cfg(dataclasses.replace(ARCHS["zamba2-2.7b"],
+                                        n_layers=ZAMBA_LAYERS))
     t = time.time()
     model = Model(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
@@ -3552,8 +3584,25 @@ MESH_TRAIN = dict(batch=2, seq=4096, steps=MESH_TRAIN_STEPS, seed=0)
 MESH_MOE = "qwen3-moe-235b-a22b"
 MESH_MOE_LAYERS = 1
 MESH_MOE_TRAIN = dict(batch=1, seq=4096, steps=MESH_TRAIN_STEPS, seed=0)
+# zamba2-2.7b: 6 of its 54 layers (one application of the shared
+# block); rwkv6-1.6b: 2 of its 24 layers, S cut to 1024 (its scan is an
+# eager loop over positions), in its bf16 and again in fp32 from the
+# same (bf16) weights (MESH_RWKV32): the fp32 run holds the regions to
+# MESH_TRAIN_RTOL, and its one-device step 0 is the witness of bf16's
+# own rounding error on the bf16 run's weights
+MESH_ZAMBA, MESH_ZAMBA_LAYERS = "zamba2-2.7b", 6
+MESH_ZAMBA_TRAIN = dict(batch=1, seq=4096, steps=MESH_TRAIN_STEPS, seed=0)
+MESH_RWKV, MESH_RWKV_LAYERS = "rwkv6-1.6b", 2
+MESH_RWKV32 = MESH_RWKV + " fp32"
+MESH_RWKV_TRAIN = dict(batch=1, seq=1024, steps=MESH_TRAIN_STEPS, seed=0)
 MESH_TRAIN_RUNS = (("qwen3-4b", (2, 1)), ("qwen3-4b", (1, 2)),
-                   (MESH_MOE, (1, 2)))
+                   (MESH_MOE, (1, 2)), (MESH_ZAMBA, (1, 2)),
+                   (MESH_RWKV32, (1, 2)), (MESH_RWKV, (1, 2)))
+# the leaves each run gathers over "model" (ShardLayout's docstring):
+# zamba2's shared_in only
+MESH_GATHERED = {MESH_ZAMBA: 1}
+# the one-device runs that take a third step under torch.profiler
+MESH_PROFILED = (MESH_ZAMBA, MESH_RWKV)
 # qwen3-4b on (1, 2) as this phase measured it before the vocab-parallel
 # embedding (both ranks gathered the embedding and unembed and computed
 # the whole (B, S, V) logits; H100 80GB HBM3, 700 W): a rank's
@@ -3563,6 +3612,18 @@ TP_GATHERED = dict(staged_mb=8022.9, peak_gib=29.73, step_s=(5.74, 6.44))
 # ROUTE_RTOL (the data-parallel and row-parallel sums reorder the bf16
 # model's fp32 accumulations; measured up to 1.4e-4 on an H100)
 MESH_TRAIN_RTOL = ROUTE_RTOL
+# rwkv6's grad norm after the first update: at random weights its
+# trajectory is chaotic (ROADMAP C7: a 1e-7 relative weight perturbation
+# moves SMOKE rwkv6's later grad norms by 0.56%), so past step 0 it is
+# held to the bound C7 set for that trajectory (tests/test_torch_hybrid_
+# ssm.py's RWKV_TRAJ_RTOL); its losses and step 0 stay at MESH_TRAIN_RTOL
+MESH_RWKV_TRAJ_RTOL = 5e-2
+# bf16 rwkv6's step-0 grad norm against one device's: its bf16 rounding
+# is amplified past phase 8's limit.  On an H100 one device's own bf16
+# step 0 lies 4.17e-2 off fp32 arithmetic on the same weights (the
+# witness phase 25 prints), the mesh's 3.82e-2, and the two bf16 runs
+# 3.36e-3 apart: held to a quarter of the witness, 3x that gap
+MESH_RWKV_BF16_RTOL = 1e-2
 
 
 def mesh_decode_inputs(torch, dev, shape, seed=24):
@@ -3641,16 +3702,44 @@ def mesh_seq_inputs(torch, dev, shape, seed=25):
                         device=dev) for _ in range(3)]
 
 
-def mesh_train_setup(arch):
-    """Phase 25's model and ``train`` arguments for ``arch``: phase 7's
-    route (the SATA kernel route, chunked selection, remat full) at
-    MESH_TRAIN_LAYERS (qwen3-4b) or MESH_MOE_LAYERS (qwen3-moe) layers,
-    full width."""
+def mesh_train_setup(run_name):
+    """Phase 25's arch, model and ``train`` arguments for ``run_name``
+    (an arch, or MESH_RWKV32): phase 7's route (the SATA kernel route,
+    chunked selection, remat full) at MESH_TRAIN_LAYERS (qwen3-4b),
+    MESH_MOE_LAYERS (qwen3-moe), MESH_ZAMBA_LAYERS or MESH_RWKV_LAYERS
+    layers, full width, in the arch's dtype (fp32 for MESH_RWKV32)."""
     from repro_torch.configs.archs import ARCHS
-    n, run = (MESH_MOE_LAYERS, MESH_MOE_TRAIN) if arch == MESH_MOE else \
-        (MESH_TRAIN_LAYERS, MESH_TRAIN)
-    return main_path_cfg(dataclasses.replace(
-        ARCHS[arch], topk_impl="bisect", n_layers=n)), run
+    arch = run_name.split()[0]
+    n, run = {MESH_MOE: (MESH_MOE_LAYERS, MESH_MOE_TRAIN),
+              MESH_ZAMBA: (MESH_ZAMBA_LAYERS, MESH_ZAMBA_TRAIN),
+              MESH_RWKV: (MESH_RWKV_LAYERS, MESH_RWKV_TRAIN)}.get(
+        arch, (MESH_TRAIN_LAYERS, MESH_TRAIN))
+    dtype = "float32" if run_name == MESH_RWKV32 else ARCHS[arch].dtype
+    return arch, main_path_cfg(dataclasses.replace(
+        ARCHS[arch], topk_impl="bisect", n_layers=n, dtype=dtype)), run
+
+
+def mesh_train_model(run_name, dev, run):
+    """The model ``train`` starts ``run_name`` from: None (the seed's
+    own) but for MESH_RWKV32, whose fp32 weights are the bf16 run's."""
+    if run_name != MESH_RWKV32:
+        return None
+    from repro_torch.models.model import Model
+    _, cfg, _ = mesh_train_setup(MESH_RWKV)
+    return Model(cfg, device=dev, seed=run["seed"]).float()
+
+
+def mesh_b3_launches(cfg, steps):
+    """B3's launches a rank over ``steps`` steps: one per attention call,
+    twice for a layer under remat (the forward and the recompute; the
+    backward recomputes through the plain version); zamba2's shared
+    block runs outside the layers' remat, once every hybrid_period
+    layers; rwkv6 has no attention."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_period * steps
+    return cfg.n_layers * steps * 2
 
 
 class RegionProbe:
@@ -3705,36 +3794,43 @@ def mesh_train_rank(torch, dev, res, train_runs):
     from repro_torch.launch import mesh as M
     from repro_torch.launch.train import train
     cuda = dev.type == "cuda"
-    for arch, shape in train_runs:
-        cfg, run = mesh_train_setup(arch)
+    for name, shape in train_runs:
+        arch, cfg, run = mesh_train_setup(name)
+        model = mesh_train_model(name, dev, run)
         mesh = M.make_train_mesh(*shape, device=dev)
         if cuda:
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
         reset_attn_counts(sa)
+        t0 = time.time()
         with FirstCall("_block_attention_compact") as rec, \
                 RegionProbe() as probe:
-            out = train(arch, cfg=cfg, mesh=mesh, log_every=100, **run)
+            out = train(arch, cfg=cfg, model=model, mesh=mesh,
+                        log_every=100, **run)
+        wall = time.time() - t0
         counts = attn_counts(sa)
         peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
         staged = mesh.host_staged_bytes
-        del out["final_state"]
-        c = recorded_case(torch, sa, rec, dense_grid=False)
+        del out["final_state"], model
+        err, rows = None, None
+        if rec.args is not None:          # rwkv6 calls no kernel
+            c = recorded_case(torch, sa, rec, dense_grid=False)
+            a_k, a_p = admitted_buffer(torch, c), admitted_buffer(torch, c)
+            got = run_attn(sa, c, plain=False, admitted=a_k)
+            want = run_attn(sa, c, plain=True, admitted=a_p)
+            err = compare(torch, f"B3 on rank {mesh.index}'s heads, {name} "
+                          f"mesh {shape}", got, want, a_k, a_p,
+                          attn_window(torch, sa, c))
+            rows = tuple(c["q"].shape)
+            del c, got, want, a_k, a_p
         del rec
-        a_k, a_p = admitted_buffer(torch, c), admitted_buffer(torch, c)
-        got = run_attn(sa, c, plain=False, admitted=a_k)
-        want = run_attn(sa, c, plain=True, admitted=a_p)
-        err = compare(torch, f"B3 on rank {mesh.index}'s heads, {arch} "
-                      f"mesh {shape}", got, want, a_k, a_p,
-                      attn_window(torch, sa, c))
-        res[f"train {arch} {shape}"] = dict(
+        res[f"train {name} {shape}"] = dict(
             losses=out["losses"], gnorms=out["gnorms"], step_s=out["step_s"],
-            launches=counts, peak=peak, staged=staged, err=err,
-            rows=tuple(c["q"].shape), experts=sorted(probe.experts),
+            wall=wall, launches=counts, peak=peak, staged=staged, err=err,
+            rows=rows, experts=sorted(probe.experts),
             vocab=sorted(probe.vocab), route=probe.route,
             leaves=ShardLayout(cfg, mesh).counts())
-        del c, got, want, a_k, a_p
 
 
 def mesh_rank(rank, world, tmp, device, dshape, sshape, train_runs=()):
@@ -3842,52 +3938,80 @@ def mesh_equal(a, b, what):
             bool((a == b).all()), f"{what}: not bitwise equal"
 
 
-def mesh_train_reference(torch, dev, tag, archs):
+def mesh_train_reference(torch, dev, tag, names):
     """Phase 25's one-device runs in the parent: ``train()`` of each of
-    ``archs``' models on the same batches; returns, by arch, the losses,
-    grad norms, step s and peak memory."""
+    ``names``' models on the same batches, and for MESH_PROFILED one
+    more step under ``torch.profiler`` (``profile_step``); returns, by
+    run name, the losses, grad norms, step s and peak memory.  With both
+    rwkv6 runs, prints the witness: bf16's step 0 against fp32
+    arithmetic on the same weights."""
+    from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch.train import train
     cuda = dev.type == "cuda"
     refs = {}
-    for arch in archs:
-        cfg, run = mesh_train_setup(arch)
+    for name in names:
+        arch, cfg, run = mesh_train_setup(name)
         if cuda:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
         with RegionProbe() as probe:
-            out = train(arch, cfg=cfg, device=dev, log_every=100, **run)
-        ref = refs[arch] = dict(
+            out = train(arch, cfg=cfg, model=mesh_train_model(name, dev, run),
+                        device=dev, log_every=100, **run)
+        ref = refs[name] = dict(
             losses=out["losses"], gnorms=out["gnorms"],
             step_s=out["step_s"], route=probe.route,
-            peak=torch.cuda.max_memory_allocated(dev) if cuda else 0)
+            peak=torch.cuda.max_memory_allocated(dev) if cuda else 0,
+            wall=time.time() - t0)
+        if name in MESH_PROFILED and cuda:
+            t0 = time.time()
+            log(f"[mesh-train] {arch}, one device, a third step:")
+            batch = {k: torch.from_numpy(a).to(dev) for k, a in SyntheticLM(
+                cfg, run["batch"], run["seq"], seed=1).next_batch().items()}
+            profile_step(torch, cfg, out["final_state"], batch, tag,
+                         host_ops=cfg.family != "ssm")
+            del batch
+            log(f"[mesh-train] {arch}: the profiled step and its tables "
+                f"{time.time() - t0:.1f} s {tag}")
         del out
         if cuda:
             torch.cuda.empty_cache()
-        log(f"[mesh-train] one device: {arch} full width, {cfg.n_layers} "
-            f"layer(s), batch {run['batch']}, S {run['seq']}, SATA kernel "
-            f"route: losses {ref['losses']}, grad norms {ref['gnorms']}, "
+        log(f"[mesh-train] one device: {name} full width, {cfg.n_layers} "
+            f"layer(s), batch {run['batch']}, S {run['seq']}, "
+            f"{'no attention' if cfg.family == 'ssm' else 'SATA kernel route'}"
+            f": losses {ref['losses']}, grad norms {ref['gnorms']}, "
             f"step s {[round(x, 3) for x in ref['step_s']]}, peak memory "
-            f"{ref['peak'] / 2 ** 30:.2f} GiB {tag}")
+            f"{ref['peak'] / 2 ** 30:.2f} GiB, {cfg.dtype}; train() "
+            f"{ref['wall']:.1f} s {tag}")
+    if MESH_RWKV in refs and MESH_RWKV32 in refs:
+        bf, f32 = refs[MESH_RWKV], refs[MESH_RWKV32]
+        log(f"[mesh-train] witness, one device, the same weights: "
+            f"{MESH_RWKV} bf16 against fp32 arithmetic at step 0: loss "
+            f"{rel(bf['losses'][0], f32['losses'][0]):.3e}, grad norm "
+            f"{rel(bf['gnorms'][0], f32['gnorms'][0]):.3e} "
+            f"(relative) {tag}")
     return refs
+
+
+def rel(a, b):
+    return abs(a - b) / abs(b)
 
 
 def mesh_train_check(ranks, refs, train_runs, tag):
     """Phase 25's checks on the ranks' results; returns B3's launches on
     the meshes, summed over the ranks."""
     total = 0
-    for arch, shape in train_runs:
-        cfg, run = mesh_train_setup(arch)
-        ref, m = refs[arch], shape[1]
-        want = cfg.n_layers * run["steps"] * 2     # forward + recompute
-        key = f"train {arch} {shape}"
+    for name, shape in train_runs:
+        arch, cfg, run = mesh_train_setup(name)
+        ref, m = refs[name], shape[1]
+        want = mesh_b3_launches(cfg, run["steps"])
+        key = f"train {name} {shape}"
         for r, res in enumerate(ranks):
             t = res[key]
             n_b3, n_b4 = t["launches"]
             total += n_b3
-            rel_l = [abs(a - b) / abs(b) for a, b in zip(t["losses"],
-                                                        ref["losses"])]
-            rel_g = [abs(a - b) / abs(b) for a, b in zip(t["gnorms"],
-                                                        ref["gnorms"])]
+            rel_l = [rel(a, b) for a, b in zip(t["losses"], ref["losses"])]
+            rel_g = [rel(a, b) for a, b in zip(t["gnorms"], ref["gnorms"])]
             note = ""
             if cfg.moe:        # tokens whose top-k set differs, layer 0
                 a, b = (x.sort(dim=-1).values for x in (t["route"],
@@ -3896,24 +4020,32 @@ def mesh_train_check(ranks, refs, train_runs, tag):
                 note = (f"; layer 0's step-0 routing: {moved} of "
                           f"{a[..., 0].numel()} tokens with another top-"
                           f"{cfg.experts_per_token} set than one device")
+            if name == MESH_RWKV and MESH_RWKV32 in refs:
+                g32 = refs[MESH_RWKV32]["gnorms"][0]
+                note = (f"; step 0's grad norm against fp32 arithmetic on "
+                        f"the same weights {rel(t['gnorms'][0], g32):.3e} "
+                        f"(one device's {rel(ref['gnorms'][0], g32):.3e})")
             if (arch, shape) == ("qwen3-4b", (1, 2)):
                 note = (f" (with the embedding gathered: "
                           f"{TP_GATHERED['staged_mb']:,} MB, "
                           f"{TP_GATHERED['peak_gib']} GiB, step s "
                           f"{TP_GATHERED['step_s'][0]}-"
                           f"{TP_GATHERED['step_s'][1]})")
-            log(f"[mesh-train] rank {r}/{MESH_RANKS} {arch} mesh {shape} "
+            b3_line = "no B3 call" if t["rows"] is None else (
+                f"B3 on the rank's {t['rows'][0]} (B x H / m) rows vs "
+                f"plain max_abs_err {t['err']:.3e}")
+            log(f"[mesh-train] rank {r}/{MESH_RANKS} {name} mesh {shape} "
                 f"(data, model): losses {t['losses']}, grad norms "
                 f"{t['gnorms']}; relative to one device: losses "
                 f"{[f'{x:.3e}' for x in rel_l]}, grad norms "
                 f"{[f'{x:.3e}' for x in rel_g]}; step s "
                 f"{[round(x, 3) for x in t['step_s']]} (one device "
-                f"{[round(x, 3) for x in ref['step_s']]}); peak memory "
+                f"{[round(x, 3) for x in ref['step_s']]}; train() "
+                f"{t['wall']:.1f} s); peak memory "
                 f"{t['peak'] / 2 ** 30:.2f} GiB; host-staged "
                 f"{t['staged'] / 1e6:.1f} MB over {run['steps']} steps"
-                f"{note}; B3 launches {n_b3} (B4 {n_b4}), B3 on the "
-                f"rank's {t['rows'][0]} (B x H / m) rows vs plain "
-                f"max_abs_err {t['err']:.3e}; experts a product "
+                f"{note}; B3 launches {n_b3} (B4 {n_b4}; derived "
+                f"{want}), {b3_line}; experts a product "
                 f"{t['experts']} of {cfg.n_experts if cfg.moe else 0}; "
                 f"logits width {t['vocab']} of {cfg.vocab_size}; leaves "
                 f"{t['leaves']} {tag}")
@@ -3921,11 +4053,17 @@ def mesh_train_check(ranks, refs, train_runs, tag):
                 all(np.isfinite(t["gnorms"])), (key, r)
             assert (n_b3, n_b4) == (want, 0), (key, r, n_b3, n_b4, want)
             assert max(rel_l) <= MESH_TRAIN_RTOL, (key, r, rel_l)
-            assert max(rel_g) <= MESH_TRAIN_RTOL, (key, r, rel_g)
+            assert rel_g[0] <= (MESH_RWKV_BF16_RTOL if name == MESH_RWKV
+                                else MESH_TRAIN_RTOL), (key, r, rel_g)
+            assert max(rel_g[1:]) <= (MESH_RWKV_TRAJ_RTOL if cfg.family
+                                      == "ssm" else MESH_TRAIN_RTOL), \
+                (key, r, rel_g)
             assert t["vocab"] == [cfg.vocab_size // m], (key, r, t["vocab"])
             assert t["experts"] == ([cfg.n_experts // m] if cfg.moe
                                     else []), (key, r, t["experts"])
-            assert t["leaves"]["gathered_over_model"] == 0, (key, r)
+            assert t["leaves"]["gathered_over_model"] == \
+                MESH_GATHERED.get(arch, 0), (key, r, t["leaves"])
+            assert (t["rows"] is None) == (want == 0), (key, r)
         assert ranks[0][key]["losses"] == ranks[1][key]["losses"], key
     return total
 
@@ -3996,7 +4134,7 @@ def mesh_phase(torch, sd, dev, tag, dshape=MESH_DECODE, sshape=MESH_SEQ,
     t_ref = time.time() - t0
     t0 = time.time()
     tref = mesh_train_reference(torch, dev, tag, dict.fromkeys(
-        arch for arch, _ in train_runs))
+        name for name, _ in train_runs))
     t_train_ref = time.time() - t0
 
     t0 = time.time()
@@ -4680,7 +4818,7 @@ def main() -> int:
     kernels[0]["paths"]["24 tensor-parallel decode"] = n_b1
     kernels[1]["paths"]["24 tensor-parallel decode"] = n_b2
     kernels[2]["paths"]["25 train(mesh=): qwen3-4b (2, 1) + (1, 2), "
-                        "qwen3-moe (1, 2)"] = n_b3
+                        "qwen3-moe, zamba2, rwkv6 bf16 and fp32 (1, 2)"] = n_b3
     clock.done("24-25 scale-out and mesh training on two ranks")
     clock.total()
     log(card)

@@ -28,7 +28,9 @@ the specs shard a module over "model", it keeps its "model" shard and
 computes on it (``ShardLayout.tp_for``): the attention and MLP of every
 family that has them run tensor-parallel (``TensorParallel``:
 column-parallel in-projections, row-parallel out-projections summed by
-an all-reduce), the MoE experts expert- or d_ff-parallel
+an all-reduce), so do mamba2 and rwkv6 on the rank's heads (mamba2's
+packed in-projection through a ``Packed`` spec), the MoE experts expert-
+or d_ff-parallel
 (``ExpertParallel``), the embedding, unembed and loss vocab-parallel
 (``VocabParallel``).
 """
@@ -271,12 +273,40 @@ def leaf_specs(names, pspecs: Mapping[str, Spec]) -> Dict[str, Spec]:
 # a rank's block, and back
 # ---------------------------------------------------------------------------
 
+class Packed(tuple):
+    """A spec (equal to the plain tuple) of a leaf whose ``dim`` packs
+    ``segments`` side by side (mamba2's ``in_proj`` columns [z | x |
+    B|C | dt]): a rank's block along ``dim`` is its 1/n of every
+    segment, in segment order, rather than a contiguous 1/n of the dim.
+    ``block`` permutes the dim to that order before it takes the block,
+    ``gather`` permutes back, so the global leaf (and a checkpoint) is
+    the reference's."""
+
+    def __new__(cls, spec, dim: int, segments: Tuple[int, ...]):
+        out = super().__new__(cls, spec)
+        out.dim, out.segments = dim, tuple(segments)
+        return out
+
+    def order(self, n: int, device=None) -> torch.Tensor:
+        """The dim's indices, rank-major: rank 0's share of each segment,
+        then rank 1's, ..."""
+        starts = [0]
+        for size in self.segments[:-1]:
+            starts.append(starts[-1] + size)
+        idx = [torch.arange(o + r * (size // n), o + (r + 1) * (size // n))
+               for r in range(n) for o, size in zip(starts, self.segments)]
+        return torch.cat(idx).to(device)
+
+
 def block(full: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
-    """This rank's block of ``full`` under ``spec`` (a view)."""
+    """This rank's block of ``full`` under ``spec`` (a view; a copy for
+    a ``Packed`` spec)."""
     out = full
     for dim, entry in enumerate(spec):
         n = _n_shards(mesh, entry)
         if n > 1:
+            if isinstance(spec, Packed) and dim == spec.dim:
+                out = out.index_select(dim, spec.order(n, full.device))
             size = full.shape[dim] // n
             out = out.narrow(dim, mesh.coord(entry_axes(entry)) * size, size)
     return out
@@ -288,8 +318,12 @@ def gather(shard: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     calls it with its own block)."""
     out = shard
     for dim, entry in enumerate(spec):
-        if _n_shards(mesh, entry) > 1:
+        n = _n_shards(mesh, entry)
+        if n > 1:
             out = _all_gather(out, mesh, dim, entry_axes(entry))
+            if isinstance(spec, Packed) and dim == spec.dim:
+                inv = torch.argsort(spec.order(n, out.device))
+                out = out.index_select(dim, inv)
     return out
 
 
@@ -364,6 +398,21 @@ class _CopyIn(torch.autograd.Function):
             None, None
 
 
+class _ScatterSum(torch.autograd.Function):
+    """Forward: the sum over ``axes``, of which the rank keeps its block
+    along ``dim`` (a reduce-scatter); backward: the all-gather of the
+    blocks' gradients (every rank's partial fed every block)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, axes):
+        ctx.mesh, ctx.dim, ctx.axes = mesh, dim, axes
+        return _reduce_scatter(x, mesh, dim, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.mesh, ctx.dim, ctx.axes), None, None, None
+
+
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
     """A tensor-parallel region over ``axis``: the layer function runs
@@ -389,6 +438,43 @@ class TensorParallel:
         accumulates in fp32 and rounds once, too)."""
         part = torch.matmul(h.float(), w.float())
         return _ReduceOut.apply(part, self.mesh, (self.axis,)).to(h.dtype)
+
+    # mamba2's and rwkv6's regions (``ShardLayout``: the model's cfg,
+    # the rank's heads sliced by ``share``)
+
+    @property
+    def size(self) -> int:
+        """The region's ranks, m."""
+        return self.mesh.axis_size((self.axis,))
+
+    def share(self, n: int) -> slice:
+        """The rank's contiguous 1/m of ``n`` (its heads, or their
+        channels)."""
+        size = n // self.size
+        lo = self.mesh.coord((self.axis,)) * size
+        return slice(lo, lo + size)
+
+    def sum_shares(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of a statistic of their heads (the
+        gated norm's sum of squares over d_inner), read by every rank for
+        its own heads only: the backward sums the ranks' gradients too."""
+        return _ReduceOut.apply(self.enter(x), self.mesh, (self.axis,))
+
+    def gather_shared(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' blocks of an activation every rank's heads read
+        whole (mamba2's B|C): all-gathered, the gradient summed back."""
+        return _Gather.apply(x, self.mesh, dim, (self.axis,), True)
+
+    def scatter_sum(self, part: torch.Tensor, dim: int) -> torch.Tensor:
+        """The rank's block along ``dim`` of the ranks' partial products
+        summed (fp32 in, the caller casts once)."""
+        return _ScatterSum.apply(part, self.mesh, dim, (self.axis,))
+
+    def gather_out(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The region's output from the ranks' blocks along ``dim``:
+        every rank then reads it whole with the same gradient, so the
+        backward takes the rank's block and sums nothing."""
+        return _Gather.apply(x, self.mesh, dim, (self.axis,), False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -482,6 +568,11 @@ class VocabParallel:
 
 
 _REGIONS = ("attn", "attn_cross", "mlp")     # TensorParallel module names
+# mamba2's ("mixer") and rwkv6's ("tmix", time and channel mix) regions:
+# (the leaves split by columns over "model", those split by rows)
+_SSM_REGIONS = {"mixer": (("in_proj", "conv_w"), ("out_proj",)),
+                "tmix": (("wr", "wk", "wv", "wg", "ck", "cr"),
+                         ("wo", "bonus_u", "cv"))}
 
 
 class ShardLayout:
@@ -494,27 +585,31 @@ class ShardLayout:
       and zamba2's shared block, where the heads (or d_ff) divide by the
       "model" size and the spec shards the in-projections' columns and
       the out-projection's rows over it;
+    * the same region over mamba2 (``mixer``: the rank's ssm heads,
+      where m divides them and 2·ssm_state) and rwkv6 (``tmix``: the
+      time mix on the rank's heads, the channel mix on its d_ff / m);
+      ``in_proj`` and ``conv_w`` take ``Packed`` specs, so that a rank's
+      block holds its heads' z / x / dt columns and its 1/m of B|C;
     * ``ExpertParallel``: each layer's ``moe``, where the spec shards
       the experts (or their d_ff) over "model";
     * ``VocabParallel``: ``embed``, where the specs shard the vocabulary
       (a dim the "model" size does not divide stays whole: ``_fit``).
 
     Everything else is gathered over "model" around its use and computed
-    whole on every "model" rank: mamba2's and rwkv6's projections (their
-    column splits do not follow heads without a re-layout) and zamba2's
-    ``shared_in``, whose "model" split is of the shared block's d_model
-    columns, which the block's norm and residual need whole (kept, it
-    would cost an all-gather of the activation at every application for
-    a (2·d_model, d_model) leaf)."""
+    whole on every "model" rank: zamba2's ``shared_in``, whose "model"
+    split is of the shared block's d_model columns, which the block's
+    norm and residual need whole (kept, it would cost an all-gather of
+    the activation at every application for a (2·d_model, d_model)
+    leaf), and a region's leaves wherever m does not divide its heads."""
 
     def __init__(self, cfg, mesh, specs: Optional[Dict[str, Spec]] = None):
         from repro_torch.models.model import Model
         self.cfg, self.mesh = cfg, mesh
-        self.specs = specs if specs is not None else param_specs(
-            Model(cfg, device="meta"), cfg, mesh)
+        self.specs = dict(specs if specs is not None else param_specs(
+            Model(cfg, device="meta"), cfg, mesh))
         self.data = tuple(a for a in data_axes(mesh) if mesh.shape[a] > 1)
         m = self.m = mesh.shape.get("model", 1)
-        self._tp = self._moe = self._vocab = None
+        self._tp = self._moe = self._vocab = self._ssm = None
         if m == 1:
             return
         if cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0:
@@ -527,6 +622,23 @@ class ShardLayout:
         unemb = self.specs.get("embed.unembed", (None, "model"))
         if emb[0] == "model" and unemb[-1] == "model":
             self._vocab = VocabParallel(mesh, cfg.vocab_size)
+        if cfg.family == "hybrid":
+            ssm_ok = cfg.ssm_heads % m == 0 and 2 * cfg.ssm_state % m == 0
+        else:
+            ssm_ok = cfg.family == "ssm" and cfg.d_ff % m == 0 and \
+                (cfg.d_model // cfg.rwkv_head_dim) % m == 0
+        if not ssm_ok:
+            return
+        self._ssm = TensorParallel(mesh, cfg)
+        if cfg.family == "hybrid":
+            di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+            packed = {"in_proj": (di, di, 2 * n, h), "conv_w": (di, 2 * n)}
+            for name, spec in self.specs.items():
+                path, _, leaf = name.rpartition(".")
+                if path.endswith(".mixer") and leaf in packed and \
+                        self.tp_for(path) is not None:
+                    self.specs[name] = Packed(spec, len(spec) - 1,
+                                              packed[leaf])
 
     def _layout_ok(self, prefix: str, cols, rows) -> bool:
         return all(self.specs.get(prefix + n, (None,))[-1] == "model"
@@ -548,6 +660,9 @@ class ShardLayout:
                 ok = self._layout_ok(prefix, ("wi", "wg"), ()) and \
                     self.specs.get(prefix + "wo", (None,) * 3)[1] == "model"
             return self._moe if ok else None
+        if kind in _SSM_REGIONS and self._ssm is not None:
+            return self._ssm if self._layout_ok(prefix, *_SSM_REGIONS[kind]) \
+                else None
         if self._tp is None or kind not in _REGIONS:
             return None
         if kind == "mlp":

@@ -54,14 +54,37 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                   eps: float = 1e-6) -> torch.Tensor:
+                   eps: float = 1e-6, tp=None) -> torch.Tensor:
+    """RMS norm over the whole of d_inner; in a region ``y`` holds the
+    rank's heads, and their sum of squares is summed over the ranks."""
     y = y * F.silu(z.float())
-    rms = torch.sqrt((y * y).mean(dim=-1, keepdim=True) + eps)
+    if tp is None:
+        rms = torch.sqrt((y * y).mean(dim=-1, keepdim=True) + eps)
+    else:
+        ss = tp.sum_shares((y * y).sum(dim=-1, keepdim=True))
+        rms = torch.sqrt(ss / (y.shape[-1] * tp.size) + eps)
     return y / rms * scale
 
 
+def _region_proj(tp, cfg, x: torch.Tensor, params):
+    """The rank's (z, x, B|C, dt) from its ``Packed`` blocks of
+    ``in_proj`` and ``conv_w``: its heads' z / x / dt columns and its
+    1/m of B|C; the conv runs on those, then B|C is gathered whole."""
+    dr, bcr = cfg.d_inner // tp.size, 2 * cfg.ssm_state // tp.size
+    zxbcdt = x @ params["in_proj"]
+    z, xbc, dt = (zxbcdt[..., :dr], zxbcdt[..., dr:2 * dr + bcr],
+                  zxbcdt[..., 2 * dr + bcr:])
+    xbc = _causal_conv(xbc, params["conv_w"])
+    bc = tp.gather_shared(xbc[..., dr:], xbc.dim() - 1)
+    return z, xbc[..., :dr], bc, dt
+
+
 def mamba2_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
-    """Training / prefill forward.  x: (B, S, D)."""
+    """Training / prefill forward.  x: (B, S, D).  A ``params`` view
+    with a ``tp`` region (``distributed.sharding``) runs the rank's
+    ``ssm_heads / m`` heads: B and C, which every head reads, are
+    gathered after the conv, the gated norm's statistic is summed over
+    the ranks and the out-projection's partial products too."""
     b, s, _ = x.shape
     di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     q = min(cfg.ssm_chunk, s)
@@ -69,13 +92,20 @@ def mamba2_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
         q = s
     nc = s // q
 
-    z, xbc, dt_raw = _split_proj(cfg, x @ params["in_proj"])
-    xbc = _causal_conv(xbc, params["conv_w"])
-    xs = xbc[..., :di].reshape(b, s, h, p).float()
-    bmat = xbc[..., di:di + n].float()                        # (B,S,N)
-    cmat = xbc[..., di + n:].float()                          # (B,S,N)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])       # (B,S,H)
-    a = -torch.exp(params["a_log"])                           # (H,) < 0
+    tp = getattr(params, "tp", None)
+    if tp is None:
+        z, xbc, dt_raw = _split_proj(cfg, x @ params["in_proj"])
+        xbc = _causal_conv(xbc, params["conv_w"])
+        xin, bc, heads = xbc[..., :di], xbc[..., di:], slice(None)
+    else:
+        z, xin, bc, dt_raw = _region_proj(tp, cfg, tp.enter(x), params)
+        heads = tp.share(h)
+        h = heads.stop - heads.start
+    xs = xin.reshape(b, s, h, p).float()
+    bmat = bc[..., :n].float()                                # (B,S,N)
+    cmat = bc[..., n:].float()                                # (B,S,N)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"][heads])  # (B,S,H)
+    a = -torch.exp(params["a_log"][heads])                    # (H,) < 0
     log_decay = dt * a                                        # (B,S,H) <= 0
 
     xs_c = xs.reshape(b, nc, q, h, p)
@@ -111,9 +141,13 @@ def mamba2_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
     y_inter = torch.einsum("bcin,bchnp->bcihp", c_c, h_prev) \
         * torch.exp(lcum)[..., None]
     y = (y_intra + y_inter).reshape(b, s, h, p)
-    y = y + params["d_skip"][None, None, :, None] * xs
-    y = _gated_rmsnorm(y.reshape(b, s, di), z, params["norm_scale"])
-    return y.to(x.dtype) @ params["out_proj"]
+    y = y + params["d_skip"][heads][None, None, :, None] * xs
+    if tp is None:
+        y = _gated_rmsnorm(y.reshape(b, s, di), z, params["norm_scale"])
+        return y.to(x.dtype) @ params["out_proj"]
+    y = _gated_rmsnorm(y.reshape(b, s, h * p), z,
+                       params["norm_scale"][tp.share(di)], tp=tp)
+    return tp.row_parallel(y.to(x.dtype), params["out_proj"])
 
 
 # ---------------------------------------------------------------------------

@@ -65,10 +65,11 @@ def _mix(x: torch.Tensor, xs: torch.Tensor, ratio: torch.Tensor
     return (x * ratio + xs * (1.0 - ratio)).to(x.dtype)
 
 
-def _decay(params, xw: torch.Tensor) -> torch.Tensor:
-    """Finch decay: w = exp(-exp(w0 + tanh(x·A)·B)) in (0, 1)."""
-    lora = torch.tanh(xw @ params["wa"]) @ params["wb"]
-    return torch.exp(-torch.exp(params["w0"] + lora.float()))
+def _decay(params, xw: torch.Tensor, ch=slice(None)) -> torch.Tensor:
+    """Finch decay: w = exp(-exp(w0 + tanh(x·A)·B)) in (0, 1), on the
+    channels ``ch``."""
+    lora = torch.tanh(xw @ params["wa"]) @ params["wb"][:, ch]
+    return torch.exp(-torch.exp(params["w0"][ch] + lora.float()))
 
 
 def _group_norm(x: torch.Tensor, scale: torch.Tensor, hd: int,
@@ -99,16 +100,26 @@ def rwkv6_time_mix(params, cfg, x: torch.Tensor,
                    state: Optional[torch.Tensor] = None,
                    last_x: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) → (out, final state (B, H, hd, hd), last token's x)."""
-    b, s, d = x.shape
+    """x: (B, S, D) → (out, final state (B, H, hd, hd), last token's x).
+    A ``params`` view with a ``tp`` region (``distributed.sharding``)
+    runs the rank's H / m heads (their columns of ``wr`` / ``wk`` /
+    ``wv`` / ``wg`` and of the decay, their rows of ``bonus_u`` and
+    ``wo``): the per-head scan and group norm need nothing of the
+    other ranks, and the out-projection's partials are summed."""
+    b, s, _ = x.shape
     hd = cfg.rwkv_head_dim
+    tp = getattr(params, "tp", None)
+    ch = slice(None) if tp is None else tp.share(cfg.d_model)
+    if tp is not None:
+        x = tp.enter(x)
+    d = params["wr"].shape[-1]                # the rank's channels
     h = d // hd
     xs = _shift(x, last_x)
     r = _mix(x, xs, params["mix_r"]) @ params["wr"]
     k = _mix(x, xs, params["mix_k"]) @ params["wk"]
     v = _mix(x, xs, params["mix_v"]) @ params["wv"]
     g = _mix(x, xs, params["mix_g"]) @ params["wg"]
-    w = _decay(params, _mix(x, xs, params["mix_w"]))          # (B,S,D)
+    w = _decay(params, _mix(x, xs, params["mix_w"]), ch)      # (B,S,D)
 
     rh = r.reshape(b, s, h, hd).float()
     kh = k.reshape(b, s, h, hd).float()
@@ -135,20 +146,32 @@ def rwkv6_time_mix(params, cfg, x: torch.Tensor,
         outs = torch.cat(outs, dim=1)
     else:
         state, outs = _scan(u, state, rh, kh, vh, wh)
-    y = _group_norm(outs.reshape(b, s, d), params["ln_scale"], hd)
+    y = _group_norm(outs.reshape(b, s, d), params["ln_scale"][ch], hd)
     y = (y * F.silu(g.float())).to(x.dtype)
-    return y @ params["wo"], state, x[:, -1, :]
+    out = y @ params["wo"] if tp is None else tp.row_parallel(y, params["wo"])
+    return out, state, x[:, -1, :]
 
 
 def rwkv6_channel_mix(params, cfg, x: torch.Tensor,
                       last_x: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """In a ``tp`` region a rank holds d_ff / m columns of ``ck`` (rows
+    of ``cv``) and d / m columns of ``cr``: its partial ``k @ cv`` is
+    reduce-scattered to its d / m channels in fp32, gated there, and
+    the gated channels are all-gathered (the bytes of one all-reduce)."""
+    tp = getattr(params, "tp", None)
+    if tp is not None:
+        x = tp.enter(x)
     xs = _shift(x, last_x)
     k = _mix(x, xs, params["cmix_k"]) @ params["ck"]
     k = torch.square(F.relu(k))
     r = torch.sigmoid((_mix(x, xs, params["cmix_r"]) @ params["cr"])
                       .float()).to(x.dtype)
-    return r * (k @ params["cv"]), x[:, -1, :]
+    if tp is None:
+        return r * (k @ params["cv"]), x[:, -1, :]
+    last = x.dim() - 1
+    kv = tp.scatter_sum(torch.matmul(k.float(), params["cv"].float()), last)
+    return tp.gather_out(r * kv.to(x.dtype), last), x[:, -1, :]
 
 
 def init_rwkv_cache(cfg, batch: int, dtype, *, device

@@ -16,10 +16,12 @@ qwen3-4b's SMOKE config on the SATA kernel route (the compacted-grid
 kernel's plain version on the rank's 2 of 4 query heads over 1 of 2 KV
 heads); (``MODEL_CASES``) SMOKE grok-1 (every expert on half its d_ff,
 ``"tensor"``) on (1, 2) and (2, 2), llama-3.2-vision (cross layers),
-whisper-base (encoder, cross-attention), zamba2 (the shared block) and
-qwen3-4b with a tied embedding on (1, 2).  Every case runs its
-embedding, unembed and loss vocab-parallel where "model" is 2.  3 steps
-each from the reference's weights.
+whisper-base (encoder, cross-attention), zamba2 (its mamba2 layers on 8
+of 16 ssm heads a rank, and the shared block), rwkv6 (the time mix on 4
+of 8 heads a rank, the channel mix on half its d_ff) and qwen3-4b with
+a tied embedding on (1, 2).  Every case runs its embedding, unembed and
+loss vocab-parallel where "model" is 2.  3 steps each from the
+reference's weights.
 
 Not bitwise: the data-parallel gradient sums (reduce-scatter over the
 data ranks), the row-parallel out-projections' all-reduce and the
@@ -32,7 +34,12 @@ but for one claim (ROADMAP C12, ``_first_update_accounts``): a
 parameter whose clipped first gradient lies inside AdamW's eps on both
 sides takes a first update ``lr · g / (|g| + eps)`` that turns the
 gradients' fp32 summation order into up to ~1e-5; there the gap less
-that first update's difference is held to 1e-5.
+that first update's difference is held to 1e-5.  SMOKE rwkv6's
+trajectory is badly conditioned (ROADMAP C7, ``test_torch_hybrid_ssm``):
+its 3-step case holds its losses and step 0's grad norm to TRAIN_RTOL,
+the later grad norms (measured 7.0e-4 off) and the final parameters
+(above PARAM_ATOL; against the reference's mesh run one embedding entry
+lies 1.2e-5 off, past C12's account) to that file's RWKV_TRAJ_RTOL.
 The reference's mesh training routes attention through ``_attend`` (its
 kernel has no SPMD rule): the kernel case holds the port's kernel route
 to it, as ``test_torch_train.py`` does on one device.  Bitwise: a run
@@ -54,6 +61,7 @@ import torch_threads  # noqa: E402,F401  (one intra-op thread)
 import jax  # noqa: E402
 
 import torch_mesh_train_ranks as R  # noqa: E402
+from test_torch_hybrid_ssm import RWKV_TRAJ_RTOL  # noqa: E402
 from repro.configs import archs as jarchs  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro.models.config import SataKernelConfig as JK  # noqa: E402
@@ -87,7 +95,7 @@ def _finish(procs):
         assert p.returncode == 0, log[-4000:]
 
 
-REF_PARTS = 3      # reference processes, each on a third of its runs
+REF_PARTS = 4      # reference processes, each on a quarter of its runs
 
 
 def _one_rank(tmp):
@@ -176,19 +184,42 @@ def _first_update_accounts(got, want, m1_got, m1_want, what):
     assert np.abs(rest).max() <= PARAM_ATOL, (what, gap[off], rest)
 
 
-def _close(got, want, what):
-    np.testing.assert_allclose(got["losses"], want["losses"],
-                               rtol=TRAIN_RTOL, err_msg=what)
-    np.testing.assert_allclose(got["gnorms"], want["gnorms"],
-                               rtol=TRAIN_RTOL, err_msg=what)
+def _trajectory(got_losses, got_gnorms, want_losses, want_gnorms, what,
+                traj_rtol):
+    """Losses within TRAIN_RTOL, grad norms past step 0 within
+    ``traj_rtol`` (as ``test_torch_hybrid_ssm`` holds rwkv6's)."""
+    np.testing.assert_allclose(got_losses, want_losses, rtol=TRAIN_RTOL,
+                               err_msg=f"{what} losses")
+    np.testing.assert_allclose(got_gnorms[0], want_gnorms[0],
+                               rtol=TRAIN_RTOL, err_msg=f"{what} gnorms")
+    np.testing.assert_allclose(got_gnorms, want_gnorms, rtol=traj_rtol,
+                               err_msg=f"{what} gnorms")
+
+
+def _params_close(got, want, m1_got, m1_want, what, traj_rtol):
+    """PARAM_ATOL with ROADMAP C12's first-update rule; a trajectory
+    held at ``traj_rtol`` past step 0 holds its final parameters there
+    too, above PARAM_ATOL."""
+    if traj_rtol != TRAIN_RTOL:
+        np.testing.assert_allclose(got, want, atol=PARAM_ATOL,
+                                   rtol=traj_rtol, err_msg=what)
+    else:
+        _first_update_accounts(got, want, m1_got, m1_want, what)
+
+
+def _close(got, want, what, traj_rtol=TRAIN_RTOL):
+    """Losses, grad norms and the final parameters (past step 0 within
+    ``traj_rtol``)."""
+    _trajectory(got["losses"], got["gnorms"], want["losses"],
+                want["gnorms"], what, traj_rtol)
     assert set(got["params"]) == set(want["params"]), what
     m1 = "m1" in got and "m1" in want
     for n, p in got["params"].items():
-        _first_update_accounts(
+        _params_close(
             p.float().numpy(), want["params"][n].float().numpy(),
             got["m1"][n].numpy() if m1 else None,
             want["m1"][n].numpy() if m1 else None,
-            f"{what} {n}")
+            f"{what} {n}", traj_rtol)
 
 
 MESH_CASES = [(shape, case) for shapes in R.MESHES.values()
@@ -201,7 +232,11 @@ def test_mesh_matches_one_rank(runs, one_rank, shape, case):
     """Losses, grad norms and the gathered final parameters of the mesh
     run against the port's one-device run."""
     _close(_results(runs, shape)[(shape, case)], one_rank[case],
-           f"{shape} {case}")
+           f"{shape} {case}", _traj_rtol(case))
+
+
+def _traj_rtol(case):
+    return RWKV_TRAJ_RTOL if R.ROWS[case][0] == "rwkv6-1.6b" else TRAIN_RTOL
 
 
 @pytest.mark.parametrize("shape,case", MESH_CASES,
@@ -210,10 +245,8 @@ def test_mesh_matches_reference_on_the_same_mesh(runs, shape, case):
     got = _results(runs, shape)[(shape, case)]
     key = f"{shape[0]}x{shape[1]}/{case}"
     want = runs[2]
-    np.testing.assert_allclose(got["losses"], want[key + "/losses"],
-                               rtol=TRAIN_RTOL)
-    np.testing.assert_allclose(got["gnorms"], want[key + "/gnorms"],
-                               rtol=TRAIN_RTOL)
+    _trajectory(got["losses"], got["gnorms"], want[key + "/losses"],
+                want[key + "/gnorms"], key, _traj_rtol(case))
     names = {n[len(key + "/params/"):] for n in want
              if n.startswith(key + "/params/")}
     cfg = R.case_cfg(jarchs.SMOKE, case, JK)
@@ -221,8 +254,8 @@ def test_mesh_matches_reference_on_the_same_mesh(runs, shape, case):
     m1 = _stacked(got["m1"], cfg)
     assert names == set(stacked)
     for n in names:
-        _first_update_accounts(stacked[n], want[f"{key}/params/{n}"],
-                               m1[n], want[f"{key}/m1/{n}"], n)
+        _params_close(stacked[n], want[f"{key}/params/{n}"], m1[n],
+                      want[f"{key}/m1/{n}"], n, _traj_rtol(case))
 
 
 def _stacked(params, cfg):
@@ -251,10 +284,14 @@ def _stacked(params, cfg):
 def test_other_families_take_one_step_on_the_mesh(runs, case):
     """One step on (2, 2) against the port's one device: the loss and
     grad norm (before any update: summation order only) and the updated
-    parameters.  One step, because SMOKE rwkv6's trajectory moves 0.56%
-    under a 1e-7 weight perturbation after its first update (ROADMAP
-    C7)."""
-    one = R.train_case(str(runs[3]), case, None, steps=1)
+    parameters within PARAM_ATOL; rwkv6's under C12's rule from both
+    runs' first moments (``R.FAMILY_MOMENTS``: its time and channel mix
+    on the rank's heads reorder a near-zero gradient entry of ``wk``
+    inside AdamW's eps).  One step, because SMOKE rwkv6's trajectory
+    moves 0.56% under a 1e-7 weight perturbation after its first update
+    (ROADMAP C7)."""
+    one = R.train_case(str(runs[3]), case, None, steps=1,
+                       moments=case in R.FAMILY_MOMENTS)
     _close(runs[0][case], one, case)
 
 
@@ -264,9 +301,10 @@ def test_tensor_parallel_and_gathered_leaves(runs):
     attention and MLP projections (7 a dense layer), qwen3-moe's and
     grok's attention and experts (4 + 3 a layer; the router is
     replicated), the embedding and unembed (2; the tied embedding 1);
-    zamba2 keeps its shared block's 7 and the 2 and gathers its mamba
-    layers' in_proj / out_proj / conv_w (3 a layer) and ``shared_in``;
-    "model" = 1 shards nothing over it."""
+    zamba2 keeps its mamba layers' in_proj / conv_w / out_proj (3 a
+    layer), its shared block's 7 and the 2, and gathers ``shared_in``
+    alone; rwkv6 keeps wr / wk / wv / wg / wo / bonus_u / ck / cv / cr
+    (9 a layer) and the 2; "model" = 1 shards nothing over it."""
     n = jarchs.SMOKE["qwen3-4b"].n_layers
     w2 = runs[1]
     for case in ("qwen3-4b", "qwen3-moe", "grok"):
@@ -283,8 +321,11 @@ def test_tensor_parallel_and_gathered_leaves(runs):
         + 2, "gathered_over_model": 0}
     zamba2 = jarchs.SMOKE["zamba2-2.7b"]
     assert w2[((1, 2), "zamba2")]["counts"] == {
-        "tensor_parallel": 7 + 2,
-        "gathered_over_model": 3 * zamba2.n_layers + 1}
+        "tensor_parallel": 3 * zamba2.n_layers + 7 + 2,
+        "gathered_over_model": 1}
+    rwkv6 = jarchs.SMOKE["rwkv6-1.6b"]
+    assert w2[((1, 2), "rwkv6")]["counts"] == {
+        "tensor_parallel": 9 * rwkv6.n_layers + 2, "gathered_over_model": 0}
     assert w2[((2, 1), "qwen3-4b")]["counts"] == {
         "tensor_parallel": 0, "gathered_over_model": 0}
     # CPU tensors go through gloo without a host copy

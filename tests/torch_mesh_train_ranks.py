@@ -28,6 +28,11 @@ of :data:`MESHES`, case) pairs (``reference_jobs``), the parts at once
 before jax starts; the meshes are built with ``AxisType.Auto``, as
 ``repro.launch.mesh`` builds them: jax's default Explicit axes fail at
 the embedding gather) and writes TMP/reference<PART>.npz.
+
+    python tests/torch_mesh_train_ranks.py regions RANK TMP
+
+runs :func:`region_case` for zamba2 and rwkv6 on rank RANK of a 2-rank
+world on (1, 2) (``tests/test_torch_ssm_regions.py``).
 """
 import dataclasses
 import os
@@ -48,8 +53,9 @@ CASES = {
                                         topk_impl="bisect", q_chunk=16)),
 }
 # the other families, one step each on (2, 2) against the port's one
-# device: every leaf gathered over "model" (olmo-1b's attention and MLP
-# run tensor-parallel), the forward and backward through the gathers
+# device: olmo-1b's attention and MLP, zamba2's mamba2 layers and shared
+# block and rwkv6's time and channel mix run in their "model" regions,
+# vlm's and whisper's too
 FAMILIES = {
     "olmo": ("olmo-1b", 32, None),
     "zamba2": ("zamba2-2.7b", 32, None),
@@ -57,16 +63,23 @@ FAMILIES = {
     "vlm": ("llama-3.2-vision-90b", 32, None),
     "audio": ("whisper-base", 32, None),
 }
+# the FAMILIES cases whose updated parameters are held under ROADMAP
+# C12's first-update rule (both runs record their first moments): on
+# (2, 2) rwkv6's time and channel mix reorder the fp32 sum of one
+# near-zero ``wk`` gradient entry inside AdamW's eps (1.09e-5 off after
+# the step); every other case stays at PARAM_ATOL, element by element
+FAMILY_MOMENTS = ("rwkv6",)
 # the modules that compute on their "model" shard in the expert-, vocab-
 # and tensor-parallel regions beyond the dense attention and MLP, 3 steps
 # each against the port's one device and the reference on the same mesh:
 # SMOKE grok-1's experts split by d_ff (``expert_shard="tensor"``) on
 # (1, 2) and (2, 2); llama-3.2-vision's cross layers, whisper's encoder
-# and cross-attention, zamba2's shared block and a tied embedding on
-# (1, 2).  Every case also runs its embedding, unembed and loss
-# vocab-parallel over "model".
+# and cross-attention, zamba2's mamba2 layers and shared block, rwkv6's
+# time and channel mix and a tied embedding on (1, 2).  Every case also
+# runs its embedding, unembed and loss vocab-parallel over "model".
 MODEL_CASES = {"grok": ((1, 2), (2, 2)), "vlm": ((1, 2),),
-               "audio": ((1, 2),), "zamba2": ((1, 2),), "tied": ((1, 2),)}
+               "audio": ((1, 2),), "zamba2": ((1, 2),),
+               "rwkv6": ((1, 2),), "tied": ((1, 2),)}
 # "tied": SMOKE qwen3-4b with ``tie_embeddings``: the unembed is the
 # rank's embedding rows, transposed
 ROWS = {**CASES, **FAMILIES, "grok": ("grok-1-314b", 32, None),
@@ -77,11 +90,12 @@ MESHES = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
 # the last one's checkpoint: its jit pins no output shardings, and on a
 # model-split mesh GSPMD hands SMOKE zamba2's final_ln and shared-block
 # norm scales back split over "model", which its second call refuses
-# (``ValueError: Sharding passed to jit does not match``); a resumed
-# call restores onto its input shardings.  ``train`` at ``steps`` k
-# takes step k - 1 at the learning rate ``steps = 3`` gives it (warmup 2
-# steps, then the cosine from step 2 to ``decay_steps``)
-REF_STEPWISE = ("zamba2",)
+# (``ValueError: Sharding passed to jit does not match``), and so does
+# SMOKE rwkv6's second call; a resumed call restores onto its input
+# shardings.  ``train`` at ``steps`` k takes step k - 1 at the learning
+# rate ``steps = 3`` gives it (warmup 2 steps, then the cosine from step
+# 2 to ``decay_steps``)
+REF_STEPWISE = ("zamba2", "rwkv6")
 # the forward whose region shapes a (1, 2) rank records (``region_shapes``)
 SHAPES_MESH, SHAPES_CASES = (1, 2), ("qwen3-moe", "grok")
 CKPT_CASE, CKPT_STEPS, CKPT_FAIL = "qwen3-4b", 5, 3
@@ -329,7 +343,8 @@ def run_world(rank, world, tmp):
         bf16 = M.make_train_mesh(*BF16_MESH, device="cpu")
         res["bf16"] = train_case(tmp, "qwen3-4b", bf16, dtype="bfloat16")
         for case in FAMILIES:
-            res[case] = train_case(tmp, case, mesh, steps=1)
+            res[case] = train_case(tmp, case, mesh, steps=1,
+                                   moments=case in FAMILY_MOMENTS)
         d = os.path.join(tmp, "ckpt22")
         res["uninterrupted"] = train_case(tmp, CKPT_CASE, mesh, **ck)
         res["failed"] = error_of(lambda: train_case(
@@ -353,6 +368,137 @@ def run_world(rank, world, tmp):
             tmp, "qwen3-4b", M.make_shard_mesh(world, device="cpu"))),
     }
     return res
+
+
+# ---------------------------------------------------------------------------
+# mamba2's and rwkv6's regions, one layer on (1, 2)
+# ---------------------------------------------------------------------------
+
+REGION_ARCHS = {"zamba2": "zamba2-2.7b", "rwkv6": "rwkv6-1.6b"}
+REGION_MESH, REGION_ROWS = (1, 2), (2, 16)
+HEAD_DECADES = 4      # the heads' input scales span 10^-2 .. 10^2
+
+
+def _spread_heads(cfg, model, gen):
+    """Layer 0's heads read inputs 10^-2 .. 10^2 in scale (mamba2's x
+    columns of ``in_proj``, rwkv6's ``wk`` columns), so a norm taken
+    over one rank's heads differs from the whole's; the leaves that
+    init to constants are drawn off them."""
+    import torch
+    layer = model.layers[0]
+    if cfg.family == "hybrid":
+        p, w, h = layer.mixer, layer.mixer.in_proj, cfg.ssm_heads
+        cols, fixed = slice(cfg.d_inner, 2 * cfg.d_inner), (
+            "a_log", "d_skip", "dt_bias", "norm_scale")
+    else:
+        p, w, h = layer.tmix, layer.tmix.wk, cfg.d_model // cfg.rwkv_head_dim
+        cols, fixed = slice(None), ("w0", "bonus_u", "ln_scale", "mix_r",
+                                    "mix_w", "cmix_k", "cmix_r")
+    scale = 10.0 ** torch.linspace(-HEAD_DECADES / 2, HEAD_DECADES / 2, h)
+    with torch.no_grad():
+        w[:, cols] *= scale.repeat_interleave(w[:, cols].shape[1] // h)
+        for n in fixed:
+            t = getattr(p, n)
+            t += 0.1 * torch.randn(t.shape, generator=gen) * t.abs().clamp(
+                min=1.0)
+
+
+def region_case(tmp, case, mesh):
+    """One layer of SMOKE ``case`` (fp32) on the rank's heads against the
+    whole layer on one device: the output, the input's gradient and every
+    leaf's gradient (the rank's blocks gathered); then the placement:
+    ``gather_params`` of ``shard_``, and a mesh checkpoint of the
+    parameters and random moments (the global leaves on disk, the
+    blocks restored), each against the global leaves bit for bit; and
+    each rank's ``in_proj`` / ``conv_w`` blocks."""
+    import copy
+
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager, _leaves
+    from repro_torch.configs.archs import SMOKE
+    from repro_torch.distributed.sharding import (ShardLayout, block, gather,
+                                                  leaf_specs)
+    from repro_torch.models import model as mdl
+    cfg = SMOKE[REGION_ARCHS[case]]
+    gen = torch.Generator().manual_seed(7)
+    model = mdl.Model(cfg, device="cpu", seed=0)
+    _spread_heads(cfg, model, gen)
+    layout = ShardLayout(cfg, mesh)
+    sharded = layout.shard_(copy.deepcopy(model))
+    x = torch.randn(REGION_ROWS + (cfg.d_model,), generator=gen)
+    wts = torch.randn(x.shape, generator=gen)
+    apply = mdl._mamba_block_apply if cfg.family == "hybrid" \
+        else mdl._rwkv_block_apply
+
+    def grads(layer, module):
+        xin = x.clone().requires_grad_(True)
+        out = apply(layer, cfg, xin)
+        names = [n for n, _ in module.named_parameters()]
+        g = torch.autograd.grad((out * wts).sum(),
+                                [xin] + list(module.parameters()))
+        return out.detach(), g[0], dict(zip(names, g[1:]))
+
+    out, gx, g = grads(layout.view(sharded)["layers"][0], sharded.layers[0])
+    g = {n: gather(t, layout.specs["layers.0." + n], mesh)
+         for n, t in g.items()}
+    res = {"region": (out, gx, g), "one": grads(model.layers[0],
+                                                 model.layers[0])}
+    want = dict(model.named_parameters())
+    res["gathered"] = {n: torch.equal(t, want[n]) for n, t in
+                       layout.gather_params(sharded).items()}
+    moments = {n: torch.randn(p.shape, generator=gen)
+               for n, p in want.items()}
+    state = {"params": sharded, "opt": {"m": {
+        n: block(t, layout.specs[n], mesh).clone()
+        for n, t in moments.items()}}}
+    names = [n for n, _ in _leaves(state)]
+    ck = dict(mesh=mesh, specs=leaf_specs(names, layout.specs))
+    mgr = CheckpointManager(os.path.join(tmp, f"region_ckpt_{case}"))
+    mgr.save(1, state, **ck)
+    torch.distributed.barrier()
+    with np.load(os.path.join(mgr.dir, "step_1", "leaves.npz")) as z:
+        res["saved"] = {n: np.array_equal(z[n], (
+            want[n[len("params."):]] if n.startswith("params.")
+            else moments[n[len("opt.m."):]]).detach().numpy())
+            for n in z.files}
+    blocks = {n: t.detach().clone() for n, t in _leaves(state)}
+    with torch.no_grad():
+        for _, t in _leaves(state):
+            t.zero_()
+    mgr.restore(state, **ck)
+    res["restored"] = {n: torch.equal(t, blocks[n])
+                       for n, t in _leaves(state)}
+    res["cols"] = {}            # the global columns of the rank's block
+    for n in ("in_proj", "conv_w") if cfg.family == "hybrid" else ():
+        shape = want["layers.0.mixer." + n].shape
+        cols = torch.arange(shape[-1], dtype=torch.float32).expand(shape)
+        res["cols"][n] = block(cols, layout.specs["layers.0.mixer." + n],
+                               mesh)[0]
+    res["specs"] = {n: (tuple(s), type(s).__name__)
+                    for n, s in layout.specs.items()}
+    res["counts"] = layout.counts()
+    return res
+
+
+def main_regions(rank, tmp):
+    """``regions RANK TMP``: rank RANK of the 2-rank world at
+    TMP/store_regions; rank 0 writes TMP/regions.pt with both ranks'
+    ``region_case`` results."""
+    import torch_threads  # noqa: F401  (one intra-op thread)
+    import torch
+    from repro_torch.launch import mesh as M
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp}/store_regions", rank=rank,
+        world_size=2)
+    try:
+        mesh = M.make_train_mesh(*REGION_MESH, device="cpu")
+        res = {case: region_case(tmp, case, mesh) for case in REGION_ARCHS}
+        parts = [None, None]
+        torch.distributed.all_gather_object(parts, res)
+        if rank == 0:
+            torch.save(parts, os.path.join(tmp, "regions.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def main_rank(rank, world, tmp):
@@ -423,5 +569,7 @@ def main_reference(tmp, part, parts):
 if __name__ == "__main__":
     if sys.argv[1] == "reference":
         main_reference(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
+    elif sys.argv[1] == "regions":
+        main_regions(int(sys.argv[2]), sys.argv[3])
     else:
         main_rank(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
