@@ -21,7 +21,8 @@ shape and the prefill kernel against its roofline, runs the scale-out
 wrappers (tensor-parallel decode through the decode kernel,
 sequence-sharded selection) on two ranks sharing the card, and trains
 on a (data, model) mesh of those ranks: qwen3-4b, qwen3-moe, zamba2
-and rwkv6, each against one device.
+and rwkv6, each against one device; then holds the dry run's counts on
+meta tensors to the card's and rooflines two production cells.
 
     python3 chip_smoke.py            # needs one CUDA GPU (an H100 here)
     python3 chip_smoke.py --mutants  # phases 2 and 6 (and 8 for the
@@ -31,6 +32,7 @@ and rwkv6, each against one device.
                                      # and prefill kernels and DIR's (an
                                      # earlier checkout) timed in turns
     python3 chip_smoke.py --mesh     # phases 1 and 24-25 alone
+    python3 chip_smoke.py --dryrun   # phases 1 and 26 alone
 
 Phases (any failure exits non-zero; none is caught so a later one runs;
 each prints its host seconds as a ``[phase]`` line):
@@ -99,7 +101,10 @@ each prints its host seconds as a ``[phase]`` line):
      point takes (bf16 must take the tensor cores), timing (CUDA events, median,
      L2 flushed), the bound from the flops and bytes this input needs,
      and SDPA with the equivalent boolean mask as the library yardstick;
- 11. phase 3's serve with prompts sharing their first 1000 tokens (15
+ 11. (phases 11-13a at PREFIX_LAYERS = 18 of the 36 layers, full width,
+     for phase 26's time; phase 3's paged serve is repeated at that
+     depth first, the fp32 stream for phase 12)
+     phase 3's serve with prompts sharing their first 1000 tokens (15
      full pages + a 40-row partial page, copied on write), the prefix
      cache on and off: equal token streams, hit rate >= 14/16, copies on
      write and shared pages > 0, the paged kernel's launches = layers x
@@ -277,7 +282,21 @@ each prints its host seconds as a ``[phase]`` line):
      the leaves gathered over "model"
      (MESH_GATHERED: zamba2's ``shared_in``, nothing of rwkv6's), and B3
      launched the shared block's applications x steps a rank (outside
-     the layers' remat: no recompute), never for rwkv6.
+     the layers' remat: no recompute), never for rwkv6;
+ 26. the dry run (``launch.dryrun``): phase 7's training config at 1
+     layer of full-width qwen3-4b, batch 1, S 4096, a train step and a
+     prefill step each traced on meta tensors and run on the card
+     (after a warm-up) under ``WorkCounter``: counted FLOPs, bytes and
+     kernel calls equal exactly, B3's launches equal its calls counted
+     on meta; the predicted memory (arguments + the meta run's live
+     peak) beside the card's peak, the card's step ms beside the
+     roofline's modeled max(compute, memory); then, in subprocesses
+     that see no card, ``python -m repro_torch.launch.roofline`` on
+     DRYRUN_CELLS (qwen3-4b and qwen3-moe-235b-a22b at train_4k, rank 0
+     of the fake 16x16 world at full depth): each probe's arguments,
+     temp, FLOPs and collective bytes by kind, the three terms, the
+     dominant one, host seconds.  These terms are modeled on the host
+     at the H100's data-sheet peaks: no card runs them.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the ``kernels`` JSON, and the card's name and power limit are
@@ -1482,6 +1501,7 @@ def prefill_phases(torch, sa, dev, base, tag, clock):
 # ---------------------------------------------------------------------------
 
 SHARED_PREFIX = 1000     # 15 full pages of 64 + a 40-row partial page
+PREFIX_LAYERS = 18       # phases 11-13a: full width, 18 of the 36 layers
 SKETCH_BLOCKS = 8        # phase 12's plan width P: 8 of 64 pages
 
 
@@ -1858,7 +1878,7 @@ def crc_rates(tag, nbytes=128 * 2 ** 20, reps=3):
 
 
 def fault_phase(torch, sd, cfg, model, opts, phase11, tag):
-    """Phase 13a: phase 11's workload (prefix cache on, 36 layers) under
+    """Phase 13a: phase 11's workload (prefix cache on, PREFIX_LAYERS) under
     ``fault_plan()``: the token streams must equal phase 11's, with two
     or more host swaps whose handles pin shared prefix pages, one crash
     restored from host swap, the corrupted handle quarantined, no
@@ -4596,6 +4616,179 @@ def probe_decode(torch, sd, build, root, c, tag):
 
 
 # ---------------------------------------------------------------------------
+# 26. the dry run: meta-tensor counts against the card, two production cells
+# ---------------------------------------------------------------------------
+
+DRYRUN_SEQ = 4096
+DRYRUN_CELLS = (("qwen3-4b", "train_4k"), ("qwen3-moe-235b-a22b", "train_4k"))
+
+
+def step_events_ms(torch, run, reps=3):
+    """Median ms of ``reps`` synchronized runs of an eager step, CUDA
+    events around each (the host's launch gaps included: a step's
+    time)."""
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        z.record()
+        z.synchronize()
+        ts.append(a.elapsed_time(z))
+    return float(np.median(ts))
+
+
+def counts_differ(meta, card):
+    """The ops whose counts differ between two ``WorkCounter``s."""
+    names = sorted(set(meta.by_op) | set(card.by_op))
+    return {n: (meta.by_op.get(n), card.by_op.get(n)) for n in names
+            if meta.by_op.get(n) != card.by_op.get(n)}
+
+
+def calibrate(torch, sa, dev, cfg, kind, tag):
+    """One ``kind`` ("train" or "prefill") step of ``cfg`` at batch 1,
+    S DRYRUN_SEQ, on meta tensors and on the card (after a warm-up),
+    each under ``launch.dryrun.WorkCounter``: FLOPs, bytes and kernel
+    calls must be equal, and the card's B3 launches equal the calls
+    counted on meta.  Prints the predicted memory (arguments + the meta
+    run's peak of live bytes above them) beside the card's peak, and
+    the card's step ms (CUDA events, no counter) beside the roofline's
+    modeled max(compute, memory) of the counts.  Returns the counted
+    card step's B3 launches."""
+    from repro_torch.launch.dryrun import WorkCounter
+    from repro_torch.launch.roofline import H100_BF16_FLOPS, H100_HBM_BW
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.step import (init_train_state, make_prefill_step,
+                                        make_train_step)
+    tok = torch.from_numpy(np.random.default_rng(26).integers(
+        0, cfg.vocab_size, (1, DRYRUN_SEQ)).astype(np.int32))
+
+    def setup(device):
+        t = tok.to(device)
+        if kind == "train":
+            state = init_train_state(cfg, OptConfig(), device=device, seed=0)
+            step = make_train_step(cfg, OptConfig())
+            batch = {"tokens": t, "labels": t.clone()}
+            held = [*state["params"].parameters(), state["opt"]["step"],
+                    *state["opt"]["m"].values(), *state["opt"]["v"].values(),
+                    *batch.values()]
+            return (lambda: step(state, batch)), held
+        model = Model(cfg, device=device, seed=0)
+        step = make_prefill_step(cfg)
+        return (lambda: step(model, {"tokens": t})), [*model.parameters(), t]
+
+    run, held = setup(torch.device("meta"))
+    args = sum(x.nbytes for x in held)
+    t = time.time()
+    with WorkCounter() as meta:
+        run()
+    meta_s = time.time() - t
+    del run, held
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    run, held = setup(dev)
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_attn_counts(sa)
+    with WorkCounter() as card:
+        run()
+        torch.cuda.synchronize()
+    n_b3, n_b4 = attn_counts(sa)
+    peak = torch.cuda.max_memory_allocated() - before
+    ms = step_events_ms(torch, run)
+    del run, held
+    torch.cuda.empty_cache()
+    diff = counts_differ(meta, card)
+    if diff:
+        log(f"[dryrun] {kind}: ops counted differently (meta, card): "
+            f"{json.dumps(dict(list(diff.items())[:20]))}")
+    assert card.flops == meta.flops and card.bytes == meta.bytes, \
+        (kind, meta.flops, card.flops, meta.bytes, card.bytes)
+    assert card.kernels == meta.kernels, (kind, meta.kernels, card.kernels)
+    calls = meta.kernels["sata_block_attention_compact"]["calls"]
+    assert n_b3 == calls and n_b4 == 0, (kind, n_b3, n_b4, calls)
+    compute = 1e3 * meta.flops / H100_BF16_FLOPS
+    memory = 1e3 * meta.bytes / H100_HBM_BW
+    log(f"[dryrun] {kind} step, qwen3-4b full width, {cfg.n_layers} layer, "
+        f"batch 1, S {DRYRUN_SEQ}, kernel route, remat {cfg.remat}: FLOPs "
+        f"{meta.flops} and bytes {meta.bytes} counted on meta == on the "
+        f"card ({meta.ops} ops; B3 calls {calls} == launches {n_b3}; "
+        f"meta traced in {meta_s:.2f} s)")
+    predicted = args + meta.peak_bytes
+    log(f"[dryrun] {kind} memory: predicted {predicted / 2**30:.3f} GiB "
+        f"(arguments {args / 2**30:.3f} + live peak "
+        f"{meta.peak_bytes / 2**30:.3f}), card peak allocated "
+        f"{peak / 2**30:.3f} GiB {tag}")
+    log(f"[dryrun] {kind} time: card step {ms:.2f} ms (CUDA events, median "
+        f"of 3, no counter) vs modeled max(compute {compute:.2f}, memory "
+        f"{memory:.2f}) = {max(compute, memory):.2f} ms at the H100's "
+        f"peaks: {ms / max(compute, memory):.2f}x {tag}")
+    top = sorted(card.by_op.items(), key=lambda kv: -kv[1][2])[:5]
+    log(f"[dryrun] {kind} most bytes: " + ", ".join(
+        f"{n} x{c} {b / 2**30:.1f} GiB" for n, (c, f, b) in top))
+    return n_b3
+
+
+def production_cells(root):
+    """``python -m repro_torch.launch.roofline --arch A --shape S`` for
+    each of DRYRUN_CELLS, each in a subprocess of its own, all at once
+    (a fake 256-rank world never meets phases 24-25's gloo groups, and
+    no subprocess sees the card): each probe's per-device arguments,
+    temp, FLOPs and collective bytes by kind, the three terms modeled
+    at the H100's data-sheet peaks, the dominant one, host seconds.
+    Nothing here is measured on the card, so no line carries its tag."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.join(root, "src"),
+                    os.environ.get("PYTHONPATH", "")]))
+    t = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-W", "ignore::FutureWarning", "-m",
+         "repro_torch.launch.roofline", "--arch", arch, "--shape", shape],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for arch, shape in DRYRUN_CELLS]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for (arch, shape), p, (out, err) in zip(DRYRUN_CELLS, procs, outs):
+        for line in out.splitlines():
+            log(line)
+        assert p.returncode == 0, err[-4000:]
+        path = os.path.join(root, "build", "roofline",
+                            f"{arch}__{shape}__pod1.json")
+        with open(path) as f:
+            r = json.load(f)
+        terms = {k: round(v * 1e3, 3) for k, v in r["terms_s"].items()}
+        log(f"[dryrun] {arch} x {shape} on the 16x16 mesh (rank 0, meta): "
+            f"terms ms {terms} modeled on the host at the H100's "
+            f"data-sheet peaks (not measured on a card), "
+            f"{r['dominant']}-bound, useful {r['useful_ratio']:.3f}, "
+            f"roofline fraction {r['roofline_fraction']:.3f}; probes "
+            f"{[round(x, 1) for x in r['probe']['host_s']]} s on the host")
+    log(f"[dryrun] {len(procs)} roofline subprocesses, side by side: "
+        f"{time.time() - t:.1f} s")
+
+
+def dryrun_phase(torch, sa, dev, root, base, tag):
+    """Phase 26: the dry run held to the card on qwen3-4b (phase 7's
+    training config at 1 layer: train and prefill steps), then two
+    production cells' rooflines.  Returns the B3 launches."""
+    cfg = main_path_cfg(dataclasses.replace(base, topk_impl="bisect",
+                                            n_layers=1))
+    n = calibrate(torch, sa, dev, cfg, "train", tag)
+    n += calibrate(torch, sa, dev, cfg, "prefill", tag)
+    production_cells(root)
+    return n
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     # the training phase holds ~53 GB of parameters, gradients and moments
@@ -4647,6 +4840,11 @@ def main() -> int:
     if sys.argv[1:] == ["--mesh"]:
         mesh_phase(torch, sd, dev, tag)
         clock.done("24-25 scale-out and mesh training on two ranks")
+        clock.total()
+        return 0
+    if sys.argv[1:] == ["--dryrun"]:
+        dryrun_phase(torch, sa, dev, root, ARCHS["qwen3-4b"], tag)
+        clock.done("26 dry run")
         clock.total()
         return 0
 
@@ -4731,15 +4929,20 @@ def main() -> int:
     # --- 7.-10. the training path and the prefill kernels' timing
     kernels += prefill_phases(torch, sa, dev, base, tag, clock)
 
-    # --- 11.-12. the shared-prefix cache and the summary backends
-    model = DenseModel(cfg, device=dev, seed=0)
-    phase11 = prefix_cache_phase(torch, sd, serve, cfg, model, opts, tag)
-    summary_phase(torch, sd, serve, cfg, model, opts,
-                  runs["paged"][0]["outputs"], main_case, tag)
+    # --- 11.-12. the shared-prefix cache and the summary backends, at
+    # PREFIX_LAYERS: phase 3's paged serve again at that depth first, the
+    # fp32 stream phase 12's int8 run must equal
+    pcfg = serve_cfg(dataclasses.replace(base, n_layers=PREFIX_LAYERS))
+    model = DenseModel(pcfg, device=dev, seed=0)
+    fp32, _ = serve_full(torch, sd, serve, pcfg, model, opts,
+                         f"fp32 {PREFIX_LAYERS} layers", tag)
+    phase11 = prefix_cache_phase(torch, sd, serve, pcfg, model, opts, tag)
+    summary_phase(torch, sd, serve, pcfg, model, opts, fp32["outputs"],
+                  main_case, tag)
     clock.done("11-12 prefix cache and summary backends")
 
     # --- 13. host swap, crash, quarantine; serve checkpoint / resume
-    fault_phase(torch, sd, cfg, model, opts, phase11, tag)
+    fault_phase(torch, sd, pcfg, model, opts, phase11, tag)
     del model
     torch.cuda.empty_cache()
     checkpoint_phase(torch, sd, cfg, opts, dev, root, tag)
@@ -4820,6 +5023,12 @@ def main() -> int:
     kernels[2]["paths"]["25 train(mesh=): qwen3-4b (2, 1) + (1, 2), "
                         "qwen3-moe, zamba2, rwkv6 bf16 and fp32 (1, 2)"] = n_b3
     clock.done("24-25 scale-out and mesh training on two ranks")
+
+    # --- 26. the dry run against the card; two production cells' rooflines
+    kernels[2]["paths"]["26 dry-run calibration: qwen3-4b 1 layer, a "
+                        "train and a prefill step"] = dryrun_phase(
+        torch, sa, dev, root, base, tag)
+    clock.done("26 dry run")
     clock.total()
     log(card)
     log(json.dumps({"kernels": kernels}))

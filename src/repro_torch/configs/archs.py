@@ -1,9 +1,12 @@
 """The assigned architectures (+ reduced smoke variants) — the port's own
 copy of ``repro.configs.archs``.  ``SMOKE[id]`` is a same-family
 reduced config for CPU tests; ``ARCHS[id]`` is the published width.
+``SHAPES`` are the dry run's input shapes, and ``all_cells()`` its
+(arch × shape) cells.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 from repro_torch.models.config import ModelConfig
@@ -90,3 +93,33 @@ def _smoke(full: ModelConfig) -> ModelConfig:
 
 
 SMOKE: Dict[str, ModelConfig] = {k: _smoke(v) for k, v in ARCHS.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+# long_500k needs sub-quadratic attention: run only for SSM/hybrid archs
+LONG_OK = {"zamba2-2.7b", "rwkv6-1.6b"}
+
+
+def cell_enabled(arch: str, shape: str) -> bool:
+    if shape == "long_500k":
+        return arch in LONG_OK
+    return True
+
+
+def all_cells():
+    """Every (arch, shape) cell of the dry run, in the reference's order."""
+    return [(a, s) for a in ARCHS for s in SHAPES if cell_enabled(a, s)]

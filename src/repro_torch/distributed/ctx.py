@@ -12,9 +12,14 @@ reference, and ``constrain`` returns ``x`` unchanged.
 ``mesh_installed()`` is not ported: it is the reference's route-off for
 ``pallas_call``'s missing SPMD rule (its mesh training runs ``_attend``
 instead of its kernel); the port's mesh training keeps the kernel route,
-on each rank's heads.  The context-parallel helpers
-(``set_context_parallel``, ``constrain_cp_*``) serve only the dry-run
-lowering (ROADMAP queue A item 5).
+on each rank's heads.
+
+The context-parallel layout (``set_context_parallel``, ``cp_enabled``
+and the specs ``cp_q_spec`` / ``cp_kv_spec`` / ``cp_scores_spec``, the
+reference's ``constrain_cp_*``) is kept for parity and for the dry run,
+which records whether it was asked for: the port's attention does not
+read it.  Its mesh step stays head-parallel, with the SATA kernel on a
+rank's heads (a stated divergence, ROADMAP).
 """
 from __future__ import annotations
 
@@ -25,18 +30,33 @@ import torch
 from repro_torch.distributed.sharding import _dp
 
 _SPECS: Dict[str, Tuple] = {}
+_MESH = None          # the mesh a launcher installed, or None
+_CP = False
 
 
 def set_activation_shardings(specs: Dict[str, Tuple], mesh=None) -> None:
-    """Keep the activation specs (``make_activation_shardings``); ``mesh``
-    is accepted for the reference's signature."""
-    global _SPECS
+    """Keep the activation specs (``make_activation_shardings``) and the
+    mesh they were made for."""
+    global _SPECS, _MESH
     _SPECS = dict(specs)
+    if mesh is not None:
+        _MESH = mesh
 
 
 def clear() -> None:
-    global _SPECS
+    global _SPECS, _MESH
     _SPECS = {}
+    _MESH = None
+
+
+def set_context_parallel(on: bool) -> None:
+    global _CP
+    _CP = bool(on)
+
+
+def cp_enabled() -> bool:
+    """Context parallelism asked for, with a mesh installed."""
+    return _CP and _MESH is not None
 
 
 def activation_spec(kind: str) -> Optional[Tuple]:
@@ -76,6 +96,38 @@ def heads_spec(shape: Tuple[int, ...], mesh) -> Tuple:
     elif shape[3] % m == 0:
         spec[3] = "model"
     return tuple(spec)
+
+
+def _cp_spec(spec, mesh) -> Tuple:
+    dp = _dp(mesh)
+    return tuple(dp if a == "DP" else a for a in spec)
+
+
+def cp_q_spec(shape: Tuple[int, ...], mesh) -> Optional[Tuple]:
+    """The reference's ``constrain_cp_q`` layout for q (B, Q, H, hd):
+    batch over the data axes, the query dim over "model"; None (left as
+    it is) without context parallelism or where "model" does not divide
+    Q."""
+    if not cp_enabled() or shape[1] % mesh.shape["model"] != 0:
+        return None
+    return _cp_spec(("DP", "model", None, None), mesh)
+
+
+def cp_kv_spec(shape: Tuple[int, ...], mesh) -> Optional[Tuple]:
+    """The reference's ``constrain_cp_kv`` layout for k/v (B, S, KV, hd):
+    batch over the data axes, replicated over "model"."""
+    if not cp_enabled():
+        return None
+    return _cp_spec(("DP", None, None, None), mesh)
+
+
+def cp_scores_spec(shape: Tuple[int, ...], mesh) -> Optional[Tuple]:
+    """The reference's ``constrain_cp_scores`` layout for scores
+    (B, KV, G, Q, S): batch over the data axes, the query dim over
+    "model" where it divides."""
+    if not cp_enabled() or shape[3] % mesh.shape["model"] != 0:
+        return None
+    return _cp_spec(("DP", None, None, "model", None), mesh)
 
 
 def make_activation_shardings(mesh, cfg, seq_shard: bool = False

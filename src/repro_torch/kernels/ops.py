@@ -11,8 +11,20 @@ score tiles to per-row thresholds and a block plan, and the kernel
 re-derives the mask per tile.
 
 Dispatch follows the device of the tensors: CPU tensors take the plain
-PyTorch version, CUDA tensors take the hand-written kernel, and a build
-or launch failure raises.  Nothing falls back.
+PyTorch version, CUDA tensors take the hand-written kernel (a build or
+launch failure raises), and meta tensors take a shape-only stand-in
+that returns an output of the kernel's shape and dtype and launches
+nothing (a meta tensor has no data for either version to compute on:
+the dry run, ``launch.dryrun``, traces the model on them).  Any other
+device raises.  Nothing falls back.
+
+Each kernel call's work is counted from its static shapes alone, the
+same on every device: while a work counter is installed
+(``launch.dryrun.WorkCounter`` sets ``_WORK``), a call adds its FLOPs
+and bytes (``block_attention_work``, ``decode_attention_work``) and one
+call of its name, and runs with the counter paused, so neither the
+plain version's own ops nor the CUDA wrapper's are counted again.  The
+launch counters (``<wrapper>.launches``) count CUDA launches only.
 """
 from __future__ import annotations
 
@@ -33,20 +45,90 @@ from repro_torch.kernels.sata_decode import (
     sata_decode_attention_ref)
 
 
-def _block_attention_compact(q, *args, **kw) -> torch.Tensor:
-    """The compacted-grid kernel for CUDA tensors, its plain version for
-    CPU tensors."""
-    fn = sa.sata_block_attention_compact_ref if q.device.type == "cpu" \
-        else sa.sata_block_attention_compact
-    return fn(q, *args, **kw)
+# the installed work counter (``launch.dryrun.WorkCounter``), or None
+_WORK = None
 
 
-def _block_attention_dense(q, *args, **kw) -> torch.Tensor:
-    """The dense-grid kernel for CUDA tensors, its plain version for CPU
-    tensors."""
-    fn = sa.sata_block_attention_ref if q.device.type == "cpu" \
-        else sa.sata_block_attention
-    return fn(q, *args, **kw)
+def block_attention_work(q: torch.Tensor, k: torch.Tensor, slots: int, *,
+                         q_block: int, k_block: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one prefill kernel call from static shapes: every
+    (bh, q-block) row visits ``slots`` k-blocks (the compacted grid's
+    plan capacity P, ``kv_indices``' last dim; the dense grid's nkb),
+    each tile Q Kᵀ and P V, 4·q_block·k_block·D FLOPs; it reads Q and
+    one K and one V tile a visit, and writes the output."""
+    bh, sq, d = q.shape
+    tiles = bh * (sq // q_block) * slots
+    flops = 4 * q_block * k_block * d * tiles
+    nbytes = q.element_size() * (2 * bh * sq * d + 2 * tiles * k_block * d)
+    return flops, nbytes
+
+
+def decode_attention_work(q: torch.Tensor, kv_indices: torch.Tensor, *,
+                          k_block: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one decode kernel call from static shapes: each
+    (slot, KV head) row walks its P planned k-blocks at capacity
+    (``kv_indices``' last dim), scoring and summing the G grouped heads,
+    4·G·k_block·D FLOPs a block; it reads q and one K and one V block a
+    step, and writes the output."""
+    b, kv, g, d = q.shape
+    blocks = b * kv * kv_indices.shape[-1]
+    flops = 4 * g * k_block * d * blocks
+    nbytes = q.element_size() * (2 * b * kv * g * d + 2 * blocks * k_block * d)
+    return flops, nbytes
+
+
+def _meta_out(q: torch.Tensor, *args, **kw) -> torch.Tensor:
+    """The shape-only stand-in of every kernel: its output's shape and
+    dtype are q's."""
+    return torch.empty_like(q)
+
+
+def _route(q: torch.Tensor, plain, kernel):
+    """The version of a kernel for q's device: the plain version on the
+    CPU, the CUDA kernel on the card, the stand-in on meta."""
+    kind = q.device.type
+    if kind == "cpu":
+        return plain
+    if kind == "cuda":
+        return kernel
+    if kind == "meta":
+        return _meta_out
+    raise ValueError(f"no SATA kernel for tensors on {q.device} (cpu, "
+                     f"cuda or meta)")
+
+
+def _counted(name: str, work, fn, *args, **kw):
+    """``fn(*args, **kw)``, its ``work()`` added to the installed counter
+    (if any) with the counter paused inside."""
+    counter = _WORK
+    if counter is None:
+        return fn(*args, **kw)
+    with counter.kernel(name, *work()):
+        return fn(*args, **kw)
+
+
+def _block_attention_compact(q, k, v, kv_indices, *args, **kw
+                             ) -> torch.Tensor:
+    """The compacted-grid kernel (B3) for q's device (``_route``)."""
+    fn = _route(q, sa.sata_block_attention_compact_ref,
+                sa.sata_block_attention_compact)
+    return _counted(
+        "sata_block_attention_compact",
+        lambda: block_attention_work(
+            q, k, kv_indices.shape[-1], q_block=kw.get("q_block", 128),
+            k_block=kw.get("k_block", 128)),
+        fn, q, k, v, kv_indices, *args, **kw)
+
+
+def _block_attention_dense(q, k, v, block_map, *args, **kw) -> torch.Tensor:
+    """The dense-grid kernel (B4) for q's device (``_route``)."""
+    fn = _route(q, sa.sata_block_attention_ref, sa.sata_block_attention)
+    return _counted(
+        "sata_block_attention",
+        lambda: block_attention_work(
+            q, k, block_map.shape[-1], q_block=kw.get("q_block", 128),
+            k_block=kw.get("k_block", 128)),
+        fn, q, k, v, block_map, *args, **kw)
 
 
 def _take_rows(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
@@ -219,10 +301,21 @@ def sata_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         assert k.shape[1] == k_block, (
             f"paged decode needs k_block == page size "
             f"({k_block} != {k.shape[1]})")
-    if q.device.type == "cpu":
-        return sata_decode_attention_ref(q, k, v, kv_indices, kv_counts,
-                                         thresholds, pos, k_block=k_block,
-                                         page_table=page_table)
+    paged = page_table is not None
+    name = "sata_decode_attention_paged_kernel" if paged \
+        else "sata_decode_attention_kernel"
+    fn = _route(q, sata_decode_attention_ref, _decode_kernel_call)
+    return _counted(
+        name, lambda: decode_attention_work(q, kv_indices, k_block=k_block),
+        fn, q, k, v, kv_indices, kv_counts, thresholds, pos,
+        k_block=k_block, page_table=page_table)
+
+
+def _decode_kernel_call(q, k, v, kv_indices, kv_counts, thresholds, pos, *,
+                        k_block, page_table):
+    """The paged (B1) or contiguous (B2) decode kernel in the plain
+    version's argument order.  The module attributes are read at the
+    call, so a probe that replaces one sees the call."""
     if page_table is not None:
         return sata_decode_attention_paged_kernel(
             q, k, v, page_table, kv_indices, kv_counts, thresholds, pos)

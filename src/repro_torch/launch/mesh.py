@@ -41,6 +41,16 @@ run over one axis, or a tuple of axes read as one, through the process
 group of the ranks that share the other coordinates (``_axis_groups``,
 created collectively when the mesh is built).
 
+Every collective counts its logical bytes by kind on the mesh
+(``ShardMesh.collective_bytes``, the reference dry run's convention:
+the result operand's bytes, an all-reduce twice), whatever the backend.
+
+The production mesh (``make_production_mesh``) spans 256 ranks (512
+multi-pod).  ``fake_world`` starts such a world on torch's ``"fake"``
+process-group backend, whose collectives move nothing: with
+``device="meta"`` one rank of the production mesh traces its step on
+meta tensors (``launch.dryrun``).
+
 The wrappers install no global device context (the reference's
 ``mesh_installed()`` route-off exists for ``pallas_call``'s missing
 SPMD rule, which has no counterpart here): ``activate_mesh`` is a
@@ -76,13 +86,17 @@ class ShardMesh:
     rank's index on the mesh; ``device`` is the device this rank
     computes on.  ``host_staged_bytes`` counts the bytes the
     collectives copied between the device and the host (gloo on CUDA
-    tensors)."""
+    tensors); ``collective_bytes`` the logical bytes of each kind of
+    collective ("all-gather", "all-reduce", "reduce-scatter"), as
+    ``_count_collective`` says."""
     axis_names: Tuple[str, ...]
     shape: Dict[str, int]
     group: Optional[object]
     index: int
     device: torch.device
     host_staged_bytes: int = 0
+    collective_bytes: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
     # the process group over each proper subset of the axes whose ranks
     # this rank shares (``_axis_groups``), keyed by the axes in mesh order
     groups: Dict[Tuple[str, ...], object] = dataclasses.field(
@@ -178,11 +192,32 @@ def _axis_groups(shape: Tuple[int, ...], axes: Tuple[str, ...], rank: int
     return groups
 
 
+@contextlib.contextmanager
+def fake_world(size: int, rank: int = 0):
+    """A world of ``size`` ranks on torch's ``"fake"`` backend, this
+    process its rank ``rank``, destroyed on exit: its collectives return
+    at once and move nothing, so one rank of a large mesh can trace its
+    step on meta tensors.  Raises when a process group is already
+    initialised."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised: the "
+                           "fake world would replace it")
+    # importing the module registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", rank=rank, world_size=size,
+                            store=FakeStore())
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def make_production_mesh(*, multi_pod: bool = False, device="cuda"
                          ) -> ShardMesh:
     """The reference's production mesh shape: 16×16 (256 ranks)
-    single-pod, or 2×16×16 (512) multi-pod.  Raises when the world is
-    smaller; lowering a model onto it is ROADMAP queue A item 5."""
+    single-pod, or 2×16×16 (512) multi-pod, over the initialised world
+    (``fake_world(256)`` for a dry run on ``device="meta"``).  Raises
+    when the world is another size."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return _make_mesh(shape, axes, device, "the production world")
@@ -227,11 +262,23 @@ def make_shard_mesh(n_shards: int, axis: str = "shard", *, device="cuda"
 # ---------------------------------------------------------------------------
 
 def _backend(mesh: ShardMesh, group) -> str:
+    """The group's backend: "nccl" and "fake" run on the device, "gloo"
+    on the host."""
     backend = dist.get_backend(group)
-    if backend not in ("nccl", "gloo"):
+    if backend not in ("nccl", "gloo", "fake"):
         raise ValueError(f"no collectives for the {backend!r} backend "
-                         f"(nccl or gloo)")
+                         f"(nccl, gloo or fake)")
     return backend
+
+
+def _count_collective(mesh: ShardMesh, kind: str, result: int,
+                      factor: float = 1.0) -> None:
+    """Add a collective's logical bytes to ``mesh.collective_bytes``:
+    its result's bytes (an all-gather's whole gathered tensor, a
+    reduce-scatter's block), twice for an all-reduce (a ring moves each
+    byte out and back), as the reference's dry run counts them."""
+    mesh.collective_bytes[kind] = (mesh.collective_bytes.get(kind, 0.0)
+                                   + result * factor)
 
 
 def _all_gather(x: torch.Tensor, mesh: ShardMesh, dim: int,
@@ -247,7 +294,8 @@ def _all_gather(x: torch.Tensor, mesh: ShardMesh, dim: int,
         return x
     group = mesh.group_of(_axes(mesh, axis))
     src = x.movedim(dim, 0).contiguous()
-    if _backend(mesh, group) == "nccl":
+    _count_collective(mesh, "all-gather", n * src.nbytes)
+    if _backend(mesh, group) != "gloo":
         out = src.new_empty((n * src.shape[0],) + src.shape[1:])
         dist.all_gather_into_tensor(out, src, group=group)
     else:
@@ -272,7 +320,8 @@ def _all_reduce(x: torch.Tensor, mesh: ShardMesh, axis=None,
     group = mesh.group_of(_axes(mesh, axis))
     if group is None:
         return x
-    if _backend(mesh, group) == "nccl":
+    _count_collective(mesh, "all-reduce", x.nbytes, 2.0)
+    if _backend(mesh, group) != "gloo":
         out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, op=_OPS[op], group=group)
         return out
@@ -297,7 +346,8 @@ def _reduce_scatter(x: torch.Tensor, mesh: ShardMesh, dim: int,
     if src.shape[0] % n:
         raise ValueError(f"reduce-scatter of {src.shape[0]} rows over {n} "
                          f"ranks")
-    if _backend(mesh, group) == "nccl":
+    _count_collective(mesh, "reduce-scatter", src.nbytes // n)
+    if _backend(mesh, group) != "gloo":
         out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
         dist.reduce_scatter_tensor(out, src, group=group)
     else:

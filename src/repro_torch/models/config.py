@@ -237,6 +237,51 @@ class ModelConfig:
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
 
+    def param_count(self) -> int:
+        """Total parameters N (for MODEL_FLOPS = 6·N·D roofline term): the
+        reference's arithmetic, approximations included (rwkv's decay
+        LoRA and the hybrid's one shared block)."""
+        d, hd = self.d_model, self.hd
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        per_layer = 0
+        if self.rwkv:
+            att = d * (4 * d) + d * d            # r,k,v,g (+w lora-ish) + out
+            ffn = 2 * d * self.d_ff + self.d_ff * d
+            per_layer = att + ffn
+            return emb + self.n_layers * per_layer
+        attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
+            + (self.n_heads * hd) * d
+        if self.moe:
+            ffn = self.n_experts * (3 * d * self.d_ff) + d * self.n_experts
+        else:
+            ffn = 3 * d * self.d_ff if self.mlp_variant == "swiglu" \
+                else 2 * d * self.d_ff
+        if self.ssm:
+            # mamba2 block: in_proj (z,x,B,C,dt) + conv + out_proj
+            di, ns = self.d_inner, self.ssm_state
+            proj_in = d * (2 * di + 2 * ns * 1 + self.ssm_heads)
+            mamba = proj_in + di * self.ssm_conv + di * d
+            n_attn = (self.n_layers // self.hybrid_period
+                      if self.hybrid_period else 0)
+            return (emb + self.n_layers * (mamba + ffn // 1)
+                    + (attn + 3 * d * self.d_ff) * (1 if n_attn else 0))
+        n_cross = (self.n_layers // self.cross_attn_period
+                   if self.cross_attn_period else 0)
+        total = emb + self.n_layers * (attn + ffn) + n_cross * attn
+        if self.encoder_layers:
+            total += self.encoder_layers * (attn + ffn) \
+                + self.n_layers * attn               # decoder cross-attn
+        return total
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: only routed experts)."""
+        if not self.moe:
+            return self.param_count()
+        d = self.d_model
+        dense_ffn = self.n_experts * (3 * d * self.d_ff)
+        active_ffn = self.experts_per_token * (3 * d * self.d_ff)
+        return self.param_count() - self.n_layers * (dense_ffn - active_ffn)
+
 
 # the flat-kwarg constructor shim: ``dataclasses.replace`` hands unknown
 # keys straight to ``cls(**merged)``, so wrapping ``__init__`` folds both

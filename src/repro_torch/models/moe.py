@@ -9,7 +9,9 @@ overflow drops, as in GShard.  The top-k gates are renormalised, and
 the Switch load-balancing loss is returned beside the output.
 
 ``moe_apply`` dispatches and combines by index: a kept (token, k-slot)
-writes its token into its (expert, position) slot, every expert runs
+writes its token into its (expert, position) slot (a dropped one into a
+sink row that is cut away, so every shape is static and the model
+traces on meta tensors), every expert runs
 one batched product over its (group × capacity) slots, and a token sums
 its k slots' outputs in k-slot order, with no atomics, so a launch is
 deterministic.  ``moe_apply_ref`` is the reference's own math, one-hot
@@ -162,12 +164,15 @@ def moe_apply(p, cfg, x: torch.Tensor):
     ng, gsz = tokens.shape[:2]
     g_idx = torch.arange(ng, device=x.device)[:, None, None]
     slot = ((g_idx * e + ids) * cap + r.pie).reshape(-1)
-    kept = keep.reshape(-1)
-    # dispatch: each kept (token, k-slot) owns its slot; empty slots are 0
+    n_slots = ng * e * cap
+    # dispatch: each kept (token, k-slot) owns its slot; empty slots are
+    # 0.  A dropped pair writes to a sink row past the slots, cut away
+    # after: the write has one shape whatever the routing
+    sink = torch.where(keep.reshape(-1), slot, n_slots)
     src = tokens[:, :, None].expand(ng, gsz, k, d).reshape(-1, d)
-    xin = tokens.new_zeros((ng * e * cap, d)).index_put(
-        (slot[kept],), src[kept])
-    xin = xin.view(ng, e, cap, d).transpose(0, 1).reshape(e, ng * cap, d)
+    xin = tokens.new_zeros((n_slots + 1, d)).index_put((sink,), src)
+    xin = xin[:n_slots].view(ng, e, cap, d).transpose(0, 1).reshape(
+        e, ng * cap, d)
     out = _experts(p, xin, partial=tp is not None and tp.mode == "tensor")
     out = out.view(e, ng, cap, d).transpose(0, 1)
     got = out.reshape(ng * e * cap, d)[slot].view(ng, gsz, k, d)

@@ -1,4 +1,5 @@
-"""Training and prefill step functions — port of ``repro.train.step``.
+"""Training, prefill and serving step functions — port of
+``repro.train.step``.
 
 The train state is ``{"params": model, "opt": {"m", "v", "step"}}`` (and
 ``"err"`` with gradient compression): the model's parameters and the
@@ -13,7 +14,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.distributed.sharding import ShardLayout, block
-from repro_torch.launch.mesh import _all_reduce, make_local_mesh
+from repro_torch.launch.mesh import _all_gather, _all_reduce, make_local_mesh
+from repro_torch.models import decode as dec
 from repro_torch.models import model as mdl
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import OptConfig, adamw_update, init_opt_state
@@ -121,13 +123,47 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, micro_steps: int = 1,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
-    """Forward only: last-position logits (B, V) fp32 for a full batch."""
+def make_prefill_step(cfg: ModelConfig, mesh=None):
+    """Forward only: last-position logits (B, V) fp32 for a full batch.
+
+    Run by every rank of ``mesh`` (default the one-rank
+    ``make_local_mesh()``, on which every collective below is the
+    identity) with the same global ``batch`` and its shard of the model,
+    as ``make_train_step``: the forward reads the sharded parameters
+    through ``ShardLayout.view``, the batch rows shard over the data
+    axes (a batch that does not divide replicates), and the rank's
+    last-position logits are gathered into the global (B, V): over
+    "model" where the vocabulary is split, then over the data axes."""
+    # the step reads only the mesh's axes; the caller's tensors say where
+    # it computes
+    mesh = make_local_mesh(device="meta") if mesh is None else mesh
+    layout = ShardLayout(cfg, mesh)
+    nd = math.prod(mesh.shape[a] for a in layout.data)
+
     def prefill_step(model, batch):
+        rows = next(iter(batch.values())).shape[0]
+        split = rows % nd == 0
+        local = {k: block(t, (layout.data,), mesh) for k, t in batch.items()} \
+            if split else batch
+        view = layout.view(model)
         with torch.no_grad():
-            logits, _ = mdl.forward(model, cfg, batch)
-        return logits[:, -1, :]
+            logits, _ = mdl.forward(view, cfg, local)
+            last = logits[:, -1, :]
+            if view["embed"].tp is not None:
+                last = _all_gather(last, mesh, 1, "model")
+            return _all_gather(last, mesh, 0, layout.data) if split else last
+
+    prefill_step.layout = layout
     return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """One-token decode against a serving cache (the decode shapes):
+    ``serve_step(model, cache, tokens, pos)`` → (logits (B, 1, V) fp32,
+    the cache, updated in place)."""
+    def serve_step(model, cache, tokens, pos):
+        return dec.serve_step(model, cfg, cache, tokens, pos)
+    return serve_step
 
 
 def init_train_state(cfg: ModelConfig, opt: OptConfig, *, seed: int = 0,

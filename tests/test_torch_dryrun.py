@@ -1,0 +1,508 @@
+"""Port parity: the dry run and the per-cell roofline — ``configs.archs``'
+cells, ``ModelConfig.param_count``, the context-parallel specs of
+``distributed.ctx``, ``kernels.ops``' meta route and work count,
+``launch.dryrun.run_cell`` on a fake world, ``launch.roofline``'s
+``analyse_cell`` and ``launch.report``'s tables.
+
+Exact throughout: the cells, the parameter counts and the specs equal
+the reference's; a SMOKE training step on the SATA kernel route counts
+the same FLOPs, bytes and kernel calls on meta tensors as on CPU
+tensors (the kernel's work comes from static shapes, and neither the
+plain version's ops nor the CUDA wrapper's count); the fake world's
+collective bytes on (1, 2) equal a real 2-rank gloo run's of the same
+steps (``tests/torch_mesh_train_ranks.py collectives``); the moe
+dispatch through the sink row is bitwise the boolean-index dispatch it
+replaced.  ``analyse_cell`` is held to the reference's with both
+packages' ``_measure`` stubbed to the same probe counts: the same
+extrapolation, the terms over the H100's peaks where the reference
+divides by a v5e's.  The reference's ``launch.dryrun`` and
+``launch.roofline`` force 512 host devices through ``XLA_FLAGS`` at
+import, so they run only in a subprocess; ``repro.launch.report`` is
+pointed at ``tmp_path``.  The dry-run table's footnote says what the
+port counts, so the tables are compared above it."""
+import dataclasses
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
+import torch.distributed as dist  # noqa: E402
+import jax  # noqa: E402
+from jax.sharding import AbstractMesh  # noqa: E402
+
+import torch_mesh_train_ranks as R  # noqa: E402
+from repro.configs import archs as jarchs  # noqa: E402
+from repro.distributed import ctx as jctx  # noqa: E402
+from repro.launch import report as jreport  # noqa: E402
+from repro_torch.configs import archs as tarchs  # noqa: E402
+from repro_torch.distributed import ctx as tctx  # noqa: E402
+from repro_torch.distributed.sharding import ShardLayout, block  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import sata_attention as sa  # noqa: E402
+from repro_torch.kernels import sata_decode as sd  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import report as treport  # noqa: E402
+from repro_torch.launch import roofline as troof  # noqa: E402
+from repro_torch.launch.mesh import ShardMesh  # noqa: E402
+from repro_torch.models import model as tmdl  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.optim.adamw import OptConfig  # noqa: E402
+from repro_torch.train.step import init_train_state, \
+    make_train_step  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+WORKER = pathlib.Path(R.__file__)
+A6 = "queue A item 6"
+
+
+def _env():
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC), str(WORKER.parent), os.environ.get("PYTHONPATH", "")]))
+
+
+@pytest.fixture(scope="module")
+def gloo_bytes(tmp_path_factory):
+    """``COLLECTIVE_CASES``' collective bytes by kind from a real 2-rank
+    gloo world (started at once, read when a test needs it)."""
+    tmp = tmp_path_factory.mktemp("collectives")
+    procs = [subprocess.Popen(
+        [sys.executable, str(WORKER), "collectives", str(r), str(tmp)],
+        env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+
+    def get():
+        try:
+            logs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for p, log in zip(procs, logs):
+            assert p.returncode == 0, log[-4000:]
+        return torch.load(tmp / "collectives.pt")
+    return get
+
+
+@pytest.fixture(autouse=True)
+def _no_world():
+    yield
+    assert not dist.is_initialized(), "a process group was left behind"
+
+
+# ---------------------------------------------------------------------------
+# cells, parameter counts, context-parallel specs
+# ---------------------------------------------------------------------------
+
+def test_cells_equal_the_reference():
+    assert tarchs.SHAPES == {k: tarchs.ShapeSpec(**dataclasses.asdict(v))
+                             for k, v in jarchs.SHAPES.items()}
+    assert tarchs.LONG_OK == jarchs.LONG_OK
+    assert tarchs.all_cells() == jarchs.all_cells()
+    assert len(tarchs.all_cells()) == 32
+    for a in jarchs.ARCHS:
+        for s in jarchs.SHAPES:
+            assert tarchs.cell_enabled(a, s) == jarchs.cell_enabled(a, s)
+
+
+@pytest.mark.parametrize("table", ["ARCHS", "SMOKE"])
+def test_param_counts_equal_the_reference(table):
+    for arch, jc in getattr(jarchs, table).items():
+        tc = getattr(tarchs, table)[arch]
+        assert tc.param_count() == jc.param_count(), arch
+        assert tc.active_param_count() == jc.active_param_count(), arch
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_cp_specs_equal_the_reference(monkeypatch, multi_pod):
+    sizes = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    jmesh = AbstractMesh(sizes, axes)
+    tmesh = ShardMesh(axes, dict(zip(axes, sizes)), None, 0,
+                      torch.device("meta"))
+    seen = []
+    monkeypatch.setattr(jax.lax, "with_sharding_constraint",
+                        lambda x, s: seen.append(tuple(s.spec)) or x)
+    cases = (("cp_q", (8, 4096, 32, 128)), ("cp_q", (8, 4100, 32, 128)),
+             ("cp_kv", (8, 4096, 8, 128)),
+             ("cp_scores", (8, 8, 4, 4096, 4096)),
+             ("cp_scores", (8, 8, 4, 24, 4096)))
+    for on in (False, True):
+        jctx.set_activation_shardings({}, mesh=jmesh)
+        tctx.set_activation_shardings({}, mesh=tmesh)
+        jctx.set_context_parallel(on)
+        tctx.set_context_parallel(on)
+        try:
+            assert tctx.cp_enabled() == jctx.cp_enabled() == on
+            for name, shape in cases:
+                seen.clear()
+                getattr(jctx, f"constrain_{name}")(
+                    types.SimpleNamespace(shape=shape))
+                want = seen[0] if seen else None
+                got = getattr(tctx, f"{name}_spec")(shape, tmesh)
+                assert got == want, (on, name, shape, got, want)
+        finally:
+            for c in (jctx, tctx):
+                c.set_context_parallel(False)
+                c.clear()
+    assert not tctx.cp_enabled()
+
+
+# ---------------------------------------------------------------------------
+# the kernels' meta route and work count
+# ---------------------------------------------------------------------------
+
+def _launches():
+    return (sa.sata_block_attention_compact.launches,
+            sa.sata_block_attention.launches,
+            sd.sata_decode_attention_kernel.launches,
+            sd.sata_decode_attention_paged_kernel.launches)
+
+
+def _counted_step(cfg, device, tokens):
+    state = init_train_state(cfg, OptConfig(), device=device, seed=0)
+    step = make_train_step(cfg, OptConfig())
+    tok = torch.from_numpy(tokens).to(device)
+    with dryrun.WorkCounter() as c:
+        _, metrics = step(state, {"tokens": tok, "labels": tok})
+    assert metrics["loss"].device.type == torch.device(device).type
+    return c.summary()
+
+
+def test_a_step_counts_the_same_work_on_meta_and_on_the_cpu():
+    cfg = dataclasses.replace(dryrun.main_path_cfg(tarchs.SMOKE["qwen3-4b"]),
+                              remat="full")
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 256)).astype(np.int32)
+    before = _launches()
+    meta = _counted_step(cfg, "meta", tokens)
+    cpu = _counted_step(cfg, "cpu", tokens)
+    assert _launches() == before
+    # 4 layers x (forward + remat recompute), each at the plan capacity
+    want = ops.block_attention_work(
+        torch.empty((2 * cfg.n_heads, 256, cfg.hd)), None, 2,
+        q_block=128, k_block=128)
+    assert meta["kernels"] == {"sata_block_attention_compact": {
+        "calls": 8, "flops": 8 * want[0], "bytes": 8 * want[1]}}
+    for k in ("flops", "bytes", "ops", "kernels"):
+        assert cpu[k] == meta[k], (k, cpu[k], meta[k])
+    assert meta["flops"] > 8 * want[0] and meta["peak_bytes"] > 0
+
+
+def test_kernel_routes_by_device():
+    q = torch.empty((2, 256, 16), device="meta")
+    idx = torch.zeros((2, 2, 2), dtype=torch.int32, device="meta")
+    cnt = torch.zeros((2, 2), dtype=torch.int32, device="meta")
+    before = _launches()
+    out = ops._block_attention_compact(q, q, q, idx, cnt, q_block=128,
+                                       k_block=128)
+    assert out.device.type == "meta" and out.shape == q.shape
+    bm = torch.zeros((2, 2, 2), dtype=torch.bool, device="meta")
+    assert ops._block_attention_dense(q, q, q, bm, q_block=128,
+                                      k_block=128).shape == q.shape
+    qd = torch.empty((3, 2, 4, 16), dtype=torch.bfloat16, device="meta")
+    kv = torch.empty((3, 64, 2, 16), dtype=torch.bfloat16, device="meta")
+    didx = torch.zeros((3, 2, 4), dtype=torch.int32, device="meta")
+    thr = torch.empty((3, 2, 4, 1), device="meta")
+    pos = torch.zeros(3, dtype=torch.int32, device="meta")
+    with dryrun.WorkCounter() as c:
+        got = ops.sata_decode_attention(qd, kv, kv, didx, cnt[:1].expand(3, 2),
+                                        thr, pos, k_block=16)
+    assert got.shape == qd.shape and got.dtype == torch.bfloat16
+    flops, nbytes = ops.decode_attention_work(qd, didx, k_block=16)
+    assert flops == 4 * 4 * 16 * 16 * 3 * 2 * 4
+    assert nbytes == 2 * (2 * 3 * 2 * 4 * 16 + 2 * 3 * 2 * 4 * 16 * 16)
+    assert c.kernels == {"sata_decode_attention_kernel": {
+        "calls": 1, "flops": flops, "bytes": nbytes}}
+    assert c.ops == 0                   # the stand-in's own op is paused
+    assert _launches() == before
+    with pytest.raises(ValueError, match="no SATA kernel for tensors on"):
+        ops._route(types.SimpleNamespace(device=torch.device("mps")), None,
+                   None)
+
+
+_INDEX_PUT = torch.Tensor.index_put
+
+
+def _old_dispatch(tokens, slot, keep, src, n_slots):
+    """The boolean-index dispatch the sink row replaced."""
+    kept = keep.reshape(-1)
+    return _INDEX_PUT(tokens.new_zeros((n_slots, tokens.shape[-1])),
+                      (slot[kept],), src[kept])
+
+
+def test_moe_sink_dispatch_is_bitwise_the_boolean_dispatch(monkeypatch):
+    cfg = dataclasses.replace(tarchs.SMOKE["qwen3-moe-235b-a22b"],
+                              capacity_factor=0.5)        # drops pairs
+    model = tmdl.Model(cfg, device="cpu", seed=3)
+    p = model["layers"][0]["moe"]
+    x = torch.randn((2, 16, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(0), requires_grad=True)
+    assert not bool(tmoe.route(p, cfg, x.reshape(2, 16, -1)).keep.all())
+
+    def run():
+        out, aux = tmoe.moe_apply(p, cfg, x)
+        grads = torch.autograd.grad(out.square().sum() + aux,
+                                    [x, *p.parameters()])
+        return out, aux, grads
+    new = run()
+    calls = []
+
+    def old_put(self, idx, src):
+        # the new form: (n_slots + 1, d) zeros, the sink at n_slots
+        n_slots = self.shape[0] - 1
+        calls.append(n_slots)
+        keep = idx[0] < n_slots
+        xin = _old_dispatch(self[:n_slots], idx[0], keep, src, n_slots)
+        return torch.cat([xin, self[n_slots:]])
+    monkeypatch.setattr(torch.Tensor, "index_put", old_put)
+    old = run()
+    monkeypatch.setattr(torch.Tensor, "index_put", _INDEX_PUT)
+    assert calls
+    assert torch.equal(new[0], old[0]) and torch.equal(new[1], old[1])
+    for a, b in zip(new[2], old[2]):
+        assert torch.equal(a, b)
+
+
+def test_smoke_moe_loss_runs_on_meta():
+    cfg = tarchs.SMOKE["qwen3-moe-235b-a22b"]
+    model = tmdl.Model(cfg, device="meta")
+    tok = torch.empty((2, 32), dtype=torch.int32, device="meta")
+    loss, parts = tmdl.loss_fn(model, cfg, {"tokens": tok, "labels": tok})
+    assert loss.device.type == "meta" and loss.shape == ()
+    loss.backward()
+    assert all(q.grad is not None for q in model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# run_cell on a fake world
+# ---------------------------------------------------------------------------
+
+def _small(monkeypatch, train=(128, 32), prefill=(128, 32)):
+    monkeypatch.setitem(tarchs.SHAPES, "train_4k",
+                        tarchs.ShapeSpec("train_4k", *train, "train"))
+    monkeypatch.setitem(tarchs.SHAPES, "prefill_32k",
+                        tarchs.ShapeSpec("prefill_32k", *prefill, "prefill"))
+
+
+def _blocks_bytes(cfg, mesh, batch_bytes, train):
+    """The rank's argument bytes summed from ShardLayout's blocks."""
+    layout = ShardLayout(cfg, mesh)
+    total = 0
+    for name, p in tmdl.Model(cfg, device="meta").named_parameters():
+        b = block(p, layout.specs[name], mesh)
+        total += b.numel() * (p.element_size() + (8 if train else 0))
+    nd = np.prod([mesh.shape[a] for a in layout.data])
+    return total + (4 if train else 0) + batch_bytes // nd
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_run_cell_argument_bytes_are_the_layout_blocks(monkeypatch,
+                                                       tmp_path, shape,
+                                                       multi_pod):
+    _small(monkeypatch)
+    monkeypatch.setattr(dryrun, "RESULTS", tmp_path)
+    cfg = tarchs.SMOKE["qwen3-4b"]
+    r = dryrun.run_cell("qwen3-4b", shape, multi_pod, cfg=cfg,
+                        verbose=False)
+    sizes = {"pod": 2, "data": 16, "model": 16} if multi_pod else \
+        {"data": 16, "model": 16}
+    mesh = ShardMesh(tuple(sizes), sizes, None, 0, torch.device("meta"))
+    train = shape == "train_4k"
+    batch = 32 * 128 * 4 * (2 if train else 1)
+    assert r["ok"] and r["mesh"] == sizes and r["cp"] is False
+    assert r["memory"]["argument_size_in_bytes"] == _blocks_bytes(
+        cfg, mesh, batch, train)
+    # train: five fp32 metrics and the new step counter (the parameters
+    # and moments are updated in place); prefill: the (B, V) logits
+    assert r["memory"]["output_size_in_bytes"] == (
+        5 * 4 + 4 if train else 32 * cfg.vocab_size * 4)
+    assert r["memory"]["temp_size_in_bytes"] > 0
+    assert r["cost"]["flops"] > 0 and r["cost"]["bytes accessed"] > 0
+    assert set(r["collectives"]["per_kind"]) <= {
+        "all-gather", "all-reduce", "reduce-scatter"}
+    assert r["collectives"]["total_bytes"] == sum(
+        r["collectives"]["per_kind"].values()) > 0
+    assert json.loads((tmp_path / f"{r['cell']}.json").read_text()) == r
+
+
+def test_fake_world_collective_bytes_equal_a_gloo_world(monkeypatch,
+                                                        gloo_bytes):
+    got = {}
+    for case, (arch, kind, b, s) in R.COLLECTIVE_CASES.items():
+        shape = "train_4k" if kind == "train" else "prefill_32k"
+        monkeypatch.setitem(tarchs.SHAPES, shape,
+                            tarchs.ShapeSpec(shape, s, b, kind))
+        r = dryrun.run_cell(arch, shape, False, save=False, verbose=False,
+                            cfg=R.collective_cfg(arch), mesh_shape=(1, 2))
+        got[case] = r["collectives"]["per_kind"]
+        if case == "qwen3-4b-train":       # SMOKE: no remat, one a layer
+            assert r["kernels"]["sata_block_attention_compact"]["calls"] \
+                == R.collective_cfg(arch).n_layers
+    want = gloo_bytes()
+    assert got == want
+    assert all(want[c].get("all-reduce", 0) > 0 for c in want)
+
+
+def test_decode_cells_wait_for_roadmap_item(monkeypatch, tmp_path):
+    for shape in ("decode_32k", "long_500k"):
+        with pytest.raises(NotImplementedError, match=A6):
+            dryrun.run_cell("rwkv6-1.6b", shape, False, save=False)
+    monkeypatch.setattr(dryrun, "RESULTS", tmp_path)
+    dryrun.main(["--arch", "qwen3-4b", "--shape", "decode_32k"])
+    rec = json.loads((tmp_path / "qwen3-4b__decode_32k__pod1.json")
+                     .read_text())
+    assert rec["ok"] is False and A6 in rec["error"]
+
+
+def test_run_cell_refuses_an_initialised_group_and_leaves_none(
+        monkeypatch, tmp_path):
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="already initialised"):
+            dryrun.run_cell("qwen3-4b", "train_4k", False, save=False)
+        assert dist.get_backend() == "gloo"
+    finally:
+        dist.destroy_process_group()
+
+    def boom(*a, **k):
+        assert dist.get_backend() == "fake"
+        assert dist.get_world_size() == 256
+        raise ValueError("boom")
+    monkeypatch.setattr(dryrun, "_trace", boom)
+    with pytest.raises(ValueError, match="boom"):
+        dryrun.run_cell("qwen3-4b", "train_4k", False, save=False)
+    assert not dist.is_initialized() and not tctx.cp_enabled()
+
+
+def test_run_cell_refuses_context_parallel():
+    """The port's attention is head-parallel: a cell asked for context
+    parallelism raises before it starts a world, rather than record
+    ``"cp": true`` for a step that ran head-parallel."""
+    with pytest.raises(NotImplementedError, match="head-parallel"):
+        dryrun.run_cell("qwen3-4b", "train_4k", False, save=False, cp=True)
+    assert not dist.is_initialized() and not tctx.cp_enabled()
+
+
+# ---------------------------------------------------------------------------
+# analyse_cell and the report against the reference's
+# ---------------------------------------------------------------------------
+
+PROBES = [(3.0e13, 5.0e11, 2.0e9), (5.5e13, 9.0e11, 2.5e9)]
+CELLS = [("qwen3-4b", "train_4k"), ("qwen3-moe-235b-a22b", "prefill_32k"),
+         ("zamba2-2.7b", "train_4k"), ("llama-3.2-vision-90b", "prefill_32k"),
+         ("whisper-base", "train_4k"), ("rwkv6-1.6b", "train_4k"),
+         ("rwkv6-1.6b", "prefill_32k")]
+REFERENCE = r"""
+import json, pathlib, sys
+from repro.launch import roofline as R
+cells, probes, tmp = json.loads(sys.argv[1]), json.loads(sys.argv[2]), \
+    sys.argv[3]
+R.RESULTS = pathlib.Path(tmp)
+out = {}
+for arch, shape in cells:
+    calls = []
+    def measure(arch, shape_name, cfg, cp=True):
+        f, b, c = probes[len(calls)]
+        calls.append(cfg.n_layers)
+        return f, b, c, {}
+    R._measure = measure
+    out[arch + "/" + shape] = [R.analyse_cell(arch, shape, verbose=False),
+                               calls]
+print("JSON" + json.dumps(out))
+"""
+
+
+def _stub_measure(monkeypatch, calls):
+    def measure(arch, shape_name, cfg):
+        f, b, c = PROBES[len(calls)]
+        calls.append(cfg.n_layers)
+        return f, b, c, {"memory": {"argument_size_in_bytes": 0,
+                                    "temp_size_in_bytes": 0},
+                         "cost": {"flops": f, "bytes accessed": b},
+                         "collectives": {"per_kind": {"all-reduce": c}}}
+    monkeypatch.setattr(troof, "_measure", measure)
+
+
+def test_analyse_cell_equals_the_reference_with_h100_peaks(monkeypatch,
+                                                           tmp_path):
+    ref = subprocess.run(
+        [sys.executable, "-c", REFERENCE, json.dumps(CELLS),
+         json.dumps(PROBES), str(tmp_path / "ref")], env=_env(),
+        capture_output=True, text=True, timeout=300)
+    assert ref.returncode == 0, ref.stderr[-4000:]
+    want = json.loads(ref.stdout.split("JSON", 1)[1])
+    assert (tmp_path / "ref" / "qwen3-4b__train_4k__pod1.json").exists()
+    monkeypatch.setattr(troof, "OUT_DIR", tmp_path / "port")
+    for arch, shape in CELLS:
+        calls = []
+        _stub_measure(monkeypatch, calls)
+        got = troof.analyse_cell(arch, shape, verbose=False)
+        w, wcalls = want[f"{arch}/{shape}"]
+        assert calls == wcalls, (arch, calls, wcalls)
+        for k in ("cell", "arch", "shape", "model_flops"):
+            assert got[k] == w[k], k
+        for k in ("unit_layers", "n_units", "f1", "f2", "c1", "c2", "b1",
+                  "b2"):
+            assert got["probe"][k] == w["probe"][k], k
+        scan = got["per_device"]["rwkv_scan_flops"]
+        if arch.startswith("rwkv6"):
+            # the reference's 5 hd² MACs of all 32 heads; the port adds 4
+            # of them (the counter sees r·S) for a rank's 2 heads
+            wscan = w["per_device"]["hlo_flops"] - (
+                max(w["probe"]["f1"] - (w["probe"]["f2"] - w["probe"]["f1"]),
+                    0) + w["probe"]["n_units"] * (w["probe"]["f2"]
+                                                  - w["probe"]["f1"]))
+            assert scan == pytest.approx(wscan * 4 / 5 * 2 / 32, rel=1e-12)
+        else:
+            assert scan == 0
+        assert got["per_device"]["hlo_flops"] == pytest.approx(
+            w["per_device"]["hlo_flops"] - (wscan if scan else 0) + scan,
+            rel=1e-12)
+        for k in ("hlo_bytes", "collective_bytes"):
+            assert got["per_device"][k] == w["per_device"][k], k
+        flops = got["per_device"]["hlo_flops"]
+        terms = {"compute_s": flops / 989e12,
+                 "memory_s": w["per_device"]["hlo_bytes"] / 3.35e12,
+                 "collective_s": w["per_device"]["collective_bytes"] / 450e9}
+        assert got["terms_s"] == terms
+        if not scan:
+            # the same counts over the other card's peaks
+            assert terms["compute_s"] * 989e12 == pytest.approx(
+                w["terms_s"]["compute_s"] * 197e12, rel=1e-12)
+            assert got["useful_ratio"] == w["useful_ratio"]
+            assert got["hlo_flops_global"] == w["hlo_flops_global"]
+        assert got["dominant"] == max(terms, key=terms.get)[:-2]
+        assert got["roofline_fraction"] == terms["compute_s"] / max(
+            terms.values())
+        assert got["peaks"] == {"bf16_flops_per_s": 989e12,
+                                "hbm_bytes_per_s": 3.35e12,
+                                "nvlink_bytes_per_s": 450e9}
+        path = tmp_path / "port" / f"{got['cell']}.json"
+        assert json.loads(path.read_text()) == got
+
+
+def test_report_tables_equal_the_reference(monkeypatch, tmp_path):
+    _small(monkeypatch)
+    monkeypatch.setattr(dryrun, "RESULTS", tmp_path / "dryrun")
+    monkeypatch.setattr(troof, "OUT_DIR", tmp_path / "roofline")
+    dryrun.run_cell("olmo-1b", "train_4k", False, verbose=False,
+                    cfg=tarchs.SMOKE["olmo-1b"])
+    dryrun.main(["--arch", "olmo-1b", "--shape", "decode_32k"])
+    _stub_measure(monkeypatch, [])
+    troof.analyse_cell("qwen3-4b", "train_4k", verbose=False)
+    monkeypatch.setattr(jreport, "ROOT", tmp_path)
+    monkeypatch.setattr(treport, "ROOT", tmp_path)
+    assert treport.roofline_table() == jreport.roofline_table()
+    got, want = treport.dryrun_table(), jreport.dryrun_table()
+    assert got.split("\n\n")[0] == want.split("\n\n")[0]
+    assert len(got.splitlines()) == 6          # header, rule, 2 cells, note

@@ -36,7 +36,8 @@ def test_import_loads_no_jax_and_no_reference_package():
               "repro_torch.configs.workloads",
               "repro_torch.launch.roofline", "repro_torch.launch.mesh",
               "repro_torch.distributed.sharding",
-              "repro_torch.distributed.ctx"):
+              "repro_torch.distributed.ctx", "repro_torch.launch.dryrun",
+              "repro_torch.launch.inputs", "repro_torch.launch.report"):
         assert m in mods, m
     assert [p.name for p in EXAMPLES] == ["quickstart_torch.py",
                                           "schedule_demo_torch.py",

@@ -33,6 +33,13 @@ the embedding gather) and writes TMP/reference<PART>.npz.
 
 runs :func:`region_case` for zamba2 and rwkv6 on rank RANK of a 2-rank
 world on (1, 2) (``tests/test_torch_ssm_regions.py``).
+
+    python tests/torch_mesh_train_ranks.py collectives RANK TMP
+
+runs each :data:`COLLECTIVE_CASES` step once on rank RANK of a 2-rank
+world on (1, 2) and has rank 0 write TMP/collectives.pt: each step's
+collective bytes by kind (``ShardMesh.collective_bytes``), for
+``tests/test_torch_dryrun.py`` to hold the dry run's fake world to.
 """
 import dataclasses
 import os
@@ -501,6 +508,57 @@ def main_regions(rank, tmp):
         torch.distributed.destroy_process_group()
 
 
+# (arch in SMOKE, step kind, batch, seq): the dry run's cells at SMOKE
+# width on a (1, 2) mesh; qwen3-4b on the SATA kernel route
+# (``launch.dryrun.main_path_cfg``: 128-blocks, so seq 128)
+COLLECTIVE_CASES = {
+    "qwen3-4b-train": ("qwen3-4b", "train", 2, 128),
+    "qwen3-4b-prefill": ("qwen3-4b", "prefill", 2, 128),
+    "qwen3-moe-train": ("qwen3-moe-235b-a22b", "train", 2, 32),
+}
+
+
+def collective_cfg(arch):
+    from repro_torch.configs.archs import SMOKE
+    from repro_torch.launch.dryrun import main_path_cfg
+    return main_path_cfg(SMOKE[arch])
+
+
+def main_collectives(rank, tmp):
+    """``collectives RANK TMP``: every case's step on a real gloo world of
+    2 ranks on (1, 2), CPU tensors; rank 0 writes the bytes by kind."""
+    import torch_threads  # noqa: F401  (one intra-op thread)
+    import torch
+    from repro_torch.launch import mesh as M
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.step import (init_train_state, make_prefill_step,
+                                        make_train_step)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp}/store_collectives", rank=rank,
+        world_size=2)
+    try:
+        res = {}
+        for case, (arch, kind, b, s) in COLLECTIVE_CASES.items():
+            cfg = collective_cfg(arch)
+            mesh = M.make_train_mesh(1, 2, device="cpu")
+            gen = torch.Generator().manual_seed(0)
+            tok = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                dtype=torch.int32)
+            state = init_train_state(cfg, OptConfig(), device="cpu",
+                                     mesh=mesh)
+            if kind == "train":
+                make_train_step(cfg, OptConfig(), mesh=mesh)(
+                    state, {"tokens": tok, "labels": tok})
+            else:
+                make_prefill_step(cfg, mesh=mesh)(state["params"],
+                                                  {"tokens": tok})
+            res[case] = dict(mesh.collective_bytes)
+        if rank == 0:
+            torch.save(res, os.path.join(tmp, "collectives.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def main_rank(rank, world, tmp):
     import torch_threads  # noqa: F401  (one intra-op thread)
     import torch
@@ -571,5 +629,7 @@ if __name__ == "__main__":
         main_reference(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
     elif sys.argv[1] == "regions":
         main_regions(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1] == "collectives":
+        main_collectives(int(sys.argv[2]), sys.argv[3])
     else:
         main_rank(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
