@@ -31,7 +31,7 @@ meta tensors to the card's and rooflines two production cells.
     python3 chip_smoke.py --ab DIR   # phase 2, then this tree's decode
                                      # and prefill kernels and DIR's (an
                                      # earlier checkout) timed in turns
-    python3 chip_smoke.py --mesh     # phases 1 and 24-25 alone
+    python3 chip_smoke.py --mesh     # phases 1, 24-25 and 27 alone
     python3 chip_smoke.py --dryrun   # phases 1 and 26 alone
 
 Phases (any failure exits non-zero; none is caught so a later one runs;
@@ -101,7 +101,7 @@ each prints its host seconds as a ``[phase]`` line):
      point takes (bf16 must take the tensor cores), timing (CUDA events, median,
      L2 flushed), the bound from the flops and bytes this input needs,
      and SDPA with the equivalent boolean mask as the library yardstick;
- 11. (phases 11-13a at PREFIX_LAYERS = 18 of the 36 layers, full width,
+ 11. (phases 11-13a at PREFIX_LAYERS = 9 of the 36 layers, full width,
      for phase 26's time; phase 3's paged serve is repeated at that
      depth first, the fp32 stream for phase 12)
      phase 3's serve with prompts sharing their first 1000 tokens (15
@@ -285,10 +285,13 @@ each prints its host seconds as a ``[phase]`` line):
      the layers' remat: no recompute), never for rwkv6;
  26. the dry run (``launch.dryrun``): phase 7's training config at 1
      layer of full-width qwen3-4b, batch 1, S 4096, a train step and a
-     prefill step each traced on meta tensors and run on the card
-     (after a warm-up) under ``WorkCounter``: counted FLOPs, bytes and
-     kernel calls equal exactly, B3's launches equal its calls counted
-     on meta; the predicted memory (arguments + the meta run's live
+     prefill step, and the dry run's decode config at 1 layer, a serve
+     step of DRYRUN_SLOTS (8) slots over a 4,096-token cache, each
+     traced on meta tensors and run on the card (after a warm-up) under
+     ``WorkCounter``: counted FLOPs, bytes and kernel calls equal
+     exactly (the decode step's op count too), B3's (decode: the
+     contiguous decode kernel's) launches equal its calls counted on
+     meta; the predicted memory (arguments + the meta run's live
      peak) beside the card's peak, the card's step ms beside the
      roofline's modeled max(compute, memory); then, in subprocesses
      that see no card, ``python -m repro_torch.launch.roofline`` on
@@ -296,7 +299,32 @@ each prints its host seconds as a ``[phase]`` line):
      of the fake 16x16 world at full depth): each probe's arguments,
      temp, FLOPs and collective bytes by kind, the three terms, the
      dominant one, host seconds.  These terms are modeled on the host
-     at the H100's data-sheet peaks: no card runs them.
+     at the H100's data-sheet peaks: no card runs them;
+ 27. ``train.step.make_serve_step(mesh=)`` in phase 24's spawned world,
+     with the weights in "infer_tp" mode: full-width qwen3-4b cut to
+     MESH_SERVE_LAYERS = 4 layers, 8 slots of max_len 4096 whose caches
+     the parent filled on one device (``prefill_prompt`` /
+     ``install_prefill`` of MESH_SERVE_PROMPTS, 64-2,048 tokens) and
+     saved, each rank loading and keeping its blocks
+     (``ShardLayout.block_cache``: 4 of the 8 KV heads), 8
+     teacher-forced steps on (1, 2) fed one device's greedy tokens,
+     paged and contiguous; then zamba2-2.7b (6 layers: 40 of 80 ssm
+     heads, 16 of the shared block's 32 heads), rwkv6-1.6b (2 layers,
+     contiguous) and qwen3-moe-235b-a22b (1 layer: 64 of 128 experts, 2
+     of 4 KV heads), 4 steps each after 8 one-device steps from an
+     empty cache, max_len 512.  Every run again in fp32 from the same
+     weights (contiguous), qwen3-4b in bf16 with dense attention (no
+     top-k selection), and qwen3-moe 2 steps on (2, 1) (MESH_SERVE_SPLIT:
+     4 slots a data rank, fewer than its group, so the rank routes the
+     gathered batch).  Each against one device's ``serve_step`` on the
+     same cache: fp32 and the (2, 1) run within ROUTE_RTOL, rwkv6 within
+     MESH_SERVE_RWKV_RTOL (C14) in bf16 and fp32, the other bf16 runs
+     printed beside the witness (one device's bf16 logits against its
+     fp32 twin's), argmax agreement reported, layer 0's plan rows after
+     the first step equal, the decode kernel launched layers x steps a
+     rank (the counts read in each rank, summed; none with dense
+     attention), paged == contiguous bitwise on each rank; ms a step,
+     host-staged MB and peak memory a rank.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the ``kernels`` JSON, and the card's name and power limit are
@@ -1501,7 +1529,7 @@ def prefill_phases(torch, sa, dev, base, tag, clock):
 # ---------------------------------------------------------------------------
 
 SHARED_PREFIX = 1000     # 15 full pages of 64 + a 40-row partial page
-PREFIX_LAYERS = 18       # phases 11-13a: full width, 18 of the 36 layers
+PREFIX_LAYERS = 9        # phases 11-13a: full width, 9 of the 36 layers
 SKETCH_BLOCKS = 8        # phase 12's plan width P: 8 of 64 pages
 
 
@@ -3853,13 +3881,15 @@ def mesh_train_rank(torch, dev, res, train_runs):
             leaves=ShardLayout(cfg, mesh).counts())
 
 
-def mesh_rank(rank, world, tmp, device, dshape, sshape, train_runs=()):
-    """One rank of phases 24 and 25, started by ``mesh_phase`` (spawn):
+def mesh_rank(rank, world, tmp, device, dshape, sshape, train_runs=(),
+              serve_runs=()):
+    """One rank of phases 24, 25 and 27, started by ``mesh_phase`` (spawn):
     joins the gloo world through a FileStore in ``tmp``, runs the
     tensor-parallel decode steps in both layouts (the kernels' counts set
     to 0 just before each and read just after) and the sequence-sharded
     attention twice (the second timed), then phase 25's training runs
-    (``mesh_train_rank``), and saves everything to ``tmp/rank<r>.pt``."""
+    (``mesh_train_rank``) and phase 27's serve steps
+    (``mesh_serve_rank``), and saves everything to ``tmp/rank<r>.pt``."""
     import torch
     import torch.distributed as dist
     from repro_torch.kernels import sata_decode as sd
@@ -3909,6 +3939,7 @@ def mesh_rank(rank, world, tmp, device, dshape, sshape, train_runs=()):
         res["seq"] = (out.cpu(), {n: x.cpu() for n, x in stats.items()})
         del q, k, v, first, out, stats
         mesh_train_rank(torch, dev, res, train_runs)
+        mesh_serve_rank(torch, dev, res, tmp, serve_runs)
         torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -4088,8 +4119,385 @@ def mesh_train_check(ranks, refs, train_runs, tag):
     return total
 
 
+# ---------------------------------------------------------------------------
+# 27. serve_step on a rank's view of a (data, model) mesh, in phase 24's world
+# ---------------------------------------------------------------------------
+
+# qwen3-4b at full width, MESH_SERVE_LAYERS of its 36 layers, 8 slots of
+# MESH_SERVE_MAX_LEN, each prefilled on one device with a prompt of
+# MESH_SERVE_PROMPTS tokens; then zamba2-2.7b (6 layers: one shared-block
+# application), rwkv6-1.6b (2 layers) and qwen3-moe-235b-a22b (1 layer),
+# each from an empty cache through MESH_SERVE_WARM one-device steps
+MESH_SERVE_LAYERS = 4
+MESH_SERVE_MESH = (1, 2)
+MESH_SERVE_SLOTS = 8
+MESH_SERVE_MAX_LEN = 4096
+MESH_SERVE_PROMPTS = (1024, 700, 1500, 333, 2048, 900, 64, 1200)
+MESH_SERVE_WARM = 8
+# (arch, layers, checked steps, max_len, the bf16 layouts) on
+# MESH_SERVE_MESH
+MESH_SERVE_RUNS = (
+    ("qwen3-4b", MESH_SERVE_LAYERS, 8, MESH_SERVE_MAX_LEN,
+     ("paged", "contiguous")),
+    (MESH_ZAMBA, 6, 4, 512, ("paged", "contiguous")),
+    (MESH_RWKV, 2, 4, 512, ("contiguous",)),
+    (MESH_MOE, 1, 4, 512, ("paged", "contiguous")))
+# arch: (a data-split mesh, steps), bf16 and contiguous after the run's
+# jobs: qwen3-moe on (2, 1) holds 4 of the 8 slots a data rank, fewer
+# than its group of tokens, so a rank routes the gathered batch.  No
+# "model" split, so nothing reorders a sum: held to ROUTE_RTOL.  Two
+# steps: "infer_tp" keeps the experts' data split, so every step
+# all-gathers the layer's 4.8 GB of experts through gloo's host staging
+# (~10 s a step on the card's host)
+MESH_SERVE_SPLIT = {MESH_MOE: ((2, 1), 2)}
+# each run's twins, contiguous, on one device and on the mesh from the
+# same (bf16) weights and fed the same tokens: "fp32" for every run, the
+# check of the regions; "dense" (bf16, attention_variant "dense": no
+# top-k selection) for MESH_SERVE_DENSE, the test of why a bf16 run
+# lies further from one device than its row-parallel sums reorder
+# (the bf16 selection, ``bf16(s) >= bf16(thr)``, turning a bf16 GEMM's
+# other summation order into other admitted keys)
+MESH_SERVE_TWINS = {"dense": dict(attention_variant="dense"),
+                    "fp32": dict(dtype="float32")}       # fp32 last
+MESH_SERVE_DENSE = ("qwen3-4b",)
+# rwkv6's bound in bf16 and fp32 (C14: its bf16 scan state drifts)
+MESH_SERVE_RWKV_RTOL = 1e-2
+
+
+def mesh_serve_twins(arch):
+    return [t for t in MESH_SERVE_TWINS
+            if t != "dense" or arch in MESH_SERVE_DENSE]
+
+
+def mesh_serve_limit(arch, twin, shape):
+    """A job's bound on the logits relative to one device's: rwkv6's
+    C14 bound, phase 8's ROUTE_RTOL in fp32 and on a mesh without a
+    "model" split, and None (printed beside the witness, not held) for
+    the other bf16 runs."""
+    if arch == MESH_RWKV:
+        return MESH_SERVE_RWKV_RTOL
+    return ROUTE_RTOL if twin == "fp32" or shape[1] == 1 else None
+
+
+def mesh_serve_cfg(arch, layers, layout, **over):
+    """Phase 3's serving settings (``serve_cfg``) on full-width ``arch``
+    cut to ``layers`` layers, with ``over`` (a twin's dtype or attention
+    variant) replaced."""
+    from repro_torch.configs.archs import ARCHS
+    return serve_cfg(dataclasses.replace(ARCHS[arch], n_layers=layers,
+                                         **over), layout)
+
+
+def attention_calls(cfg) -> int:
+    """Decode-kernel calls of one serve step: one per self-attention
+    layer (hybrid: per shared-block application; ssm and dense
+    attention: none)."""
+    if cfg.family == "ssm" or cfg.attention_variant != "topk":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_period
+    return cfg.n_layers
+
+
+def plan0_rows(cache, take=None):
+    """Layer 0's plan rows (kv_indices, kv_counts) on the host, or None;
+    ``take(path, leaf)`` maps each layer-0 leaf first (a rank's gather)."""
+    for group in ("kv", "shared_kv"):
+        if group in cache and "plan" in cache[group]:
+            plan = cache[group]["plan"]
+            return tuple(
+                (take((group, "plan", f), plan[f][:1]) if take
+                 else plan[f][:1])[0].to("cpu", copy=True)
+                for f in ("kv_indices", "kv_counts"))
+    return None
+
+
+def mesh_serve_fill(torch, dev, model, cfgs, max_len):
+    """Each layout's whole cache of ``cfgs`` (layout: config), filled on
+    one device: qwen3-4b's slots by ``prefill_prompt`` /
+    ``install_prefill`` of MESH_SERVE_PROMPTS, the other archs' by
+    MESH_SERVE_WARM steps from an empty cache; paged, every slot's pages
+    mapped.  The draws come from one seed, so a twin gets the same
+    prompts and tokens.  Returns (caches, the first checked position of
+    each slot, the first checked tokens)."""
+    from repro_torch.core.paging import PageAllocator
+    from repro_torch.models import decode as dec
+    b = MESH_SERVE_SLOTS
+    cfg = next(iter(cfgs.values()))
+    caches, table = {}, None
+    for lay, c in cfgs.items():
+        caches[lay] = dec.init_cache(c, b, max_len, device=dev)
+        if lay == "paged":
+            n = max_len // 64
+            alloc = PageAllocator(b * n + 1, b, n, 64, audit=False)
+            for slot in range(b):
+                assert alloc.ensure(slot, max_len - 1)
+            table = alloc.table
+            dec.set_page_table(c, caches[lay], table)
+    rng = np.random.default_rng(27)
+    if cfg.name.startswith("qwen3-4b"):
+        pos0 = np.array(MESH_SERVE_PROMPTS, np.int32)
+        for slot, n in enumerate(MESH_SERVE_PROMPTS):
+            prompt = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (1, n)).astype(np.int32)).to(dev)
+            _, state = dec.prefill_prompt(model, cfg, prompt, max_len)
+            for lay, c in caches.items():
+                dec.install_prefill(cfgs[lay], c, slot, state,
+                                    table[slot] if lay == "paged" else None)
+    else:
+        pos0 = np.zeros(b, np.int32)
+        for _ in range(MESH_SERVE_WARM):
+            tok = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (b, 1)).astype(np.int32)).to(dev)
+            for lay, c in caches.items():
+                dec.serve_step(model, cfgs[lay], c, tok,
+                               torch.from_numpy(pos0).to(dev))
+            pos0 = pos0 + 1
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 1)).astype(
+        np.int32))
+    return caches, pos0, tok
+
+
+def mesh_serve_steps(torch, dev, model, cfg, cache, pos0, steps, fed):
+    """``steps`` teacher-forced ``serve_step``s on one device from
+    ``pos0``, fed ``fed`` (a list the first run fills with its own
+    greedy tokens): the logits, ms a step (CUDA events) and layer 0's
+    plan rows after the first step."""
+    from repro_torch.models import decode as dec
+    logits, ms, plan0 = [], [], None
+    for i in range(steps):
+        clock = span(torch, dev)
+        lg, _ = dec.serve_step(model, cfg, cache, fed[i].to(dev),
+                               torch.from_numpy(pos0 + i).to(dev))
+        ms.append(clock())
+        if plan0 is None:
+            plan0 = plan0_rows(cache)
+        logits.append(lg.cpu())
+        if len(fed) == i + 1:
+            fed.append(lg[:, 0].argmax(dim=-1)[:, None].to(
+                torch.int32).cpu())
+    return dict(logits=logits, ms=ms, plan0=plan0)
+
+
+def mesh_serve_reference(torch, sd, dev, tmp, tag, runs=MESH_SERVE_RUNS):
+    """Phase 27's one-device half, in the parent, for each run: the
+    seed-0 model in bf16, each layout's whole cache filled on one device
+    (``mesh_serve_fill``) and saved to ``tmp/serve_<arch>.pt`` for the
+    ranks, the checked steps on one device (the contiguous run's greedy
+    tokens fed to both layouts, paged == contiguous bitwise); then each
+    twin (``mesh_serve_twins``: the same weights, fp32 by ``.float()``),
+    its contiguous cache filled the same way and saved as
+    ``serve_<arch> <twin>.pt``, and the same steps fed the same tokens.
+    The witness is the bf16 run's logits against the fp32 twin's.  The
+    references go to ``tmp/serve_ref_<arch>.pt``."""
+    from repro_torch.models.model import Model
+    refs = {}
+    for arch, layers, steps, max_len, layouts in runs:
+        t0 = time.time()
+        cfgs = {lay: mesh_serve_cfg(arch, layers, lay)
+                for lay in sorted(layouts)}            # contiguous first
+        model = Model(cfgs["contiguous"], device=dev, seed=0)
+        caches, pos0, tok = mesh_serve_fill(torch, dev, model, cfgs,
+                                            max_len)
+        torch.save(caches, os.path.join(tmp, f"serve_{arch}.pt"))
+        ref = {"pos0": pos0, "fed": [tok], "layers": layers}
+        for lay in cfgs:
+            ref[lay] = mesh_serve_steps(torch, dev, model, cfgs[lay],
+                                        caches[lay], pos0, steps,
+                                        ref["fed"])
+        if len(layouts) == 2:
+            mesh_equal(ref["paged"]["logits"], ref["contiguous"]["logits"],
+                       f"{arch} one device: paged vs contiguous")
+        del caches
+        for twin in mesh_serve_twins(arch):
+            c = {"contiguous": mesh_serve_cfg(arch, layers, "contiguous",
+                                              **MESH_SERVE_TWINS[twin])}
+            if twin == "fp32":
+                model.float()
+            caches, _, _ = mesh_serve_fill(torch, dev, model, c, max_len)
+            torch.save(caches, os.path.join(tmp, f"serve_{arch} {twin}.pt"))
+            ref[twin] = mesh_serve_steps(torch, dev, model, c["contiguous"],
+                                         caches["contiguous"], pos0, steps,
+                                         ref["fed"])
+            del caches
+        ref["witness"] = [rel_logits(a, b) for a, b in zip(
+            ref["contiguous"]["logits"], ref["fp32"]["logits"])]
+        torch.save(ref, os.path.join(tmp, f"serve_ref_{arch}.pt"))
+        refs[arch] = ref
+        del model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        log(f"[mesh-serve] one device: {arch} full width, {layers} "
+            f"layer(s), {MESH_SERVE_SLOTS} slots, max_len {max_len}, "
+            f"{describe(cfgs['contiguous'])}: "
+            f"{', '.join(f'{x:.2f}' for x in ref['contiguous']['ms'])} ms "
+            f"a step (contiguous; CUDA events); bf16 logits against fp32 "
+            f"arithmetic on the same weights (the witness) "
+            f"{[f'{x:.3e}' for x in ref['witness']]}; filled and stepped "
+            f"in {time.time() - t0:.1f} s {tag}")
+    return refs
+
+
+def rel_logits(a, b) -> float:
+    """max |a - b| over the step's largest |b|."""
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def mesh_serve_jobs(arch, steps, layouts):
+    """(name, layout, twin or None, mesh, steps) of a run: the bf16
+    layouts, then the twins (fp32 last: ``.float()`` does not go back)
+    on MESH_SERVE_MESH, then its MESH_SERVE_SPLIT job."""
+    jobs = [(arch, lay, None, MESH_SERVE_MESH, steps) for lay in layouts]
+    jobs += [(f"{arch} {t}", "contiguous", t, MESH_SERVE_MESH, steps)
+             for t in mesh_serve_twins(arch)]
+    if arch in MESH_SERVE_SPLIT:
+        jobs.append((arch, "contiguous", None, *MESH_SERVE_SPLIT[arch]))
+    return jobs
+
+
+def mesh_serve_rank(torch, dev, res, tmp, runs):
+    """Phase 27 in one rank: for each run's jobs (``mesh_serve_jobs``),
+    the seed-0 model sharded under "infer_tp" on the job's mesh (built
+    again when the mesh changes), the rank's blocks of the whole cache
+    the parent saved, then the checked steps through
+    ``make_serve_step(mesh=)``, fed one device's tokens, the decode
+    kernels' counts set to 0 just before and read just after; layer 0's
+    plan rows after the first step gathered whole."""
+    from repro_torch.distributed.sharding import (cache_leaves, gather,
+                                                  map_cache)
+    from repro_torch.kernels import sata_decode as sd
+    from repro_torch.launch import mesh as M
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import make_serve_step
+    for arch, layers, steps, max_len, layouts in runs:
+        ref = torch.load(os.path.join(tmp, f"serve_ref_{arch}.pt"),
+                         weights_only=False)
+        model = mesh = None
+        t0 = time.time()
+        for name, lay, twin, shape, n in mesh_serve_jobs(arch, steps,
+                                                         layouts):
+            cfg = mesh_serve_cfg(arch, layers, lay,
+                                 **MESH_SERVE_TWINS.get(twin, {}))
+            if mesh is None or mesh.shape != dict(zip(("data", "model"),
+                                                      shape)):
+                model = None
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+                mesh = M.make_train_mesh(*shape, device=dev)
+            step = make_serve_step(cfg, mesh=mesh, mode="infer_tp")
+            if model is None:
+                model = step.layout.shard_(Model(mesh_serve_cfg(
+                    arch, layers, "contiguous"), device=dev, seed=0))
+            if twin == "fp32":
+                model.float()
+            whole = torch.load(os.path.join(tmp, f"serve_{name}.pt"),
+                               map_location="cpu", weights_only=False)[lay]
+            specs = step.layout.cache_specs(whole)
+            cache = map_cache(step.layout.block_cache(whole),
+                              lambda _, x: x.to(dev))
+            del whole
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            staged = mesh.host_staged_bytes
+            logits, ms, plan0 = [], [], None
+            sd.sata_decode_attention_paged_kernel.launches = 0
+            sd.sata_decode_attention_kernel.launches = 0
+            for i in range(n):
+                clock = span(torch, dev)
+                lg, _ = step(model, cache, ref["fed"][i].to(dev),
+                             torch.from_numpy(ref["pos0"] + i).to(dev))
+                ms.append(clock())
+                logits.append(lg.cpu())
+                if i == 0:
+                    plan0 = plan0_rows(cache, lambda p, x: gather(
+                        x, specs[p], mesh))
+            launches = (sd.sata_decode_attention_paged_kernel.launches,
+                        sd.sata_decode_attention_kernel.launches)
+            res[f"serve {name} {lay} {shape}"] = dict(
+                logits=logits, ms=ms, plan0=plan0, launches=launches,
+                staged=mesh.host_staged_bytes - staged,
+                peak=torch.cuda.max_memory_allocated(dev)
+                if dev.type == "cuda" else 0,
+                heads={"/".join(k): tuple(v.shape) for k, v in
+                       cache_leaves(cache)
+                       if k[-1] in ("k", "k_pages", "ssm", "state")},
+                leaves=step.layout.counts(), wall=time.time() - t0)
+            t0 = time.time()
+            del cache
+        del model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def mesh_serve_check(ranks, refs, tag, runs=MESH_SERVE_RUNS):
+    """Phase 27's checks on the ranks' results, every line printed before
+    the first failure is raised; returns the paged and the contiguous
+    kernel's launches over the ranks."""
+    n = {"paged": 0, "contiguous": 0}
+    fails = []
+    for arch, layers, steps, max_len, layouts in runs:
+        ref = refs[arch]
+        witness = max(ref["witness"])
+        jobs = mesh_serve_jobs(arch, steps, layouts)
+        for (r, rank), (name, lay, twin, shape, k) in itertools.product(
+                enumerate(ranks), jobs):
+            cfg = mesh_serve_cfg(arch, layers, lay,
+                                 **MESH_SERVE_TWINS.get(twin, {}))
+            calls = attention_calls(cfg) * k
+            want = ref[twin or lay]
+            limit = mesh_serve_limit(arch, twin, shape)
+            t = rank[f"serve {name} {lay} {shape}"]
+            errs = [rel_logits(a, b) for a, b in zip(t["logits"],
+                                                     want["logits"])]
+            agree = np.mean([float((a[:, 0].argmax(-1) ==
+                                    b[:, 0].argmax(-1)).float().mean())
+                             for a, b in zip(t["logits"], want["logits"])])
+            plan_eq = None if want["plan0"] is None else [
+                float((a == b).float().mean()) for a, b in
+                zip(t["plan0"], want["plan0"])]
+            paged_n, contig_n = t["launches"]
+            n["paged"] += paged_n
+            n["contiguous"] += contig_n
+            bound = (f"limit {limit:.1e}" if limit is not None else
+                     f"not held; bf16's own error, the witness, "
+                     f"{witness:.3e}")
+            log(f"[mesh-serve] rank {r}/{MESH_RANKS} {name} {layers} "
+                f"layer(s) {lay}, mesh {shape} (data, model), infer_tp: "
+                f"logits relative to one device "
+                f"{[f'{x:.3e}' for x in errs]} ({bound}); argmax agreement "
+                f"{agree:.3f}; layer 0's first plan rows equal "
+                f"(kv_indices, kv_counts share) {plan_eq}; "
+                f"{', '.join(f'{x:.2f}' for x in t['ms'])} ms a step (one "
+                f"device {', '.join(f'{x:.2f}' for x in want['ms'][:k])}; "
+                f"CUDA events, both ranks on the card at once); decode "
+                f"launches {paged_n} paged / {contig_n} contiguous "
+                f"(derived {calls}); host-staged {t['staged'] / 1e6:.1f} "
+                f"MB; peak memory {t['peak'] / 2 ** 30:.2f} GiB; the "
+                f"rank's cache {t['heads']}; leaves {t['leaves']}; the "
+                f"job's {t['wall']:.1f} s in the rank {tag}")
+            want_n = (calls, 0) if lay == "paged" else (0, calls)
+            for ok, what in (
+                    (len(errs) == k and all(np.isfinite(errs)) and
+                     (limit is None or max(errs) <= limit),
+                     f"logits {errs} > {limit}"),
+                    ((paged_n, contig_n) == want_n,
+                     f"launches {(paged_n, contig_n)} != {want_n}"),
+                    (plan_eq is None or plan_eq == [1.0, 1.0],
+                     f"layer 0's plan rows {plan_eq}")):
+                if not ok:
+                    fails.append(f"{name} {lay} {shape} rank {r}: {what}")
+            if lay == "paged":
+                mesh_equal(t["logits"],
+                           rank[f"serve {arch} contiguous {shape}"]["logits"],
+                           f"rank {r} {arch} {shape}: paged vs contiguous")
+    assert not fails, fails
+    return n
+
+
 def mesh_phase(torch, sd, dev, tag, dshape=MESH_DECODE, sshape=MESH_SEQ,
-               train_runs=MESH_TRAIN_RUNS):
+               train_runs=MESH_TRAIN_RUNS, serve_runs=MESH_SERVE_RUNS):
     """Phase 24: ``launch.mesh`` on two gloo ranks sharing the card (NCCL
     refuses two ranks of one communicator on one GPU), each with its own
     CUDA context on the same device, the kernels already built (phase
@@ -4108,9 +4516,12 @@ def mesh_phase(torch, sd, dev, tag, dshape=MESH_DECODE, sshape=MESH_SEQ,
     (``train_runs``) runs in the same world: the parent's one-device
     ``train`` of each model first (``mesh_train_reference``), then the
     ranks' ``train(mesh=)`` of each (model, mesh shape)
-    (``mesh_train_rank``), checked by ``mesh_train_check``.  Returns
-    the launches of the paged and the contiguous kernel and phase 25's
-    B3 launches."""
+    (``mesh_train_rank``), checked by ``mesh_train_check``.  Phase 27
+    (``serve_runs``) too: the parent's one-device caches and steps
+    (``mesh_serve_reference``), the ranks' ``make_serve_step(mesh=)``
+    (``mesh_serve_rank``), checked by ``mesh_serve_check``.  Returns
+    the launches of the paged and the contiguous kernel, phase 25's B3
+    launches and phase 27's decode launches by layout."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -4157,13 +4568,17 @@ def mesh_phase(torch, sd, dev, tag, dshape=MESH_DECODE, sshape=MESH_SEQ,
         name for name, _ in train_runs))
     t_train_ref = time.time() - t0
 
-    t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        srefs = mesh_serve_reference(torch, sd, dev, tmp, tag, serve_runs)
+        t_serve_ref = time.time() - t0
+        t0 = time.time()
         mp.start_processes(mesh_rank, args=(MESH_RANKS, tmp, str(dev),
-                                            dshape, sshape, train_runs),
+                                            dshape, sshape, train_runs,
+                                            serve_runs),
                            nprocs=MESH_RANKS, start_method="spawn")
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
-                 for r in range(MESH_RANKS)]
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(MESH_RANKS)]
     t_ranks = time.time() - t0
     n = {"paged": 0, "contiguous": 0}
     for r, res in enumerate(ranks):
@@ -4207,10 +4622,12 @@ def mesh_phase(torch, sd, dev, tag, dshape=MESH_DECODE, sshape=MESH_SEQ,
     assert n == {"paged": MESH_RANKS * MESH_STEPS,
                  "contiguous": MESH_RANKS * MESH_STEPS}, n
     n_b3 = mesh_train_check(ranks, tref, train_runs, tag)
+    n_serve = mesh_serve_check(ranks, srefs, tag, serve_runs)
     log(f"[mesh] one-rank references {t_ref:.1f} s (phase 25's one-device "
-        f"train {t_train_ref:.1f} s); spawn + {MESH_RANKS} ranks "
-        f"{t_ranks:.1f} s (phases 24 and 25) {tag}")
-    return n["paged"], n["contiguous"], n_b3
+        f"train {t_train_ref:.1f} s, phase 27's one-device serve "
+        f"{t_serve_ref:.1f} s); spawn + {MESH_RANKS} ranks "
+        f"{t_ranks:.1f} s (phases 24, 25 and 27) {tag}")
+    return n["paged"], n["contiguous"], n_b3, n_serve
 
 
 def _tensors(tree):
@@ -4620,6 +5037,7 @@ def probe_decode(torch, sd, build, root, c, tag):
 # ---------------------------------------------------------------------------
 
 DRYRUN_SEQ = 4096
+DRYRUN_SLOTS = 8         # the decode calibration's slots
 DRYRUN_CELLS = (("qwen3-4b", "train_4k"), ("qwen3-moe-235b-a22b", "train_4k"))
 
 
@@ -4646,27 +5064,43 @@ def counts_differ(meta, card):
             if meta.by_op.get(n) != card.by_op.get(n)}
 
 
-def calibrate(torch, sa, dev, cfg, kind, tag):
+def calibrate(torch, sa, dev, cfg, kind, tag, sd=None):
     """One ``kind`` ("train" or "prefill") step of ``cfg`` at batch 1,
-    S DRYRUN_SEQ, on meta tensors and on the card (after a warm-up),
-    each under ``launch.dryrun.WorkCounter``: FLOPs, bytes and kernel
-    calls must be equal, and the card's B3 launches equal the calls
-    counted on meta.  Prints the predicted memory (arguments + the meta
-    run's peak of live bytes above them) beside the card's peak, and
-    the card's step ms (CUDA events, no counter) beside the roofline's
-    modeled max(compute, memory) of the counts.  Returns the counted
-    card step's B3 launches."""
+    S DRYRUN_SEQ, or one "decode" step (``make_serve_step``) at
+    DRYRUN_SLOTS slots over a DRYRUN_SEQ cache, on meta tensors and on
+    the card (after a warm-up), each under ``launch.dryrun.WorkCounter``:
+    FLOPs, bytes and kernel calls must be equal (decode: the op count
+    too), and the card's launches of the step's kernel (B3; decode: the contiguous
+    decode kernel, ``sd``) equal the calls counted on meta.  Prints the
+    predicted memory (arguments + the meta run's peak of live bytes
+    above them) beside the card's peak, and the card's step ms (CUDA
+    events, no counter) beside the roofline's modeled max(compute,
+    memory) of the counts.  Returns the counted card step's launches."""
     from repro_torch.launch.dryrun import WorkCounter
     from repro_torch.launch.roofline import H100_BF16_FLOPS, H100_HBM_BW
+    from repro_torch.models import decode as dec
     from repro_torch.models.model import Model
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train.step import (init_train_state, make_prefill_step,
-                                        make_train_step)
-    tok = torch.from_numpy(np.random.default_rng(26).integers(
+                                        make_serve_step, make_train_step)
+    rng = np.random.default_rng(26)
+    tok = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (1, DRYRUN_SEQ)).astype(np.int32))
+    dtok = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (DRYRUN_SLOTS, 1)).astype(np.int32))
 
     def setup(device):
         t = tok.to(device)
+        if kind == "decode":
+            model = Model(cfg, device=device, seed=0)
+            cache = dec.init_cache(cfg, DRYRUN_SLOTS, DRYRUN_SEQ,
+                                   device=device)
+            step = make_serve_step(cfg)
+            d = dtok.to(device)
+            pos = torch.full((), DRYRUN_SEQ // 2, dtype=torch.int32,
+                             device=device)
+            return (lambda: step(model, cache, d, pos)), [
+                *model.parameters(), *_tensors(cache), d]
         if kind == "train":
             state = init_train_state(cfg, OptConfig(), device=device, seed=0)
             step = make_train_step(cfg, OptConfig())
@@ -4694,10 +5128,22 @@ def calibrate(torch, sa, dev, cfg, kind, tag):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_attn_counts(sa)
+    if sd is not None:
+        sd.sata_decode_attention_paged_kernel.launches = 0
+        sd.sata_decode_attention_kernel.launches = 0
     with WorkCounter() as card:
         run()
         torch.cuda.synchronize()
     n_b3, n_b4 = attn_counts(sa)
+    if kind == "decode":
+        name = "sata_decode_attention_kernel"
+        n_k, n_other = (sd.sata_decode_attention_kernel.launches,
+                        sd.sata_decode_attention_paged_kernel.launches
+                        + n_b3 + n_b4)
+        what = "the contiguous decode kernel"
+    else:
+        name, n_k, n_other, what = ("sata_block_attention_compact", n_b3,
+                                    n_b4, "B3")
     peak = torch.cuda.max_memory_allocated() - before
     ms = step_events_ms(torch, run)
     del run, held
@@ -4708,16 +5154,20 @@ def calibrate(torch, sa, dev, cfg, kind, tag):
             f"{json.dumps(dict(list(diff.items())[:20]))}")
     assert card.flops == meta.flops and card.bytes == meta.bytes, \
         (kind, meta.flops, card.flops, meta.bytes, card.bytes)
+    assert kind != "decode" or card.ops == meta.ops, (kind, meta.ops,
+                                                      card.ops)
     assert card.kernels == meta.kernels, (kind, meta.kernels, card.kernels)
-    calls = meta.kernels["sata_block_attention_compact"]["calls"]
-    assert n_b3 == calls and n_b4 == 0, (kind, n_b3, n_b4, calls)
+    calls = meta.kernels[name]["calls"]
+    assert n_k == calls and n_other == 0, (kind, n_k, n_other, calls)
     compute = 1e3 * meta.flops / H100_BF16_FLOPS
     memory = 1e3 * meta.bytes / H100_HBM_BW
+    shape = (f"{DRYRUN_SLOTS} slots over a {DRYRUN_SEQ}-token cache, "
+             f"decode block {cfg.sata.kernel.block}" if kind == "decode"
+             else f"batch 1, S {DRYRUN_SEQ}, kernel route, remat {cfg.remat}")
     log(f"[dryrun] {kind} step, qwen3-4b full width, {cfg.n_layers} layer, "
-        f"batch 1, S {DRYRUN_SEQ}, kernel route, remat {cfg.remat}: FLOPs "
-        f"{meta.flops} and bytes {meta.bytes} counted on meta == on the "
-        f"card ({meta.ops} ops; B3 calls {calls} == launches {n_b3}; "
-        f"meta traced in {meta_s:.2f} s)")
+        f"{shape}: FLOPs {meta.flops} and bytes {meta.bytes} counted on "
+        f"meta == on the card ({meta.ops} ops; {what} calls {calls} == "
+        f"launches {n_k}; meta traced in {meta_s:.2f} s)")
     predicted = args + meta.peak_bytes
     log(f"[dryrun] {kind} memory: predicted {predicted / 2**30:.3f} GiB "
         f"(arguments {args / 2**30:.3f} + live peak "
@@ -4730,7 +5180,7 @@ def calibrate(torch, sa, dev, cfg, kind, tag):
     top = sorted(card.by_op.items(), key=lambda kv: -kv[1][2])[:5]
     log(f"[dryrun] {kind} most bytes: " + ", ".join(
         f"{n} x{c} {b / 2**30:.1f} GiB" for n, (c, f, b) in top))
-    return n_b3
+    return n_k
 
 
 def production_cells(root):
@@ -4776,16 +5226,21 @@ def production_cells(root):
         f"{time.time() - t:.1f} s")
 
 
-def dryrun_phase(torch, sa, dev, root, base, tag):
+def dryrun_phase(torch, sa, sd, dev, root, base, tag):
     """Phase 26: the dry run held to the card on qwen3-4b (phase 7's
-    training config at 1 layer: train and prefill steps), then two
-    production cells' rooflines.  Returns the B3 launches."""
+    training config at 1 layer: train and prefill steps; the dry run's
+    decode config at 1 layer: a serve step), then two production cells'
+    rooflines.  Returns the B3 launches and the contiguous decode
+    kernel's."""
+    from repro_torch.launch.dryrun import main_path_cfg as cell_cfg
     cfg = main_path_cfg(dataclasses.replace(base, topk_impl="bisect",
                                             n_layers=1))
     n = calibrate(torch, sa, dev, cfg, "train", tag)
     n += calibrate(torch, sa, dev, cfg, "prefill", tag)
+    n_dec = calibrate(torch, sa, dev, cell_cfg(dataclasses.replace(
+        base, n_layers=1)), "decode", tag, sd=sd)
     production_cells(root)
-    return n
+    return n, n_dec
 
 
 # ---------------------------------------------------------------------------
@@ -4839,11 +5294,12 @@ def main() -> int:
     clock.done("1 device and build")
     if sys.argv[1:] == ["--mesh"]:
         mesh_phase(torch, sd, dev, tag)
-        clock.done("24-25 scale-out and mesh training on two ranks")
+        clock.done("24-25, 27 scale-out, mesh training and mesh serving "
+                   "on two ranks")
         clock.total()
         return 0
     if sys.argv[1:] == ["--dryrun"]:
-        dryrun_phase(torch, sa, dev, root, ARCHS["qwen3-4b"], tag)
+        dryrun_phase(torch, sa, sd, dev, root, ARCHS["qwen3-4b"], tag)
         clock.done("26 dry run")
         clock.total()
         return 0
@@ -5017,17 +5473,24 @@ def main() -> int:
 
     # --- 24.-25. tensor-parallel decode and sequence-sharded selection on
     # two gloo ranks sharing the card; then train(mesh=) in the same world
-    n_b1, n_b2, n_b3 = mesh_phase(torch, sd, dev, tag)
+    n_b1, n_b2, n_b3, n_serve = mesh_phase(torch, sd, dev, tag)
     kernels[0]["paths"]["24 tensor-parallel decode"] = n_b1
     kernels[1]["paths"]["24 tensor-parallel decode"] = n_b2
     kernels[2]["paths"]["25 train(mesh=): qwen3-4b (2, 1) + (1, 2), "
                         "qwen3-moe, zamba2, rwkv6 bf16 and fp32 (1, 2)"] = n_b3
-    clock.done("24-25 scale-out and mesh training on two ranks")
+    path = ("27 make_serve_step(mesh=) (1, 2): qwen3-4b, zamba2, rwkv6, "
+            "qwen3-moe, bf16 and fp32; (2, 1): qwen3-moe")
+    kernels[0]["paths"][path] = n_serve["paged"]
+    kernels[1]["paths"][path] = n_serve["contiguous"]
+    clock.done("24-25, 27 scale-out, mesh training and mesh serving on "
+               "two ranks")
 
     # --- 26. the dry run against the card; two production cells' rooflines
+    n_b3, n_b2 = dryrun_phase(torch, sa, sd, dev, root, base, tag)
     kernels[2]["paths"]["26 dry-run calibration: qwen3-4b 1 layer, a "
-                        "train and a prefill step"] = dryrun_phase(
-        torch, sa, dev, root, base, tag)
+                        "train and a prefill step"] = n_b3
+    kernels[1]["paths"]["26 dry-run calibration: qwen3-4b 1 layer, a "
+                        "serve step"] = n_b2
     clock.done("26 dry run")
     clock.total()
     log(card)

@@ -43,8 +43,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.launch.mesh import (_all_gather, _all_reduce,
-                                     _reduce_scatter, data_axes)
+from repro_torch.launch.mesh import (_PLAN_KV_AXIS, _all_gather,
+                                     _all_reduce, _reduce_scatter, data_axes)
 
 Spec = Tuple[Any, ...]
 
@@ -204,12 +204,19 @@ CACHE_SEQ_SHARD = True     # KV caches shard the sequence dim over "model"
                            # kv-head / head-dim sharding
 
 
-def _cache_leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
+def cache_leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
+    """(path, leaf) for every leaf of a nested cache tree."""
     for name, sub in tree.items():
         if isinstance(sub, Mapping):
-            yield from _cache_leaves(sub, prefix + (name,))
+            yield from cache_leaves(sub, prefix + (name,))
         else:
-            yield prefix + (name,), tuple(getattr(sub, "shape", sub))
+            yield prefix + (name,), sub
+
+
+def _cache_shapes(tree: Mapping):
+    """(path, shape) for every leaf: a tensor's or a shape tuple."""
+    for path, leaf in cache_leaves(tree):
+        yield path, tuple(getattr(leaf, "shape", leaf))
 
 
 def cache_specs(cache_shapes: Mapping, cfg, mesh) -> Dict[Tuple[str, ...],
@@ -223,7 +230,7 @@ def cache_specs(cache_shapes: Mapping, cfg, mesh) -> Dict[Tuple[str, ...],
     dp = _dp(mesh)
     m = mesh.shape["model"]
     specs = {}
-    for path, shape in _cache_leaves(cache_shapes):
+    for path, shape in _cache_shapes(cache_shapes):
         ndim = len(shape)
         if ndim == 0:
             specs[path] = ()
@@ -567,6 +574,46 @@ class VocabParallel:
         return mx + torch.log(se) - gold
 
 
+@dataclasses.dataclass(frozen=True)
+class DataRows:
+    """The activations hold the rank's rows of a batch split over the
+    data axes ``axes`` (the serving step's): ``gather`` concatenates
+    every data rank's rows in rank order, ``take`` keeps this rank's
+    rows of a whole batch.  ``models.moe.moe_apply`` reads it to route
+    the whole batch where the rank's tokens do not fill whole groups of
+    it.  No gradient: the decode step runs without one."""
+    mesh: Any
+    axes: Tuple[str, ...]
+
+    @property
+    def n(self) -> int:
+        return self.mesh.axis_size(self.axes)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return _all_gather(x, self.mesh, 0, self.axes)
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        return block(x, (self.axes,), self.mesh)
+
+
+def map_cache(tree: Mapping, fn, prefix: Tuple[str, ...] = ()) -> Dict:
+    """The cache tree with ``fn(path, leaf)`` at every leaf."""
+    return {name: (map_cache(sub, fn, prefix + (name,))
+                   if isinstance(sub, Mapping) else fn(prefix + (name,), sub))
+            for name, sub in tree.items()}
+
+
+# the serving cache's groups (``models.decode.init_cache``) and the module
+# whose region reads each; cross_kv's reader depends on the family
+_CACHE_READERS = {"kv": "layers.0.attn", "shared_kv": "shared_attn.attn",
+                  "mamba": "layers.0.mixer", "rwkv": "layers.0.tmix"}
+# the paged pool's leaves: (dim of the KV heads or None), no batch dim
+_POOL_LEAVES = {"k_pages": 3, "v_pages": 3, "page_k_min": 2,
+                "page_k_max": 2, "page_k_scale": 2, "page_k_zero": 2,
+                "page_ref": None}
+# the other leaves' KV- or ssm-head dim, after the stack and batch dims
+_HEAD_DIM = {"k": 3, "v": 3, "ssm": 2, "state": 2, "conv": 3}
+
 _REGIONS = ("attn", "attn_cross", "mlp")     # TensorParallel module names
 # mamba2's ("mixer") and rwkv6's ("tmix", time and channel mix) regions:
 # (the leaves split by columns over "model", those split by rows)
@@ -600,13 +647,21 @@ class ShardLayout:
     split is of the shared block's d_model columns, which the block's
     norm and residual need whole (kept, it would cost an all-gather of
     the activation at every application for a (2·d_model, d_model)
-    leaf), and a region's leaves wherever m does not divide its heads."""
+    leaf), and a region's leaves wherever m does not divide its heads.
 
-    def __init__(self, cfg, mesh, specs: Optional[Dict[str, Spec]] = None):
+    ``mode`` picks the parameter specs (``param_specs``): "train"
+    (FSDP over the data axes and TP over "model") or "infer_tp" (TP
+    only: weights whole over the data axes, MoE experts keeping their
+    data split).  The regions read only the "model" entries, which the
+    two modes share, so both build the same regions and the same
+    serving-cache layout (``cache_specs``)."""
+
+    def __init__(self, cfg, mesh, specs: Optional[Dict[str, Spec]] = None,
+                 mode: str = "train"):
         from repro_torch.models.model import Model
-        self.cfg, self.mesh = cfg, mesh
+        self.cfg, self.mesh, self.mode = cfg, mesh, mode
         self.specs = dict(specs if specs is not None else param_specs(
-            Model(cfg, device="meta"), cfg, mesh))
+            Model(cfg, device="meta"), cfg, mesh, mode=mode))
         self.data = tuple(a for a in data_axes(mesh) if mesh.shape[a] > 1)
         m = self.m = mesh.shape.get("model", 1)
         self._tp = self._moe = self._vocab = self._ssm = None
@@ -715,8 +770,12 @@ class ShardLayout:
         sharded = {a for e in self.specs[name] for a in entry_axes(e)}
         return tuple(a for a in self.data if a not in sharded)
 
-    def view(self, model: nn.Module) -> "ShardedParams":
-        return ShardedParams(model, "", self, None)
+    def view(self, model: nn.Module, rows: Optional[DataRows] = None
+             ) -> "ShardedParams":
+        """``model`` read by key through the layout; ``rows``: the
+        activations hold the rank's rows of a batch split over the data
+        axes (every submodule's view carries it)."""
+        return ShardedParams(model, "", self, None, rows)
 
     @torch.no_grad()
     def shard_(self, model: nn.Module) -> nn.Module:
@@ -735,6 +794,81 @@ class ShardLayout:
         return {n: gather(p.detach(), self.specs[n], self.mesh)
                 for n, p in model.named_parameters()}
 
+    # the serving cache
+
+    def _cache_split(self, group: str) -> bool:
+        """Whether the module that reads cache group ``group`` computes
+        on the rank's heads (its region exists)."""
+        reader = _CACHE_READERS.get(group)
+        if group == "cross_kv":
+            reader = "cross_layers.0.attn" if self.cfg.family == "vlm" \
+                else "layers.0.attn_cross"
+        return reader is not None and self.tp_for(reader) is not None
+
+    def cache_specs(self, cache: Mapping) -> Dict[Tuple[str, ...], Spec]:
+        """Spec per leaf path of the layer-stacked serving cache
+        (``models.decode.init_cache``; the stack dim never shards), laid
+        out as the decode step reads it, not as the reference's
+        context-parallel ``cache_specs`` (whose sequence split a
+        head-parallel step would all-gather at every layer):
+
+        * batch rows over the data axes wherever they divide; the paged
+          pool and its per-page arrays have no batch dim (every slot's
+          pages live in the one pool), so they stay whole there and a
+          data rank writes and reads only its own slots' pages;
+        * over "model", where the module that reads the group computes
+          in its region (``tp_for``): the KV heads of ``kv`` /
+          ``shared_kv`` / ``cross_kv`` and of the pool, the plan's
+          summaries, rows and importance (their KV axis,
+          ``launch.mesh._PLAN_KV_AXIS``, one dim on for the stack),
+          mamba2's ssm heads and its conv channels (``Packed`` as
+          ``conv_w``: the rank's heads' x columns, then its 1/m of B|C),
+          rwkv6's heads of the time-mix state;
+        * everything else whole on every "model" rank: the token-shift
+          rows ``tm_x`` / ``cm_x``, ``valid``, the page table,
+          ``page_ref`` and the plan's per-slot vectors."""
+        dp = _dp(self.mesh)
+        specs = {}
+        for path, shape in _cache_shapes(cache):
+            leaf = path[-1]
+            spec = [None] * len(shape)
+            heads = _HEAD_DIM.get(leaf)
+            if "plan" in path:
+                kv = _PLAN_KV_AXIS[leaf]
+                heads = None if kv is None else kv + 1
+            if leaf in _POOL_LEAVES:
+                heads = _POOL_LEAVES[leaf]
+            elif len(shape) >= 2:
+                spec[1] = dp
+            if heads is not None and self.m > 1 and \
+                    self._cache_split(path[0]):
+                spec[heads] = "model"
+            spec = _fit(shape, spec, self.mesh)
+            if leaf == "conv" and spec[3] == "model":
+                cfg = self.cfg
+                spec = Packed(spec, 3, (cfg.d_inner, 2 * cfg.ssm_state))
+            specs[path] = spec
+        return specs
+
+    def block_cache(self, cache: Mapping) -> Dict:
+        """This rank's blocks of a whole serving cache, each its own
+        contiguous tensor (the decode step updates them in place)."""
+        specs = self.cache_specs(cache)
+        return map_cache(cache, lambda path, t: block(
+            t, specs[path], self.mesh).clone(
+                memory_format=torch.contiguous_format))
+
+    @torch.no_grad()
+    def gather_cache(self, cache: Mapping, whole: Mapping) -> Dict:
+        """The whole serving cache from every rank's blocks ``cache``
+        (collective); ``whole`` is a whole cache (the meta device will
+        do) that gives the specs.  A leaf whole over the data axes comes
+        back as this rank's copy: the paged pool under a data split
+        holds only its slots' rows as the step wrote them."""
+        specs = self.cache_specs(whole)
+        return map_cache(cache, lambda path, t: gather(t, specs[path],
+                                                        self.mesh))
+
 
 class ShardedParams:
     """A sharded ``Model`` (or one of its modules) read by key, as the
@@ -742,12 +876,14 @@ class ShardedParams:
     through ``ShardLayout.use``, a submodule as another view, a
     ``ModuleList`` as a list of views.  ``tp`` is the module's region
     (``ShardLayout.tp_for``), which ``attention_apply``, ``mlp_apply``,
-    ``moe_apply`` and the embedding functions read."""
+    ``moe_apply`` and the embedding functions read; ``rows`` is the
+    step's ``DataRows`` or None, which ``moe_apply`` reads."""
 
     def __init__(self, module: nn.Module, prefix: str, layout: ShardLayout,
-                 tp: Optional[TensorParallel]):
+                 tp: Optional[TensorParallel],
+                 rows: Optional[DataRows] = None):
         self._module, self._prefix = module, prefix
-        self._layout, self.tp = layout, tp
+        self._layout, self.tp, self.rows = layout, tp, rows
 
     def __getitem__(self, name: str):
         try:
@@ -757,11 +893,12 @@ class ShardedParams:
         path = self._prefix + name
         if isinstance(obj, nn.ModuleList):
             return [ShardedParams(m, f"{path}.{i}.", self._layout,
-                                  self._layout.tp_for(f"{path}.{i}"))
+                                  self._layout.tp_for(f"{path}.{i}"),
+                                  self.rows)
                     for i, m in enumerate(obj)]
         if isinstance(obj, nn.Module):
             return ShardedParams(obj, path + ".", self._layout,
-                                 self._layout.tp_for(path))
+                                 self._layout.tp_for(path), self.rows)
         if isinstance(obj, torch.Tensor):
             return self._layout.use(path, obj, self.tp)
         raise KeyError(name)

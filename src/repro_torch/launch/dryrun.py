@@ -1,6 +1,5 @@
-"""Dry run: trace one rank of the production mesh through every train and
-prefill (arch × shape) cell on meta tensors — port of
-``repro.launch.dryrun``.
+"""Dry run: trace one rank of the production mesh through every (arch ×
+shape) cell on meta tensors — port of ``repro.launch.dryrun``.
 
 The reference lowers and compiles each cell against ``ShapeDtypeStruct``
 inputs on a 16×16 (2×16×16 multi-pod) device mesh and reads XLA's
@@ -9,7 +8,8 @@ for the abstract arrays, and a world of torch's ``"fake"``
 process-group backend (``launch.mesh.fake_world``) of 256 (512) ranks
 for the mesh.  This process is rank 0: it builds its shard of the train
 state (``init_train_state(mesh=)``) and runs the port's own step on it
-(``make_train_step(mesh=)``, ``make_prefill_step(mesh=)``), every
+(``make_train_step(mesh=)``, ``make_prefill_step(mesh=)``,
+``make_serve_step(mesh=)`` on its blocks of the serving cache), every
 collective going through the fake group, every kernel through its
 meta stand-in (``kernels.ops``), under a ``WorkCounter``.  What it
 counts is what the port would run on 256 H100s: its head-parallel step
@@ -19,8 +19,15 @@ the whole run is on the CPU, by design.
 
 The cells run the port's main route (``main_path_cfg``): chunked
 selection into the compacted-grid kernel, 128-blocks, as the card
-trains.  Decode and ``long_500k`` cells need ``serve_step`` on a rank's
-view of a ("data", "model") mesh (ROADMAP queue A item 6): they raise.
+trains.  The decode and ``long_500k`` cells take the same config: its
+``topk_impl="bisect"`` turns ``sata.decode.mode="auto"`` on, and on the
+contiguous cache with ``replan=1`` the plan takes its exact branch,
+with no host sync.  A decode cell first picks the weights' specs
+(``decode_param_mode``, the reference's rule): "infer_tp" (weights whole
+over the data axes) where the tensor-parallel weights and the rank's
+cache blocks (``ShardLayout.cache_specs``: the step's head-parallel
+layout, not the reference's sequence split) fit ``DECODE_HBM_BUDGET``,
+"train" (FSDP) where they do not.
 
 Each cell writes ``build/dryrun/<cell>.json`` (never ``results/``,
 which holds the reference's files) with the reference's schema, each
@@ -29,11 +36,13 @@ field read in the port as follows:
 * ``lower_s``: seconds to start the fake world and build the rank's
   state, batch and step; ``compile_s``: seconds of the traced step;
 * ``memory.argument_size_in_bytes``: the rank's blocks of the
-  parameters, the fp32 moments and step (train), and its rows of the
-  batch;
+  parameters, the fp32 moments and step (train), its blocks of the
+  serving cache (decode), and its rows of the batch or tokens;
 * ``memory.output_size_in_bytes``: what the step returns that is not
   an argument (the train step updates its state in place, so its
-  metrics; the prefill step its global last-position logits);
+  metrics; the prefill step its global last-position logits; the
+  decode step, which updates the cache in place, its global (B, 1, V)
+  logits);
 * ``memory.temp_size_in_bytes``: the peak of live bytes the step
   allocated above its arguments (``WorkCounter``: every storage an op
   returned fresh, until it is freed);
@@ -49,7 +58,10 @@ field read in the port as follows:
   the eight ops that moved the most bytes (port only), and ``cp``,
   false: the port's step is head-parallel and does not read the
   context-parallel specs of ``distributed.ctx`` (ROADMAP's stated
-  divergence), so ``run_cell(cp=True)`` raises.
+  divergence), so ``run_cell(cp=True)`` raises;
+* decode cells add ``param_mode`` and ``cache_bytes_rank`` (the rank's
+  cache blocks; the reference's rule divides the whole cache by the
+  256 devices).
 
 ``generated_code_size_in_bytes`` and ``hlo_bytes`` have no counterpart
 and are left out.
@@ -80,18 +92,21 @@ from repro_torch.configs.archs import ARCHS, SHAPES, all_cells, cell_enabled
 from repro_torch.distributed import ctx as dctx
 from repro_torch.distributed.sharding import block
 from repro_torch.kernels import ops
-from repro_torch.launch.inputs import batch_specs_for
+from repro_torch.launch.inputs import batch_specs_for, decode_specs_for
 from repro_torch.launch.mesh import (data_axes, fake_world,
                                      make_production_mesh, make_train_mesh)
 from repro_torch.models.config import SataKernelConfig
+from repro_torch.models.model import Model
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.train.step import (init_train_state, make_prefill_step,
-                                    make_train_step)
+                                    make_serve_step, make_train_step)
 
 RESULTS = pathlib.Path(__file__).resolve().parents[3] / "build" / "dryrun"
 
-DECODE_WAITS = ("decode cells need serve_step on a rank's view of a "
-                "(\"data\", \"model\") mesh: ROADMAP queue A item 6")
+# a decode cell's budget for the tensor-parallel weights and the rank's
+# cache: the reference's 15e9 bytes of a 16 GiB chip (87.3%) applied to
+# the H100's 80 GiB
+DECODE_HBM_BUDGET = 75e9
 CP_DIVERGES = ("the port's attention is head-parallel and reads no "
                "context-parallel spec (ROADMAP queue A, the stated "
                "divergence): cp=True would record a layout that did not "
@@ -107,6 +122,28 @@ _NO_DATA = {torch.ops.aten.empty.memory_format,
             torch.ops.aten._unsafe_view.default,
             torch.ops.aten.lift_fresh.default}
 _SKIP_NAMESPACES = ("c10d", "_c10d_functional", "profiler")
+_ROW_WRITES = {torch.ops.aten.index_put_.default}
+
+
+def _row_write_bytes(args, kwargs) -> int:
+    """``index_put_(dst, indices, values, accumulate)`` (the decode
+    step's K/V row, the plan's rows): its indices and values read and
+    the indexed elements of ``dst`` written (the values broadcast to
+    them; read too with ``accumulate``), never the whole destination.
+    A bool mask selects as many elements as the data says, so there the
+    values' own count stands in."""
+    dst, idx, vals = args[:3]
+    acc = args[3] if len(args) > 3 else kwargs.get("accumulate", False)
+    taken = [i for i in idx if i is not None]
+    if any(i.dtype == torch.bool for i in taken):
+        n = vals.numel()
+    else:
+        rest = [size for d, size in enumerate(dst.shape)
+                if d >= len(idx) or idx[d] is None]
+        n = math.prod(torch.broadcast_shapes(*(i.shape for i in taken))) \
+            * math.prod(rest)
+    return sum(t.nbytes for t in taken) + vals.nbytes + \
+        n * dst.element_size() * (2 if acc else 1)
 
 
 def _tensors(tree, out=None):
@@ -147,8 +184,10 @@ class WorkCounter(TorchDispatchMode):
     * ``flops``: the FLOPs of every op in torch's ``flop_counter``
       registry (the matrix products), plus each kernel call's;
     * ``bytes``: the input and output bytes of every op that moves data
-      (views, allocations and collectives excluded), plus each kernel
-      call's;
+      (views, allocations and collectives excluded; an in-place
+      ``index_put_`` its indices and values and the elements it writes,
+      ``_row_write_bytes``),
+      plus each kernel call's;
     * ``kernels``: per kernel, its calls, FLOPs and bytes, which
       ``kernels.ops`` adds through ``kernel()`` while the counter is
       installed; inside a kernel call the op count is paused, so
@@ -261,8 +300,11 @@ class WorkCounter(TorchDispatchMode):
             self._track(out)
         if self._paused or func.is_view or func in _NO_DATA:
             return out
-        nbytes = sum(t.nbytes for t in _tensors((args, kwargs))) + \
-            sum(t.nbytes for t in _tensors(out))
+        if func in _ROW_WRITES:
+            nbytes = _row_write_bytes(args, kwargs)
+        else:
+            nbytes = sum(t.nbytes for t in _tensors((args, kwargs))) + \
+                sum(t.nbytes for t in _tensors(out))
         count = flop_registry.get(func._overloadpacket)
         flops = 0 if count is None else int(
             count(*args, **kwargs, out_val=out))
@@ -311,6 +353,37 @@ def _not_args(out, args) -> int:
                if id(t.untyped_storage()) not in held)
 
 
+def tp_weight_bytes(cfg, mesh) -> float:
+    """The reference's per-device weight bytes under "infer_tp": bf16
+    dense weights split over "model", the experts over every device."""
+    n_dev = math.prod(mesh.shape.values())
+    expert = (cfg.n_layers * cfg.n_experts * 3 * cfg.d_model * cfg.d_ff
+              if cfg.moe else 0)
+    dense = cfg.param_count() - expert
+    return dense * 2 / mesh.shape["model"] + expert * 2 / n_dev
+
+
+def decode_param_mode(cfg, mesh, cache_bytes_rank: float,
+                      budget: float = DECODE_HBM_BUDGET) -> str:
+    """The weights' mode of a decode cell, the reference's rule
+    (``repro.launch.dryrun``'s decode branch): "infer_tp" where the
+    tensor-parallel weights (``tp_weight_bytes``) and the rank's cache
+    bytes fit ``budget`` (FSDP's weight all-gathers would dominate a
+    decode step), else "train"."""
+    return "infer_tp" if tp_weight_bytes(cfg, mesh) + cache_bytes_rank \
+        <= budget else "train"
+
+
+def decode_cache(cfg, shape, layout) -> Tuple[Dict, int]:
+    """A decode cell's serving cache as the rank's blocks under
+    ``layout.cache_specs`` (meta), and their bytes.  The cache specs
+    read only the regions, which both weight modes share, so any
+    layout of ``cfg`` on the mesh will do."""
+    cache, _, _ = decode_specs_for(cfg, shape)
+    local = layout.block_cache(cache)
+    return local, _nbytes(_tensors(local))
+
+
 def _cell_mesh(multi_pod: bool, mesh_shape: Optional[Tuple[int, int]]):
     if mesh_shape is not None:
         return make_train_mesh(*mesh_shape, device="meta")
@@ -320,21 +393,22 @@ def _cell_mesh(multi_pod: bool, mesh_shape: Optional[Tuple[int, int]]):
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              save: bool = True, verbose: bool = True, cfg=None,
              tag_suffix: str = "", cp: bool = False,
-             mesh_shape: Optional[Tuple[int, int]] = None) -> Dict:
+             mesh_shape: Optional[Tuple[int, int]] = None,
+             param_mode: Optional[str] = None) -> Dict:
     """Trace rank 0 of the production mesh through one cell's step on
     meta tensors and return (and with ``save``, write) its record.
     ``cfg`` replaces ``main_path_cfg(ARCHS[arch])``; ``mesh_shape``
     (data, model) replaces the production mesh by a ("data", "model")
-    mesh of that many fake ranks (the tests' small worlds).  Starts the
+    mesh of that many fake ranks (the tests' small worlds);
+    ``param_mode`` replaces a decode cell's ``decode_param_mode`` (the
+    roofline's shallow probes take the full-depth cell's).  Starts the
     fake world and destroys it on every exit; raises if a process group
-    is already initialised, for a decode cell, and for ``cp=True``
-    (the port's attention does not read the context-parallel specs)."""
+    is already initialised and for ``cp=True`` (the port's attention
+    does not read the context-parallel specs)."""
     cfg = main_path_cfg(ARCHS[arch]) if cfg is None else cfg
     shape = SHAPES[shape_name]
     tag = (f"{arch}__{shape_name}__{'pod2' if multi_pod else 'pod1'}"
            f"{tag_suffix}")
-    if shape.kind == "decode":
-        raise NotImplementedError(f"{tag}: {DECODE_WAITS}")
     if cp:
         raise NotImplementedError(f"{tag}: {CP_DIVERGES}")
     dims = mesh_shape or ((2, 16, 16) if multi_pod else (16, 16))
@@ -345,7 +419,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             dctx.make_activation_shardings(mesh, cfg, seq_shard=True),
             mesh=mesh)
         try:
-            result = _trace(cfg, shape, mesh, t0)
+            result = _trace(cfg, shape, mesh, t0, param_mode)
         finally:
             dctx.clear()
     result = {"cell": tag, "arch": arch, "shape": shape_name,
@@ -353,7 +427,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
               "mesh": dict(mesh.shape), **result}
     if verbose:
         mem = result["memory"]
-        print(f"[dryrun] {tag}: OK lower={result['lower_s']:.0f}s "
+        mode = f" {result['param_mode']}" if "param_mode" in result else ""
+        print(f"[dryrun] {tag}: OK{mode} lower={result['lower_s']:.0f}s "
               f"compile={result['compile_s']:.0f}s "
               f"args={mem['argument_size_in_bytes'] / 2**30:.2f}GiB/dev "
               f"temp={mem['temp_size_in_bytes'] / 2**30:.2f}GiB/dev "
@@ -366,9 +441,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     return result
 
 
-def _trace(cfg, shape, mesh, t0: float) -> Dict:
+def _trace(cfg, shape, mesh, t0: float,
+           param_mode: Optional[str] = None) -> Dict:
     """Build rank 0's state, batch and step on ``mesh`` and run the step
     once under a ``WorkCounter``."""
+    if shape.kind == "decode":
+        return _trace_decode(cfg, shape, mesh, t0, param_mode)
     batch = batch_specs_for(cfg, shape)
     if shape.kind == "train":
         dp = math.prod(mesh.shape[a] for a in data_axes(mesh))
@@ -391,6 +469,39 @@ def _trace(cfg, shape, mesh, t0: float) -> Dict:
     nd = math.prod(mesh.shape[a] for a in layout.data)
     local = [block(t, (layout.data,), mesh) if rows % nd == 0 else t
              for t in batch.values()]
+    return {"micro_steps": micro, **_counted(
+        step, args, held, local, list(batch.values()), mesh, t0)}
+
+
+def _trace_decode(cfg, shape, mesh, t0: float,
+                  param_mode: Optional[str] = None) -> Dict:
+    """A decode cell: the rank's blocks of the serving cache and of the
+    tokens, the weights' mode (``decode_param_mode`` of the cache's
+    bytes, or ``param_mode``) and the model sharded under it, and one
+    ``make_serve_step(mesh=)`` step on the blocks: one layout for the
+    cache and the step, a second only where the mode comes out
+    "train"."""
+    _, tokens, pos = decode_specs_for(cfg, shape)
+    step = make_serve_step(cfg, mesh=mesh, mode=param_mode or "infer_tp")
+    local_cache, cache_rank = decode_cache(cfg, shape, step.layout)
+    mode = param_mode or decode_param_mode(cfg, mesh, cache_rank)
+    if mode != step.layout.mode:
+        step = make_serve_step(cfg, mesh=mesh, mode=mode)
+    model = step.layout.shard_(Model(cfg, device="meta"))
+    held = [*model.parameters(), *_tensors(local_cache)]
+    nd = math.prod(mesh.shape[a] for a in step.layout.data)
+    local = [block(tokens, (step.layout.data,), mesh)
+             if tokens.shape[0] % nd == 0 else tokens]
+    return {"param_mode": mode, "cache_bytes_rank": cache_rank,
+            "tp_weight_bytes": tp_weight_bytes(cfg, mesh),
+            "decode_budget_bytes": DECODE_HBM_BUDGET,
+            **_counted(step, (model, local_cache, tokens, pos), held, local,
+                       [tokens], mesh, t0)}
+
+
+def _counted(step, args, held, local, inputs, mesh, t0: float) -> Dict:
+    """``step(*args)`` once under a ``WorkCounter``: the record's timing,
+    memory, cost, kernel and collective fields."""
     t_lower = time.time() - t0
     counter = WorkCounter()
     with counter:
@@ -400,11 +511,9 @@ def _trace(cfg, shape, mesh, t0: float) -> Dict:
     w = counter.summary()
     return {
         "lower_s": round(t_lower, 1), "compile_s": round(t_compile, 1),
-        "micro_steps": micro,
         "memory": {
             "argument_size_in_bytes": _nbytes(held) + _nbytes(local),
-            "output_size_in_bytes": _not_args(out, held + list(
-                batch.values())),
+            "output_size_in_bytes": _not_args(out, held + inputs),
             "temp_size_in_bytes": w["peak_bytes"]},
         "cost": {"flops": float(w["flops"]),
                  "bytes accessed": float(w["bytes"]),
@@ -437,7 +546,7 @@ def main(argv=None):
         cells = [(args.arch, args.shape)]
 
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
-    failures, waiting = [], []
+    failures = []
     for arch, shape in cells:
         for mp in meshes:
             tag = f"{arch}__{shape}__{'pod2' if mp else 'pod1'}"
@@ -449,20 +558,16 @@ def main(argv=None):
             try:
                 run_cell(arch, shape, mp)
             except Exception as e:
-                (waiting if SHAPES[shape].kind == "decode"
-                 else failures).append(tag)
+                failures.append(tag)
                 RESULTS.mkdir(parents=True, exist_ok=True)
                 (RESULTS / f"{tag}.json").write_text(json.dumps(
                     {"cell": tag, "ok": False, "error": str(e),
                      "traceback": traceback.format_exc()[-4000:]}, indent=1))
                 print(f"[dryrun] {tag}: FAIL {e}", flush=True)
-    if waiting:
-        print(f"[dryrun] {len(waiting)} decode cells not ported "
-              f"({DECODE_WAITS})", flush=True)
     if failures:
         print(f"[dryrun] {len(failures)} failures: {failures}", flush=True)
         sys.exit(1)
-    print("[dryrun] every train and prefill cell OK", flush=True)
+    print("[dryrun] every cell OK", flush=True)
 
 
 if __name__ == "__main__":

@@ -59,7 +59,8 @@ from repro_torch.configs.archs import ARCHS, SHAPES, all_cells
 from repro_torch.core.blockmap import fixed_occupancy_map
 from repro_torch.distributed.sharding import ShardLayout
 from repro_torch.kernels.ops import kernel_fetch_stats
-from repro_torch.launch.dryrun import main_path_cfg, run_cell
+from repro_torch.launch.dryrun import (decode_cache, decode_param_mode,
+                                       main_path_cfg, run_cell)
 from repro_torch.launch.mesh import ShardMesh
 
 H100_BF16_FLOPS = 989e12     # FLOP/s, H100 SXM bf16 dense, data sheet
@@ -92,23 +93,40 @@ def _units(cfg):
     return u, cfg.n_layers // u, build
 
 
-def _measure(arch, shape_name, cfg):
+def _measure(arch, shape_name, cfg, param_mode=None):
     r = run_cell(arch, shape_name, multi_pod=False, save=False,
-                 verbose=False, cfg=cfg, tag_suffix="__probe")
+                 verbose=False, cfg=cfg, tag_suffix="__probe",
+                 param_mode=param_mode)
     flops = r["cost"].get("flops", 0.0)
     byts = r["cost"].get("bytes accessed", 0.0)
     coll = r["collectives"].get("total_bytes", 0.0)
     return flops, byts, coll, r
 
 
+def _pod1_rank0():
+    """Rank 0 of the single-pod mesh, for the rules that read only its
+    shape (no process group)."""
+    return ShardMesh(("data", "model"), {"data": 16, "model": 16}, None, 0,
+                     torch.device("meta"))
+
+
 def _rwkv_heads_per_rank(cfg) -> int:
     """The rwkv6 heads a rank of the single-pod mesh scans (the time mix
     runs on a rank's heads where the layout splits them)."""
-    mesh = ShardMesh(("data", "model"), {"data": 16, "model": 16}, None, 0,
-                     torch.device("meta"))
+    mesh = _pod1_rank0()
     h = cfg.d_model // cfg.rwkv_head_dim
     split = ShardLayout(cfg, mesh).tp_for("layers.0.tmix") is not None
     return h // mesh.shape["model"] if split else h
+
+
+def _decode_mode(cfg, shape) -> str:
+    """The full-depth decode cell's weights' mode, which its probes keep:
+    ``decode_param_mode`` of the rank's cache bytes, blocked on meta
+    under one layout of ``cfg``."""
+    mesh = _pod1_rank0()
+    layout = ShardLayout(cfg, mesh, mode="infer_tp")
+    return decode_param_mode(cfg, mesh,
+                             decode_cache(cfg, shape, layout)[1])
 
 
 def _probe_line(k, r, secs):
@@ -128,11 +146,12 @@ def analyse_cell(arch: str, shape_name: str, verbose: bool = True,
     cfg = main_path_cfg(ARCHS[arch])
     shape = SHAPES[shape_name]
     unit, n_units, build = _units(cfg)
+    mode = _decode_mode(cfg, shape) if shape.kind == "decode" else None
 
     t0 = time.time()
-    f1, b1, c1, r1 = _measure(arch, shape_name, build(1))
+    f1, b1, c1, r1 = _measure(arch, shape_name, build(1), mode)
     t1 = time.time()
-    f2, b2, c2, r2 = _measure(arch, shape_name, build(2))
+    f2, b2, c2, r2 = _measure(arch, shape_name, build(2), mode)
     t2 = time.time()
     pf = max(f2 - f1, 0.0)
     pb = max(b2 - b1, 0.0)
@@ -193,6 +212,7 @@ def analyse_cell(arch: str, shape_name: str, verbose: bool = True,
         "hlo_flops_global": hlo_flops_global,
         "useful_ratio": useful,
         "roofline_fraction": t_compute / max(max(terms.values()), 1e-30),
+        "param_mode": mode,
         "note": bound_note,
         "probe": {"unit_layers": unit, "n_units": n_units,
                   "f1": f1, "f2": f2, "c1": c1, "c2": c2, "b1": b1, "b2": b2,
@@ -320,7 +340,7 @@ def main(argv=None):
     if not args.all and not (args.arch and args.shape):
         ap.error("--arch/--shape, --all, --table or --kernel")
     cells = all_cells() if args.all else [(args.arch, args.shape)]
-    fails, waiting = [], []
+    fails = []
     for arch, shape in cells:
         tag = f"{arch}__{shape}__pod1"
         if args.skip_done and (OUT_DIR / f"{tag}.json").exists():
@@ -328,15 +348,10 @@ def main(argv=None):
             continue
         try:
             analyse_cell(arch, shape)
-        except NotImplementedError as e:
-            waiting.append(tag)
-            print(f"[roofline] {tag}: not ported: {e}", flush=True)
         except Exception as e:
             fails.append(tag)
             print(f"[roofline] {tag}: FAIL {e}", flush=True)
             traceback.print_exc()
-    if waiting:
-        print(f"[roofline] {len(waiting)} decode cells not ported")
     if fails:
         print(f"[roofline] failures: {fails}")
         sys.exit(1)

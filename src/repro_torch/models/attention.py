@@ -547,13 +547,33 @@ def _dense_decode(q, k, v, cfg, pos):
                    k_pos, valid_k=valid, causal=False)
 
 
+def _out_proj(params, out: torch.Tensor) -> torch.Tensor:
+    """``out @ wo``, or in a ``tp`` region the rank's partial products
+    (its heads' rows of ``wo``) summed over the region's ranks."""
+    tp = getattr(params, "tp", None)
+    return out @ params["wo"] if tp is None \
+        else tp.row_parallel(out, params["wo"])
+
+
 def attention_decode(params, cfg, x: torch.Tensor, cache: Dict, pos,
                      use_rope: bool = True) -> Tuple[torch.Tensor, Dict]:
     """One-token decode: write the new K/V row at ``pos`` (in place),
     attend over the prefix.  x: (B, 1, D); cache: one layer's
     ``init_kv_cache`` dict; pos: scalar or (B,) per-slot positions.
     With a ``plan`` in the cache, attention runs through the SATA plan
-    + gather kernel; without one, densely over the prefix."""
+    + gather kernel; without one, densely over the prefix.
+
+    A ``params`` view with a ``tp`` region (``distributed.sharding``),
+    as ``attention_apply`` reads it: the rank's heads under ``tp.cfg``
+    (its columns of ``wq``/``wk``/``wv``), its KV heads of the cache or
+    the pool (dim 2 of both layouts' rows) and its plan rows
+    (``ShardLayout.cache_specs``), and ``wo``'s partial products summed
+    over the ranks.  The summaries, the plan and the kernel are per
+    (slot, KV head), so the rank's heads need no collective but that
+    sum (``launch.mesh.tensor_parallel_decode_step``)."""
+    tp = getattr(params, "tp", None)
+    if tp is not None:
+        cfg, x = tp.cfg, tp.enter(x)
     b = x.shape[0]
     pos = _per_slot_positions(pos, b, x.device)
     q, k_new, v_new = _project_qkv(params, cfg, x)
@@ -576,8 +596,7 @@ def attention_decode(params, cfg, x: torch.Tensor, cache: Dict, pos,
                                      k_block=blk)
     else:
         out = _dense_decode(q, k, v, cfg, pos)
-    y = out.reshape(b, 1, cfg.n_heads * cfg.hd) @ params["wo"]
-    return y, cache
+    return _out_proj(params, out.reshape(b, 1, cfg.n_heads * cfg.hd)), cache
 
 
 def _paged_decode_step(params, cfg, cache: Dict, q: torch.Tensor,
@@ -613,8 +632,7 @@ def _paged_decode_step(params, cfg, cache: Dict, q: torch.Tensor,
     else:
         out = _dense_decode(q, logical_kv_view(kp, tbl),
                             logical_kv_view(vp, tbl), cfg, pos)
-    y = out.reshape(b, 1, cfg.n_heads * cfg.hd) @ params["wo"]
-    return y, cache
+    return _out_proj(params, out.reshape(b, 1, cfg.n_heads * cfg.hd)), cache
 
 
 def cross_attention_decode(params, cfg, x: torch.Tensor,
@@ -624,7 +642,11 @@ def cross_attention_decode(params, cfg, x: torch.Tensor,
     ``"valid"`` (B, S_ctx) bool, the length mask of a padded context;
     without it every context position attends.  Dense top-k over the
     context (``_attend``): the reference sends no cross-attention to a
-    kernel."""
+    kernel.  In a ``tp`` region (``attention_decode``'s) the rank's
+    heads attend over its KV heads of ``context_kv``."""
+    tp = getattr(params, "tp", None)
+    if tp is not None:
+        cfg, x = tp.cfg, tp.enter(x)
     b = x.shape[0]
     q = (x @ params["wq"]).reshape(b, 1, cfg.n_heads, cfg.hd)
     if cfg.qk_norm:
@@ -634,7 +656,7 @@ def cross_attention_decode(params, cfg, x: torch.Tensor,
                                             device=x.device),
                   torch.arange(k.shape[1], device=x.device),
                   valid_k=context_kv.get("valid"), causal=False)
-    return out.reshape(b, 1, cfg.n_heads * cfg.hd) @ params["wo"]
+    return _out_proj(params, out.reshape(b, 1, cfg.n_heads * cfg.hd))
 
 
 def precompute_cross_kv(params, cfg, context: torch.Tensor) -> Dict:

@@ -170,23 +170,45 @@ def init_mamba_cache(cfg, batch: int, dtype, *, device
 def mamba2_decode(params, cfg, x: torch.Tensor, cache: Dict
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token recurrent step.  x: (B, 1, D) → (out (B, 1, D), the new
-    state {"ssm", "conv"}); ``cache`` is not modified."""
+    state {"ssm", "conv"}); ``cache`` is not modified.  A ``params``
+    view with a ``tp`` region runs the rank's ssm heads in
+    ``_region_proj``'s order: its ``Packed`` projection columns, the
+    conv over its own channels (its ``conv`` state holds the same
+    ``Packed`` channels, ``ShardLayout.cache_specs``), then B|C gathered
+    whole; its state (B, H / m, N, P), the gated norm's sum of squares
+    summed over the ranks, and the out-projection's partial products
+    too."""
     b = x.shape[0]
-    di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    z, xbc, dt_raw = _split_proj(cfg, x @ params["in_proj"])
+    n, h, p = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    tp = getattr(params, "tp", None)
+    m = 1 if tp is None else tp.size
+    dr, bcr = cfg.d_inner // m, 2 * n // m      # the rank's x and B|C
+    if tp is not None:
+        x = tp.enter(x)
+    zxbcdt = x @ params["in_proj"]
+    z, xbc, dt_raw = (zxbcdt[..., :dr], zxbcdt[..., dr:2 * dr + bcr],
+                      zxbcdt[..., 2 * dr + bcr:])
     hist = torch.cat([cache["conv"], xbc.to(cache["conv"].dtype)],
                      dim=1)                                   # (B, K, C)
     conv_out = F.silu((hist * params["conv_w"][None]).sum(dim=1,
                                                           keepdim=True))
-    xs = conv_out[..., :di].reshape(b, h, p).float()
-    bvec = conv_out[:, 0, di:di + n].float()
-    cvec = conv_out[:, 0, di + n:].float()
-    dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])
-    decay = torch.exp(dt * -torch.exp(params["a_log"]))       # (B,H)
+    bc, heads = conv_out[:, 0, dr:], slice(None)
+    if tp is not None:
+        bc, heads = tp.gather_shared(bc, 1), tp.share(h)
+        h //= m
+    xs = conv_out[..., :dr].reshape(b, h, p).float()
+    bvec = bc[:, :n].float()
+    cvec = bc[:, n:].float()
+    dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"][heads])
+    decay = torch.exp(dt * -torch.exp(params["a_log"][heads]))  # (B,H)
     state = cache["ssm"] * decay[..., None, None] + torch.einsum(
         "bh,bn,bhp->bhnp", dt, bvec, xs)
     y = torch.einsum("bn,bhnp->bhp", cvec, state)
-    y = y + params["d_skip"][None, :, None] * xs
-    y = _gated_rmsnorm(y.reshape(b, 1, di), z, params["norm_scale"])
-    return y.to(x.dtype) @ params["out_proj"], {"ssm": state,
-                                                "conv": hist[:, 1:]}
+    y = y + params["d_skip"][heads][None, :, None] * xs
+    new = {"ssm": state, "conv": hist[:, 1:]}
+    if tp is None:
+        y = _gated_rmsnorm(y.reshape(b, 1, dr), z, params["norm_scale"])
+        return y.to(x.dtype) @ params["out_proj"], new
+    y = _gated_rmsnorm(y.reshape(b, 1, dr), z,
+                       params["norm_scale"][tp.share(cfg.d_inner)], tp=tp)
+    return tp.row_parallel(y.to(x.dtype), params["out_proj"]), new

@@ -24,7 +24,9 @@ routes the same tokens; a rank dispatches only the slots of its own
 experts (``expert_shard="expert"``) or runs every expert on its d_ff
 block (``"tensor"``), and its partial combine is summed over the ranks
 in fp32 before the cast.  The capacity and drops are the routing's,
-computed whole on every rank.
+computed whole on every rank.  A data rank routes its own rows where
+they fill whole groups of the batch, and the gathered batch where they
+do not (the serving step's ``DataRows``).
 
 The router runs in fp32 and never in TF32 (``_full_fp32``).
 """
@@ -105,6 +107,16 @@ def _gates(probs: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
 
 
+def _one_hot(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(ids, n)`` (int64) as one comparison with ``arange``:
+    the same ops on every device.  ``F.one_hot`` itself checks its
+    range on the CPU (a host sync), scatters on the card and compares on
+    meta tensors, so the dry run's counted work would depend on the
+    device."""
+    return (ids.long()[..., None] == torch.arange(n, device=ids.device)
+            ).long()
+
+
 def route(p, cfg, tokens: torch.Tensor) -> Route:
     """Top-k token-choice routing of ``tokens`` (G, T, D) with capacity."""
     e, k = cfg.n_experts, cfg.experts_per_token
@@ -116,7 +128,7 @@ def route(p, cfg, tokens: torch.Tensor) -> Route:
     ids = argsort_descending(probs)[..., :k]                  # (G, T, k)
     gates = _gates(probs, ids)
     # position in expert: earlier (token, k-slot) pairs on the same expert
-    onehot = F.one_hot(ids.long(), e).reshape(ng, gsz * k, e)
+    onehot = _one_hot(ids, e).reshape(ng, gsz * k, e)
     before = (torch.cumsum(onehot, dim=1) - onehot).reshape(ng, gsz, k, e)
     pie = torch.gather(before, -1, ids.long()[..., None])[..., 0]
     keep = pie < cap
@@ -126,7 +138,7 @@ def route(p, cfg, tokens: torch.Tensor) -> Route:
 def _aux_loss(cfg, r: Route) -> torch.Tensor:
     """Switch-style load balancing: density · router mean · E² / k."""
     e, k = cfg.n_experts, cfg.experts_per_token
-    counts = F.one_hot(r.expert_ids.long(), e).sum(dim=(1, 2))   # (G, E)
+    counts = _one_hot(r.expert_ids, e).sum(dim=(1, 2))           # (G, E)
     density = counts.float() / r.expert_ids.shape[1]
     router_mean = r.probs.mean(dim=1)
     return (density * router_mean).sum(-1).mean() * (e ** 2) / k
@@ -145,7 +157,21 @@ def _experts(p, xin: torch.Tensor, partial: bool = False) -> torch.Tensor:
 
 def moe_apply(p, cfg, x: torch.Tensor):
     """x: (B, S, D) → (out (B, S, D), aux_loss fp32).  A ``p`` view with
-    an ``ExpertParallel`` region (``p.tp``) runs the rank's share."""
+    an ``ExpertParallel`` region (``p.tp``) runs the rank's share.  A
+    view whose ``rows`` (``distributed.sharding.DataRows``) says ``x``
+    is the rank's rows of a batch split over the data axes routes the
+    gathered batch, and keeps the rank's rows of the output, wherever
+    the rank's tokens do not fill whole groups of the batch (decode:
+    S = 1): the groups, capacity and drops are then one device's."""
+    rows = getattr(p, "rows", None)
+    t = x.shape[0] * x.shape[1]
+    if rows is not None and t % min(cfg.moe_group_size, t * rows.n):
+        y, aux = _moe(p, cfg, rows.gather(x))
+        return rows.take(y), aux
+    return _moe(p, cfg, x)
+
+
+def _moe(p, cfg, x: torch.Tensor):
     b, s, d = x.shape
     tokens = _groups(cfg, x)
     r = route(p, cfg, tokens)

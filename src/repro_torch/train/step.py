@@ -13,7 +13,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.distributed.sharding import ShardLayout, block
+from repro_torch.distributed.sharding import DataRows, ShardLayout, block
 from repro_torch.launch.mesh import _all_gather, _all_reduce, make_local_mesh
 from repro_torch.models import decode as dec
 from repro_torch.models import model as mdl
@@ -57,6 +57,7 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, micro_steps: int = 1,
     mesh = make_local_mesh(device="meta") if mesh is None else mesh
     layout = ShardLayout(cfg, mesh)
     nd = math.prod(mesh.shape[a] for a in layout.data)
+    rows = DataRows(mesh, layout.data) if nd > 1 else None
 
     def shard_loss(view, mb):
         # a microbatch that does not divide by the data shards replicates:
@@ -139,6 +140,7 @@ def make_prefill_step(cfg: ModelConfig, mesh=None):
     mesh = make_local_mesh(device="meta") if mesh is None else mesh
     layout = ShardLayout(cfg, mesh)
     nd = math.prod(mesh.shape[a] for a in layout.data)
+    rows = DataRows(mesh, layout.data) if nd > 1 else None
 
     def prefill_step(model, batch):
         rows = next(iter(batch.values())).shape[0]
@@ -157,30 +159,72 @@ def make_prefill_step(cfg: ModelConfig, mesh=None):
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, mesh=None, mode: str = "train"):
     """One-token decode against a serving cache (the decode shapes):
     ``serve_step(model, cache, tokens, pos)`` → (logits (B, 1, V) fp32,
-    the cache, updated in place)."""
+    the cache, updated in place).
+
+    Run by every rank of ``mesh`` (default the one-rank
+    ``make_local_mesh()``, on which every collective below is the
+    identity and the step is ``models.decode.serve_step`` itself) with
+    the same global ``tokens`` (B, 1) and ``pos`` (a scalar or (B,)),
+    ``model`` sharded under ``mode``'s specs (``init_train_state(mesh=,
+    mode=)``: "train" or "infer_tp") and ``cache`` the rank's blocks of
+    the serving cache (``ShardLayout.block_cache``): the step reads the
+    sharded parameters through ``ShardLayout.view``, takes the rank's
+    rows of ``tokens`` and ``pos`` (a batch that does not divide by the
+    data shards replicates, as ``batch_specs`` says, and so does the
+    cache's batch dim), runs the decode layers on the rank's heads
+    where a region holds them, updates the rank's cache blocks in
+    place, and returns the global logits: gathered over "model" where
+    the vocabulary is split, then over the data axes.  A MoE layer
+    routes the batch gathered over the data axes where a rank's rows do
+    not fill whole groups (``moe_apply``), as one device groups them.
+
+    On more than one rank the row-parallel out-projections and the
+    vocab-parallel sums add fp32 partial sums in another order than one
+    device: not bitwise."""
+    mesh = make_local_mesh(device="meta") if mesh is None else mesh
+    layout = ShardLayout(cfg, mesh, mode=mode)
+    rows = DataRows(mesh, layout.data)
+
     def serve_step(model, cache, tokens, pos):
-        return dec.serve_step(model, cfg, cache, tokens, pos)
+        split = tokens.shape[0] % rows.n == 0
+        if split:
+            tokens = rows.take(tokens)
+            if getattr(pos, "ndim", 0) == 1:
+                pos = rows.take(torch.as_tensor(pos))
+        view = layout.view(model, rows=rows if split and rows.n > 1
+                           else None)
+        logits, cache = dec.serve_step(view, cfg, cache, tokens, pos)
+        with torch.no_grad():
+            if view["embed"].tp is not None:
+                logits = _all_gather(logits, mesh, 2, "model")
+            if split:
+                logits = rows.gather(logits)
+        return logits, cache
+
+    serve_step.layout = layout
     return serve_step
 
 
 def init_train_state(cfg: ModelConfig, opt: OptConfig, *, seed: int = 0,
-                     device="cuda", model=None, mesh=None) -> Dict[str, Any]:
+                     device="cuda", model=None, mesh=None,
+                     mode: str = "train") -> Dict[str, Any]:
     """A fresh train state: ``model`` or the family's ``Model`` with random
     weights from ``seed`` on ``device`` (default ``"cuda"``; raises
     without a GPU), zero fp32 moments, and zero error-feedback buffers
     with ``opt.compress_grads``.  On a ``mesh`` every rank builds the
-    same global model and keeps its block of each parameter
-    (``ShardLayout.shard_``; the whole of it on one rank); moments and
-    error buffers are made from the blocks, so they shard like their
-    parameters."""
+    same global model and keeps its block of each parameter under
+    ``mode``'s specs (``ShardLayout.shard_``; the whole of it on one
+    rank; "infer_tp" for a decode step that keeps the weights whole over
+    the data axes); moments and error buffers are made from the blocks,
+    so they shard like their parameters."""
     dev = resolve_device(device)
     if model is None:
         model = mdl.Model(cfg, device=dev, seed=seed)
     if mesh is not None:
-        ShardLayout(cfg, mesh).shard_(model)
+        ShardLayout(cfg, mesh, mode=mode).shard_(model)
     params = dict(model.named_parameters())
     state = {"params": model, "opt": init_opt_state(params)}
     if opt.compress_grads:

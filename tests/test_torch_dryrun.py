@@ -41,13 +41,16 @@ import torch_mesh_train_ranks as R  # noqa: E402
 from repro.configs import archs as jarchs  # noqa: E402
 from repro.distributed import ctx as jctx  # noqa: E402
 from repro.launch import report as jreport  # noqa: E402
+from repro.models import decode as jdec  # noqa: E402
 from repro_torch.configs import archs as tarchs  # noqa: E402
 from repro_torch.distributed import ctx as tctx  # noqa: E402
-from repro_torch.distributed.sharding import ShardLayout, block  # noqa: E402
+from repro_torch.distributed.sharding import (  # noqa: E402
+    ShardLayout, block, cache_leaves)
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import sata_attention as sa  # noqa: E402
 from repro_torch.kernels import sata_decode as sd  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import inputs as tinputs  # noqa: E402
 from repro_torch.launch import report as treport  # noqa: E402
 from repro_torch.launch import roofline as troof  # noqa: E402
 from repro_torch.launch.mesh import ShardMesh  # noqa: E402
@@ -60,7 +63,6 @@ from repro_torch.train.step import init_train_state, \
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 WORKER = pathlib.Path(R.__file__)
-A6 = "queue A item 6"
 
 
 def _env():
@@ -228,6 +230,36 @@ def test_kernel_routes_by_device():
                    None)
 
 
+# (form, the write, bytes counted): a (6, 4, 8) fp32 destination and two
+# int64 row indices (16 B); the written elements are the broadcast index
+# shape's rows, never the whole destination (768 B)
+_ROW_WRITE_CASES = {
+    "rows": ((2, 4, 8), lambda d, i, v: d.index_put_((i,), v),
+             16 + 256 + 256),
+    "scalar fill": ((), lambda d, i, v: d.index_put_((i,), v),
+                    16 + 4 + 256),
+    "accumulate": ((2, 4, 8), lambda d, i, v: d.index_put_(
+        (i,), v, accumulate=True), 16 + 256 + 2 * 256),
+    "inner dim": ((6, 2, 8), lambda d, i, v: d.__setitem__(
+        (slice(None), i), v), 16 + 384 + 384),
+}
+
+
+@pytest.mark.parametrize("form", sorted(_ROW_WRITE_CASES))
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_row_write_counts_the_elements_it_writes(form, device):
+    """An in-place ``index_put_`` counts its indices, its values and the
+    elements it writes (broadcast from the values; read as well with
+    ``accumulate``), the same on meta and on the CPU."""
+    shape, write, want = _ROW_WRITE_CASES[form]
+    dst = torch.zeros((6, 4, 8), device=device)
+    idx = torch.tensor([1, 3], device=device)
+    values = torch.ones(shape, device=device)
+    with dryrun.WorkCounter() as c:
+        write(dst, idx, values)
+    assert (c.ops, c.bytes) == (1, want), (c.by_op, want)
+
+
 _INDEX_PUT = torch.Tensor.index_put
 
 
@@ -285,11 +317,16 @@ def test_smoke_moe_loss_runs_on_meta():
 # run_cell on a fake world
 # ---------------------------------------------------------------------------
 
-def _small(monkeypatch, train=(128, 32), prefill=(128, 32)):
+def _small(monkeypatch, train=(128, 32), prefill=(128, 32), decode=(64, 4),
+           long=(128, 2)):
     monkeypatch.setitem(tarchs.SHAPES, "train_4k",
                         tarchs.ShapeSpec("train_4k", *train, "train"))
     monkeypatch.setitem(tarchs.SHAPES, "prefill_32k",
                         tarchs.ShapeSpec("prefill_32k", *prefill, "prefill"))
+    monkeypatch.setitem(tarchs.SHAPES, "decode_32k",
+                        tarchs.ShapeSpec("decode_32k", *decode, "decode"))
+    monkeypatch.setitem(tarchs.SHAPES, "long_500k",
+                        tarchs.ShapeSpec("long_500k", *long, "decode"))
 
 
 def _blocks_bytes(cfg, mesh, batch_bytes, train):
@@ -352,15 +389,227 @@ def test_fake_world_collective_bytes_equal_a_gloo_world(monkeypatch,
     assert all(want[c].get("all-reduce", 0) > 0 for c in want)
 
 
-def test_decode_cells_wait_for_roadmap_item(monkeypatch, tmp_path):
-    for shape in ("decode_32k", "long_500k"):
-        with pytest.raises(NotImplementedError, match=A6):
-            dryrun.run_cell("rwkv6-1.6b", shape, False, save=False)
+# ---------------------------------------------------------------------------
+# the decode cells
+# ---------------------------------------------------------------------------
+
+DECODE_CELLS = [(a, s) for a in tarchs.SMOKE for s in ("decode_32k",
+                                                       "long_500k")
+                if tarchs.cell_enabled(a, s)]
+
+
+def _attention_layers(cfg) -> int:
+    """The self-attention layers a decode step runs (each one decode
+    kernel call): hybrid's shared-block applications, vlm's self layers,
+    none for ssm."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_period
+    if cfg.family == "vlm":
+        return len(tmdl.Model(cfg, device="meta")["layers"])
+    return cfg.n_layers
+
+
+def _cpu_decode_step(cfg, shape, mesh_shape, mode):
+    """The decode cell's step again on CPU tensors, on a fake world of
+    the same shape (its collectives move nothing either): the counts
+    and the rank's argument bytes."""
+    from repro_torch.launch.mesh import fake_world, make_train_mesh
+    from repro_torch.models import decode as tdec
+    from repro_torch.train.step import make_serve_step
+    b, s = shape.global_batch, shape.seq_len
+    with fake_world(int(np.prod(mesh_shape))):
+        mesh = make_train_mesh(*mesh_shape, device="cpu")
+        cache = ShardLayout(cfg, mesh).block_cache(
+            tdec.init_cache(cfg, b, s, device="cpu"))
+        model = init_train_state(cfg, OptConfig(), device="cpu", mesh=mesh,
+                                 mode=mode)["params"]
+        step = make_serve_step(cfg, mesh=mesh, mode=mode)
+        tokens = torch.zeros((b, 1), dtype=torch.int32)
+        pos = torch.zeros((), dtype=torch.int32)
+        with dryrun.WorkCounter() as c:
+            step(model, cache, tokens, pos)
+        held = [*model.parameters(), *dryrun._tensors(cache)]
+        nd = np.prod([mesh.shape[a] for a in step.layout.data])
+        return c.summary(), sum(t.nbytes for t in held) + \
+            tokens.nbytes // (nd if b % nd == 0 else 1)
+
+
+@pytest.mark.parametrize("arch,shape", DECODE_CELLS)
+def test_decode_cell_on_a_small_fake_world(monkeypatch, tmp_path, arch,
+                                           shape):
+    """A decode cell of every family on a (2, 2) fake world at SMOKE
+    widths: ok, "cp" false, the weights' mode and the rank's cache bytes
+    recorded; one decode kernel call per attention layer; the argument
+    bytes the rank's parameter and cache blocks and its tokens; the
+    counts (FLOPs, bytes, ops, kernels) those of the same step on CPU
+    tensors (the peak is not: on the CPU the plain version's own
+    buffers are live inside a kernel call); the logits' (B, 1, V) fp32
+    the output."""
+    _small(monkeypatch)
     monkeypatch.setattr(dryrun, "RESULTS", tmp_path)
+    cfg = dryrun.main_path_cfg(tarchs.SMOKE[arch])
+    r = dryrun.run_cell(arch, shape, False, cfg=cfg, verbose=False,
+                        mesh_shape=(2, 2))
+    spec = tarchs.SHAPES[shape]
+    assert r["ok"] and r["cp"] is False and r["mesh"] == {"data": 2,
+                                                          "model": 2}
+    assert r["param_mode"] == "infer_tp"
+    assert json.loads((tmp_path / f"{r['cell']}.json").read_text()) == r
+    n_attn = _attention_layers(cfg)
+    calls = r["kernels"].get("sata_decode_attention_kernel", {}).get(
+        "calls", 0)
+    assert calls == n_attn and set(r["kernels"]) <= {
+        "sata_decode_attention_kernel"}
+    cpu, args = _cpu_decode_step(cfg, spec, (2, 2), r["param_mode"])
+    assert r["memory"]["argument_size_in_bytes"] == args
+    cache, _, _ = tinputs.decode_specs_for(cfg, spec)
+    mesh = ShardMesh(("data", "model"), {"data": 2, "model": 2}, None, 0,
+                     torch.device("meta"))
+    assert r["cache_bytes_rank"] == sum(
+        t.nbytes for t in dryrun._tensors(
+            ShardLayout(cfg, mesh).block_cache(cache)))
+    assert r["memory"]["output_size_in_bytes"] == \
+        spec.global_batch * cfg.vocab_size * 4
+    for k in ("flops", "bytes", "ops", "kernels"):
+        got = r["kernels"] if k == "kernels" else \
+            r["cost"]["bytes accessed" if k == "bytes" else k]
+        assert got == cpu[k], (k, got, cpu[k])
+    assert r["memory"]["temp_size_in_bytes"] > 0
+
+
+def test_decode_cells_run_from_the_cli(monkeypatch, tmp_path):
+    """``main`` runs a decode cell like any other: no "waiting" list,
+    an ok record, the full-depth weights' mode kept by a roofline
+    probe (``param_mode``)."""
+    _small(monkeypatch)
+    monkeypatch.setattr(dryrun, "RESULTS", tmp_path)
+    monkeypatch.setitem(tarchs.ARCHS, "qwen3-4b", tarchs.SMOKE["qwen3-4b"])
     dryrun.main(["--arch", "qwen3-4b", "--shape", "decode_32k"])
     rec = json.loads((tmp_path / "qwen3-4b__decode_32k__pod1.json")
                      .read_text())
-    assert rec["ok"] is False and A6 in rec["error"]
+    assert rec["ok"] and rec["param_mode"] == "infer_tp"
+    forced = dryrun.run_cell("qwen3-4b", "decode_32k", False, save=False,
+                             verbose=False, param_mode="train")
+    assert forced["param_mode"] == "train"
+    assert forced["memory"]["argument_size_in_bytes"] < \
+        rec["memory"]["argument_size_in_bytes"]
+
+
+def _reference_cache_bytes(jc, shape) -> int:
+    cache = jax.eval_shape(lambda: jdec.init_cache(jc, shape.global_batch,
+                                                   shape.seq_len))
+    return sum(int(np.prod(x.shape)) * x.dtype.itemsize
+               for x in jax.tree_util.tree_leaves(cache))
+
+
+@pytest.mark.parametrize("arch", list(jarchs.ARCHS))
+def test_decode_param_mode_is_the_references_rule(arch):
+    """``decode_param_mode`` at the reference's 15e9 budget and its
+    ``cache / n_dev`` gives the reference's inline decision
+    (``repro.launch.dryrun``'s decode branch, at ``ARCHS``' configs and
+    a ``jax.eval_shape`` of its ``init_cache``), for every cell; the
+    tensor-parallel weight bytes are its ``tp_w``."""
+    jc, tc = jarchs.ARCHS[arch], tarchs.ARCHS[arch]
+    mesh = ShardMesh(("data", "model"), {"data": 16, "model": 16}, None, 0,
+                     torch.device("meta"))
+    n_model, n_dev = 16, 256
+    expert = (jc.n_layers * jc.n_experts * 3 * jc.d_model * jc.d_ff
+              if jc.moe else 0)
+    tp_w = (jc.param_count() - expert) * 2 / n_model + expert * 2 / n_dev
+    assert dryrun.tp_weight_bytes(tc, mesh) == tp_w
+    for name, shape in jarchs.SHAPES.items():
+        if shape.kind != "decode" or not jarchs.cell_enabled(arch, name):
+            continue
+        cache_b = _reference_cache_bytes(jc, shape) / n_dev
+        want = "infer_tp" if tp_w + cache_b <= 15e9 else "train"
+        assert dryrun.decode_param_mode(tc, mesh, cache_b, 15e9) == want, \
+            (arch, name)
+    assert dryrun.DECODE_HBM_BUDGET == 75e9
+
+
+def _fill(t, salt):
+    """A leaf of distinct entries (bools alternate)."""
+    n = torch.arange(t.numel()).reshape(t.shape) + salt
+    if t.dtype == torch.bool:
+        return (n % 2).bool()
+    return (n % 1000).to(t.dtype)
+
+
+@pytest.mark.parametrize("m", [2, 16])
+@pytest.mark.parametrize("arch", list(tarchs.ARCHS))
+def test_cache_blocks_partition_the_cache(arch, m):
+    """Every rank's ``block_cache`` blocks of a whole serving cache
+    (``ARCHS``' widths at one unit of depth, 2 slots, 128 positions;
+    both layouts where the family serves them; a (2, m) mesh) put back
+    in rank order (``Packed`` channels through the inverse permutation)
+    cover it exactly: the round trip ``gather_cache`` makes on a world
+    (run at m = 2 on gloo ranks by ``tests/test_torch_serve_mesh.py``).
+    At m = 16 the KV heads split only where ``ShardLayout`` builds the
+    attention's region (olmo-1b and zamba2-2.7b), mamba2's ssm heads and
+    rwkv6's heads always."""
+    from repro_torch.distributed.sharding import Packed, entry_axes
+    from repro_torch.models import decode as tdec
+    from repro_torch.models.config import KVCacheConfig, SataDecodeConfig
+    base = tarchs.ARCHS[arch]
+    unit = base.hybrid_period if base.family == "hybrid" else (
+        base.cross_attn_period if base.family == "vlm" else 1)
+    layouts = ("contiguous",) if base.family in ("vlm", "ssm") else (
+        "contiguous", "paged")
+    sizes = {"data": 2, "model": m}
+    split = {}
+    for layout in layouts:
+        cfg = dataclasses.replace(
+            base, n_layers=unit, encoder_layers=1, dtype="float32",
+            sata=dataclasses.replace(base.sata, decode=SataDecodeConfig(
+                mode="on", block=64)), kv=KVCacheConfig(layout=layout))
+        whole = tdec.init_cache(cfg, 2, 128, device="cpu")
+        leaves = dict(cache_leaves(whole))
+        for i, path in enumerate(sorted(leaves)):
+            leaves[path].copy_(_fill(leaves[path], i))
+        meshes = [ShardMesh(("data", "model"), sizes, None, r,
+                            torch.device("cpu")) for r in range(2 * m)]
+        specs = ShardLayout(cfg, meshes[0]).cache_specs(whole)
+        seen = {p: torch.zeros(t.shape, dtype=torch.int32)
+                for p, t in leaves.items()}
+        for mesh in meshes:
+            blocks = dict(cache_leaves(
+                ShardLayout(cfg, mesh).block_cache(whole)))
+            for path, t in leaves.items():
+                spec, idx = specs[path], []
+                for dim, entry in enumerate(spec):
+                    n = int(np.prod([sizes[a] for a in entry_axes(entry)]))
+                    size = t.shape[dim] // n
+                    lo = mesh.coord(entry_axes(entry)) * size if n > 1 else 0
+                    ix = torch.arange(lo, lo + size)
+                    if isinstance(spec, Packed) and dim == spec.dim and n > 1:
+                        ix = spec.order(n)[ix]
+                    idx.append(ix)
+                grid = torch.meshgrid(*idx, indexing="ij")
+                assert torch.equal(t[grid], blocks[path]), (path, mesh.index)
+                seen[path][grid] += 1
+        for path, t in leaves.items():
+            # each entry lies in one block per rank that holds the leaf
+            copies = int(np.prod([n for a, n in sizes.items()
+                                  if a not in {x for e in specs[path]
+                                               for x in entry_axes(e)}]))
+            assert bool((seen[path] == copies).all()), path
+            split[(layout, path)] = specs[path]
+    heads = {p: s for (lay, p), s in split.items() if lay == "contiguous"}
+    region = m == 2 or arch in ("olmo-1b", "zamba2-2.7b")
+    group = {"hybrid": "shared_kv", "ssm": None}.get(base.family, "kv")
+    if group is not None:
+        assert (heads[(group, "k")][3] == "model") == region
+        assert heads[(group, "plan", "kv_indices")][2] == \
+            heads[(group, "k")][3]
+        assert heads[(group, "plan", "step")] == (None, "data")
+    if base.family == "hybrid":
+        assert isinstance(heads[("mamba", "conv")], Packed)
+        assert heads[("mamba", "ssm")][2] == "model"
+    if base.family == "ssm":
+        assert heads[("rwkv", "state")][2] == "model"
+        assert heads[("rwkv", "tm_x")] == (None, "data", None)
 
 
 def test_run_cell_refuses_an_initialised_group_and_leaves_none(
@@ -423,7 +672,7 @@ print("JSON" + json.dumps(out))
 
 
 def _stub_measure(monkeypatch, calls):
-    def measure(arch, shape_name, cfg):
+    def measure(arch, shape_name, cfg, param_mode=None):
         f, b, c = PROBES[len(calls)]
         calls.append(cfg.n_layers)
         return f, b, c, {"memory": {"argument_size_in_bytes": 0,

@@ -29,6 +29,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import blockmap as jbm  # noqa: E402
 from repro.core import masks as jm  # noqa: E402
+from repro_torch.configs import archs as tarchs  # noqa: E402
 from repro_torch.core import blockmap as tbm  # noqa: E402
 from repro_torch.core import masks as tm  # noqa: E402
 from repro_torch.launch import roofline as troof  # noqa: E402
@@ -192,19 +193,28 @@ def test_analyse_kernel_matches_committed_reference(occ, tmp_path):
         / max(t["memory_compact_s"], t["compute_s"]))
 
 
-def test_roofline_cli_and_unported_cell_roofline(tmp_path, capsys):
+def test_roofline_cli_and_unported_cell_roofline(tmp_path, capsys,
+                                                monkeypatch):
     troof.main(["--kernel", "--out-dir", str(tmp_path)])
     lines = capsys.readouterr().out.splitlines()
     assert len(lines) == 3 and all(str(tmp_path) in x for x in lines)
     assert len(list(tmp_path.glob("sata_kernel__*.json"))) == 3
-    # the per-cell roofline runs the train and prefill cells
-    # (tests/test_torch_dryrun.py); the decode cells wait for queue A
-    # item 6, and the CLI needs a cell, --all, --table or --kernel
-    for call in (lambda: troof.analyse_cell("qwen3-4b", "decode_32k"),
-                 lambda: troof.analyse_cell("rwkv6-1.6b", "long_500k"),
-                 lambda: troof._measure("qwen3-4b", "decode_32k", None)):
-        with pytest.raises(NotImplementedError, match="queue A item 6"):
-            call()
+    # the per-cell roofline runs every cell (the train and prefill cells:
+    # tests/test_torch_dryrun.py); a decode cell counts one token a row,
+    # its probes keep the full-depth cell's weights' mode and rwkv6 adds
+    # no scan term; the CLI needs a cell, --all, --table or --kernel
+    monkeypatch.setattr(troof, "OUT_DIR", tmp_path / "cells")
+    for arch, shape in (("qwen3-4b", "decode_32k"),
+                        ("rwkv6-1.6b", "long_500k")):
+        r = troof.analyse_cell(arch, shape, verbose=False)
+        spec = tarchs.SHAPES[shape]
+        cfg = tarchs.ARCHS[arch]
+        assert r["param_mode"] == "infer_tp"
+        assert r["model_flops"] == 2 * cfg.active_param_count() * \
+            spec.global_batch
+        assert r["per_device"]["rwkv_scan_flops"] == 0
+        assert r["dominant"] == "memory"
+        assert (tmp_path / "cells" / f"{arch}__{shape}__pod1.json").exists()
     with pytest.raises(SystemExit):
         troof.main([])
 
