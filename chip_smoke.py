@@ -75,7 +75,10 @@ each prints its host seconds as a ``[phase]`` line):
      at the main shape, the rows where the kernel admits other keys than
      the chunked route's backward recompute selects (reported); the
      cases include zamba2-2.7b's shared block (BH 32, S 512, D 80, blocks
-     128, causal threshold mode, top-k 64) in bf16 and fp32;
+     128, causal threshold mode, top-k 64) in bf16 and fp32, and a
+     context-parallel rank's call (``rows_case``, phase 25's cp job:
+     BH 32, its 2,048 query rows at q_pos 2,048.. against 4,096 keys,
+     causal threshold mode, top-k 64, bf16, D 128);
   7. the main path: ``launch.train.train`` on full-width qwen3-4b cut to
      TRAIN_LAYERS = 2 of its 36 layers (cut to make room for phase
      25 in the run's time limit), chunked selection
@@ -251,7 +254,13 @@ each prints its host seconds as a ``[phase]`` line):
      embedding, unembed and loss: its (B, S, V / 2) logits); and
      full-width qwen3-moe-235b-a22b cut to MESH_MOE_LAYERS = 1 layer
      (phase 17's depth), batch 1, S 4096, on (1, 2): a rank runs 64 of
-     the 128 experts, 32 of 64 heads, half the vocabulary.  Each: losses
+     the 128 experts, 32 of 64 heads, half the vocabulary; and qwen3-4b
+     again on (1, 2) with context parallelism on
+     (``distributed.ctx.set_context_parallel`` under the ``seq_shard``
+     specs): a rank runs all 32 heads on its 2,048 of the 4,096 rows
+     against every key (B3 at Sq 2,048), the MLP, embedding and unembed
+     in their regions entered through the sequence's all-gather, its
+     attention weights (4 leaves a layer) gathered.  Each: losses
      and grad norms against the parent's one-device ``train`` of the
      same model and batches (MESH_TRAIN_RTOL, phase 8's 2e-3), B3
      launched layers x steps x 2 a rank (the counts read in each rank
@@ -1018,15 +1027,46 @@ def d80_case(torch, dev, dtype):
                      topk=64)
 
 
+def rows_case(torch, dev, *, bh=32, sq=2048, sk=4096, d=128, blk=128,
+              topk=64, seed=29):
+    """A context-parallel rank's B3 call (phase 25's cp job): the last
+    ``sq`` of ``sk`` query rows, their ``q_pos`` offset by ``sk - sq``,
+    against all ``sk`` keys, causal threshold mode in bf16, the chunked
+    planner's own thresholds and block map over those rows."""
+    from repro_torch.core.blockmap import compact_kv_plan
+    from repro_torch.core.selection import select_thresholds_chunked
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((bh, sq, d), generator=g).to(dev, torch.bfloat16)
+    k, v = (torch.randn((bh, sk, d), generator=g).to(dev, torch.bfloat16)
+            for _ in range(2))
+    q_pos = torch.arange(sk - sq, sk, dtype=torch.int32, device=dev)
+    k_pos = torch.arange(sk, dtype=torch.int32, device=dev)
+    thr, bm = select_thresholds_chunked(
+        q, k, topk, q_pos=q_pos, k_pos=k_pos, causal=True,
+        chunk=min(1024, sq), q_block=blk, k_block=blk)
+    idx, cnt = compact_kv_plan(bm)
+    return dict(q=q, k=k, v=v, qb=blk, kb=blk, mode="threshold",
+                causal=True, bm=bm, idx=idx, cnt=cnt,
+                sel=dict(thresholds=thr, causal=True,
+                         q_pos=q_pos[None, :, None].expand(bh, sq, 1),
+                         k_pos=k_pos[None, :, None].expand(bh, sk, 1)))
+
+
+ATTN_ROWS = "rows_BH32_Sq2048_Sk4096_D128_blk128_threshold_causal_bf16"
+
+
 def attn_cases(torch, dev):
     """Phase 6's inputs: the training shape in threshold mode, the
     dense-selection shape in mask mode, zamba2's D = 80 shape (bf16 and
-    fp32), then edge cases: D in {16, 32, 64, 128}, q/k blocks 16..128
-    (unequal too), every mode causal and not, fp32 and bf16."""
+    fp32), a context-parallel rank's rows (``rows_case``: Sq 2,048 at
+    q_pos 2,048.. against Sk 4,096), then edge cases: D in {16, 32, 64,
+    128}, q/k blocks 16..128 (unequal too), every mode causal and not,
+    fp32 and bf16."""
     f32, bf16 = torch.float32, torch.bfloat16
     yield "main_BH32_S4096_D128_blk128_threshold_causal_bf16", attn_case(
         torch, bh=32, s=4096, d=128, qb=128, kb=128, dtype=bf16,
         mode="threshold", causal=True, seed=0, device=dev, topk=64)
+    yield ATTN_ROWS, rows_case(torch, dev)
     yield "BH32_S2048_D128_blk128_mask_bf16", attn_case(
         torch, bh=32, s=2048, d=128, qb=128, kb=128, dtype=bf16,
         mode="mask", causal=False, seed=1, device=dev)
@@ -3643,9 +3683,16 @@ MESH_ZAMBA_TRAIN = dict(batch=1, seq=4096, steps=MESH_TRAIN_STEPS, seed=0)
 MESH_RWKV, MESH_RWKV_LAYERS = "rwkv6-1.6b", 2
 MESH_RWKV32 = MESH_RWKV + " fp32"
 MESH_RWKV_TRAIN = dict(batch=1, seq=1024, steps=MESH_TRAIN_STEPS, seed=0)
-MESH_TRAIN_RUNS = (("qwen3-4b", (2, 1)), ("qwen3-4b", (1, 2)),
-                   (MESH_MOE, (1, 2)), (MESH_ZAMBA, (1, 2)),
-                   (MESH_RWKV32, (1, 2)), (MESH_RWKV, (1, 2)))
+# (run, mesh shape, context parallelism): qwen3-4b on (1, 2) a second
+# time with ``distributed.ctx.set_context_parallel(True)`` under the
+# ``seq_shard`` specs (the reference dry run's train layout): a rank runs
+# every head on its 2,048 of the 4,096 rows against all 4,096 keys, the
+# MLP, embedding and unembed in their regions entered through the
+# sequence's all-gather
+MESH_TRAIN_RUNS = (("qwen3-4b", (2, 1), False), ("qwen3-4b", (1, 2), False),
+                   ("qwen3-4b", (1, 2), True), (MESH_MOE, (1, 2), False),
+                   (MESH_ZAMBA, (1, 2), False), (MESH_RWKV32, (1, 2), False),
+                   (MESH_RWKV, (1, 2), False))
 # the leaves each run gathers over "model" (ShardLayout's docstring):
 # zamba2's shared_in only
 MESH_GATHERED = {MESH_ZAMBA: 1}
@@ -3832,17 +3879,22 @@ class RegionProbe:
             setattr(m, n, f)
 
 
+def mesh_train_key(name, shape, cp):
+    return f"train {name} {shape}{' cp' if cp else ''}"
+
+
 def mesh_train_rank(torch, dev, res, train_runs):
-    """Phase 25 in one rank: ``train(mesh=)`` of each (arch, mesh shape)
-    of ``train_runs``, the prefill kernels' counts set to 0 just before
-    and read just after; then the rank's first B3 call held to its plain
-    version."""
+    """Phase 25 in one rank: ``train(mesh=)`` of each (arch, mesh shape,
+    context parallelism) of ``train_runs``, the prefill kernels' counts
+    set to 0 just before and read just after; then the rank's first B3
+    call held to its plain version."""
+    from repro_torch.distributed import ctx
     from repro_torch.distributed.sharding import ShardLayout
     from repro_torch.kernels import sata_attention as sa
     from repro_torch.launch import mesh as M
     from repro_torch.launch.train import train
     cuda = dev.type == "cuda"
-    for name, shape in train_runs:
+    for name, shape, cp in train_runs:
         arch, cfg, run = mesh_train_setup(name)
         model = mesh_train_model(name, dev, run)
         mesh = M.make_train_mesh(*shape, device=dev)
@@ -3850,12 +3902,19 @@ def mesh_train_rank(torch, dev, res, train_runs):
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
+        ctx.set_activation_shardings(ctx.make_activation_shardings(
+            mesh, cfg, seq_shard=cp), mesh=mesh)
+        ctx.set_context_parallel(cp)
         reset_attn_counts(sa)
         t0 = time.time()
-        with FirstCall("_block_attention_compact") as rec, \
-                RegionProbe() as probe:
-            out = train(arch, cfg=cfg, model=model, mesh=mesh,
-                        log_every=100, **run)
+        try:
+            with FirstCall("_block_attention_compact") as rec, \
+                    RegionProbe() as probe:
+                out = train(arch, cfg=cfg, model=model, mesh=mesh,
+                            log_every=100, **run)
+        finally:
+            ctx.set_context_parallel(False)
+            ctx.clear()
         wall = time.time() - t0
         counts = attn_counts(sa)
         peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
@@ -3867,18 +3926,19 @@ def mesh_train_rank(torch, dev, res, train_runs):
             a_k, a_p = admitted_buffer(torch, c), admitted_buffer(torch, c)
             got = run_attn(sa, c, plain=False, admitted=a_k)
             want = run_attn(sa, c, plain=True, admitted=a_p)
-            err = compare(torch, f"B3 on rank {mesh.index}'s heads, {name} "
-                          f"mesh {shape}", got, want, a_k, a_p,
+            err = compare(torch, f"B3 on rank {mesh.index}'s "
+                          f"{'rows' if cp else 'heads'}, {name} mesh "
+                          f"{shape}", got, want, a_k, a_p,
                           attn_window(torch, sa, c))
             rows = tuple(c["q"].shape)
             del c, got, want, a_k, a_p
         del rec
-        res[f"train {name} {shape}"] = dict(
+        res[mesh_train_key(name, shape, cp)] = dict(
             losses=out["losses"], gnorms=out["gnorms"], step_s=out["step_s"],
             wall=wall, launches=counts, peak=peak, staged=staged, err=err,
             rows=rows, experts=sorted(probe.experts),
             vocab=sorted(probe.vocab), route=probe.route,
-            leaves=ShardLayout(cfg, mesh).counts())
+            leaves=ShardLayout(cfg, mesh, cp=cp).counts())
 
 
 def mesh_rank(rank, world, tmp, device, dshape, sshape, train_runs=(),
@@ -4052,11 +4112,14 @@ def mesh_train_check(ranks, refs, train_runs, tag):
     """Phase 25's checks on the ranks' results; returns B3's launches on
     the meshes, summed over the ranks."""
     total = 0
-    for name, shape in train_runs:
+    for name, shape, cp in train_runs:
         arch, cfg, run = mesh_train_setup(name)
         ref, m = refs[name], shape[1]
         want = mesh_b3_launches(cfg, run["steps"])
-        key = f"train {name} {shape}"
+        key = mesh_train_key(name, shape, cp)
+        # context-parallel: the attention's weights gathered over "model"
+        # (wq, wk, wv, wo a layer), B3 on the rank's S / m query rows
+        gathered = 4 * cfg.n_layers if cp else MESH_GATHERED.get(arch, 0)
         for r, res in enumerate(ranks):
             t = res[key]
             n_b3, n_b4 = t["launches"]
@@ -4076,17 +4139,21 @@ def mesh_train_check(ranks, refs, train_runs, tag):
                 note = (f"; step 0's grad norm against fp32 arithmetic on "
                         f"the same weights {rel(t['gnorms'][0], g32):.3e} "
                         f"(one device's {rel(ref['gnorms'][0], g32):.3e})")
-            if (arch, shape) == ("qwen3-4b", (1, 2)):
+            if (arch, shape, cp) == ("qwen3-4b", (1, 2), False):
                 note = (f" (with the embedding gathered: "
                           f"{TP_GATHERED['staged_mb']:,} MB, "
                           f"{TP_GATHERED['peak_gib']} GiB, step s "
                           f"{TP_GATHERED['step_s'][0]}-"
                           f"{TP_GATHERED['step_s'][1]})")
             b3_line = "no B3 call" if t["rows"] is None else (
+                f"B3 on the rank's {t['rows'][0]} (B x H) x "
+                f"{t['rows'][1]} query rows vs plain max_abs_err "
+                f"{t['err']:.3e}" if cp else
                 f"B3 on the rank's {t['rows'][0]} (B x H / m) rows vs "
                 f"plain max_abs_err {t['err']:.3e}")
             log(f"[mesh-train] rank {r}/{MESH_RANKS} {name} mesh {shape} "
-                f"(data, model): losses {t['losses']}, grad norms "
+                f"(data, model){', context-parallel' if cp else ''}: "
+                f"losses {t['losses']}, grad norms "
                 f"{t['gnorms']}; relative to one device: losses "
                 f"{[f'{x:.3e}' for x in rel_l]}, grad norms "
                 f"{[f'{x:.3e}' for x in rel_g]}; step s "
@@ -4112,9 +4179,11 @@ def mesh_train_check(ranks, refs, train_runs, tag):
             assert t["vocab"] == [cfg.vocab_size // m], (key, r, t["vocab"])
             assert t["experts"] == ([cfg.n_experts // m] if cfg.moe
                                     else []), (key, r, t["experts"])
-            assert t["leaves"]["gathered_over_model"] == \
-                MESH_GATHERED.get(arch, 0), (key, r, t["leaves"])
+            assert t["leaves"]["gathered_over_model"] == gathered, \
+                (key, r, t["leaves"])
             assert (t["rows"] is None) == (want == 0), (key, r)
+            if cp:
+                assert t["rows"][1] == run["seq"] // m, (key, r, t["rows"])
         assert ranks[0][key]["losses"] == ranks[1][key]["losses"], key
     return total
 
@@ -4565,7 +4634,7 @@ def mesh_phase(torch, sd, dev, tag, dshape=MESH_DECODE, sshape=MESH_SEQ,
     t_ref = time.time() - t0
     t0 = time.time()
     tref = mesh_train_reference(torch, dev, tag, dict.fromkeys(
-        name for name, _ in train_runs))
+        name for name, *_ in train_runs))
     t_train_ref = time.time() - t0
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -5476,8 +5545,9 @@ def main() -> int:
     n_b1, n_b2, n_b3, n_serve = mesh_phase(torch, sd, dev, tag)
     kernels[0]["paths"]["24 tensor-parallel decode"] = n_b1
     kernels[1]["paths"]["24 tensor-parallel decode"] = n_b2
-    kernels[2]["paths"]["25 train(mesh=): qwen3-4b (2, 1) + (1, 2), "
-                        "qwen3-moe, zamba2, rwkv6 bf16 and fp32 (1, 2)"] = n_b3
+    kernels[2]["paths"]["25 train(mesh=): qwen3-4b (2, 1) + (1, 2) + "
+                        "(1, 2) context-parallel, qwen3-moe, zamba2, rwkv6 "
+                        "bf16 and fp32 (1, 2)"] = n_b3
     path = ("27 make_serve_step(mesh=) (1, 2): qwen3-4b, zamba2, rwkv6, "
             "qwen3-moe, bf16 and fp32; (2, 1): qwen3-moe")
     kernels[0]["paths"][path] = n_serve["paged"]

@@ -14,12 +14,16 @@ reference, and ``constrain`` returns ``x`` unchanged.
 instead of its kernel); the port's mesh training keeps the kernel route,
 on each rank's heads.
 
-The context-parallel layout (``set_context_parallel``, ``cp_enabled``
-and the specs ``cp_q_spec`` / ``cp_kv_spec`` / ``cp_scores_spec``, the
-reference's ``constrain_cp_*``) is kept for parity and for the dry run,
-which records whether it was asked for: the port's attention does not
-read it.  Its mesh step stays head-parallel, with the SATA kernel on a
-rank's heads (a stated divergence, ROADMAP).
+``set_context_parallel`` is the switch of the context-parallel layout,
+as in the reference: with a mesh installed (``cp_enabled()``), the
+train and prefill steps made then (``train.step.make_train_step`` /
+``make_prefill_step``) compute each rank's layers on its contiguous
+1/m of the sequence over "model" (``distributed.sharding.SeqShard``),
+the attention on the rank's query rows against the whole sequence's
+K/V, with the SATA kernel on those rows.  The specs ``cp_q_spec`` /
+``cp_kv_spec`` / ``cp_scores_spec`` (the reference's
+``constrain_cp_*``) are kept for the caller to read: that layout is
+what the steps build.  The serving step never reads the switch.
 """
 from __future__ import annotations
 

@@ -33,6 +33,13 @@ packed in-projection through a ``Packed`` spec), the MoE experts expert-
 or d_ff-parallel
 (``ExpertParallel``), the embedding, unembed and loss vocab-parallel
 (``VocabParallel``).
+
+Under context parallelism (``ShardLayout(cp=True)``, the train and
+prefill steps' layout under ``distributed.ctx.set_context_parallel``) a
+rank's residual stream holds its contiguous 1/m of the sequence over
+"model" (``SeqShard``): every region enters through an all-gather of
+the sequence and leaves through a reduce-scatter of its partial sums,
+and the attention runs on the rank's query rows against every key.
 """
 from __future__ import annotations
 
@@ -421,30 +428,92 @@ class _ScatterSum(torch.autograd.Function):
 
 
 @dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """Context parallelism over ``axis``: the residual stream (B, S, D)
+    holds the rank's contiguous 1/m of the sequence (dim 1), rank r the
+    rows ``r·S/m ..``.  Every rank's gradient of its own rows is then
+    the whole gradient of those rows, and its gradient of a weight read
+    on them is its rows' share, summed over the axis after the backward
+    (``ShardLayout.grad_sum_axes``, or the reduce-scatter of a leaf
+    gathered over the axis)."""
+    mesh: Any
+    axis: str = "model"
+
+    @property
+    def n(self) -> int:
+        return self.mesh.axis_size((self.axis,))
+
+    def positions(self, s: int, device) -> torch.Tensor:
+        """The global positions of the rank's ``s`` rows."""
+        lo = self.mesh.coord((self.axis,)) * s
+        return torch.arange(lo, lo + s, device=device)
+
+    def take(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The rank's rows of a sequence every rank holds whole (a
+        slice: the backward puts the rows' gradient in place, zeros
+        elsewhere)."""
+        if x.shape[dim] % self.n:
+            raise ValueError(
+                f"context parallelism: a sequence of {x.shape[dim]} does "
+                f"not split over {self.n} ranks")
+        size = x.shape[dim] // self.n
+        return x.narrow(dim, self.mesh.coord((self.axis,)) * size, size)
+
+    def gather(self, x: torch.Tensor, dim: int = 1,
+               shares: bool = True) -> torch.Tensor:
+        """The whole sequence from the ranks' rows.  ``shares``: each
+        rank's gradient of the whole is its share, reduce-scattered
+        back; otherwise every rank's is the same whole gradient, of
+        which it keeps its rows."""
+        return _Gather.apply(x, self.mesh, dim, (self.axis,), shares)
+
+    def scatter_sum(self, part: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The rank's rows of the ranks' partial sums ``part`` (the
+        whole sequence each): a reduce-scatter, whose backward
+        all-gathers the rows' gradients."""
+        return _ScatterSum.apply(part, self.mesh, dim, (self.axis,))
+
+
+@dataclasses.dataclass(frozen=True)
 class TensorParallel:
     """A tensor-parallel region over ``axis``: the layer function runs
     with ``cfg`` (the rank's ``n_heads / m`` and ``n_kv_heads / m``
     heads, head dim kept), ``enter``s its input and leaves through
-    ``row_parallel``, the sum of the ranks' partial out-projections."""
+    ``row_parallel``, the sum of the ranks' partial out-projections.
+
+    With ``seq`` (context parallelism) the input is the rank's rows:
+    ``enter`` all-gathers the sequence (the backward reduce-scatters),
+    and the partial sums are reduce-scattered to the rank's rows (the
+    backward all-gathers), Megatron's sequence parallelism."""
     mesh: Any
     cfg: Any
     axis: str = "model"
+    seq: Optional[SeqShard] = None
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
+        if self.seq is not None:
+            return self.seq.gather(x)
         return _CopyIn.apply(x, self.mesh, (self.axis,))
 
     def leaf(self, x: torch.Tensor) -> torch.Tensor:
         """A leaf replicated over the axis (the q/k-norm scales): each
-        rank's gradient of it is its heads' share, so it enters."""
-        return self.enter(x)
+        rank's gradient of it is its heads' share, so its backward sums
+        them."""
+        return _CopyIn.apply(x, self.mesh, (self.axis,))
+
+    def _leave(self, part: torch.Tensor) -> torch.Tensor:
+        if self.seq is not None:
+            return self.seq.scatter_sum(part)
+        return _ReduceOut.apply(part, self.mesh, (self.axis,))
 
     def row_parallel(self, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """``h @ w`` summed over the region's ranks, ``h`` and ``w``
-        the rank's blocks of the contracted dim.  The partial products
-        stay fp32 until the sum (a bf16 model's single-device product
-        accumulates in fp32 and rounds once, too)."""
+        the rank's blocks of the contracted dim (the rank's rows of the
+        sum under ``seq``).  The partial products stay fp32 until the
+        sum (a bf16 model's single-device product accumulates in fp32
+        and rounds once, too)."""
         part = torch.matmul(h.float(), w.float())
-        return _ReduceOut.apply(part, self.mesh, (self.axis,)).to(h.dtype)
+        return self._leave(part).to(h.dtype)
 
     # mamba2's and rwkv6's regions (``ShardLayout``: the model's cfg,
     # the rank's heads sliced by ``share``)
@@ -465,7 +534,7 @@ class TensorParallel:
         """The sum over the ranks of a statistic of their heads (the
         gated norm's sum of squares over d_inner), read by every rank for
         its own heads only: the backward sums the ranks' gradients too."""
-        return _ReduceOut.apply(self.enter(x), self.mesh, (self.axis,))
+        return _ReduceOut.apply(self.leaf(x), self.mesh, (self.axis,))
 
     def gather_shared(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The ranks' blocks of an activation every rank's heads read
@@ -480,8 +549,13 @@ class TensorParallel:
     def gather_out(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The region's output from the ranks' blocks along ``dim``:
         every rank then reads it whole with the same gradient, so the
-        backward takes the rank's block and sums nothing."""
-        return _Gather.apply(x, self.mesh, dim, (self.axis,), False)
+        backward takes the rank's block and sums nothing.  Under
+        ``seq`` the rank keeps its rows of it, whose gradient differs
+        from rank to rank: the backward sums the blocks' gradients."""
+        if self.seq is None:
+            return _Gather.apply(x, self.mesh, dim, (self.axis,), False)
+        return self.seq.take(_Gather.apply(x, self.mesh, dim, (self.axis,),
+                                           True))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -492,10 +566,23 @@ class ExpertParallel:
     and runs only the slots routed to them, under ``"tensor"`` every
     expert with its ``d_ff / m`` block (column-parallel ``wi``/``wg``,
     row-parallel ``wo``).  Either way a rank's combine is a partial sum
-    in fp32, summed over the ranks once (``reduce``)."""
+    in fp32, summed over the ranks once (``reduce``).  With ``seq``
+    the router sees the whole sequence (``tokens`` all-gathers the
+    rank's rows), so the groups and capacity stay one device's, and
+    ``reduce`` reduce-scatters the sum to the rank's rows."""
     mesh: Any
     mode: str
     axis: str = "model"
+    seq: Optional[SeqShard] = None
+
+    def tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """The (B, S, D) tokens the rank routes: under ``seq`` gathered
+        from the ranks' rows.  Every rank routes them alike and the
+        experts' gradients are summed where they ``enter``, so each
+        rank's gradient of the whole is the same: it keeps its rows."""
+        if self.seq is None:
+            return x
+        return self.seq.gather(x, shares=False)
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         return _CopyIn.apply(x, self.mesh, (self.axis,))
@@ -513,6 +600,10 @@ class ExpertParallel:
         return self.mesh.coord((self.axis,)) * n, n
 
     def reduce(self, part: torch.Tensor) -> torch.Tensor:
+        """The ranks' fp32 partial combines (B, S, D) summed (the rank's
+        rows of the sum under ``seq``)."""
+        if self.seq is not None:
+            return self.seq.scatter_sum(part)
         return _ReduceOut.apply(part, self.mesh, (self.axis,))
 
 
@@ -523,10 +614,13 @@ class VocabParallel:
     embedding's rows, transposed, when tied), looks up the tokens of
     its range, computes its ``(B, S, V / m)`` logits and takes the
     cross-entropy through a logsumexp and a gold logit summed over the
-    ranks."""
+    ranks.  With ``seq`` the lookup's sum is reduce-scattered to the
+    rank's rows, and the head gathers the whole sequence first, as the
+    reference's ``logits`` spec (dp, None, "model") lays it out."""
     mesh: Any
     vocab: int
     axis: str = "model"
+    seq: Optional[SeqShard] = None
 
     @property
     def rows(self) -> Tuple[int, int]:
@@ -547,15 +641,20 @@ class VocabParallel:
         """The rows of ``tokens`` from the rank's block ``w`` (V / m, D),
         zeros outside its range, summed over the ranks: one rank adds
         the row, the others 0, so the sum is the row exactly (taken in
-        fp32: gloo need not reduce bf16)."""
+        fp32: gloo need not reduce bf16).  Under ``seq`` the rank keeps
+        its rows of the sum."""
         local, inside = self._local(tokens)
-        rows = torch.where(inside[..., None], w[local], 0.0)
-        return self._sum(rows.float()).to(w.dtype)
+        rows = torch.where(inside[..., None], w[local], 0.0).float()
+        if self.seq is not None:
+            return self.seq.scatter_sum(rows).to(w.dtype)
+        return self._sum(rows).to(w.dtype)
 
     def logits(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """The rank's fp32 logits (B, S, V / m); ``x`` enters, so its
-        gradient sums every rank's vocab share."""
-        x = _CopyIn.apply(x, self.mesh, (self.axis,))
+        gradient sums every rank's vocab share (under ``seq`` the
+        gather of the rank's rows does: its backward reduce-scatters)."""
+        x = self.seq.gather(x) if self.seq is not None else \
+            _CopyIn.apply(x, self.mesh, (self.axis,))
         return torch.matmul(x.float(), w.float())
 
     def nll(self, logits: torch.Tensor, labels: torch.Tensor
@@ -614,7 +713,6 @@ _POOL_LEAVES = {"k_pages": 3, "v_pages": 3, "page_k_min": 2,
 # the other leaves' KV- or ssm-head dim, after the stack and batch dims
 _HEAD_DIM = {"k": 3, "v": 3, "ssm": 2, "state": 2, "conv": 3}
 
-_REGIONS = ("attn", "attn_cross", "mlp")     # TensorParallel module names
 # mamba2's ("mixer") and rwkv6's ("tmix", time and channel mix) regions:
 # (the leaves split by columns over "model", those split by rows)
 _SSM_REGIONS = {"mixer": (("in_proj", "conv_w"), ("out_proj",)),
@@ -627,11 +725,12 @@ class ShardLayout:
     specs) and which modules compute on their "model" shard.
 
     * ``TensorParallel``: every attention (``attn``; audio's
-      ``attn_cross``, on the context's K/V of the rank's KV heads) and
-      MLP (``mlp``) of the decoder, vlm's cross layers, audio's encoder
-      and zamba2's shared block, where the heads (or d_ff) divide by the
-      "model" size and the spec shards the in-projections' columns and
-      the out-projection's rows over it;
+      ``attn_cross``, on the context's K/V of the rank's KV heads) of
+      the decoder, vlm's cross layers, audio's encoder and zamba2's
+      shared block, where the heads and the KV heads divide by the
+      "model" size, and every MLP (``mlp``) where d_ff divides, each
+      where the spec shards the in-projections' columns and the
+      out-projection's rows over it;
     * the same region over mamba2 (``mixer``: the rank's ssm heads,
       where m divides them and 2·ssm_state) and rwkv6 (``tmix``: the
       time mix on the rank's heads, the channel mix on its d_ff / m);
@@ -647,7 +746,25 @@ class ShardLayout:
     split is of the shared block's d_model columns, which the block's
     norm and residual need whole (kept, it would cost an all-gather of
     the activation at every application for a (2·d_model, d_model)
-    leaf), and a region's leaves wherever m does not divide its heads.
+    leaf), and a region's leaves wherever m does not divide its heads
+    (or d_ff).
+
+    ``cp`` (context parallelism, the train and prefill steps under
+    ``distributed.ctx.set_context_parallel``): a rank's residual stream
+    holds its contiguous 1/m of the sequence (``seq``, a ``SeqShard``),
+    and every region above but the attention enters through an
+    all-gather of the sequence and leaves through a reduce-scatter.
+    The attention has no region: it runs every head on the rank's query
+    rows against the whole sequence's K/V (``attention_apply``), its
+    weights gathered over "model", so the work over "model" splits
+    whatever the head count.  A leaf read outside a region then has a
+    gradient that is the rank's rows' share: the gather over "model"
+    reduce-scatters it, and a leaf replicated over "model" is summed
+    over it after the backward (``grad_sum_axes``).  Audio's encoder
+    sequence (``encoder_len``) stays whole on every rank where m does
+    not divide it, and its layers then take no region (a region's
+    backward needs the same gradient on every rank, and there each
+    rank's is its decoder rows' share).
 
     ``mode`` picks the parameter specs (``param_specs``): "train"
     (FSDP over the data axes and TP over "model") or "infer_tp" (TP
@@ -657,26 +774,33 @@ class ShardLayout:
     serving-cache layout (``cache_specs``)."""
 
     def __init__(self, cfg, mesh, specs: Optional[Dict[str, Spec]] = None,
-                 mode: str = "train"):
+                 mode: str = "train", cp: bool = False):
         from repro_torch.models.model import Model
         self.cfg, self.mesh, self.mode = cfg, mesh, mode
         self.specs = dict(specs if specs is not None else param_specs(
             Model(cfg, device="meta"), cfg, mesh, mode=mode))
         self.data = tuple(a for a in data_axes(mesh) if mesh.shape[a] > 1)
         m = self.m = mesh.shape.get("model", 1)
-        self._tp = self._moe = self._vocab = self._ssm = None
+        self._attn = self._mlp = self._moe = self._vocab = self._ssm = None
+        self.seq = SeqShard(mesh) if cp and m > 1 else None
+        # audio's encoder frames split over "model" too, where they divide
+        self._enc_split = cfg.family == "audio" and cfg.encoder_len % m == 0
         if m == 1:
             return
-        if cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0:
-            self._tp = TensorParallel(mesh, dataclasses.replace(
+        seq = self.seq
+        if seq is None and cfg.n_heads % m == 0 and \
+                cfg.n_kv_heads % m == 0:
+            self._attn = TensorParallel(mesh, dataclasses.replace(
                 cfg, n_heads=cfg.n_heads // m,
                 n_kv_heads=cfg.n_kv_heads // m, head_dim=cfg.hd))
+        if cfg.d_ff % m == 0:
+            self._mlp = TensorParallel(mesh, cfg, seq=seq)
         if cfg.moe:
-            self._moe = ExpertParallel(mesh, cfg.expert_shard)
+            self._moe = ExpertParallel(mesh, cfg.expert_shard, seq=seq)
         emb = self.specs.get("embed.embedding", (None,))
         unemb = self.specs.get("embed.unembed", (None, "model"))
         if emb[0] == "model" and unemb[-1] == "model":
-            self._vocab = VocabParallel(mesh, cfg.vocab_size)
+            self._vocab = VocabParallel(mesh, cfg.vocab_size, seq=seq)
         if cfg.family == "hybrid":
             ssm_ok = cfg.ssm_heads % m == 0 and 2 * cfg.ssm_state % m == 0
         else:
@@ -684,7 +808,7 @@ class ShardLayout:
                 (cfg.d_model // cfg.rwkv_head_dim) % m == 0
         if not ssm_ok:
             return
-        self._ssm = TensorParallel(mesh, cfg)
+        self._ssm = TensorParallel(mesh, cfg, seq=seq)
         if cfg.family == "hybrid":
             di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
             packed = {"in_proj": (di, di, 2 * n, h), "conv_w": (di, 2 * n)}
@@ -701,6 +825,17 @@ class ShardLayout:
             all(self.specs.get(prefix + n, (None,))[0] == "model"
                 for n in rows)
 
+    def _whole_encoder(self, path: str) -> bool:
+        """Whether module ``path`` is audio's encoder held whole on
+        every rank under context parallelism."""
+        return self.seq is not None and not self._enc_split and \
+            path.startswith(("enc_layers", "enc_ln"))
+
+    def seq_for(self, path: str) -> Optional[SeqShard]:
+        """The sequence split module ``path``'s input holds (None: the
+        whole sequence)."""
+        return None if self._whole_encoder(path) else self.seq
+
     def tp_for(self, path: str):
         """The region of module ``path`` (``TensorParallel``,
         ``ExpertParallel`` or ``VocabParallel``), or None."""
@@ -708,6 +843,8 @@ class ShardLayout:
         prefix = path + "."
         if path == "embed":
             return self._vocab
+        if self._whole_encoder(path):
+            return None
         if kind == "moe" and self._moe is not None:
             if self._moe.mode == "expert":        # (E, ., .) over model
                 ok = self._layout_ok(prefix, (), ("wi", "wg", "wo"))
@@ -718,16 +855,15 @@ class ShardLayout:
         if kind in _SSM_REGIONS and self._ssm is not None:
             return self._ssm if self._layout_ok(prefix, *_SSM_REGIONS[kind]) \
                 else None
-        if self._tp is None or kind not in _REGIONS:
-            return None
-        if kind == "mlp":
+        if kind == "mlp" and self._mlp is not None:
             cols = ("wi", "wg") if self.cfg.mlp_variant == "swiglu" \
                 else ("wi",)
-            ok = self.cfg.d_ff % self.m == 0 and \
-                self._layout_ok(prefix, cols, ("wo",))
-        else:
-            ok = self._layout_ok(prefix, ("wq", "wk", "wv"), ("wo",))
-        return self._tp if ok else None
+            return self._mlp if self._layout_ok(prefix, cols, ("wo",)) \
+                else None
+        if kind in ("attn", "attn_cross") and self._attn is not None:
+            return self._attn if self._layout_ok(
+                prefix, ("wq", "wk", "wv"), ("wo",)) else None
+        return None
 
     def counts(self) -> Dict[str, int]:
         """Leaves kept sharded over "model" in a region, and leaves
@@ -746,36 +882,47 @@ class ShardLayout:
     def use(self, name: str, shard: torch.Tensor, tp) -> torch.Tensor:
         """Leaf ``name`` as the layer function reads it: gathered over
         the data axes (the gradient reduce-scattered back), and over
-        "model" unless it runs in the region ``tp``; a replicated leaf
-        inside ``tp`` goes through the region's ``leaf``."""
+        "model" unless it runs in the region ``tp`` (the gradient's
+        block taken as it is, or reduce-scattered under context
+        parallelism, where each rank's is its rows' share); a
+        replicated leaf inside ``tp`` goes through the region's
+        ``leaf``."""
         spec = self.specs[name]
         x = shard
-        for reduce in (True, False):          # data axes first, then model
+        for model in (False, True):           # data axes first, then model
             for dim, entry in enumerate(spec):
                 axes = entry_axes(entry)
-                if not axes or (("model" in axes) == reduce):
+                if not axes or (("model" in axes) != model):
                     continue
-                if not reduce and tp is not None:
+                if model and tp is not None:
                     continue                   # the region keeps its shard
                 if self.mesh.axis_size(axes) > 1:
-                    x = _Gather.apply(x, self.mesh, dim, axes, reduce)
+                    x = _Gather.apply(x, self.mesh, dim, axes,
+                                      not model or self.seq is not None)
         if tp is not None and all("model" not in entry_axes(e)
                                   for e in spec):
             x = tp.leaf(x)
         return x
 
-    def replicated_over_data(self, name: str) -> Tuple[str, ...]:
-        """The data axes leaf ``name`` is replicated over: its gradient
-        must be summed over them after the backward."""
+    def grad_sum_axes(self, name: str) -> Tuple[str, ...]:
+        """The axes leaf ``name``'s gradient must be summed over after
+        the backward: the data axes it is replicated over, and under
+        context parallelism "model" where it is replicated over "model"
+        and read outside a region (each rank's gradient is its rows'
+        share)."""
         sharded = {a for e in self.specs[name] for a in entry_axes(e)}
-        return tuple(a for a in self.data if a not in sharded)
+        axes = tuple(a for a in self.data if a not in sharded)
+        if self.seq is not None and "model" not in sharded and \
+                self.tp_for(name.rsplit(".", 1)[0]) is None:
+            axes += ("model",)
+        return axes
 
     def view(self, model: nn.Module, rows: Optional[DataRows] = None
              ) -> "ShardedParams":
         """``model`` read by key through the layout; ``rows``: the
         activations hold the rank's rows of a batch split over the data
         axes (every submodule's view carries it)."""
-        return ShardedParams(model, "", self, None, rows)
+        return ShardedParams(model, "", self, None, rows, self.seq)
 
     @torch.no_grad()
     def shard_(self, model: nn.Module) -> nn.Module:
@@ -877,13 +1024,22 @@ class ShardedParams:
     ``ModuleList`` as a list of views.  ``tp`` is the module's region
     (``ShardLayout.tp_for``), which ``attention_apply``, ``mlp_apply``,
     ``moe_apply`` and the embedding functions read; ``rows`` is the
-    step's ``DataRows`` or None, which ``moe_apply`` reads."""
+    step's ``DataRows`` or None, which ``moe_apply`` reads; ``seq`` is
+    the ``SeqShard`` of the module's input under context parallelism
+    (``ShardLayout.seq_for``) or None, which ``models.model.forward``,
+    ``attention_apply`` and the modules without a region read."""
 
     def __init__(self, module: nn.Module, prefix: str, layout: ShardLayout,
                  tp: Optional[TensorParallel],
-                 rows: Optional[DataRows] = None):
+                 rows: Optional[DataRows] = None,
+                 seq: Optional[SeqShard] = None):
         self._module, self._prefix = module, prefix
-        self._layout, self.tp, self.rows = layout, tp, rows
+        self._layout, self.tp, self.rows, self.seq = layout, tp, rows, seq
+
+    def _sub(self, module: nn.Module, path: str) -> "ShardedParams":
+        return ShardedParams(module, path + ".", self._layout,
+                             self._layout.tp_for(path), self.rows,
+                             self._layout.seq_for(path))
 
     def __getitem__(self, name: str):
         try:
@@ -892,13 +1048,9 @@ class ShardedParams:
             raise KeyError(name) from None
         path = self._prefix + name
         if isinstance(obj, nn.ModuleList):
-            return [ShardedParams(m, f"{path}.{i}.", self._layout,
-                                  self._layout.tp_for(f"{path}.{i}"),
-                                  self.rows)
-                    for i, m in enumerate(obj)]
+            return [self._sub(m, f"{path}.{i}") for i, m in enumerate(obj)]
         if isinstance(obj, nn.Module):
-            return ShardedParams(obj, path + ".", self._layout,
-                                 self._layout.tp_for(path), self.rows)
+            return self._sub(obj, path)
         if isinstance(obj, torch.Tensor):
             return self._layout.use(path, obj, self.tp)
         raise KeyError(name)

@@ -12,10 +12,15 @@ state (``init_train_state(mesh=)``) and runs the port's own step on it
 ``make_serve_step(mesh=)`` on its blocks of the serving cache), every
 collective going through the fake group, every kernel through its
 meta stand-in (``kernels.ops``), under a ``WorkCounter``.  What it
-counts is what the port would run on 256 H100s: its head-parallel step
-with the SATA kernel on a rank's heads, not GSPMD's plan of the
-reference's step.  Nothing is allocated and nothing runs on a device:
-the whole run is on the CPU, by design.
+counts is what the port would run on 256 H100s, not GSPMD's plan of the
+reference's step.  A train or prefill cell runs, as the reference's dry
+run does, under the ``seq_shard`` activation specs and
+``set_context_parallel(cp)`` (``cp`` on by default): rank 0 computes
+its layers on its contiguous 1/16 of the sequence, the SATA kernel on
+its query rows against every key (``ShardLayout(cp=True)``).  A decode
+cell keeps ``cp`` off: its step is head-parallel, the SATA decode
+kernel on a rank's heads.  Nothing is allocated and nothing runs on a
+device: the whole run is on the CPU, by design.
 
 The cells run the port's main route (``main_path_cfg``): chunked
 selection into the compacted-grid kernel, 128-blocks, as the card
@@ -56,9 +61,8 @@ field read in the port as follows:
   all-reduce twice);
 * ``kernels``: each kernel's calls, FLOPs and bytes, ``cost_by_op``
   the eight ops that moved the most bytes (port only), and ``cp``,
-  false: the port's step is head-parallel and does not read the
-  context-parallel specs of ``distributed.ctx`` (ROADMAP's stated
-  divergence), so ``run_cell(cp=True)`` raises;
+  whether the step ran context-parallel (``step.layout.seq``), with
+  ``notes`` saying which rows rank 0 holds;
 * decode cells add ``param_mode`` and ``cache_bytes_rank`` (the rank's
   cache blocks; the reference's rule divides the whole cache by the
   256 devices).
@@ -107,10 +111,11 @@ RESULTS = pathlib.Path(__file__).resolve().parents[3] / "build" / "dryrun"
 # cache: the reference's 15e9 bytes of a 16 GiB chip (87.3%) applied to
 # the H100's 80 GiB
 DECODE_HBM_BUDGET = 75e9
-CP_DIVERGES = ("the port's attention is head-parallel and reads no "
-               "context-parallel spec (ROADMAP queue A, the stated "
-               "divergence): cp=True would record a layout that did not "
-               "run")
+CP_NOTE = ("context-parallel: rank 0 holds the first 1/m of the sequence, "
+           "the causally lightest query rows; the counts come from static "
+           "shapes (the kernel's counted work is its planned tiles' "
+           "bound, the same for every rank), so they do not depend on "
+           "which rows a rank holds")
 
 # allocations write nothing; the c10d and profiler namespaces are the
 # collectives (counted by the mesh) and the profiler's own records
@@ -392,7 +397,7 @@ def _cell_mesh(multi_pod: bool, mesh_shape: Optional[Tuple[int, int]]):
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              save: bool = True, verbose: bool = True, cfg=None,
-             tag_suffix: str = "", cp: bool = False,
+             tag_suffix: str = "", cp: bool = True,
              mesh_shape: Optional[Tuple[int, int]] = None,
              param_mode: Optional[str] = None) -> Dict:
     """Trace rank 0 of the production mesh through one cell's step on
@@ -401,29 +406,33 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     (data, model) replaces the production mesh by a ("data", "model")
     mesh of that many fake ranks (the tests' small worlds);
     ``param_mode`` replaces a decode cell's ``decode_param_mode`` (the
-    roofline's shallow probes take the full-depth cell's).  Starts the
-    fake world and destroys it on every exit; raises if a process group
-    is already initialised and for ``cp=True`` (the port's attention
-    does not read the context-parallel specs)."""
+    roofline's shallow probes take the full-depth cell's).  A train or
+    prefill cell runs under the ``seq_shard`` activation specs and
+    ``set_context_parallel(cp)``, as the reference's dry run; a decode
+    cell never context-parallel.  Starts the fake world and destroys it
+    on every exit; raises if a process group is already initialised."""
     cfg = main_path_cfg(ARCHS[arch]) if cfg is None else cfg
     shape = SHAPES[shape_name]
     tag = (f"{arch}__{shape_name}__{'pod2' if multi_pod else 'pod1'}"
            f"{tag_suffix}")
-    if cp:
-        raise NotImplementedError(f"{tag}: {CP_DIVERGES}")
     dims = mesh_shape or ((2, 16, 16) if multi_pod else (16, 16))
+    seq_shard = shape.kind in ("train", "prefill")
     t0 = time.time()
     with fake_world(math.prod(dims)):
         mesh = _cell_mesh(multi_pod, mesh_shape)
         dctx.set_activation_shardings(
-            dctx.make_activation_shardings(mesh, cfg, seq_shard=True),
+            dctx.make_activation_shardings(mesh, cfg, seq_shard=seq_shard),
             mesh=mesh)
+        dctx.set_context_parallel(cp and seq_shard)
         try:
             result = _trace(cfg, shape, mesh, t0, param_mode)
         finally:
+            dctx.set_context_parallel(False)
             dctx.clear()
+    ran_cp = result.pop("cp")
     result = {"cell": tag, "arch": arch, "shape": shape_name,
-              "multi_pod": multi_pod, "ok": True, "cp": False,
+              "multi_pod": multi_pod, "ok": True, "cp": ran_cp,
+              **({"notes": CP_NOTE} if ran_cp else {}),
               "mesh": dict(mesh.shape), **result}
     if verbose:
         mem = result["memory"]
@@ -469,7 +478,7 @@ def _trace(cfg, shape, mesh, t0: float,
     nd = math.prod(mesh.shape[a] for a in layout.data)
     local = [block(t, (layout.data,), mesh) if rows % nd == 0 else t
              for t in batch.values()]
-    return {"micro_steps": micro, **_counted(
+    return {"micro_steps": micro, "cp": layout.seq is not None, **_counted(
         step, args, held, local, list(batch.values()), mesh, t0)}
 
 
@@ -492,7 +501,7 @@ def _trace_decode(cfg, shape, mesh, t0: float,
     nd = math.prod(mesh.shape[a] for a in step.layout.data)
     local = [block(tokens, (step.layout.data,), mesh)
              if tokens.shape[0] % nd == 0 else tokens]
-    return {"param_mode": mode, "cache_bytes_rank": cache_rank,
+    return {"param_mode": mode, "cp": False, "cache_bytes_rank": cache_rank,
             "tp_weight_bytes": tp_weight_bytes(cfg, mesh),
             "decode_budget_bytes": DECODE_HBM_BUDGET,
             **_counted(step, (model, local_cache, tokens, pos), held, local,

@@ -31,10 +31,12 @@ counter does not count as FLOPs.
 
 MODEL_FLOPS = 6·N·tokens (train) / 2·N_active·tokens (inference); the
 ratio MODEL_FLOPS / counted FLOPs measures how much of the computed
-work is "useful" (remat recompute, selection and attention overhead,
-and every "model" rank computing the attention and a dense MLP whole
-where ``ShardLayout`` builds no tensor-parallel region for them: on a
-16-wide axis, every arch with fewer than 16 KV heads).
+work is "useful" (remat recompute, selection and attention overhead;
+in a decode cell also every "model" rank computing the attention whole
+where ``ShardLayout`` builds no head-parallel region for it: on a
+16-wide axis, every arch with fewer than 16 KV heads; a train or
+prefill cell is context-parallel, ``run_cell``'s ``cp``, and splits
+every layer over "model").
 
 Usage:
   python -m repro_torch.launch.roofline --arch qwen3-4b --shape train_4k
@@ -93,10 +95,10 @@ def _units(cfg):
     return u, cfg.n_layers // u, build
 
 
-def _measure(arch, shape_name, cfg, param_mode=None):
+def _measure(arch, shape_name, cfg, param_mode=None, cp=True):
     r = run_cell(arch, shape_name, multi_pod=False, save=False,
                  verbose=False, cfg=cfg, tag_suffix="__probe",
-                 param_mode=param_mode)
+                 param_mode=param_mode, cp=cp)
     flops = r["cost"].get("flops", 0.0)
     byts = r["cost"].get("bytes accessed", 0.0)
     coll = r["collectives"].get("total_bytes", 0.0)
@@ -142,16 +144,19 @@ def _probe_line(k, r, secs):
 
 
 def analyse_cell(arch: str, shape_name: str, verbose: bool = True,
-                 tag_suffix: str = ""):
+                 cp: bool = True, tag_suffix: str = ""):
+    """The cell's three terms from its two probes (``run_cell``, ``cp``
+    passed through: a train or prefill cell context-parallel by default,
+    as the reference's)."""
     cfg = main_path_cfg(ARCHS[arch])
     shape = SHAPES[shape_name]
     unit, n_units, build = _units(cfg)
     mode = _decode_mode(cfg, shape) if shape.kind == "decode" else None
 
     t0 = time.time()
-    f1, b1, c1, r1 = _measure(arch, shape_name, build(1), mode)
+    f1, b1, c1, r1 = _measure(arch, shape_name, build(1), mode, cp)
     t1 = time.time()
-    f2, b2, c2, r2 = _measure(arch, shape_name, build(2), mode)
+    f2, b2, c2, r2 = _measure(arch, shape_name, build(2), mode, cp)
     t2 = time.time()
     pf = max(f2 - f1, 0.0)
     pb = max(b2 - b1, 0.0)

@@ -279,23 +279,28 @@ def _chunked_selection_on(cfg, s: int) -> bool:
 
 def _attend_sata_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         cfg, q_pos: torch.Tensor, k_pos: torch.Tensor,
-                        causal: bool) -> torch.Tensor:
-    """Top-k attention through the SATA kernels.  q: (B, S, H, hd); k/v:
-    (B, S, KV, hd); KV heads are repeated to the G query heads each
-    serves and flattened to (B·H, S, hd).  Chunked selection
-    (``_chunked_selection_on``) or the dense (B·H, S, S) mask through
-    the SATA plan; selection runs without autograd."""
-    b, s, h, hd = q.shape
+                        causal: bool, q_chunk: Optional[int] = None
+                        ) -> torch.Tensor:
+    """Top-k attention through the SATA kernels.  q: (B, Sq, H, hd);
+    k/v: (B, Sk, KV, hd) (Sq < Sk: a context-parallel rank's query rows
+    at the global positions ``q_pos`` against every key); KV heads are
+    repeated to the G query heads each serves and flattened to
+    (B·H, S, hd).  Chunked selection (``_chunked_selection_on``, decided
+    on the row length Sk; ``q_chunk`` query rows a score tile, default
+    ``cfg.q_chunk``) or the dense (B·H, Sq, Sk) mask through the SATA
+    plan; selection runs without autograd."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
     g = h // k.shape[2]
     kq = k.repeat_interleave(g, dim=2) if g > 1 else k
     vq = v.repeat_interleave(g, dim=2) if g > 1 else v
-    qf = q.transpose(1, 2).reshape(b * h, s, hd).contiguous()
-    kf = kq.transpose(1, 2).reshape(b * h, s, hd).contiguous()
-    vf = vq.transpose(1, 2).reshape(b * h, s, hd).contiguous()
+    qf = q.transpose(1, 2).reshape(b * h, sq, hd).contiguous()
+    kf = kq.transpose(1, 2).reshape(b * h, sk, hd).contiguous()
+    vf = vq.transpose(1, 2).reshape(b * h, sk, hd).contiguous()
     blk = cfg.sata.kernel.block
     mkb = cfg.sata.kernel.max_kv_blocks
-    if _chunked_selection_on(cfg, s):
-        chunk = resolve_sel_chunk(min(cfg.q_chunk, s), s, blk)
+    if _chunked_selection_on(cfg, sk):
+        chunk = resolve_sel_chunk(min(q_chunk or cfg.q_chunk, sq), sq, blk)
         qp = q_pos.to(torch.int32)
         kp = k_pos.to(torch.int32)
         thr, bm = _select_chunked(qf, kf, cfg.topk_k, q_pos=qp, k_pos=kp,
@@ -308,7 +313,7 @@ def _attend_sata_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         with torch.no_grad():
             scores = torch.einsum("bqd,bkd->bqk", qf.float(), kf.float())
             scores = scores * (1.0 / np.sqrt(hd))
-            admissible = torch.ones((s, s), dtype=torch.bool,
+            admissible = torch.ones((sq, sk), dtype=torch.bool,
                                     device=q.device)
             if causal:
                 admissible = admissible & (k_pos[None, :] <= q_pos[:, None])
@@ -319,7 +324,7 @@ def _attend_sata_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             del scores
         out = _sata_kernel_call(qf, kf, vf, sel, blk,
                                 cfg.sata.kernel.schedule, mkb)
-    return out.reshape(b, h, s, hd).transpose(1, 2)
+    return out.reshape(b, h, sq, hd).transpose(1, 2)
 
 
 def _sata_kernel_ok(cfg, s: int, cross: bool) -> bool:
@@ -350,8 +355,25 @@ def attention_apply(params, cfg, x: torch.Tensor,
     holds the rank's column blocks of ``wq``/``wk``/``wv`` and row block
     of ``wo``: the rank's heads run the same path under ``tp.cfg`` (K/V
     of ``kv_src`` on the rank's KV heads), and the partial
-    out-projections are summed over the region's ranks."""
+    out-projections are summed over the region's ranks.
+
+    A view with a ``seq`` split (context parallelism, the reference's
+    ``constrain_cp_q`` / ``constrain_cp_kv`` layout) holds every head's
+    weights and ``x`` is the rank's contiguous rows: q, k and v come
+    from them, with RoPE at their global positions, K and V are
+    all-gathered over the sequence (the backward reduce-scatters dK and
+    dV), and the selection, the softmax and the kernel run on the
+    rank's Sq = S / m query rows against all S keys, in both of the
+    reference's branches (for sequences past 8192 it gathers q and
+    splits each chunk's rows over "model"; the port keeps the rank's
+    rows, which give the same rows of the output).  A rank scores
+    ``q_chunk / m`` of its rows at a time (at least a block), the
+    reference's share of a chunk: its transient score tile is a
+    ``q_chunk``-row tile's 1/m.  Under ``remat="full"`` the recompute
+    gathers K and V again.  Cross-attention is row-parallel as it is:
+    the rank's query rows against the whole context."""
     tp = getattr(params, "tp", None)
+    seq = getattr(params, "seq", None) if tp is None else None
     if tp is not None:
         cfg, x = tp.cfg, tp.enter(x)
         if kv_src is not None:
@@ -360,17 +382,22 @@ def attention_apply(params, cfg, x: torch.Tensor,
     cross = kv_src is not None
     causal = (cfg.causal and not cross) if causal is None else causal
     q, k, v = _project_qkv(params, cfg, x, kv_src)
-    q_pos = torch.arange(s, device=x.device) if positions is None \
-        else positions
-    k_pos = torch.arange(k.shape[1], device=x.device)
+    own = torch.arange(s, device=x.device) if seq is None \
+        else seq.positions(s, x.device)
+    q_pos = own if positions is None else positions
     if use_rope and not cross:
         q = apply_rope(q, q_pos, cfg.rope_theta)
-        k = apply_rope(k, k_pos, cfg.rope_theta)
-    qc = min(cfg.q_chunk, s)
+        k = apply_rope(k, own, cfg.rope_theta)
+    if seq is not None and not cross:
+        k, v = seq.gather(k), seq.gather(v)
+    k_pos = torch.arange(k.shape[1], device=x.device)
+    chunk = cfg.q_chunk if seq is None else max(1, cfg.q_chunk // seq.n)
+    qc = min(chunk, s)
     if s % qc != 0:
         qc = s                                       # fallback: single chunk
     if _sata_kernel_ok(cfg, s, cross):
-        out = _attend_sata_kernel(q, k, v, cfg, q_pos, k_pos, causal)
+        out = _attend_sata_kernel(q, k, v, cfg, q_pos, k_pos, causal,
+                                  q_chunk=chunk)
     else:
         out = torch.cat([_attend(q[:, i:i + qc], k, v, cfg, q_pos[i:i + qc],
                                  k_pos, causal=causal)

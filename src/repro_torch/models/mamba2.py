@@ -84,7 +84,21 @@ def mamba2_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
     with a ``tp`` region (``distributed.sharding``) runs the rank's
     ``ssm_heads / m`` heads: B and C, which every head reads, are
     gathered after the conv, the gated norm's statistic is summed over
-    the ranks and the out-projection's partial products too."""
+    the ranks and the out-projection's partial products too.  Under
+    context parallelism (``x`` the rank's rows) the scan needs the
+    whole sequence: the region enters through its all-gather and leaves
+    through the reduce-scatter to the rank's rows; without a region the
+    rank gathers the sequence, computes it whole and keeps its rows."""
+    tp = getattr(params, "tp", None)
+    seq = getattr(params, "seq", None)
+    if tp is None and seq is not None:
+        return seq.take(_mamba2(params, cfg, seq.gather(x), None))
+    return _mamba2(params, cfg, x, tp)
+
+
+def _mamba2(params, cfg, x: torch.Tensor, tp) -> torch.Tensor:
+    if tp is not None:
+        x = tp.enter(x)
     b, s, _ = x.shape
     di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     q = min(cfg.ssm_chunk, s)
@@ -92,13 +106,12 @@ def mamba2_apply(params, cfg, x: torch.Tensor) -> torch.Tensor:
         q = s
     nc = s // q
 
-    tp = getattr(params, "tp", None)
     if tp is None:
         z, xbc, dt_raw = _split_proj(cfg, x @ params["in_proj"])
         xbc = _causal_conv(xbc, params["conv_w"])
         xin, bc, heads = xbc[..., :di], xbc[..., di:], slice(None)
     else:
-        z, xin, bc, dt_raw = _region_proj(tp, cfg, tp.enter(x), params)
+        z, xin, bc, dt_raw = _region_proj(tp, cfg, x, params)
         heads = tp.share(h)
         h = heads.stop - heads.start
     xs = xin.reshape(b, s, h, p).float()

@@ -400,13 +400,17 @@ def _remat(cfg: ModelConfig, fn):
 def _run_encoder(model: Model, cfg: ModelConfig,
                  audio_embeds: torch.Tensor) -> torch.Tensor:
     """The audio encoder: decoder blocks without the causal mask over the
-    frame embeddings, then ``enc_ln``."""
+    frame embeddings, then ``enc_ln``.  Where a context-parallel view
+    splits the frames (``seq`` of its layers) the encoder runs on the
+    rank's frames and the context is gathered whole."""
     block = _remat(cfg, lambda p, h: _decoder_block_apply(p, cfg, h,
                                                           causal=False)[0])
-    x = audio_embeds
+    seq = getattr(model["enc_ln"], "seq", None)
+    x = audio_embeds if seq is None else seq.take(audio_embeds)
     for p in model["enc_layers"]:
         x = block(p, x)
-    return apply_norm(model["enc_ln"], cfg, x)
+    x = apply_norm(model["enc_ln"], cfg, x)
+    return x if seq is None else seq.gather(x)
 
 
 def forward(model: Model, cfg: ModelConfig,
@@ -418,10 +422,22 @@ def forward(model: Model, cfg: ModelConfig,
     ``batch["image_embeds"]`` (B, n_image_tokens, d_model), audio
     ``batch["audio_embeds"]`` (B, encoder_len, d_model).  hybrid runs
     the shared block after every ``hybrid_period`` mamba layers, outside
-    the layers' remat, as the reference's outer scan does."""
+    the layers' remat, as the reference's outer scan does.
+
+    A context-parallel view (its ``seq``, ``distributed.sharding``)
+    takes the whole sequence's ``batch`` and hands the layers the
+    rank's rows: the vocab-parallel lookup is reduce-scattered to them
+    (without a vocab region the rank looks up its rows' tokens), and
+    the head gathers the sequence again, so the logits are the whole
+    sequence's (B, S, V / m), or the rank's rows' (B, S / m, V) without
+    a vocab region."""
     _check_family(cfg)
     dt = _dtype(cfg)
-    x = embed_apply(model["embed"], batch["tokens"]).to(dt)
+    tokens = batch["tokens"]
+    seq = getattr(model, "seq", None)
+    if seq is not None and model["embed"].tp is None:
+        tokens = seq.take(tokens)
+    x = embed_apply(model["embed"], tokens).to(dt)
     block = _remat(cfg, lambda p, h: _decoder_block_apply(p, cfg, h))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "vlm":
@@ -468,16 +484,26 @@ def nll_terms(model: Model, cfg: ModelConfig,
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``loss_fn``'s parts before the mean: (the masked token NLL summed
     over ``batch``, the mask's sum, the aux loss).  ``train.step`` weighs
-    a data-parallel rank's rows by the whole batch's token count."""
+    a data-parallel rank's rows by the whole batch's token count.  On a
+    context-parallel view every "model" rank holds the whole sequence's
+    NLL and aux loss (``forward``)."""
     logits, aux = forward(model, cfg, batch)
     labels = batch["labels"].long()
     vocab = getattr(model["embed"], "tp", None)
+    seq = getattr(model, "seq", None)
     if vocab is not None:            # the rank's logits: a sharded softmax
         nll = vocab.nll(logits, labels)
     else:
+        if seq is not None:          # the rank's rows' logits
+            labels = seq.take(labels)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[..., None])[..., 0]
         nll = logz - gold
+        if seq is not None:
+            # every rank holds the whole sequence's loss, as with a
+            # vocab region: its gradient is each rank's, of which the
+            # rank keeps its rows'
+            nll = seq.gather(nll, shares=False)
     mask = batch.get("loss_mask")
     mask = torch.ones_like(nll) if mask is None else mask
     return (nll * mask).sum(), mask.sum(), aux

@@ -26,7 +26,9 @@ block (``"tensor"``), and its partial combine is summed over the ranks
 in fp32 before the cast.  The capacity and drops are the routing's,
 computed whole on every rank.  A data rank routes its own rows where
 they fill whole groups of the batch, and the gathered batch where they
-do not (the serving step's ``DataRows``).
+do not (the serving step's ``DataRows``).  Under context parallelism
+the router sees the whole sequence, gathered from the ranks' rows, and
+the rank keeps its rows of the summed combine.
 
 The router runs in fp32 and never in TF32 (``_full_fp32``).
 """
@@ -168,15 +170,25 @@ def moe_apply(p, cfg, x: torch.Tensor):
     if rows is not None and t % min(cfg.moe_group_size, t * rows.n):
         y, aux = _moe(p, cfg, rows.gather(x))
         return rows.take(y), aux
+    seq = getattr(p, "seq", None)
+    if seq is not None and getattr(p, "tp", None) is None:
+        # context parallelism without a region: the whole sequence
+        # routed as one device groups it, the rank's rows kept.  Every
+        # rank's gradient is its rows' share, the aux loss's too: it
+        # counts 1 / m of its gradient on each rank, all of its value
+        y, aux = _moe(p, cfg, seq.gather(x))
+        return seq.take(y), aux / seq.n + (aux - aux / seq.n).detach()
     return _moe(p, cfg, x)
 
 
 def _moe(p, cfg, x: torch.Tensor):
+    tp = getattr(p, "tp", None)
+    if tp is not None:
+        x = tp.tokens(x)
     b, s, d = x.shape
     tokens = _groups(cfg, x)
     r = route(p, cfg, tokens)
     e, k, cap = cfg.n_experts, cfg.experts_per_token, r.cap
-    tp = getattr(p, "tp", None)
     ids, gates, keep = r.expert_ids, r.gates, r.keep
     if tp is not None:
         # the routing and the aux loss stay whole on every rank; the
@@ -208,9 +220,10 @@ def _moe(p, cfg, x: torch.Tensor):
     y = w[..., 0, None] * got[:, :, 0].float()
     for j in range(1, k):
         y = y + w[..., j, None] * got[:, :, j].float()
+    y = y.reshape(b, s, d)
     if tp is not None:
         y = tp.reduce(y)
-    return y.to(x.dtype).reshape(b, s, d), _aux_loss(cfg, r)
+    return y.to(x.dtype), _aux_loss(cfg, r)
 
 
 def moe_apply_ref(p, cfg, x: torch.Tensor):

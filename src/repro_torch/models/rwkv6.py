@@ -105,13 +105,26 @@ def rwkv6_time_mix(params, cfg, x: torch.Tensor,
     runs the rank's H / m heads (their columns of ``wr`` / ``wk`` /
     ``wv`` / ``wg`` and of the decay, their rows of ``bonus_u`` and
     ``wo``): the per-head scan and group norm need nothing of the
-    other ranks, and the out-projection's partials are summed."""
-    b, s, _ = x.shape
-    hd = cfg.rwkv_head_dim
+    other ranks, and the out-projection's partials are summed.  Under
+    context parallelism (``x`` the rank's rows) the scan needs the whole
+    sequence: the region enters through its all-gather and leaves
+    through the reduce-scatter to the rank's rows; without a region the
+    rank gathers the sequence, scans it whole and keeps its rows."""
     tp = getattr(params, "tp", None)
+    seq = getattr(params, "seq", None)
+    if tp is None and seq is not None:
+        out, state, last = _time_mix(params, cfg, seq.gather(x), state,
+                                     last_x, None)
+        return seq.take(out), state, last
+    return _time_mix(params, cfg, x, state, last_x, tp)
+
+
+def _time_mix(params, cfg, x, state, last_x, tp):
+    hd = cfg.rwkv_head_dim
     ch = slice(None) if tp is None else tp.share(cfg.d_model)
     if tp is not None:
         x = tp.enter(x)
+    b, s, _ = x.shape
     d = params["wr"].shape[-1]                # the rank's channels
     h = d // hd
     xs = _shift(x, last_x)
@@ -158,8 +171,21 @@ def rwkv6_channel_mix(params, cfg, x: torch.Tensor,
     """In a ``tp`` region a rank holds d_ff / m columns of ``ck`` (rows
     of ``cv``) and d / m columns of ``cr``: its partial ``k @ cv`` is
     reduce-scattered to its d / m channels in fp32, gated there, and
-    the gated channels are all-gathered (the bytes of one all-reduce)."""
+    the gated channels are all-gathered (the bytes of one all-reduce).
+    Under context parallelism (``x`` the rank's rows) the region enters
+    through the sequence's all-gather and the rank keeps its rows of the
+    gathered channels; without a region the rank gathers the sequence,
+    computes it whole and keeps its rows (the token shift reads the
+    row before each)."""
     tp = getattr(params, "tp", None)
+    seq = getattr(params, "seq", None)
+    if tp is None and seq is not None:
+        out, last = _channel_mix(params, cfg, seq.gather(x), last_x, None)
+        return seq.take(out), last
+    return _channel_mix(params, cfg, x, last_x, tp)
+
+
+def _channel_mix(params, cfg, x, last_x, tp):
     if tp is not None:
         x = tp.enter(x)
     xs = _shift(x, last_x)

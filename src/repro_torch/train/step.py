@@ -13,6 +13,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed import ctx as dctx
 from repro_torch.distributed.sharding import DataRows, ShardLayout, block
 from repro_torch.launch.mesh import _all_gather, _all_reduce, make_local_mesh
 from repro_torch.models import decode as dec
@@ -47,6 +48,16 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, micro_steps: int = 1,
       compute on the rank's shard), and the backward reduce-scatters
       the gradients over the data axes; leaves replicated over a data
       axis are summed over it after the backward;
+    * with context parallelism asked for when the step is made
+      (``distributed.ctx.set_context_parallel(True)`` with a mesh
+      installed, as the reference's dry run sets it for train cells),
+      a rank's layers run on its contiguous 1/m of the sequence over
+      "model" (``ShardLayout(cp=True)``): the attention on its query
+      rows against the whole sequence's K/V, every region entered
+      through the sequence's all-gather and left through a
+      reduce-scatter, and a leaf read outside a region summed over
+      "model" too (``ShardLayout.grad_sum_axes``); the head still sees
+      the whole sequence, so the loss keeps the form above;
     * AdamW runs on the rank's blocks, with the global norm and absmax.
 
     On more than one rank the data-parallel sums, the row-parallel
@@ -55,9 +66,8 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, micro_steps: int = 1,
     # the step reads only the mesh's axes; the caller's tensors say where
     # it computes
     mesh = make_local_mesh(device="meta") if mesh is None else mesh
-    layout = ShardLayout(cfg, mesh)
+    layout = ShardLayout(cfg, mesh, cp=dctx.cp_enabled())
     nd = math.prod(mesh.shape[a] for a in layout.data)
-    rows = DataRows(mesh, layout.data) if nd > 1 else None
 
     def shard_loss(view, mb):
         # a microbatch that does not divide by the data shards replicates:
@@ -95,11 +105,12 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, micro_steps: int = 1,
             parts_sum = parts if parts_sum is None else parts_sum + parts
         if micro_steps > 1:
             grads = {name: g / micro_steps for name, g in grads.items()}
-        # leaves replicated over a data axis: sum their gradients over it
-        # (one flat fp32 all-reduce per set of axes)
+        # leaves replicated over a data axis (and under context
+        # parallelism over "model", outside a region): sum their
+        # gradients over it (one flat fp32 all-reduce per set of axes)
         by_axes: Dict[tuple, list] = {}
         for name in grads:
-            axes = layout.replicated_over_data(name)
+            axes = layout.grad_sum_axes(name)
             if axes:
                 by_axes.setdefault(axes, []).append(name)
         for axes, names in by_axes.items():
@@ -134,13 +145,17 @@ def make_prefill_step(cfg: ModelConfig, mesh=None):
     through ``ShardLayout.view``, the batch rows shard over the data
     axes (a batch that does not divide replicates), and the rank's
     last-position logits are gathered into the global (B, V): over
-    "model" where the vocabulary is split, then over the data axes."""
+    "model" where the vocabulary is split, then over the data axes.
+    Under context parallelism (as ``make_train_step``) the layers run
+    on the rank's rows and the vocab-parallel head on the gathered
+    sequence, whose last row every rank holds; without a vocab region
+    the head runs on the rank's rows, and the last row is gathered
+    from the rank that holds it."""
     # the step reads only the mesh's axes; the caller's tensors say where
     # it computes
     mesh = make_local_mesh(device="meta") if mesh is None else mesh
-    layout = ShardLayout(cfg, mesh)
+    layout = ShardLayout(cfg, mesh, cp=dctx.cp_enabled())
     nd = math.prod(mesh.shape[a] for a in layout.data)
-    rows = DataRows(mesh, layout.data) if nd > 1 else None
 
     def prefill_step(model, batch):
         rows = next(iter(batch.values())).shape[0]
@@ -150,9 +165,12 @@ def make_prefill_step(cfg: ModelConfig, mesh=None):
         view = layout.view(model)
         with torch.no_grad():
             logits, _ = mdl.forward(view, cfg, local)
-            last = logits[:, -1, :]
             if view["embed"].tp is not None:
-                last = _all_gather(last, mesh, 1, "model")
+                last = _all_gather(logits[:, -1, :], mesh, 1, "model")
+            elif layout.seq is not None:
+                last = _all_gather(logits[:, -1:], mesh, 1, "model")[:, -1]
+            else:
+                last = logits[:, -1, :]
             return _all_gather(last, mesh, 0, layout.data) if split else last
 
     prefill_step.layout = layout

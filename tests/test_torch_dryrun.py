@@ -20,6 +20,7 @@ divides by a v5e's.  The reference's ``launch.dryrun`` and
 import, so they run only in a subprocess; ``repro.launch.report`` is
 pointed at ``tmp_path``.  The dry-run table's footnote says what the
 port counts, so the tables are compared above it."""
+import contextlib
 import dataclasses
 import json
 import os
@@ -51,6 +52,7 @@ from repro_torch.kernels import sata_attention as sa  # noqa: E402
 from repro_torch.kernels import sata_decode as sd  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import inputs as tinputs  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import report as treport  # noqa: E402
 from repro_torch.launch import roofline as troof  # noqa: E402
 from repro_torch.launch.mesh import ShardMesh  # noqa: E402
@@ -168,28 +170,47 @@ def _launches():
             sd.sata_decode_attention_paged_kernel.launches)
 
 
-def _counted_step(cfg, device, tokens):
-    state = init_train_state(cfg, OptConfig(), device=device, seed=0)
-    step = make_train_step(cfg, OptConfig())
-    tok = torch.from_numpy(tokens).to(device)
-    with dryrun.WorkCounter() as c:
-        _, metrics = step(state, {"tokens": tok, "labels": tok})
+def _counted_step(cfg, device, tokens, m=1):
+    """One train step of ``cfg`` under a ``WorkCounter``: on one device,
+    or (``m`` > 1) as rank 0 of a fake world's (1, m) mesh with context
+    parallelism on (the fake collectives move nothing: the counts read
+    only shapes)."""
+    with contextlib.ExitStack() as stack:
+        mesh = None
+        if m > 1:
+            stack.enter_context(tmesh.fake_world(m))
+            mesh = tmesh.make_train_mesh(1, m, device=device)
+            tctx.set_activation_shardings(tctx.make_activation_shardings(
+                mesh, cfg, seq_shard=True), mesh=mesh)
+            tctx.set_context_parallel(True)
+            stack.callback(tctx.clear)
+            stack.callback(tctx.set_context_parallel, False)
+        state = init_train_state(cfg, OptConfig(), device=device, seed=0,
+                                 mesh=mesh)
+        step = make_train_step(cfg, OptConfig(), mesh=mesh)
+        assert (step.layout.seq is not None) == (m > 1)
+        tok = torch.from_numpy(tokens).to(device)
+        with dryrun.WorkCounter() as c:
+            _, metrics = step(state, {"tokens": tok, "labels": tok})
     assert metrics["loss"].device.type == torch.device(device).type
     return c.summary()
 
 
-def test_a_step_counts_the_same_work_on_meta_and_on_the_cpu():
+@pytest.mark.parametrize("m", [1, 2])
+def test_a_step_counts_the_same_work_on_meta_and_on_the_cpu(m):
+    """m = 2: rank 0 of a (1, 2) mesh, context-parallel: its B3 calls
+    take its 128 query rows against all 256 keys."""
     cfg = dataclasses.replace(dryrun.main_path_cfg(tarchs.SMOKE["qwen3-4b"]),
                               remat="full")
     tokens = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 256)).astype(np.int32)
     before = _launches()
-    meta = _counted_step(cfg, "meta", tokens)
-    cpu = _counted_step(cfg, "cpu", tokens)
+    meta = _counted_step(cfg, "meta", tokens, m)
+    cpu = _counted_step(cfg, "cpu", tokens, m)
     assert _launches() == before
     # 4 layers x (forward + remat recompute), each at the plan capacity
     want = ops.block_attention_work(
-        torch.empty((2 * cfg.n_heads, 256, cfg.hd)), None, 2,
+        torch.empty((2 * cfg.n_heads, 256 // m, cfg.hd)), None, 2,
         q_block=128, k_block=128)
     assert meta["kernels"] == {"sata_block_attention_compact": {
         "calls": 8, "flops": 8 * want[0], "bytes": 8 * want[1]}}
@@ -355,7 +376,7 @@ def test_run_cell_argument_bytes_are_the_layout_blocks(monkeypatch,
     mesh = ShardMesh(tuple(sizes), sizes, None, 0, torch.device("meta"))
     train = shape == "train_4k"
     batch = 32 * 128 * 4 * (2 if train else 1)
-    assert r["ok"] and r["mesh"] == sizes and r["cp"] is False
+    assert r["ok"] and r["mesh"] == sizes and r["cp"] is True
     assert r["memory"]["argument_size_in_bytes"] == _blocks_bytes(
         cfg, mesh, batch, train)
     # train: five fp32 metrics and the new step counter (the parameters
@@ -371,22 +392,29 @@ def test_run_cell_argument_bytes_are_the_layout_blocks(monkeypatch,
     assert json.loads((tmp_path / f"{r['cell']}.json").read_text()) == r
 
 
+@pytest.mark.parametrize("cp", [False, True])
 def test_fake_world_collective_bytes_equal_a_gloo_world(monkeypatch,
-                                                        gloo_bytes):
+                                                        gloo_bytes, cp):
+    """With and without context parallelism (the gloo world sets the
+    same switch); context-parallel, every step reduce-scatters the
+    sequence."""
     got = {}
     for case, (arch, kind, b, s) in R.COLLECTIVE_CASES.items():
         shape = "train_4k" if kind == "train" else "prefill_32k"
         monkeypatch.setitem(tarchs.SHAPES, shape,
                             tarchs.ShapeSpec(shape, s, b, kind))
         r = dryrun.run_cell(arch, shape, False, save=False, verbose=False,
-                            cfg=R.collective_cfg(arch), mesh_shape=(1, 2))
+                            cfg=R.collective_cfg(arch), mesh_shape=(1, 2),
+                            cp=cp)
+        assert r["cp"] is cp
         got[case] = r["collectives"]["per_kind"]
         if case == "qwen3-4b-train":       # SMOKE: no remat, one a layer
             assert r["kernels"]["sata_block_attention_compact"]["calls"] \
                 == R.collective_cfg(arch).n_layers
-    want = gloo_bytes()
+    want = gloo_bytes()[cp]
     assert got == want
-    assert all(want[c].get("all-reduce", 0) > 0 for c in want)
+    kind = "reduce-scatter" if cp else "all-reduce"
+    assert all(want[c].get(kind, 0) > 0 for c in want)
 
 
 # ---------------------------------------------------------------------------
@@ -633,13 +661,33 @@ def test_run_cell_refuses_an_initialised_group_and_leaves_none(
     assert not dist.is_initialized() and not tctx.cp_enabled()
 
 
-def test_run_cell_refuses_context_parallel():
-    """The port's attention is head-parallel: a cell asked for context
-    parallelism raises before it starts a world, rather than record
-    ``"cp": true`` for a step that ran head-parallel."""
-    with pytest.raises(NotImplementedError, match="head-parallel"):
-        dryrun.run_cell("qwen3-4b", "train_4k", False, save=False, cp=True)
-    assert not dist.is_initialized() and not tctx.cp_enabled()
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k",
+                                   "decode_32k"])
+def test_small_fake_world_cells_run_context_parallel(monkeypatch, shape):
+    """On a (2, 4) fake world a train or prefill cell runs context-
+    parallel by default, as the reference's dry run (its B3 calls on the
+    rank's S / 4 query rows, where head-parallel they take a quarter of
+    the heads), and ``cp=False`` turns it off; a decode
+    cell never is.  The switch is off again after every cell."""
+    _small(monkeypatch, train=(512, 8), prefill=(512, 8))
+    cfg = dryrun.main_path_cfg(tarchs.SMOKE["qwen3-4b"])
+    for cp in (True, False):
+        r = dryrun.run_cell("qwen3-4b", shape, False, save=False,
+                            verbose=False, cfg=cfg, mesh_shape=(2, 4), cp=cp)
+        assert not tctx.cp_enabled()
+        ran = cp and shape != "decode_32k"
+        assert r["ok"] and r["cp"] is ran and ("notes" in r) is ran
+        if shape == "decode_32k":
+            continue
+        b, s = tarchs.SHAPES[shape].global_batch, tarchs.SHAPES[shape].seq_len
+        # context-parallel: every head on the rank's S / 4 query rows;
+        # else the rank's 1 of SMOKE's 4 heads on all S
+        h, sq = (cfg.n_heads, s // 4) if cp else (cfg.n_heads // 4, s)
+        q = torch.empty((b // 2 * h, sq, cfg.hd))
+        assert r["kernels"]["sata_block_attention_compact"]["flops"] == \
+            r["kernels"]["sata_block_attention_compact"]["calls"] * \
+            ops.block_attention_work(q, None, s // 128, q_block=128,
+                                     k_block=128)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -672,7 +720,7 @@ print("JSON" + json.dumps(out))
 
 
 def _stub_measure(monkeypatch, calls):
-    def measure(arch, shape_name, cfg, param_mode=None):
+    def measure(arch, shape_name, cfg, param_mode=None, cp=True):
         f, b, c = PROBES[len(calls)]
         calls.append(cfg.n_layers)
         return f, b, c, {"memory": {"argument_size_in_bytes": 0,

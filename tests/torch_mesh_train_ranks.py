@@ -37,9 +37,10 @@ world on (1, 2) (``tests/test_torch_ssm_regions.py``).
     python tests/torch_mesh_train_ranks.py collectives RANK TMP
 
 runs each :data:`COLLECTIVE_CASES` step once on rank RANK of a 2-rank
-world on (1, 2) and has rank 0 write TMP/collectives.pt: each step's
-collective bytes by kind (``ShardMesh.collective_bytes``), for
-``tests/test_torch_dryrun.py`` to hold the dry run's fake world to.
+world on (1, 2), without and with context parallelism, and has rank 0
+write TMP/collectives.pt: each step's collective bytes by kind
+(``ShardMesh.collective_bytes``), for ``tests/test_torch_dryrun.py`` to
+hold the dry run's fake world to.
 """
 import dataclasses
 import os
@@ -88,9 +89,16 @@ MODEL_CASES = {"grok": ((1, 2), (2, 2)), "vlm": ((1, 2),),
                "audio": ((1, 2),), "zamba2": ((1, 2),),
                "rwkv6": ((1, 2),), "tied": ((1, 2),)}
 # "tied": SMOKE qwen3-4b with ``tie_embeddings``: the unembed is the
-# rank's embedding rows, transposed
+# rank's embedding rows, transposed; "gqa" ("gqa-kernel" on ``_attend``),
+# "audio9" (9 encoder frames) and "moe3" (3 experts),
+# ``tests/test_torch_cp_train.py``'s cases whose KV heads, encoder
+# frames, or experts "model" does not divide
 ROWS = {**CASES, **FAMILIES, "grok": ("grok-1-314b", 32, None),
-        "tied": ("qwen3-4b", 32, dict(tie_embeddings=True))}
+        "tied": ("qwen3-4b", 32, dict(tie_embeddings=True)),
+        "gqa": ("qwen3-4b", 64, dict(n_kv_heads=2, topk_k=8,
+                                     topk_impl="bisect", q_chunk=16)),
+        "audio9": ("whisper-base", 32, dict(encoder_len=9)),
+        "moe3": ("qwen3-moe-235b-a22b", 32, dict(n_experts=3))}
 KERNEL_CASES = ("gqa-kernel",)     # the SATA kernel route, blocks of 16
 MESHES = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
 # cases whose reference ``train`` runs a step a call, each resumed from
@@ -510,10 +518,11 @@ def main_regions(rank, tmp):
 
 # (arch in SMOKE, step kind, batch, seq): the dry run's cells at SMOKE
 # width on a (1, 2) mesh; qwen3-4b on the SATA kernel route
-# (``launch.dryrun.main_path_cfg``: 128-blocks, so seq 128)
+# (``launch.dryrun.main_path_cfg``: 128-blocks, so seq 256, whose 128
+# query rows a rank keeps under context parallelism tile too)
 COLLECTIVE_CASES = {
-    "qwen3-4b-train": ("qwen3-4b", "train", 2, 128),
-    "qwen3-4b-prefill": ("qwen3-4b", "prefill", 2, 128),
+    "qwen3-4b-train": ("qwen3-4b", "train", 2, 256),
+    "qwen3-4b-prefill": ("qwen3-4b", "prefill", 2, 256),
     "qwen3-moe-train": ("qwen3-moe-235b-a22b", "train", 2, 32),
 }
 
@@ -527,8 +536,11 @@ def collective_cfg(arch):
 def main_collectives(rank, tmp):
     """``collectives RANK TMP``: every case's step on a real gloo world of
     2 ranks on (1, 2), CPU tensors; rank 0 writes the bytes by kind."""
+    import itertools
+
     import torch_threads  # noqa: F401  (one intra-op thread)
     import torch
+    from repro_torch.distributed import ctx
     from repro_torch.launch import mesh as M
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train.step import (init_train_state, make_prefill_step,
@@ -537,8 +549,9 @@ def main_collectives(rank, tmp):
         "gloo", init_method=f"file://{tmp}/store_collectives", rank=rank,
         world_size=2)
     try:
-        res = {}
-        for case, (arch, kind, b, s) in COLLECTIVE_CASES.items():
+        res = {False: {}, True: {}}
+        for (case, (arch, kind, b, s)), cp in itertools.product(
+                COLLECTIVE_CASES.items(), res):
             cfg = collective_cfg(arch)
             mesh = M.make_train_mesh(1, 2, device="cpu")
             gen = torch.Generator().manual_seed(0)
@@ -546,13 +559,20 @@ def main_collectives(rank, tmp):
                                 dtype=torch.int32)
             state = init_train_state(cfg, OptConfig(), device="cpu",
                                      mesh=mesh)
-            if kind == "train":
-                make_train_step(cfg, OptConfig(), mesh=mesh)(
-                    state, {"tokens": tok, "labels": tok})
-            else:
-                make_prefill_step(cfg, mesh=mesh)(state["params"],
-                                                  {"tokens": tok})
-            res[case] = dict(mesh.collective_bytes)
+            ctx.set_activation_shardings(ctx.make_activation_shardings(
+                mesh, cfg, seq_shard=True), mesh=mesh)
+            ctx.set_context_parallel(cp)
+            try:
+                if kind == "train":
+                    make_train_step(cfg, OptConfig(), mesh=mesh)(
+                        state, {"tokens": tok, "labels": tok})
+                else:
+                    make_prefill_step(cfg, mesh=mesh)(state["params"],
+                                                      {"tokens": tok})
+            finally:
+                ctx.set_context_parallel(False)
+                ctx.clear()
+            res[cp][case] = dict(mesh.collective_bytes)
         if rank == 0:
             torch.save(res, os.path.join(tmp, "collectives.pt"))
     finally:
