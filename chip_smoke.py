@@ -63,7 +63,12 @@ each prints its host seconds as a ``[phase]`` line):
      but the kernel), its bound from the bytes the output needs at 3.35
      TB/s, the plain version, and SDPA over the dense cache with the
      same mask as the library yardstick; one layer's exact re-plan on
-     the host clock beside it;
+     the host clock beside it; the contiguous kernel's partial mode
+     (context-parallel decode: the fp32 output and each head's lse) at
+     the main, G = 16, D = 64 and D = 80 cases with one more count-0
+     row, against its plain version (``check_partial``: lse −inf and
+     output 0 on that row, one partial combined alone == the default
+     mode bitwise), timed beside the default mode;
   6. the SATA prefill kernels (compacted grid B3 in threshold, mask and
      block mode; dense grid B4) against their plain versions: fp32 <=
      1e-5, bf16 within phase 2's limits; admitted-key counts per row
@@ -104,7 +109,7 @@ each prints its host seconds as a ``[phase]`` line):
      point takes (bf16 must take the tensor cores), timing (CUDA events, median,
      L2 flushed), the bound from the flops and bytes this input needs,
      and SDPA with the equivalent boolean mask as the library yardstick;
- 11. (phases 11-13a at PREFIX_LAYERS = 9 of the 36 layers, full width,
+ 11. (phases 11-13a at PREFIX_LAYERS = 6 of the 36 layers, full width,
      for phase 26's time; phase 3's paged serve is repeated at that
      depth first, the fp32 stream for phase 12)
      phase 3's serve with prompts sharing their first 1000 tokens (15
@@ -155,13 +160,13 @@ each prints its host seconds as a ``[phase]`` line):
      every run, and held to its plain version on one recorded call of
      each (a row at rung >= 1; a table with holes);
  15. olmo-1b at full width (d_model 2048, 16 heads over 16 KV heads: G =
-     1, the non-parametric norm), its 16 layers cut to OLMO_LAYERS = 8
+     1, the non-parametric norm), its 16 layers cut to OLMO_LAYERS = 6
      (for phase 25's time), phase 3's workload paged then
      contiguous: equal token streams, the kernel's launches = layers x
      steps;
  16. qwen3-moe-235b-a22b at full width (64 heads over 4 KV heads: G =
      16, 128 experts, top-8, d_ff 1536, group 128), its 94 layers cut to
-     MOE_LAYERS (the weights fill ~62 GB), phase 3's workload paged then
+     MOE_LAYERS = 8 (the weights fill ~42 GB), phase 3's workload paged then
      contiguous: equal token streams, launches = layers x steps, B1 on
      one recorded call within phase 2's limits, one recorded decode and
      one recorded prefill FFN call's expert ids and kept mask equal to
@@ -176,7 +181,7 @@ each prints its host seconds as a ``[phase]`` line):
      the dense grid never, HEADROOM left; step s, tokens/s, peak memory;
  18. llama-3.2-vision-90b at full width (d_model 8192, 64 heads over 8
      KV heads, 1600 image tokens, a cross layer after every 4 self
-     layers) cut to VLM_LAYERS = 35 (28 self, 7 cross), gates opened:
+     layers) cut to VLM_LAYERS = 25 (20 self, 5 cross), gates opened:
      16 requests of one prompt token, VLM_GEN (64) generated, through 8
      slots
      on the contiguous cache (the only vlm layout of the reference):
@@ -194,16 +199,16 @@ each prints its host seconds as a ``[phase]`` line):
      streams, each layout's kernel launched layers x steps, one B1 call
      at D = 64 held to its plain version; mean step, cross-attention ms a
      step and the encoder's ms;
- 20. zamba2-2.7b at full width, depth cut to ZAMBA_LAYERS = 36 of its 54
-     Mamba2 layers (for phase 25's time; d_model 2560, d_inner
+ 20. zamba2-2.7b at full width, depth cut to ZAMBA_LAYERS = 24 of its 54
+     Mamba2 layers (for phases 25 and 27's time; d_model 2560, d_inner
      5120, 80 SSM heads x 64, state 64, conv 4; the shared decoder block
-     after every 6, 6 applications, each with its own KV cache: 32 heads
+     after every 6, 4 applications, each with its own KV cache: 32 heads
      over 32 KV heads of 80, G = 1, D = 80): 8 requests of one prompt
      token, ZAMBA_GEN (256) generated, through 8 slots, max_len 512 (rows
      reach 4 pages), paged then contiguous: equal token streams, each
-     layout's kernel launched 6 x steps, one B1 call at D = 80 held to
-     its plain version; mean step, the 36 ``mamba2_decode`` calls' and
-     the 6 shared blocks' ms a step (CUDA events), the fetch reduction,
+     layout's kernel launched 4 x steps, one B1 call at D = 80 held to
+     its plain version; mean step, the 24 ``mamba2_decode`` calls' and
+     the 4 shared blocks' ms a step (CUDA events), the fetch reduction,
      peak memory;
  21. rwkv6-1.6b at full width and depth (24 layers, d_model 2048, 32
      heads x 64, d_ff 7168, vocab 65536): 8 requests of one prompt
@@ -304,8 +309,9 @@ each prints its host seconds as a ``[phase]`` line):
      peak) beside the card's peak, the card's step ms beside the
      roofline's modeled max(compute, memory); then, in subprocesses
      that see no card, ``python -m repro_torch.launch.roofline`` on
-     DRYRUN_CELLS (qwen3-4b and qwen3-moe-235b-a22b at train_4k, rank 0
-     of the fake 16x16 world at full depth): each probe's arguments,
+     DRYRUN_CELLS (qwen3-4b and qwen3-moe-235b-a22b at train_4k,
+     qwen3-4b at decode_32k over the key split, rank 0 of the fake 16x16
+     world at full depth): each probe's arguments,
      temp, FLOPs and collective bytes by kind, the three terms, the
      dominant one, host seconds.  These terms are modeled on the host
      at the H100's data-sheet peaks: no card runs them;
@@ -333,7 +339,20 @@ each prints its host seconds as a ``[phase]`` line):
      the first step equal, the decode kernel launched layers x steps a
      rank (the counts read in each rank, summed; none with dense
      attention), paged == contiguous bitwise on each rank; ms a step,
-     host-staged MB and peak memory a rank.
+     host-staged MB and peak memory a rank.  These jobs run the head
+     layout (``CACHE_SEQ_SHARD`` False in the ranks).  Then the
+     context-parallel job (MESH_CP_RUNS, ``CACHE_SEQ_SHARD`` on: each
+     rank holds its 2,048 of every slot's 4,096 keys): qwen3-4b, 4
+     layers, 8 slots, contiguous, prompts MESH_CP_PROMPTS (keys on both
+     ranks, a slot crossing the 2,048 boundary), 8 steps in bf16 and in
+     fp32 from the same weights, and zamba2-2.7b (one shared block,
+     ``shared_kv``) 4 steps in fp32, each against one device's
+     ``serve_step`` (``mesh_cp_check``): fp32 within ROUTE_RTOL, bf16
+     printed beside the witness, both ranks' logits bitwise equal, the
+     contiguous kernel launched (in its partial mode) layers x steps a
+     rank; the keys each step's thresholds admit on each rank (the
+     contiguous split's imbalance), the rank's self-attention cache MB
+     against the head layout's, ms a step, host-staged MB, peak memory.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the ``kernels`` JSON, and the card's name and power limit are
@@ -792,6 +811,51 @@ def check_kernels(torch, sd, dev):
         errs[cname] = check_case(torch, sd, cname, c)
     check_refusal(torch, sd, dev)
     return keep, errs
+
+
+def check_partial(torch, sd, name, c, tag):
+    """Phase 5: the decode kernel's partial mode (context-parallel
+    decode: the fp32 output unrounded and each head's lse) against its
+    plain version on a phase 2 case, contiguous, with one more row's
+    count set to 0 (its lse must be −inf, its output 0), within TOL of
+    the case's dtype (lse over its finite entries, the −inf ones equal);
+    the partial combined alone (``KeySplit.combine`` on one rank) rounds
+    to the default mode's bits; both modes timed.  Returns the largest
+    error."""
+    from repro_torch.distributed.sharding import KeySplit
+    from repro_torch.launch.mesh import make_local_mesh
+    cnt = c["cnt"].clone()
+    cnt[-1, 0] = 0
+    args = (c["q"], c["k"], c["v"], c["idx"], cnt, c["thr"], c["pos"])
+    out, lse = sd.sata_decode_attention_kernel(*args, k_block=c["page"],
+                                               partial=True)
+    p_out, p_lse = sd.sata_decode_attention_ref(*args, k_block=c["page"],
+                                                partial=True)
+    whole = sd.sata_decode_attention_kernel(*args, k_block=c["page"])
+    one = KeySplit(make_local_mesh(device=c["q"].device)).combine(out, lse)
+    torch.cuda.synchronize()
+    tol = TOL[str(c["q"].dtype).split(".")[-1]]
+    assert out.dtype == lse.dtype == torch.float32
+    dead = torch.isneginf(p_lse)
+    assert torch.equal(torch.isneginf(lse), dead), f"{name}: −inf rows"
+    assert bool(dead[-1, 0].all()) and bool((out[-1, 0] == 0).all()), \
+        f"{name}: the count-0 row"
+    e_out = float((out - p_out).abs().max())
+    e_lse = float((lse - p_lse)[~dead].abs().max())
+    assert e_out <= tol and e_lse <= tol, (name, e_out, e_lse, tol)
+    assert torch.equal(one.to(whole.dtype), whole), \
+        f"{name}: one partial combined != the default mode's output"
+    ms = time_ms(torch, lambda: sd.sata_decode_attention_kernel(
+        *args, k_block=c["page"], partial=True))
+    ms0 = time_ms(torch, lambda: sd.sata_decode_attention_kernel(
+        *args, k_block=c["page"]))
+    log(f"[kernel] {name} partial mode (contiguous): out max_abs_err "
+        f"{e_out:.3e}, lse {e_lse:.3e} (tol {tol:g}); "
+        f"{int(dead.sum())} (row, head) lse -inf, the count-0 row's among "
+        f"them, out 0; combined alone == the default mode bitwise; "
+        f"{ms:.4f} ms against the default mode's {ms0:.4f} (CUDA events) "
+        f"{tag}")
+    return max(e_out, e_lse)
 
 
 def extra_decode_cases(torch, dev):
@@ -1569,7 +1633,7 @@ def prefill_phases(torch, sa, dev, base, tag, clock):
 # ---------------------------------------------------------------------------
 
 SHARED_PREFIX = 1000     # 15 full pages of 64 + a 40-row partial page
-PREFIX_LAYERS = 9        # phases 11-13a: full width, 9 of the 36 layers
+PREFIX_LAYERS = 6        # phases 11-13a: full width, 6 of the 36 layers
 SKETCH_BLOCKS = 8        # phase 12's plan width P: 8 of 64 pages
 
 
@@ -2563,8 +2627,10 @@ def overload_phases(torch, sd, serve, cfg, opts, dev, tag):
 # qwen3-moe-235b-a22b at full width holds 3 x 128 x 4096 x 1536 bf16 expert
 # weights a layer (4.83 GB), 0.14 GB of attention, 2.49 GB of embeddings:
 # 12 of its 94 layers are ~62 GB of the card's 80 GB, with room left for
-# the page pool, the prefill's workspace and the init's fp32 temporaries
-MOE_LAYERS = 12
+# the page pool, the prefill's workspace and the init's fp32 temporaries;
+# 8 (~42 GB) since the whole run took 1,175.5 s of its 1,200 on a slow
+# host
+MOE_LAYERS = 8
 MOE_TOL = 2e-2          # bf16 moe FFN output: index form vs one-hot einsums
 MOE_PROBE_STEP = 10     # the decode step whose layer-0 FFN call is held
 
@@ -2650,7 +2716,7 @@ def describe(cfg) -> str:
             f"{cfg.dtype}")
 
 
-OLMO_LAYERS = 8          # phase 15: full width, 8 of olmo-1b's 16 layers
+OLMO_LAYERS = 6          # phase 15: full width, 6 of olmo-1b's 16 layers
 
 
 def olmo_phase(torch, sd, serve, opts, dev, tag):
@@ -2836,9 +2902,10 @@ def moe_phase(torch, sd, serve, opts, dev, tag, n_layers=MOE_LAYERS):
 MOE_TRAIN_STEPS = 3
 MOE_TRAIN_SEQ = 4096
 HEADROOM = 8e9          # bytes phase 17 must leave free on the card
-# llama-3.2-vision-90b: 100 layers cut to 35 (28 self in 7 groups of 4,
-# 7 cross), ~1.71 GB a layer in bf16 and 4.2 GB of embeddings: ~64 GB
-VLM_LAYERS = 35
+# llama-3.2-vision-90b: 100 layers cut to 25 (20 self in 5 groups of 4,
+# 5 cross), ~1.71 GB a layer in bf16 and 4.2 GB of embeddings: ~47 GB
+# (35 until the whole run took 1,175.5 s of its 1,200 on a slow host)
+VLM_LAYERS = 25
 # tokens a vlm request generates: 64, cut from 256 when the whole run
 # took 1,181 s of its 1,200 on a slow host
 VLM_GEN = 64
@@ -3160,7 +3227,7 @@ def whisper_phase(torch, sd, serve, dev, tag):
 # zamba2: 8 one-token requests through 8 slots, 256 generated over a
 # 512-token context (8 pages of 64; rows reach 4), so the planner selects
 ZAMBA_GEN, ZAMBA_MAX_LEN = 256, 512
-ZAMBA_LAYERS = 36        # of 54: six applications of the shared block
+ZAMBA_LAYERS = 24        # of 54: four applications of the shared block
 ZAMBA_PROBE_STEP = 200          # the decode step whose first B1 call is held
 RWKV_GEN, RWKV_MAX_LEN = 128, 256
 
@@ -3544,7 +3611,7 @@ def scheduler_phases(torch, sa, dev, root, tag):
 # phase 23: two replicas around one cross-replica prefix index
 # ---------------------------------------------------------------------------
 
-REPLICA_LAYERS = 9       # phase 23: full width, 9 of qwen3-4b's 36 layers
+REPLICA_LAYERS = 6       # phase 23: full width, 6 of qwen3-4b's 36 layers
 # what a CPU rehearsal of phase 23's page arithmetic gives (the smoke
 # model at page 64, prompt 1024, 1000 shared tokens, 16 requests through
 # 8 slots), per replica: replica 0 publishes the 15 full pages of the
@@ -3942,16 +4009,19 @@ def mesh_train_rank(torch, dev, res, train_runs):
 
 
 def mesh_rank(rank, world, tmp, device, dshape, sshape, train_runs=(),
-              serve_runs=()):
+              serve_runs=(), cp_runs=()):
     """One rank of phases 24, 25 and 27, started by ``mesh_phase`` (spawn):
     joins the gloo world through a FileStore in ``tmp``, runs the
     tensor-parallel decode steps in both layouts (the kernels' counts set
     to 0 just before each and read just after) and the sequence-sharded
     attention twice (the second timed), then phase 25's training runs
-    (``mesh_train_rank``) and phase 27's serve steps
-    (``mesh_serve_rank``), and saves everything to ``tmp/rank<r>.pt``."""
+    (``mesh_train_rank``), phase 27's serve steps on the head layout
+    (``mesh_serve_rank``, ``CACHE_SEQ_SHARD`` False) and its
+    context-parallel job (``mesh_cp_rank``), and saves everything to
+    ``tmp/rank<r>.pt``."""
     import torch
     import torch.distributed as dist
+    from repro_torch.distributed import sharding
     from repro_torch.kernels import sata_decode as sd
     from repro_torch.launch import mesh as M
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3999,7 +4069,9 @@ def mesh_rank(rank, world, tmp, device, dshape, sshape, train_runs=(),
         res["seq"] = (out.cpu(), {n: x.cpu() for n, x in stats.items()})
         del q, k, v, first, out, stats
         mesh_train_rank(torch, dev, res, train_runs)
+        sharding.CACHE_SEQ_SHARD = False
         mesh_serve_rank(torch, dev, res, tmp, serve_runs)
+        mesh_cp_rank(torch, dev, res, tmp, cp_runs)
         torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -4231,6 +4303,17 @@ MESH_SERVE_TWINS = {"dense": dict(attention_variant="dense"),
 MESH_SERVE_DENSE = ("qwen3-4b",)
 # rwkv6's bound in bf16 and fp32 (C14: its bf16 scan state drifts)
 MESH_SERVE_RWKV_RTOL = 1e-2
+# phase 27's context-parallel job: the serving cache's keys split over
+# "model" (``CACHE_SEQ_SHARD``, the reference's layout) on
+# MESH_SERVE_MESH, contiguous.  (arch, layers, checked steps, max_len,
+# dtypes: bf16 the seed's weights, fp32 the same weights ``.float()``ed,
+# fp32 last).  qwen3-4b's prompts put keys on both ranks and cross the
+# ranks' 2,048 boundary while stepping (2,047 → 2,048); zamba2's one
+# shared block (6 layers) reads ``shared_kv``
+MESH_CP_PROMPTS = (1024, 2100, 3000, 333, 2048, 4000, 64, 2047)
+MESH_CP_RUNS = (
+    ("qwen3-4b", MESH_SERVE_LAYERS, 8, MESH_SERVE_MAX_LEN, ("bf16", "fp32")),
+    (MESH_ZAMBA, 6, 4, 512, ("fp32",)))
 
 
 def mesh_serve_twins(arch):
@@ -4281,10 +4364,11 @@ def plan0_rows(cache, take=None):
     return None
 
 
-def mesh_serve_fill(torch, dev, model, cfgs, max_len):
+def mesh_serve_fill(torch, dev, model, cfgs, max_len,
+                    prompts=MESH_SERVE_PROMPTS):
     """Each layout's whole cache of ``cfgs`` (layout: config), filled on
     one device: qwen3-4b's slots by ``prefill_prompt`` /
-    ``install_prefill`` of MESH_SERVE_PROMPTS, the other archs' by
+    ``install_prefill`` of ``prompts``, the other archs' by
     MESH_SERVE_WARM steps from an empty cache; paged, every slot's pages
     mapped.  The draws come from one seed, so a twin gets the same
     prompts and tokens.  Returns (caches, the first checked position of
@@ -4305,8 +4389,8 @@ def mesh_serve_fill(torch, dev, model, cfgs, max_len):
             dec.set_page_table(c, caches[lay], table)
     rng = np.random.default_rng(27)
     if cfg.name.startswith("qwen3-4b"):
-        pos0 = np.array(MESH_SERVE_PROMPTS, np.int32)
-        for slot, n in enumerate(MESH_SERVE_PROMPTS):
+        pos0 = np.array(prompts, np.int32)
+        for slot, n in enumerate(prompts):
             prompt = torch.from_numpy(rng.integers(
                 0, cfg.vocab_size, (1, n)).astype(np.int32)).to(dev)
             _, state = dec.prefill_prompt(model, cfg, prompt, max_len)
@@ -4565,8 +4649,239 @@ def mesh_serve_check(ranks, refs, tag, runs=MESH_SERVE_RUNS):
     return n
 
 
+def mesh_cp_cfg(arch, layers, dtype):
+    return mesh_serve_cfg(arch, layers, "contiguous",
+                          **({"dtype": "float32"} if dtype == "fp32" else {}))
+
+
+def mesh_cp_reference(torch, dev, tmp, tag, runs=MESH_CP_RUNS):
+    """The context-parallel job's one-device half, in the parent: for
+    each run the seed-0 model in bf16, ``.float()``ed for fp32, each
+    dtype's whole contiguous cache filled on one device
+    (``mesh_serve_fill``, qwen3-4b from MESH_CP_PROMPTS) and saved to
+    ``tmp/cp_<arch> <dtype>.pt``, then the checked steps on one device,
+    the first dtype's greedy tokens fed to both.  The witness is the
+    bf16 run's logits against the fp32 run's.  The references go to
+    ``tmp/cp_ref_<arch>.pt``."""
+    from repro_torch.models.model import Model
+    refs = {}
+    for arch, layers, steps, max_len, dtypes in runs:
+        t0 = time.time()
+        model = Model(mesh_cp_cfg(arch, layers, "bf16"), device=dev, seed=0)
+        ref = {"fed": []}
+        for dt in dtypes:
+            cfg = mesh_cp_cfg(arch, layers, dt)
+            if dt == "fp32":
+                model.float()
+            caches, pos0, tok = mesh_serve_fill(
+                torch, dev, model, {"contiguous": cfg}, max_len,
+                prompts=MESH_CP_PROMPTS)
+            torch.save(caches, os.path.join(tmp, f"cp_{arch} {dt}.pt"))
+            ref["pos0"] = pos0
+            ref["fed"] = ref["fed"] or [tok]
+            ref[dt] = mesh_serve_steps(torch, dev, model, cfg,
+                                       caches["contiguous"], pos0, steps,
+                                       ref["fed"])
+            del caches
+        if len(dtypes) == 2:
+            ref["witness"] = [rel_logits(a, b) for a, b in zip(
+                ref["bf16"]["logits"], ref["fp32"]["logits"])]
+        torch.save(ref, os.path.join(tmp, f"cp_ref_{arch}.pt"))
+        refs[arch] = ref
+        del model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        log(f"[mesh-cp] one device: {arch} full width, {layers} layer(s), "
+            f"{MESH_SERVE_SLOTS} slots, max_len {max_len}, contiguous, "
+            f"{'/'.join(dtypes)}: "
+            + "; ".join(f"{dt} {', '.join(f'{x:.2f}' for x in ref[dt]['ms'])}"
+                        f" ms a step" for dt in dtypes)
+            + f" (CUDA events); filled and stepped in "
+            f"{time.time() - t0:.1f} s {tag}")
+    return refs
+
+
+class AdmittedKeys:
+    """Wraps ``core.decode_plan.full_replan`` while installed: the keys
+    each call's threshold admits on the rank's share of the keys
+    (``bf16(s) >= bf16(thr)`` at a position <= the slot's), summed over
+    the slots, KV heads and query heads, one total a step (``step``
+    starts the next)."""
+
+    def __init__(self, torch):
+        from repro_torch.core import decode_plan as dp
+        self.torch, self.dp, self.fn = torch, dp, dp.full_replan
+        self.steps = []
+
+    def step(self):
+        self.steps.append(0)
+
+    def __enter__(self):
+        torch, dp, fn = self.torch, self.dp, self.fn
+        from repro_torch.core.blockmap import bisect_select
+
+        def wrapped(q, k_cache, pos, **kw):
+            out = fn(q, k_cache, pos, **kw)
+            with torch.no_grad():
+                s = k_cache.shape[1]
+                sc = dp._scores(q, k_cache.permute(0, 2, 1, 3),
+                                float(1.0 / np.sqrt(q.shape[-1])))
+                valid = torch.arange(s, device=sc.device) <= pos[:, None]
+                n = (bisect_select(sc, out[2]) & valid[:, None, None]).sum()
+            self.steps[-1] += int(n)
+            return out
+        dp.full_replan = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.dp.full_replan = self.fn
+
+
+def mesh_cp_rank(torch, dev, res, tmp, runs):
+    """The context-parallel job in one rank: ``CACHE_SEQ_SHARD`` on, for
+    each run and dtype the seed-0 model sharded under "infer_tp" on
+    MESH_SERVE_MESH (``.float()``ed for fp32), the rank's share of the
+    keys of the whole cache the parent saved, then the checked steps
+    through ``make_serve_step(mesh=)`` fed one device's tokens, the
+    decode kernels' counts set to 0 just before and read just after; the
+    keys each step's thresholds admit on the rank (``AdmittedKeys``), and
+    the rank's self-attention cache bytes against the head layout's
+    (``CACHE_SEQ_SHARD`` False) on the same mesh."""
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.sharding import (ShardLayout, cache_leaves,
+                                                  map_cache)
+    from repro_torch.kernels import sata_decode as sd
+    from repro_torch.launch import mesh as M
+    from repro_torch.models.decode import kv_group
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import make_serve_step
+    was, sharding.CACHE_SEQ_SHARD = sharding.CACHE_SEQ_SHARD, True
+    mesh = M.make_train_mesh(*MESH_SERVE_MESH, device=dev)
+
+    def group_bytes(cache):
+        return sum(t.nbytes for p, t in cache_leaves(cache)
+                   if p[0] == kv_group(cache))
+    try:
+        for arch, layers, steps, max_len, dtypes in runs:
+            ref = torch.load(os.path.join(tmp, f"cp_ref_{arch}.pt"),
+                             weights_only=False)
+            model = None
+            for dt in dtypes:
+                t0 = time.time()
+                cfg = mesh_cp_cfg(arch, layers, dt)
+                step = make_serve_step(cfg, mesh=mesh, mode="infer_tp")
+                if model is None:
+                    model = step.layout.shard_(Model(mesh_cp_cfg(
+                        arch, layers, "bf16"), device=dev, seed=0))
+                if dt == "fp32":
+                    model.float()
+                whole = torch.load(os.path.join(tmp, f"cp_{arch} {dt}.pt"),
+                                   map_location="cpu",
+                                   weights_only=False)["contiguous"]
+                sharding.CACHE_SEQ_SHARD = False
+                head = ShardLayout(cfg, mesh, mode="infer_tp").block_cache(
+                    map_cache(whole, lambda _, x: x.to("meta")))
+                sharding.CACHE_SEQ_SHARD = True
+                cache = map_cache(step.layout.block_cache(whole),
+                                  lambda _, x: x.to(dev))
+                del whole
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                staged = mesh.host_staged_bytes
+                logits, ms = [], []
+                sd.sata_decode_attention_paged_kernel.launches = 0
+                sd.sata_decode_attention_kernel.launches = 0
+                with AdmittedKeys(torch) as adm:
+                    for i in range(steps):
+                        adm.step()
+                        clock = span(torch, dev)
+                        lg, _ = step(model, cache, ref["fed"][i].to(dev),
+                                     torch.from_numpy(ref["pos0"] + i)
+                                     .to(dev))
+                        ms.append(clock())
+                        logits.append(lg.cpu())
+                res[f"cp {arch} {dt}"] = dict(
+                    logits=logits, ms=ms, admitted=adm.steps,
+                    launches=(sd.sata_decode_attention_paged_kernel.launches,
+                              sd.sata_decode_attention_kernel.launches),
+                    staged=mesh.host_staged_bytes - staged,
+                    peak=torch.cuda.max_memory_allocated(dev)
+                    if dev.type == "cuda" else 0,
+                    cache_bytes=group_bytes(cache),
+                    head_bytes=group_bytes(head),
+                    keys={"/".join(k): tuple(v.shape) for k, v in
+                          cache_leaves(cache) if k[-1] == "k"},
+                    wall=time.time() - t0)
+                del cache
+            del model
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        sharding.CACHE_SEQ_SHARD = was
+
+
+def mesh_cp_check(ranks, refs, tag, runs=MESH_CP_RUNS):
+    """The context-parallel job's checks, every line printed before the
+    first failure is raised: fp32 within ROUTE_RTOL of one device's
+    logits relative to the step's largest (phase 8's limit: the
+    row-parallel sums and the softmax's combine reorder fp32 sums), bf16
+    printed beside the witness; the same logits on both ranks; the
+    contiguous kernel (in its partial mode) launched layers x steps a
+    rank and the paged one never.  Returns the contiguous launches over
+    the ranks."""
+    total, fails = 0, []
+    for arch, layers, steps, max_len, dtypes in runs:
+        ref = refs[arch]
+        for dt in dtypes:
+            cfg = mesh_cp_cfg(arch, layers, dt)
+            calls = attention_calls(cfg) * steps
+            limit = ROUTE_RTOL if dt == "fp32" else None
+            for r, rank in enumerate(ranks):
+                t = rank[f"cp {arch} {dt}"]
+                errs = [rel_logits(a, b) for a, b in zip(
+                    t["logits"], ref[dt]["logits"])]
+                same = all(bool((a == b).all()) for a, b in zip(
+                    t["logits"], ranks[0][f"cp {arch} {dt}"]["logits"]))
+                total += t["launches"][1]
+                bound = (f"limit {limit:.1e}" if limit is not None else
+                         f"not held; bf16's own error, the witness, "
+                         f"{max(ref['witness']):.3e}")
+                log(f"[mesh-cp] rank {r}/{MESH_RANKS} {arch} {layers} "
+                    f"layer(s) {dt}, mesh {MESH_SERVE_MESH} (data, model), "
+                    f"the keys split over model: logits relative to one "
+                    f"device {[f'{x:.3e}' for x in errs]} ({bound}); the "
+                    f"ranks' logits bitwise equal {same}; keys admitted on "
+                    f"the rank a step {t['admitted']}; "
+                    f"{', '.join(f'{x:.2f}' for x in t['ms'])} ms a step "
+                    f"(one device "
+                    f"{', '.join(f'{x:.2f}' for x in ref[dt]['ms'])}; CUDA "
+                    f"events, both ranks on the card at once); decode "
+                    f"launches {t['launches'][0]} paged / "
+                    f"{t['launches'][1]} contiguous (derived {calls}); the "
+                    f"rank's self-attention cache {t['cache_bytes'] / 1e6:.1f}"
+                    f" MB (the head layout's {t['head_bytes'] / 1e6:.1f} MB), "
+                    f"its keys {t['keys']}; host-staged "
+                    f"{t['staged'] / 1e6:.1f} MB; peak memory "
+                    f"{t['peak'] / 2 ** 30:.2f} GiB; the job's "
+                    f"{t['wall']:.1f} s in the rank {tag}")
+                for ok, what in (
+                        (len(errs) == steps and all(np.isfinite(errs)) and
+                         (limit is None or max(errs) <= limit),
+                         f"logits {errs} > {limit}"),
+                        (same, "the ranks' logits differ"),
+                        (t["launches"] == (0, calls),
+                         f"launches {t['launches']} != {(0, calls)}")):
+                    if not ok:
+                        fails.append(f"{arch} {dt} rank {r}: {what}")
+    assert not fails, fails
+    return total
+
+
 def mesh_phase(torch, sd, dev, tag, dshape=MESH_DECODE, sshape=MESH_SEQ,
-               train_runs=MESH_TRAIN_RUNS, serve_runs=MESH_SERVE_RUNS):
+               train_runs=MESH_TRAIN_RUNS, serve_runs=MESH_SERVE_RUNS,
+               cp_runs=MESH_CP_RUNS):
     """Phase 24: ``launch.mesh`` on two gloo ranks sharing the card (NCCL
     refuses two ranks of one communicator on one GPU), each with its own
     CUDA context on the same device, the kernels already built (phase
@@ -4640,11 +4955,12 @@ def mesh_phase(torch, sd, dev, tag, dshape=MESH_DECODE, sshape=MESH_SEQ,
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
         srefs = mesh_serve_reference(torch, sd, dev, tmp, tag, serve_runs)
+        crefs = mesh_cp_reference(torch, dev, tmp, tag, cp_runs)
         t_serve_ref = time.time() - t0
         t0 = time.time()
         mp.start_processes(mesh_rank, args=(MESH_RANKS, tmp, str(dev),
                                             dshape, sshape, train_runs,
-                                            serve_runs),
+                                            serve_runs, cp_runs),
                            nprocs=MESH_RANKS, start_method="spawn")
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                             weights_only=False) for r in range(MESH_RANKS)]
@@ -4692,6 +5008,7 @@ def mesh_phase(torch, sd, dev, tag, dshape=MESH_DECODE, sshape=MESH_SEQ,
                  "contiguous": MESH_RANKS * MESH_STEPS}, n
     n_b3 = mesh_train_check(ranks, tref, train_runs, tag)
     n_serve = mesh_serve_check(ranks, srefs, tag, serve_runs)
+    n_serve["cp"] = mesh_cp_check(ranks, crefs, tag, cp_runs)
     log(f"[mesh] one-rank references {t_ref:.1f} s (phase 25's one-device "
         f"train {t_train_ref:.1f} s, phase 27's one-device serve "
         f"{t_serve_ref:.1f} s); spawn + {MESH_RANKS} ranks "
@@ -5107,7 +5424,10 @@ def probe_decode(torch, sd, build, root, c, tag):
 
 DRYRUN_SEQ = 4096
 DRYRUN_SLOTS = 8         # the decode calibration's slots
-DRYRUN_CELLS = (("qwen3-4b", "train_4k"), ("qwen3-moe-235b-a22b", "train_4k"))
+# phase 26's production cells modeled on the host; qwen3-4b's decode cell
+# runs context-parallel decode (the keys split over "model")
+DRYRUN_CELLS = (("qwen3-4b", "train_4k"), ("qwen3-moe-235b-a22b", "train_4k"),
+                ("qwen3-4b", "decode_32k"))
 
 
 def step_events_ms(torch, run, reps=3):
@@ -5413,6 +5733,12 @@ def main() -> int:
             "replaces": REPLACES[layout], "launches": runs[layout][1],
             "max_abs_err": max(errs.values()), **t, "g16": t16,
             "d64": t64, "d80": t80})
+    # the contiguous kernel's partial mode (context-parallel decode)
+    kernels[1]["partial_max_abs_err"] = max(
+        check_partial(torch, sd, cname, keep[cname], tag)
+        for cname in (MAIN, G16, D64, D80))
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"],
+                                    kernels[1]["partial_max_abs_err"])
     del keep
     for cname, c in extra_decode_cases(torch, dev):
         check_case(torch, sd, cname, c)
@@ -5552,6 +5878,9 @@ def main() -> int:
             "qwen3-moe, bf16 and fp32; (2, 1): qwen3-moe")
     kernels[0]["paths"][path] = n_serve["paged"]
     kernels[1]["paths"][path] = n_serve["contiguous"]
+    kernels[1]["paths"]["27 context-parallel decode (1, 2), the keys split "
+                        "over model, the partial mode: qwen3-4b bf16 and "
+                        "fp32, zamba2 fp32"] = n_serve["cp"]
     clock.done("24-25, 27 scale-out, mesh training and mesh serving on "
                "two ranks")
 

@@ -382,7 +382,7 @@ def _scores(q: torch.Tensor, keys: torch.Tensor, sm_scale: float
 def full_replan(q: torch.Tensor, k_cache: torch.Tensor, pos: torch.Tensor,
                 *, topk_k: int, k_block: int, plan_blocks: int,
                 budget: Optional[torch.Tensor] = None,
-                live_blk: Optional[torch.Tensor] = None
+                live_blk: Optional[torch.Tensor] = None, over=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Exact per-step plan: score all cached keys, bisect each query
     row's top-k threshold, keep every block with a selected token.
@@ -393,7 +393,15 @@ def full_replan(q: torch.Tensor, k_cache: torch.Tensor, pos: torch.Tensor,
     ``budget`` (B,) caps the kept blocks per (slot, head): the selected
     blocks ranked by best token score, the top ``budget`` kept and the
     threshold re-bisected over their tokens only.  ``live_blk`` (B, nkb)
-    takes retired blocks' tokens out of the score multiset."""
+    takes retired blocks' tokens out of the score multiset.
+
+    ``over`` (``distributed.sharding.KeySplit``): ``k_cache`` is a rank's
+    share of every slot's keys and ``pos`` each slot's position in it
+    (``KeySplit.local_pos``: below 0 or past the share where the slot's
+    position lies before or after it), so validity is the global
+    positions'; the threshold is bisected over the whole row
+    (``kth_largest_bisect(over=)``) and the rank keeps its blocks that
+    hold a selected token, in its own block ids."""
     b, s, kv, d = k_cache.shape
     nkb = s // k_block
     sm_scale = 1.0 / np.sqrt(d)
@@ -410,7 +418,7 @@ def full_replan(q: torch.Tensor, k_cache: torch.Tensor, pos: torch.Tensor,
         valid = valid & live_blk.repeat_interleave(k_block, dim=-1)[
             :, None, None, :]
     sc = torch.where(valid, sc, NEG_INF)
-    thr = kth_largest_bisect(sc, topk_k)                      # (B, KV, G, 1)
+    thr = kth_largest_bisect(sc, topk_k, over=over)           # (B, KV, G, 1)
     sel = bisect_select(torch.where(valid, sc, float("-inf")), thr) & valid
     occ = sel.reshape(b, kv, -1, nkb, k_block).any(dim=4).any(dim=2)
     if budget is not None:
@@ -624,13 +632,38 @@ _SUB_FIELDS = ("k_min", "k_max", "k_scale", "k_zero", "kv_indices",
                "live_blk")
 
 
+def _check_key_split(plan: PlanState, replan_interval: int,
+                     churn_budget: Optional[float], replan_mode: str,
+                     page_table) -> None:
+    """Refuse, by name, what context-parallel decode does not plan."""
+    whole_row = "ranks blocks across the whole row, which no rank holds"
+    refused = [
+        (replan_interval > 1, f"the incremental plan (replan="
+                              f"{replan_interval}) {whole_row}"),
+        (churn_budget is not None, f"the churn-adaptive trigger "
+                                   f"(replan='auto') {whole_row}"),
+        (replan_mode == "sketch", f"the sketch re-plan (replan_mode="
+                                  f"'sketch') {whole_row}"),
+        ("budget" in plan, f"the QoS ladder's budget (sata.qos.ladder) "
+                           f"{whole_row}"),
+        ("live_blk" in plan, f"retirement (sata.retire.mode='on') "
+                             f"{whole_row}"),
+        (page_table is not None, "the paged layout has no sequence dim "
+                                 "to split"),
+    ]
+    for bad, what in refused:
+        if bad:
+            raise ValueError(f"context-parallel decode (CACHE_SEQ_SHARD) "
+                             f"re-plans exactly every step only: {what}")
+
+
 def decode_plan_update(plan: PlanState, q: torch.Tensor,
                        k_cache: torch.Tensor, pos: torch.Tensor, *,
                        topk_k: int, k_block: int, replan_interval: int = 1,
                        churn_budget: Optional[float] = None,
                        page_table: Optional[torch.Tensor] = None,
                        replan_mode: str = "exact", sketch_factor: int = 4,
-                       retire_decay: float = 0.9
+                       retire_decay: float = 0.9, over=None
                        ) -> Tuple[PlanState, torch.Tensor]:
     """One decode step of plan maintenance (the summaries must already
     hold the step's appended key — call ``update_block_summaries``
@@ -654,8 +687,18 @@ def decode_plan_update(plan: PlanState, q: torch.Tensor,
     ``sketch`` slot re-plans hierarchically.  The knobs own the beat, so
     the churn trigger is refused.  With the retirement state, active
     slots' importance decays and absorbs this step's planned blocks:
-    ``imp ← retire_decay · imp + planned``."""
+    ``imp ← retire_decay · imp + planned``.
+
+    ``over`` (``distributed.sharding.KeySplit``, context-parallel
+    decode): ``k_cache`` and the plan are a rank's share of the keys and
+    ``pos`` the slots' local positions; only the exact re-plan every
+    step runs (``full_replan(over=)``).  Every other mode ranks blocks
+    across the whole row and raises: the incremental plan, the sketch
+    re-plan, the churn trigger, the QoS knobs and retirement."""
     assert replan_mode in ("exact", "sketch"), replan_mode
+    if over is not None:
+        _check_key_split(plan, replan_interval, churn_budget, replan_mode,
+                         page_table)
     p = plan["kv_indices"].shape[-1]
     qos = "budget" in plan
     assert not (qos and churn_budget is not None), \
@@ -683,7 +726,7 @@ def decode_plan_update(plan: PlanState, q: torch.Tensor,
         kf = kc if tbl is None else logical_kv_view(kc, tbl)
         return full_replan(qb, kf, posb, topk_k=topk_k, k_block=k_block,
                            plan_blocks=p, budget=bud,
-                           live_blk=sub.get("live_blk"))
+                           live_blk=sub.get("live_blk"), over=over)
 
     def _incr(qb, kc, posb, sub, tbl, bud=None, qnt=None, skt=False):
         return incremental_plan(qb, kc, sub, posb, topk_k=topk_k,

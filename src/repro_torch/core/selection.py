@@ -16,25 +16,36 @@ from repro_torch.core.blockmap import (bisect_select,
 NEG_INF = -2.0 ** 30
 
 
-def kth_largest_bisect(scores: torch.Tensor, k, iters: int = 16
-                       ) -> torch.Tensor:
+def kth_largest_bisect(scores: torch.Tensor, k, iters: int = 16,
+                       over=None) -> torch.Tensor:
     """Fixed-iteration bisection on the score range converging to the
     k-th largest value per row (last dim).  Counting runs on a bf16 copy
     with the ``bisect_select`` predicate, so the returned threshold ``t``
     satisfies ``count(bf16(s) >= bf16(t)) >= k`` (ties may admit a few
     extra keys).  ``k`` is an int or a tensor broadcasting against the
     row-count shape ``scores.shape[:-1] + (1,)`` (a per-row budget).
-    Entries at or below ``NEG_INF / 2`` are invalid and never counted."""
+    Entries at or below ``NEG_INF / 2`` are invalid and never counted.
+
+    ``over``: the row's last dim split over ranks, each holding its
+    share of the row (``distributed.sharding.KeySplit``: anything with
+    ``all_reduce(x, op)``).  The range's ends are the row's min and max
+    and every iteration's count the row's int32 count, each reduced over
+    the ranks, so the threshold is bitwise the whole row's."""
     valid = scores > NEG_INF / 2
     inf = torch.tensor(float("inf"), dtype=scores.dtype, device=scores.device)
     sc = torch.where(valid, scores, inf)
-    lo = torch.clamp(sc.amin(dim=-1, keepdim=True), max=0.0) - 1.0
+    lo = sc.amin(dim=-1, keepdim=True)
     hi = torch.where(valid, scores, -inf).amax(dim=-1, keepdim=True)
+    if over is not None:
+        lo, hi = over.all_reduce(lo, "min"), over.all_reduce(hi, "max")
+    lo = torch.clamp(lo, max=0.0) - 1.0
     cnt_src = torch.where(valid, scores, -inf).to(torch.bfloat16)
     for _ in range(iters):
         mid = 0.5 * (lo + hi)
         cnt = bisect_select(cnt_src, mid).sum(dim=-1, keepdim=True,
                                               dtype=torch.int32)
+        if over is not None:
+            cnt = over.all_reduce(cnt)
         take = cnt >= k                      # threshold lies at or above mid
         lo, hi = torch.where(take, mid, lo), torch.where(take, hi, mid)
     # invariant: count(cnt_src >= bf16(lo)) >= k — callers must apply the

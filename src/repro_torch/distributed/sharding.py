@@ -208,7 +208,9 @@ def batch_specs(batch_shapes: Mapping, mesh) -> Dict[str, Spec]:
 
 CACHE_SEQ_SHARD = True     # KV caches shard the sequence dim over "model"
                            # (context-parallel decode); False = the legacy
-                           # kv-head / head-dim sharding
+                           # kv-head / head-dim sharding (``ShardLayout``
+                           # reads it when built: False there lays the
+                           # cache out by the regions that read it)
 
 
 def cache_leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -475,6 +477,81 @@ class SeqShard:
 
 
 @dataclasses.dataclass(frozen=True)
+class KeySplit:
+    """Context-parallel decode over ``axis`` (the reference's
+    ``CACHE_SEQ_SHARD``): a serving cache's sequence dim is split over
+    the axis, rank r holding keys ``r·S/m ..`` of every slot, and a
+    decode step reads it row-parallel over the keys.  The rank scores
+    its keys, the row's reductions (the top-k bisection's min, max and
+    counts, the softmax's max and sum) run over the axis through
+    ``all_reduce``, and the ranks' partial outputs are combined in rank
+    order (``sum_ranks``, ``combine``), so every rank holds the same
+    bits."""
+    mesh: Any
+    axis: str = "model"
+
+    @property
+    def n(self) -> int:
+        return self.mesh.axis_size((self.axis,))
+
+    @property
+    def rank(self) -> int:
+        return self.mesh.coord((self.axis,))
+
+    def offset(self, s_local: int) -> int:
+        """The global position of the rank's first key."""
+        return self.rank * s_local
+
+    def local_pos(self, pos: torch.Tensor, s_local: int) -> torch.Tensor:
+        """Global positions (B,) as the rank's key indices: below 0 where
+        a slot's position lies before the rank's keys, at or past
+        ``s_local`` where after them (every key there is valid)."""
+        return pos - self.offset(s_local)
+
+    def owned(self, pos: torch.Tensor, s_local: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(whether the rank holds each slot's row ``pos`` — clamped to
+        the last row, as the write clamps it — and that row's local
+        index, clamped into the rank's keys)."""
+        row = pos.long().clamp(max=self.n * s_local - 1) - \
+            self.offset(s_local)
+        return (row >= 0) & (row < s_local), row.clamp(0, s_local - 1)
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        return _all_reduce(x, self.mesh, (self.axis,), op=op)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return _all_gather(x, self.mesh, dim, (self.axis,))
+
+    def sum_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``x`` summed in rank order (an all-gather, then the
+        sum on every rank alike)."""
+        parts = self.gather(x[None], 0)
+        out = parts[0]
+        for r in range(1, parts.shape[0]):
+            out = out + parts[r]
+        return out
+
+    def combine(self, out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+        """The whole row's attention output from the ranks' partial ones:
+        ``out`` (..., D) fp32, each rank's softmax over its keys, and
+        ``lse`` (..., 1) fp32, its log-sum-exp (−inf where the rank
+        admitted no key).  Σ_r exp(lse_r − M)·out_r / Σ_r exp(lse_r − M)
+        with M the largest lse, summed in rank order; 0 where no rank
+        admitted a key.  One partial alone comes back as it is."""
+        outs, lses = self.gather(out[None], 0), self.gather(lse[None], 0)
+        top = lses.amax(dim=0)
+        top = torch.where(torch.isfinite(top), top, 0.0)
+        num = den = None
+        for r in range(outs.shape[0]):
+            w = torch.exp(lses[r] - top)
+            num = w * outs[r] if num is None else num + w * outs[r]
+            den = w if den is None else den + w
+        return torch.where(den > 0, num / torch.where(den > 0, den, 1.0),
+                           0.0)
+
+
+@dataclasses.dataclass(frozen=True)
 class TensorParallel:
     """A tensor-parallel region over ``axis``: the layer function runs
     with ``cfg`` (the rank's ``n_heads / m`` and ``n_kv_heads / m``
@@ -712,6 +789,11 @@ _POOL_LEAVES = {"k_pages": 3, "v_pages": 3, "page_k_min": 2,
                 "page_ref": None}
 # the other leaves' KV- or ssm-head dim, after the stack and batch dims
 _HEAD_DIM = {"k": 3, "v": 3, "ssm": 2, "state": 2, "conv": 3}
+# under the key split: each leaf's sequence dim (k / v, cross_kv's
+# ``valid``) or key-block dim (the plan's), after the stack dim
+_KEY_DIM = {"k": 2, "v": 2, "valid": 2, "k_min": 3, "k_max": 3,
+            "k_scale": 3, "k_zero": 3, "imp": 3, "live_blk": 2,
+            "kv_indices": 3}
 
 # mamba2's ("mixer") and rwkv6's ("tmix", time and channel mix) regions:
 # (the leaves split by columns over "model", those split by rows)
@@ -771,7 +853,14 @@ class ShardLayout:
     only: weights whole over the data axes, MoE experts keeping their
     data split).  The regions read only the "model" entries, which the
     two modes share, so both build the same regions and the same
-    serving-cache layout (``cache_specs``)."""
+    serving-cache layout (``cache_specs``).
+
+    ``key_split`` (a ``KeySplit``, under ``CACHE_SEQ_SHARD`` as it stands
+    when the layout is built, on m > 1): the serving cache's self-attention
+    keys split over "model" by sequence, and so the context's where m
+    divides its length (``key_split_for``); the decode step reads them
+    row-parallel over the keys (``models.attention.attention_decode``).
+    Without it the cache is laid out by the regions that read it."""
 
     def __init__(self, cfg, mesh, specs: Optional[Dict[str, Spec]] = None,
                  mode: str = "train", cp: bool = False):
@@ -783,6 +872,10 @@ class ShardLayout:
         m = self.m = mesh.shape.get("model", 1)
         self._attn = self._mlp = self._moe = self._vocab = self._ssm = None
         self.seq = SeqShard(mesh) if cp and m > 1 else None
+        # the serving cache's key split (context-parallel decode), read
+        # from CACHE_SEQ_SHARD when the layout is built
+        self.key_split = KeySplit(mesh) if CACHE_SEQ_SHARD and m > 1 \
+            else None
         # audio's encoder frames split over "model" too, where they divide
         self._enc_split = cfg.family == "audio" and cfg.encoder_len % m == 0
         if m == 1:
@@ -952,12 +1045,81 @@ class ShardLayout:
                 else "layers.0.attn_cross"
         return reader is not None and self.tp_for(reader) is not None
 
+    def _keys_split(self, group: str) -> bool:
+        """Whether cache group ``group`` splits its sequence over "model"
+        (``key_split``): the self-attention groups always, the context
+        (``cross_kv``) where m divides its length, as the reference's
+        rule; the recurrent states never."""
+        if self.key_split is None or group not in ("kv", "shared_kv",
+                                                   "cross_kv"):
+            return False
+        if group != "cross_kv":
+            return True
+        cfg = self.cfg
+        n = cfg.n_image_tokens if cfg.family == "vlm" else cfg.encoder_len
+        return n % self.m == 0
+
+    def key_split_for(self, path: str) -> Optional[KeySplit]:
+        """The key split of the cache module ``path``'s decode reads
+        (None: its cache is laid out by heads, or whole)."""
+        kind = path.rsplit(".", 1)[-1]
+        if path.startswith("cross_layers") or kind == "attn_cross":
+            group = "cross_kv"
+        elif kind == "attn" and not path.startswith("enc_layers"):
+            group = "kv"
+        else:
+            return None
+        return self.key_split if self._keys_split(group) else None
+
+    def _key_spec(self, path: Tuple[str, ...], shape,
+                  nkb: Optional[int]) -> list:
+        """A leaf's spec under the key split: batch rows over the data
+        axes, the sequence (or the plan's key-block) dim over "model";
+        the plan's per-slot vectors and ``kv_counts`` (per rank: the
+        count of its own blocks) whole over "model"."""
+        leaf, m = path[-1], self.m
+        if leaf in _POOL_LEAVES or leaf == "page_table":
+            raise ValueError(
+                f"context-parallel decode (CACHE_SEQ_SHARD) has no paged "
+                f"layout: the pool's pages hold every slot's keys and no "
+                f"sequence dim splits (the reference's cache_specs fails "
+                f"on a paged cache too) — use kv.layout='contiguous'")
+        spec = [None] * len(shape)
+        if len(shape) >= 2:
+            spec[1] = _dp(self.mesh)
+        dim = _KEY_DIM.get(leaf)
+        if dim is None:
+            return spec
+        if leaf == "kv_indices" and shape[dim] != nkb:
+            raise ValueError(
+                f"context-parallel decode plans every key block: a plan "
+                f"width of {shape[dim]} below the {nkb} blocks keeps the "
+                f"first blocks of the whole row (sata.decode.blocks=None)")
+        if shape[dim] % m:
+            what = "key blocks" if "plan" in path else "positions"
+            raise ValueError(
+                f"context-parallel decode: {path[0]}'s {shape[dim]} {what} "
+                f"do not split over {m} ranks (a rank's keys must tile by "
+                f"the decode block)")
+        spec[dim] = "model"
+        return spec
+
     def cache_specs(self, cache: Mapping) -> Dict[Tuple[str, ...], Spec]:
         """Spec per leaf path of the layer-stacked serving cache
-        (``models.decode.init_cache``; the stack dim never shards), laid
-        out as the decode step reads it, not as the reference's
-        context-parallel ``cache_specs`` (whose sequence split a
-        head-parallel step would all-gather at every layer):
+        (``models.decode.init_cache``; the stack dim never shards).
+
+        Under ``key_split`` (``CACHE_SEQ_SHARD``), the reference's
+        context-parallel layout: ``kv`` / ``shared_kv`` hold their batch
+        rows over the data axes and their SEQUENCE over "model", rank r
+        the keys ``r·S/m ..``; so do the plan's leaves along their
+        key-block dim (the summaries, the importance, ``live_blk``, and
+        ``kv_indices``, whose rows the first decode step re-plans in the
+        rank's local block ids), and ``cross_kv`` (with its ``valid``)
+        where m divides the context's length (``_keys_split``).  A paged
+        cache, a plan narrower than its key blocks, or a sequence that
+        does not split, raises.  Every other group as below.
+
+        Otherwise laid out as a head-parallel decode step reads it:
 
         * batch rows over the data axes wherever they divide; the paged
           pool and its per-page arrays have no batch dim (every slot's
@@ -975,9 +1137,17 @@ class ShardLayout:
           rows ``tm_x`` / ``cm_x``, ``valid``, the page table,
           ``page_ref`` and the plan's per-slot vectors."""
         dp = _dp(self.mesh)
+        nkb = {g: tuple(getattr(t["plan"]["k_min"], "shape",
+                                t["plan"]["k_min"]))[3]
+               for g, t in cache.items() if isinstance(t, Mapping)
+               and isinstance(t.get("plan"), Mapping)}
         specs = {}
         for path, shape in _cache_shapes(cache):
             leaf = path[-1]
+            if self._keys_split(path[0]):
+                specs[path] = _fit(shape, self._key_spec(
+                    path, shape, nkb.get(path[0])), self.mesh)
+                continue
             spec = [None] * len(shape)
             heads = _HEAD_DIM.get(leaf)
             if "plan" in path:
@@ -1027,19 +1197,25 @@ class ShardedParams:
     step's ``DataRows`` or None, which ``moe_apply`` reads; ``seq`` is
     the ``SeqShard`` of the module's input under context parallelism
     (``ShardLayout.seq_for``) or None, which ``models.model.forward``,
-    ``attention_apply`` and the modules without a region read."""
+    ``attention_apply`` and the modules without a region read;
+    ``key_split`` is the ``KeySplit`` of the serving cache the module's
+    decode reads (``ShardLayout.key_split_for``) or None, which
+    ``attention_decode`` and ``cross_attention_decode`` read."""
 
     def __init__(self, module: nn.Module, prefix: str, layout: ShardLayout,
                  tp: Optional[TensorParallel],
                  rows: Optional[DataRows] = None,
-                 seq: Optional[SeqShard] = None):
+                 seq: Optional[SeqShard] = None,
+                 key_split: Optional[KeySplit] = None):
         self._module, self._prefix = module, prefix
         self._layout, self.tp, self.rows, self.seq = layout, tp, rows, seq
+        self.key_split = key_split
 
     def _sub(self, module: nn.Module, path: str) -> "ShardedParams":
         return ShardedParams(module, path + ".", self._layout,
                              self._layout.tp_for(path), self.rows,
-                             self._layout.seq_for(path))
+                             self._layout.seq_for(path),
+                             self._layout.key_split_for(path))
 
     def __getitem__(self, name: str):
         try:

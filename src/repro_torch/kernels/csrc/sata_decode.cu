@@ -19,6 +19,10 @@
 // would otherwise give exp(0) = 1 in a row masked so far), p is rounded to
 // the cache dtype before the PV product, l sums the unrounded p, and the
 // accumulation is fp32.  A row with no admissible key returns zeros.
+// The partial mode (sata_decode_attention_partial, context-parallel decode:
+// a rank's share of the keys) writes the fp32 output o / l unrounded and
+// lse = m + log(l) per (row, head), -inf where l == 0, for the ranks'
+// partials to be combined; it differs only in the epilogue.
 //
 // What bounds it on an H100.  The work is bound by bytes: the output needs
 // the K rows of the planned blocks up to pos (every one is scored), only
@@ -220,7 +224,8 @@ struct Args {
   const int32_t* kv_counts;  // (B*KV,)
   const float* thr;          // (B*KV, G)
   const int32_t* pos;        // (B,)
-  void* out;                 // (B, KV, G, D)
+  void* out;                 // (B, KV, G, D); fp32 in the partial mode
+  float* lse;                // (B*KV, G), or null: the partial mode's
   int n_kv, G, D, P, kb, nkb, chunk, stages, wp, vr, copy_bytes;
   float sm_scale;
 };
@@ -695,7 +700,15 @@ sata_decode_kernel(const Args a) {
     float o = 0.f;
     for (int s2 = 0; s2 < L.nrs; ++s2) o += red[(s2 * G + g) * dpad + d];
     const float l = l_sh[g];
-    out[((size_t)row * G + g) * D + d] = from_f32<T>(l > 0.f ? o / l : 0.f);
+    const float y = l > 0.f ? o / l : 0.f;
+    if (a.lse)
+      static_cast<float*>(a.out)[((size_t)row * G + g) * D + d] = y;
+    else
+      out[((size_t)row * G + g) * D + d] = from_f32<T>(y);
+  }
+  if (a.lse && tid < G) {
+    const float l = l_sh[tid];
+    a.lse[(size_t)row * G + tid] = l > 0.f ? m_sh[tid] + logf(l) : -__int_as_float(0x7f800000);
   }
 }
 
@@ -735,12 +748,11 @@ int launch_g(const Args& a, int G, int rows, int smem_bytes, cudaStream_t s) {
 // chunk, stages, win_blocks, v_rows, smem_bytes:
 // kernels/sata_decode.py::launch_config; copy_bytes: 16, 8, 4 or 2,
 // dividing D * sizeof(dtype) and the alignment of k and v.
-extern "C" int sata_decode_attention(
-    const void* q, const void* k, const void* v, const void* page_table,
-    const void* kv_indices, const void* kv_counts, const void* thresholds,
-    const void* pos, void* out, int batch, int n_kv, int G, int D, int P,
-    int k_block, int nkb, int dtype, int chunk, int stages, int win_blocks,
-    int v_rows, int smem_bytes, int copy_bytes, void* stream) {
+static int run(const void* q, const void* k, const void* v, const void* page_table,
+               const void* kv_indices, const void* kv_counts, const void* thresholds,
+               const void* pos, void* out, void* lse, int batch, int n_kv, int G, int D,
+               int P, int k_block, int nkb, int dtype, int chunk, int stages,
+               int win_blocks, int v_rows, int smem_bytes, int copy_bytes, void* stream) {
   const int es = dtype == 1 ? 2 : 4;
   const int unit = chunk >= k_block ? chunk : k_block;
   const bool ok = G >= 1 && G <= kMaxG && D >= 1 && D <= kMaxD && k_block >= 1 &&
@@ -762,6 +774,7 @@ extern "C" int sata_decode_attention(
   a.thr = static_cast<const float*>(thresholds);
   a.pos = static_cast<const int32_t*>(pos);
   a.out = out;
+  a.lse = static_cast<float*>(lse);
   a.n_kv = n_kv; a.G = G; a.D = D; a.P = P; a.kb = k_block; a.nkb = nkb;
   a.chunk = chunk; a.stages = stages; a.wp = win_blocks; a.vr = v_rows;
   a.copy_bytes = copy_bytes;
@@ -771,4 +784,30 @@ extern "C" int sata_decode_attention(
   const int rows = batch * n_kv;
   return dtype == 1 ? launch_g<__nv_bfloat16>(a, G, rows, smem_bytes, s)
                     : launch_g<float>(a, G, rows, smem_bytes, s);
+}
+
+extern "C" int sata_decode_attention(
+    const void* q, const void* k, const void* v, const void* page_table,
+    const void* kv_indices, const void* kv_counts, const void* thresholds,
+    const void* pos, void* out, int batch, int n_kv, int G, int D, int P,
+    int k_block, int nkb, int dtype, int chunk, int stages, int win_blocks,
+    int v_rows, int smem_bytes, int copy_bytes, void* stream) {
+  return run(q, k, v, page_table, kv_indices, kv_counts, thresholds, pos, out, nullptr,
+             batch, n_kv, G, D, P, k_block, nkb, dtype, chunk, stages, win_blocks,
+             v_rows, smem_bytes, copy_bytes, stream);
+}
+
+// The partial mode: `out` is fp32 (B, KV, G, D) whatever the dtype, and
+// `lse` fp32 (B, KV, G): m + log(l) of each (row, head), -inf where the
+// row admitted no key.  Arguments otherwise as sata_decode_attention's.
+extern "C" int sata_decode_attention_partial(
+    const void* q, const void* k, const void* v, const void* page_table,
+    const void* kv_indices, const void* kv_counts, const void* thresholds,
+    const void* pos, void* out, void* lse, int batch, int n_kv, int G, int D,
+    int P, int k_block, int nkb, int dtype, int chunk, int stages,
+    int win_blocks, int v_rows, int smem_bytes, int copy_bytes, void* stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return run(q, k, v, page_table, kv_indices, kv_counts, thresholds, pos, out, lse,
+             batch, n_kv, G, D, P, k_block, nkb, dtype, chunk, stages, win_blocks,
+             v_rows, smem_bytes, copy_bytes, stream);
 }

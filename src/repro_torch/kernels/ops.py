@@ -64,22 +64,31 @@ def block_attention_work(q: torch.Tensor, k: torch.Tensor, slots: int, *,
 
 
 def decode_attention_work(q: torch.Tensor, kv_indices: torch.Tensor, *,
-                          k_block: int) -> Tuple[int, int]:
+                          k_block: int, partial: bool = False
+                          ) -> Tuple[int, int]:
     """(FLOPs, bytes) of one decode kernel call from static shapes: each
     (slot, KV head) row walks its P planned k-blocks at capacity
     (``kv_indices``' last dim), scoring and summing the G grouped heads,
     4·G·k_block·D FLOPs a block; it reads q and one K and one V block a
-    step, and writes the output."""
+    step, and writes the output (``partial``: in fp32, and the fp32
+    lse of every head)."""
     b, kv, g, d = q.shape
     blocks = b * kv * kv_indices.shape[-1]
     flops = 4 * g * k_block * d * blocks
-    nbytes = q.element_size() * (2 * b * kv * g * d + 2 * blocks * k_block * d)
+    es = q.element_size()
+    nbytes = es * (b * kv * g * d + 2 * blocks * k_block * d) + (
+        4 * b * kv * g * (d + 1) if partial else es * b * kv * g * d)
     return flops, nbytes
 
 
-def _meta_out(q: torch.Tensor, *args, **kw) -> torch.Tensor:
+def _meta_out(q: torch.Tensor, *args, partial: bool = False, **kw):
     """The shape-only stand-in of every kernel: its output's shape and
-    dtype are q's."""
+    dtype are q's (the decode kernel's partial mode: fp32, and its
+    (B, KV, G, 1) fp32 lse)."""
+    if partial:
+        return (torch.empty(q.shape, dtype=torch.float32, device=q.device),
+                torch.empty(q.shape[:-1] + (1,), dtype=torch.float32,
+                            device=q.device))
     return torch.empty_like(q)
 
 
@@ -284,8 +293,8 @@ def sata_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_indices: torch.Tensor, kv_counts: torch.Tensor,
                           thresholds: torch.Tensor, pos: torch.Tensor, *,
                           k_block: int = 128,
-                          page_table: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          page_table: Optional[torch.Tensor] = None,
+                          partial: bool = False):
     """Decode-path selective attention: fetch only the planned k-blocks
     of the KV cache for one generated token per slot.
 
@@ -294,7 +303,12 @@ def sata_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plan from ``core.decode_plan``; thresholds: (B, KV, G, 1) fp32;
     pos: (B,).  Returns (B, KV, G, D).  With ``page_table``
     (B, max_pages) given, k/v are the pool (n_pages, page, KV, D) and
-    page must equal ``k_block``."""
+    page must equal ``k_block``.  ``partial`` (contiguous only: a rank's
+    share of the keys under context-parallel decode) returns the
+    kernel's partial mode, (out fp32, lse (B, KV, G, 1) fp32)."""
+    if partial and page_table is not None:
+        raise ValueError("the decode kernel's partial mode reads the "
+                         "contiguous cache only")
     if page_table is not None:
         # the plan's logical block edge must BE the page size, or the
         # kernel would dereference block-granular indices as page ids
@@ -305,14 +319,18 @@ def sata_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     name = "sata_decode_attention_paged_kernel" if paged \
         else "sata_decode_attention_kernel"
     fn = _route(q, sata_decode_attention_ref, _decode_kernel_call)
+    # passed in the partial mode only: a probe that replaces a wrapper
+    # (chip_smoke.py's ``KernelProbe``) takes the default signature
+    extra = {"partial": True} if partial else {}
     return _counted(
-        name, lambda: decode_attention_work(q, kv_indices, k_block=k_block),
+        name, lambda: decode_attention_work(q, kv_indices, k_block=k_block,
+                                            partial=partial),
         fn, q, k, v, kv_indices, kv_counts, thresholds, pos,
-        k_block=k_block, page_table=page_table)
+        k_block=k_block, page_table=page_table, **extra)
 
 
 def _decode_kernel_call(q, k, v, kv_indices, kv_counts, thresholds, pos, *,
-                        k_block, page_table):
+                        k_block, page_table, **partial):
     """The paged (B1) or contiguous (B2) decode kernel in the plain
     version's argument order.  The module attributes are read at the
     call, so a probe that replaces one sees the call."""
@@ -320,7 +338,8 @@ def _decode_kernel_call(q, k, v, kv_indices, kv_counts, thresholds, pos, *,
         return sata_decode_attention_paged_kernel(
             q, k, v, page_table, kv_indices, kv_counts, thresholds, pos)
     return sata_decode_attention_kernel(q, k, v, kv_indices, kv_counts,
-                                        thresholds, pos, k_block=k_block)
+                                        thresholds, pos, k_block=k_block,
+                                        **partial)
 
 
 def decode_fetch_stats(kv_counts, pos, *, k_block: int, d: int,

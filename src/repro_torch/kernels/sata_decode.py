@@ -9,7 +9,9 @@ For each (slot, KV head) row the kernel walks the ``kv_counts`` planned
 LOGICAL k-blocks, scores the G grouped query heads in fp32 × 1/√D,
 keeps ``bf16(s) >= bf16(thr)`` AND ``token <= pos[b]``, and runs an
 online softmax; a row with no admissible key (and ``P == 0``) gives
-zeros.
+zeros.  Its partial mode (``partial=True``, a rank's share of the keys
+under context-parallel decode) writes the fp32 output unrounded and each
+head's log-sum-exp instead, for the ranks' partials to be combined.
 
 ``launch_config`` picks the kernel's staging for a shape (the K rows a
 ring stage holds, the ring's depth, the k-blocks a softmax window holds,
@@ -162,8 +164,8 @@ def sata_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
                               kv_counts: torch.Tensor,
                               thresholds: torch.Tensor, pos: torch.Tensor,
                               *, k_block: int,
-                              page_table: Optional[torch.Tensor] = None
-                              ) -> torch.Tensor:
+                              page_table: Optional[torch.Tensor] = None,
+                              partial: bool = False):
     """Plain PyTorch version of the decode gather kernel: the reference's
     flash loop tile by tile, vectorized over (slot, KV head) rows.
 
@@ -172,10 +174,20 @@ def sata_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
     page == k_block; kv_indices (B, KV, P) logical block ids; kv_counts
     (B, KV); thresholds (B, KV, G, 1) fp32; pos (B,).  Returns
     (B, KV, G, D) in q's dtype.  Both layouts gather the same values
-    and run the same arithmetic, so they agree bitwise."""
+    and run the same arithmetic, so they agree bitwise.
+
+    ``partial`` (context-parallel decode, a rank's share of the keys):
+    returns (out (B, KV, G, D) fp32, o / l not rounded; lse (B, KV, G,
+    1) fp32, m + log(l), −inf where l == 0), for
+    ``distributed.sharding.KeySplit.combine``."""
     b, n_kv, g, d = q.shape
     p = kv_indices.shape[-1]
     if p == 0:
+        if partial:
+            return (torch.zeros(q.shape, dtype=torch.float32,
+                                device=q.device),
+                    torch.full((b, n_kv, g, 1), float("-inf"),
+                               device=q.device))
         return torch.zeros_like(q)
     scale = float(1.0 / np.sqrt(d))
     dev = q.device
@@ -211,26 +223,35 @@ def sata_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
         l = torch.where(live, l_new, l)
         acc = torch.where(live, acc_new, acc)
     out = torch.where(l > 0, acc / torch.where(l > 0, l, 1.0), 0.0)
+    if partial:
+        return out, torch.where(
+            l > 0, m + torch.log(torch.where(l > 0, l, 1.0)), float("-inf"))
     return out.to(q.dtype)
 
 
 # the C interface of csrc/sata_decode.cu::sata_decode_attention: 9
-# pointers, 14 ints, the stream
+# pointers, 14 ints, the stream; ``sata_decode_attention_partial``'s
+# takes the lse pointer after the output
 ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+PARTIAL_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 14 + \
+    [ctypes.c_void_p]
 
 
 @functools.cache
-def _launcher():
+def _launcher(partial: bool = False):
     from repro_torch.kernels import build
-    fn = build.load("sata_decode").sata_decode_attention
-    fn.argtypes = ARGTYPES
+    lib = build.load("sata_decode")
+    fn = lib.sata_decode_attention_partial if partial \
+        else lib.sata_decode_attention
+    fn.argtypes = PARTIAL_ARGTYPES if partial else ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(owner, q, k, v, page_table, kv_indices, kv_counts, thresholds,
-            pos, *, k_block: int, nkb: int) -> torch.Tensor:
-    """Validate, allocate the output, launch on the current stream and
+            pos, *, k_block: int, nkb: int, partial: bool = False):
+    """Validate, allocate the output (and, ``partial``, the fp32 output
+    and lse of the partial mode), launch on the current stream and
     count the launch on ``owner.launches``.  Raises on anything the
     kernel does not take, and when the launch reports an error."""
     b, n_kv, g, d = q.shape
@@ -262,18 +283,23 @@ def _launch(owner, q, k, v, page_table, kv_indices, kv_counts, thresholds,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     cfg = launch_config(g, d, k_block, q.dtype)     # raises past the limits
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32, device=dev) if partial \
+        else torch.empty_like(q)
+    lse = torch.full((b, n_kv, g, 1), float("-inf"), device=dev) \
+        if partial else None
     if p == 0 or b * n_kv == 0:
-        return out.zero_()
+        return (out.zero_(), lse) if partial else out.zero_()
     i32 = [t.to(torch.int32).contiguous()
            for t in (kv_indices, kv_counts, pos)]
     tbl = None if page_table is None else \
         page_table.to(torch.int32).contiguous()
-    err = _launcher()(
+    err = _launcher(partial)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if tbl is None else tbl.data_ptr(),
         i32[0].data_ptr(), i32[1].data_ptr(), thresholds.data_ptr(),
-        i32[2].data_ptr(), out.data_ptr(), b, n_kv, g, d, p, k_block, nkb,
+        i32[2].data_ptr(), out.data_ptr(),
+        *((lse.data_ptr(),) if partial else ()), b, n_kv, g, d, p, k_block,
+        nkb,
         1 if q.dtype == torch.bfloat16 else 0, cfg.chunk, cfg.stages,
         cfg.win_blocks, cfg.v_rows, cfg.smem_bytes,
         copy_bytes(d * q.element_size(), k.data_ptr(), v.data_ptr()),
@@ -281,13 +307,15 @@ def _launch(owner, q, k, v, page_table, kv_indices, kv_counts, thresholds,
     if err != 0:
         raise RuntimeError(f"sata_decode kernel launch failed: cudaError {err}")
     owner.launches += 1
-    return out
+    return (out, lse) if partial else out
 
 
 def sata_decode_attention_kernel(q, k, v, kv_indices, kv_counts, thresholds,
-                                 pos, *, k_block: int = 128) -> torch.Tensor:
+                                 pos, *, k_block: int = 128,
+                                 partial: bool = False):
     """CUDA kernel over the contiguous cache: q (B, KV, G, D); k/v
-    (B, S, KV, D) with S % k_block == 0; plan as the plain version."""
+    (B, S, KV, D) with S % k_block == 0; plan as the plain version;
+    ``partial`` as the plain version's (the kernel's partial mode)."""
     b, s = k.shape[:2]
     if k.shape != (b, s, q.shape[1], q.shape[3]) or v.shape != k.shape \
             or s % k_block:
@@ -295,7 +323,7 @@ def sata_decode_attention_kernel(q, k, v, kv_indices, kv_counts, thresholds,
                          f"not match q {tuple(q.shape)} at k_block={k_block}")
     return _launch(sata_decode_attention_kernel, q, k, v, None, kv_indices,
                    kv_counts, thresholds, pos, k_block=k_block,
-                   nkb=s // k_block)
+                   nkb=s // k_block, partial=partial)
 
 
 def sata_decode_attention_paged_kernel(q, k_pages, v_pages, page_table,

@@ -18,9 +18,12 @@ run does, under the ``seq_shard`` activation specs and
 ``set_context_parallel(cp)`` (``cp`` on by default): rank 0 computes
 its layers on its contiguous 1/16 of the sequence, the SATA kernel on
 its query rows against every key (``ShardLayout(cp=True)``).  A decode
-cell keeps ``cp`` off: its step is head-parallel, the SATA decode
-kernel on a rank's heads.  Nothing is allocated and nothing runs on a
-device: the whole run is on the CPU, by design.
+cell keeps ``cp`` off and runs the reference's context-parallel decode
+instead (``CACHE_SEQ_SHARD``): rank 0 holds its 1/16 of every slot's
+keys, plans and attends over them (the SATA decode kernel's partial
+mode on its blocks), and the ranks' partials combine.  Nothing is
+allocated and nothing runs on a device: the whole run is on the CPU, by
+design.
 
 The cells run the port's main route (``main_path_cfg``): chunked
 selection into the compacted-grid kernel, 128-blocks, as the card
@@ -30,9 +33,8 @@ contiguous cache with ``replan=1`` the plan takes its exact branch,
 with no host sync.  A decode cell first picks the weights' specs
 (``decode_param_mode``, the reference's rule): "infer_tp" (weights whole
 over the data axes) where the tensor-parallel weights and the rank's
-cache blocks (``ShardLayout.cache_specs``: the step's head-parallel
-layout, not the reference's sequence split) fit ``DECODE_HBM_BUDGET``,
-"train" (FSDP) where they do not.
+cache blocks (``ShardLayout.cache_specs``: the reference's sequence
+split) fit ``DECODE_HBM_BUDGET``, "train" (FSDP) where they do not.
 
 Each cell writes ``build/dryrun/<cell>.json`` (never ``results/``,
 which holds the reference's files) with the reference's schema, each
@@ -409,7 +411,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     roofline's shallow probes take the full-depth cell's).  A train or
     prefill cell runs under the ``seq_shard`` activation specs and
     ``set_context_parallel(cp)``, as the reference's dry run; a decode
-    cell never context-parallel.  Starts the fake world and destroys it
+    cell never under that switch (its context parallelism is the
+    serving cache's key split, ``CACHE_SEQ_SHARD``).  Starts the fake world and destroys it
     on every exit; raises if a process group is already initialised."""
     cfg = main_path_cfg(ARCHS[arch]) if cfg is None else cfg
     shape = SHAPES[shape_name]

@@ -308,14 +308,15 @@ def _all_gather(x: torch.Tensor, mesh: ShardMesh, dim: int,
     return out.movedim(0, dim).contiguous()
 
 
-_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+        "min": dist.ReduceOp.MIN}
 
 
 def _all_reduce(x: torch.Tensor, mesh: ShardMesh, axis=None,
                 op: str = "sum") -> torch.Tensor:
-    """``jax.lax.psum`` / ``pmax`` over the axis (a name or a tuple):
-    a new tensor holding the reduction, the same on every rank of the
-    axis (``x`` itself on a one-rank axis).  gloo stages a CUDA tensor
+    """``jax.lax.psum`` / ``pmax`` / ``pmin`` over the axis (a name or a
+    tuple): a new tensor holding the reduction, the same on every rank of
+    the axis (``x`` itself on a one-rank axis).  gloo stages a CUDA tensor
     through the host and counts the bytes, as ``_all_gather``."""
     group = mesh.group_of(_axes(mesh, axis))
     if group is None:

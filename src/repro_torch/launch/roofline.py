@@ -32,11 +32,13 @@ counter does not count as FLOPs.
 MODEL_FLOPS = 6·N·tokens (train) / 2·N_active·tokens (inference); the
 ratio MODEL_FLOPS / counted FLOPs measures how much of the computed
 work is "useful" (remat recompute, selection and attention overhead;
-in a decode cell also every "model" rank computing the attention whole
-where ``ShardLayout`` builds no head-parallel region for it: on a
-16-wide axis, every arch with fewer than 16 KV heads; a train or
-prefill cell is context-parallel, ``run_cell``'s ``cp``, and splits
-every layer over "model").
+in a decode cell also every "model" rank computing the attention's
+projections whole where ``ShardLayout`` builds no head-parallel region
+for them: on a 16-wide axis, every arch with fewer than 16 KV heads,
+though its scoring, re-plan and kernel run on the rank's 1/16 of the
+keys (``CACHE_SEQ_SHARD``); a train or prefill cell is
+context-parallel, ``run_cell``'s ``cp``, and splits every layer over
+"model").
 
 Usage:
   python -m repro_torch.launch.roofline --arch qwen3-4b --shape train_4k

@@ -21,7 +21,11 @@ PyTorch from the same selection (``_selective_ref`` /
 
 The decode step updates the cache in place (the per-layer cache dict
 holds views into the layer-stacked serving cache, so an in-place write
-is the whole update — no per-step copy of the cache).
+is the whole update — no per-step copy of the cache).  On a mesh whose
+serving cache splits its keys over "model" (``distributed.sharding.
+KeySplit``, the reference's ``CACHE_SEQ_SHARD``) decode runs
+context-parallel: each rank attends over its share of the keys and the
+ranks' partials combine (``_key_split_decode``).
 """
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ import torch
 
 from repro_torch.core.blockmap import (bisect_select, resolve_sel_chunk,
                                        stream_score_chunks)
-from repro_torch.core.selection import (NEG_INF, select_thresholds_chunked,
+from repro_torch.core.selection import (NEG_INF, kth_largest_bisect,
+                                        select_thresholds_chunked,
                                         topk_mask_bisect)
 from repro_torch.kernels.sata_attention import MAX_BLOCK, MAX_D
 from repro_torch.models.layers import apply_rope, rms_head_norm
@@ -537,33 +542,87 @@ def _per_slot_positions(pos, batch: int, device) -> torch.Tensor:
 def _attend_sata_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         k_new: torch.Tensor, cfg, pos: torch.Tensor,
                         plan: Dict, *, k_block: int,
-                        page_table: Optional[torch.Tensor] = None
-                        ) -> Tuple[torch.Tensor, Dict]:
+                        page_table: Optional[torch.Tensor] = None,
+                        keys=None) -> Tuple[torch.Tensor, Dict]:
     """Decode attention through the incremental plan + gather kernel.
     q: (B, 1, H, hd); k/v: the updated cache (contiguous (B, S, KV, hd)
     or the pool with ``page_table``); k_new: (B, 1, KV, hd) the key row
     just written; pos: (B,).  The summary backend rides in the plan
     state; the re-plan trigger and mode come from ``cfg.sata.decode``.
-    Returns ((B, 1, H, hd), plan) with the plan updated in place."""
+    Returns ((B, 1, H, hd), plan) with the plan updated in place.
+
+    ``keys`` (a ``KeySplit``): k/v and the plan are the rank's share of
+    the keys.  The rank that holds ``pos`` absorbs the new key, the
+    exact re-plan bisects one threshold over the whole row and keeps the
+    rank's blocks, the kernel's partial mode runs on them, and the
+    ranks' partial outputs combine (``KeySplit.combine``), rounded to
+    the cache dtype once."""
     from repro_torch.core.decode_plan import (decode_plan_update,
                                               update_block_summaries)
     from repro_torch.kernels.ops import sata_decode_attention
     b, _, h, hd = q.shape
     kv = k.shape[2]
     qg = q[:, 0].reshape(b, kv, h // kv, hd)
+    absorb = pos
+    if keys is not None:
+        s = k.shape[1]
+        pos = keys.local_pos(pos, s)
+        # a rank that does not hold the row absorbs nothing: a position
+        # past its keys updates no block
+        absorb = torch.where((pos >= 0) & (pos < s), pos, s)
     # summarize the value actually WRITTEN to the cache (same dtype cast)
-    update_block_summaries(plan, k_new.to(k.dtype), pos, k_block=k_block)
+    update_block_summaries(plan, k_new.to(k.dtype), absorb, k_block=k_block)
     interval, churn_budget = _resolve_replan(cfg)
     plan, thr = decode_plan_update(
         plan, qg, k, pos, topk_k=cfg.topk_k, k_block=k_block,
         replan_interval=interval, churn_budget=churn_budget,
         page_table=page_table, replan_mode=cfg.sata.decode.replan_mode,
         sketch_factor=cfg.sata.decode.sketch_factor,
-        retire_decay=cfg.sata.retire.decay)
+        retire_decay=cfg.sata.retire.decay, over=keys)
     out = sata_decode_attention(qg, k, v, plan["kv_indices"],
                                 plan["kv_counts"], thr, pos,
-                                k_block=k_block, page_table=page_table)
+                                k_block=k_block, page_table=page_table,
+                                partial=keys is not None)
+    if keys is not None:
+        out = keys.combine(*out).to(q.dtype)
     return out.reshape(b, 1, h, hd), plan
+
+
+def _attend_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
+                  valid_k: Optional[torch.Tensor], keys) -> torch.Tensor:
+    """``_attend`` (not causal) on a rank's share of the keys
+    (``keys``, a ``KeySplit``): q (B, Q, H, hd) every head; k/v
+    (B, S / m, KV, hd) and ``valid_k`` (B, S / m) the rank's.  The rank
+    scores its keys as one device does, the top-k threshold is bisected
+    over the whole row (``kth_largest_bisect(over=)``), the softmax's
+    max and sum are all-reduced, p is rounded to the cache dtype as one
+    device rounds it, and the ranks' products are summed in rank order
+    and rounded once."""
+    b, nq, h, hd = q.shape
+    kv = cfg.n_kv_heads
+    qg = q.reshape(b, nq, kv, h // kv, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
+    scores = scores * (1.0 / np.sqrt(hd))
+    if valid_k is not None:
+        scores = torch.where(valid_k[:, None, None, None, :], scores,
+                             NEG_INF)
+    n = k.shape[1] * keys.n
+    if cfg.attention_variant == "topk" and cfg.topk_k < n:
+        if not _use_bisect_impl(cfg.topk_impl, n):
+            raise ValueError(
+                f"context-parallel decode selects by the bisection "
+                f"(topk_impl='bisect', or 'auto' past {BISECT_AUTO_MIN_S} "
+                f"keys): topk_impl={cfg.topk_impl!r} sorts the whole row "
+                f"of {n}")
+        thr = kth_largest_bisect(scores, cfg.topk_k, over=keys)
+        sel = bisect_select(torch.where(scores > NEG_INF / 2, scores,
+                                        float("-inf")), thr)
+        scores = torch.where(sel, scores, NEG_INF)
+    top = keys.all_reduce(scores.amax(dim=-1, keepdim=True), "max")
+    e = torch.exp(scores - top)
+    probs = (e / keys.all_reduce(e.sum(dim=-1, keepdim=True))).to(v.dtype)
+    part = torch.einsum("bkgqs,bskd->bqkgd", probs.float(), v.float())
+    return keys.sum_ranks(part).to(v.dtype).reshape(b, nq, h, hd)
 
 
 def _dense_decode(q, k, v, cfg, pos):
@@ -574,12 +633,52 @@ def _dense_decode(q, k, v, cfg, pos):
                    k_pos, valid_k=valid, causal=False)
 
 
+def _split_out_proj(params, cfg, out: torch.Tensor) -> torch.Tensor:
+    """The out-projection of every head's (B, 1, H, hd) output under the
+    key split: the rank's heads' share through the region, or whole."""
+    tp = getattr(params, "tp", None)
+    if tp is not None:
+        out = out[:, :, tp.share(cfg.n_heads)]
+    b = out.shape[0]
+    return _out_proj(params, out.reshape(b, 1, -1))
+
+
 def _out_proj(params, out: torch.Tensor) -> torch.Tensor:
     """``out @ wo``, or in a ``tp`` region the rank's partial products
     (its heads' rows of ``wo``) summed over the region's ranks."""
     tp = getattr(params, "tp", None)
     return out @ params["wo"] if tp is None \
         else tp.row_parallel(out, params["wo"])
+
+
+def _key_split_decode(cfg, cache: Dict, q: torch.Tensor,
+                      k_new: torch.Tensor, v_new: torch.Tensor,
+                      pos: torch.Tensor, keys) -> torch.Tensor:
+    """One-token decode against a rank's share of the keys (``keys``, a
+    ``KeySplit``): the rank that holds row ``pos`` (clamped to the last
+    row, as one device's write) writes it in place, then the plan +
+    kernel's partial mode, or ``_attend_split`` without a plan, over
+    the rank's keys, validity from the global positions.  q, k_new,
+    v_new: every head's.  Returns (B, 1, H, hd), the same on every
+    rank."""
+    if "k_pages" in cache:
+        raise ValueError("context-parallel decode (CACHE_SEQ_SHARD) has no "
+                         "paged layout")
+    k, v = cache["k"], cache["v"]
+    s = k.shape[1]
+    own, row = keys.owned(pos, s)
+    bi = torch.arange(pos.shape[0], device=pos.device)
+    for t, new in ((k, k_new), (v, v_new)):
+        t[bi, row] = torch.where(own[:, None, None], new[:, 0].to(t.dtype),
+                                 t[bi, row])
+    if "plan" in cache:
+        blk = decode_block_size(cfg, s * keys.n)
+        out, _ = _attend_sata_decode(q, k, v, k_new, cfg, pos, cache["plan"],
+                                     k_block=blk, keys=keys)
+        return out
+    valid = torch.arange(s, device=q.device)[None, :] <= \
+        keys.local_pos(pos, s)[:, None]
+    return _attend_split(q, k, v, cfg, valid, keys)
 
 
 def attention_decode(params, cfg, x: torch.Tensor, cache: Dict, pos,
@@ -597,8 +696,18 @@ def attention_decode(params, cfg, x: torch.Tensor, cache: Dict, pos,
     (``ShardLayout.cache_specs``), and ``wo``'s partial products summed
     over the ranks.  The summaries, the plan and the kernel are per
     (slot, KV head), so the rank's heads need no collective but that
-    sum (``launch.mesh.tensor_parallel_decode_step``)."""
+    sum (``launch.mesh.tensor_parallel_decode_step``).
+
+    A view with ``key_split`` (a ``KeySplit``: the cache's sequence split
+    over "model", the reference's context-parallel decode) holds the
+    rank's share of every slot's keys: q, k_new and v_new of every head
+    (all-gathered over "model" from the rank's heads where a region
+    holds them), the rank's keys attended (``_key_split_decode``), the
+    ranks' partials combined, and then ``wo`` on the rank's heads'
+    share of the output (the region's row-parallel sum) or whole."""
     tp = getattr(params, "tp", None)
+    keys = getattr(params, "key_split", None)
+    whole = cfg
     if tp is not None:
         cfg, x = tp.cfg, tp.enter(x)
     b = x.shape[0]
@@ -608,6 +717,11 @@ def attention_decode(params, cfg, x: torch.Tensor, cache: Dict, pos,
         posv = pos[:, None]
         q = apply_rope(q, posv, cfg.rope_theta)
         k_new = apply_rope(k_new, posv, cfg.rope_theta)
+    if keys is not None:
+        if tp is not None:
+            q, k_new, v_new = (keys.gather(t, 2) for t in (q, k_new, v_new))
+        out = _key_split_decode(whole, cache, q, k_new, v_new, pos, keys)
+        return _split_out_proj(params, whole, out), cache
     if "k_pages" in cache:
         return _paged_decode_step(params, cfg, cache, q, k_new, v_new, pos)
     k, v = cache["k"], cache["v"]
@@ -670,8 +784,14 @@ def cross_attention_decode(params, cfg, x: torch.Tensor,
     without it every context position attends.  Dense top-k over the
     context (``_attend``): the reference sends no cross-attention to a
     kernel.  In a ``tp`` region (``attention_decode``'s) the rank's
-    heads attend over its KV heads of ``context_kv``."""
+    heads attend over its KV heads of ``context_kv``.  With
+    ``key_split`` (a ``KeySplit``: the context split by sequence over
+    "model") every head's q (gathered from the region's) attends over the
+    rank's context rows (``_attend_split``) and ``wo`` runs as in
+    ``attention_decode``."""
     tp = getattr(params, "tp", None)
+    keys = getattr(params, "key_split", None)
+    whole = cfg
     if tp is not None:
         cfg, x = tp.cfg, tp.enter(x)
     b = x.shape[0]
@@ -679,6 +799,11 @@ def cross_attention_decode(params, cfg, x: torch.Tensor,
     if cfg.qk_norm:
         q = rms_head_norm(q, params["q_scale"])
     k, v = context_kv["k"], context_kv["v"]
+    if keys is not None:
+        if tp is not None:
+            q = keys.gather(q, 2)
+        out = _attend_split(q, k, v, whole, context_kv.get("valid"), keys)
+        return _split_out_proj(params, whole, out)
     out = _attend(q, k, v, cfg, torch.zeros((1,), dtype=torch.int32,
                                             device=x.device),
                   torch.arange(k.shape[1], device=x.device),

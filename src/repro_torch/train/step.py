@@ -199,9 +199,23 @@ def make_serve_step(cfg: ModelConfig, mesh=None, mode: str = "train"):
     routes the batch gathered over the data axes where a rank's rows do
     not fill whole groups (``moe_apply``), as one device groups them.
 
-    On more than one rank the row-parallel out-projections and the
-    vocab-parallel sums add fp32 partial sums in another order than one
-    device: not bitwise."""
+    The cache's layout is the layout's (``ShardLayout.cache_specs``).
+    Under ``distributed.sharding.CACHE_SEQ_SHARD`` (the default, as it
+    stands when the step is made) it is the reference's: a rank holds
+    its contiguous 1/m of every slot's keys over "model" (self-attention
+    and, where m divides it, the context), its plan on its key blocks;
+    each attention layer plans and attends over the rank's keys, one
+    top-k threshold bisected over the whole row, and the ranks' partial
+    outputs combine (context-parallel decode,
+    ``models.attention.attention_decode``).  It takes the contiguous
+    cache and the exact re-plan every step only (a paged cache, and
+    every other plan mode, raise).  With the flag False, the head
+    layout: the KV heads and plan rows over "model" where a region
+    reads them.
+
+    On more than one rank the row-parallel out-projections, the
+    vocab-parallel sums and the softmax's combine add fp32 partial sums
+    in another order than one device: not bitwise."""
     mesh = make_local_mesh(device="meta") if mesh is None else mesh
     layout = ShardLayout(cfg, mesh, mode=mode)
     rows = DataRows(mesh, layout.data)

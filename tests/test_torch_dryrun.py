@@ -338,8 +338,11 @@ def test_smoke_moe_loss_runs_on_meta():
 # run_cell on a fake world
 # ---------------------------------------------------------------------------
 
-def _small(monkeypatch, train=(128, 32), prefill=(128, 32), decode=(64, 4),
-           long=(128, 2)):
+def _small(monkeypatch, train=(128, 32), prefill=(128, 32),
+           decode=(2048, 4), long=(2048, 2)):
+    """The cells' shapes at SMOKE sizes: a decode cache of 2,048 keys,
+    so that a rank's share of them tiles by the decode block (128) on
+    every mesh up to 16 wide over "model"."""
     monkeypatch.setitem(tarchs.SHAPES, "train_4k",
                         tarchs.ShapeSpec("train_4k", *train, "train"))
     monkeypatch.setitem(tarchs.SHAPES, "prefill_32k",
@@ -557,6 +560,49 @@ def test_decode_param_mode_is_the_references_rule(arch):
     assert dryrun.DECODE_HBM_BUDGET == 75e9
 
 
+@pytest.mark.parametrize("arch,shape", [
+    (a, s) for a, s in tarchs.all_cells()
+    if tarchs.SHAPES[s].kind == "decode"])
+def test_decode_cells_split_the_keys(arch, shape):
+    """The 12 decode cells' caches at full width and depth under the key
+    split (``CACHE_SEQ_SHARD``, rank 0 of 16×16, meta): every leaf of
+    ``kv`` / ``shared_kv`` split over "model" holds exactly its global
+    bytes / 256 (/ 16 where the batch does not split over "data":
+    long_500k's one slot, as the reference's ``cache_specs``), the
+    plan's per-slot vectors / 16; ``cross_kv`` splits where m divides
+    the context (vlm's 1,600 image tokens, not whisper's 1,500 frames);
+    every cell's weights take "infer_tp", deepseek-67b's and
+    llama-3.2-vision-90b's too (their rank's cache, 6.5 / 5.5 GB, with
+    the TP weights now fits ``DECODE_HBM_BUDGET``)."""
+    cfg = dryrun.main_path_cfg(tarchs.ARCHS[arch])
+    spec = tarchs.SHAPES[shape]
+    mesh = ShardMesh(("data", "model"), {"data": 16, "model": 16}, None, 0,
+                     torch.device("meta"))
+    layout = ShardLayout(cfg, mesh, mode="infer_tp")
+    cache, _, _ = tinputs.decode_specs_for(cfg, spec)
+    specs = layout.cache_specs(cache)
+    local = dict(cache_leaves(layout.block_cache(cache)))
+    data = 16 if spec.global_batch % 16 == 0 else 1
+    groups = set()
+    for path, t in cache_leaves(cache):
+        if path[0] not in ("kv", "shared_kv", "cross_kv"):
+            continue
+        split = "model" in specs[path]
+        n = data * (16 if split else 1)
+        assert local[path].nbytes * n == t.nbytes, path
+        if path[-1] == "k":
+            groups.add((path[0], split))
+    if cfg.family == "ssm":
+        assert not groups
+    else:
+        assert ("kv" if cfg.family != "hybrid" else "shared_kv", True) \
+            in groups
+        if cfg.family in ("vlm", "audio"):
+            assert ("cross_kv", cfg.family == "vlm") in groups
+    assert dryrun.decode_param_mode(cfg, mesh, dryrun.decode_cache(
+        cfg, spec, layout)[1]) == "infer_tp"
+
+
 def _fill(t, salt):
     """A leaf of distinct entries (bools alternate)."""
     n = torch.arange(t.numel()).reshape(t.shape) + salt
@@ -567,19 +613,23 @@ def _fill(t, salt):
 
 @pytest.mark.parametrize("m", [2, 16])
 @pytest.mark.parametrize("arch", list(tarchs.ARCHS))
-def test_cache_blocks_partition_the_cache(arch, m):
+def test_cache_blocks_partition_the_cache(monkeypatch, arch, m):
     """Every rank's ``block_cache`` blocks of a whole serving cache
     (``ARCHS``' widths at one unit of depth, 2 slots, 128 positions;
     both layouts where the family serves them; a (2, m) mesh) put back
     in rank order (``Packed`` channels through the inverse permutation)
     cover it exactly: the round trip ``gather_cache`` makes on a world
     (run at m = 2 on gloo ranks by ``tests/test_torch_serve_mesh.py``).
-    At m = 16 the KV heads split only where ``ShardLayout`` builds the
-    attention's region (olmo-1b and zamba2-2.7b), mamba2's ssm heads and
-    rwkv6's heads always."""
+    This is the head layout (``CACHE_SEQ_SHARD`` False; the key split's
+    cells are ``test_decode_cells_split_the_keys``): at m = 16 the KV
+    heads split only where ``ShardLayout`` builds the attention's region
+    (olmo-1b and zamba2-2.7b), mamba2's ssm heads and rwkv6's heads
+    always."""
+    from repro_torch.distributed import sharding
     from repro_torch.distributed.sharding import Packed, entry_axes
     from repro_torch.models import decode as tdec
     from repro_torch.models.config import KVCacheConfig, SataDecodeConfig
+    monkeypatch.setattr(sharding, "CACHE_SEQ_SHARD", False)
     base = tarchs.ARCHS[arch]
     unit = base.hybrid_period if base.family == "hybrid" else (
         base.cross_attn_period if base.family == "vlm" else 1)

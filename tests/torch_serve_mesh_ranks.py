@@ -14,7 +14,9 @@ layout) fills one whole serving cache (:func:`fill_cache`: every slot
 at its own position of :data:`START`), runs :data:`STEPS` teacher-forced
 ``models.decode.serve_step``s on one device, then the same steps
 through ``train.step.make_serve_step(cfg, mesh=, mode=)`` on the rank's
-blocks of the same cache, fed one device's greedy tokens.  The
+blocks of the same cache, fed one device's greedy tokens.  The worlds
+run the head layout of the serving cache (``CACHE_SEQ_SHARD`` False;
+the key split's cases are ``tests/torch_cp_decode_ranks.py``'s).  The
 backends (:class:`Port`, and the test's JAX one) give the package's
 functions, so the reference runs the same cases in the test process.
 """
@@ -87,12 +89,13 @@ class Port:
         return lg.numpy(), cache
 
 
-def fill_cache(be, model, cfg, family, layout):
+def fill_cache(be, model, cfg, family, layout, start=START, lengths=None):
     """The whole serving cache before step 0 and the step-0 tokens
     (numpy, from SEED): paged, every slot's pages mapped; dense and moe
-    slots prefilled with a prompt of START[s] tokens
+    slots prefilled with a prompt of ``start[s]`` tokens
     (``prefill_prompt`` → ``install_prefill``); vlm and audio contexts
-    through ``prefill_context``."""
+    through ``prefill_context``, with ``lengths`` as its
+    ``context_lengths`` if given."""
     rng = np.random.default_rng(SEED)
     cache = be.init_cache(cfg)
     table = None
@@ -107,10 +110,13 @@ def fill_cache(be, model, cfg, family, layout):
         key, n = (("image_embeds", cfg.n_image_tokens) if family == "vlm"
                   else ("audio_embeds", cfg.encoder_len))
         ctx = rng.standard_normal((B, n, cfg.d_model)).astype(np.float32)
-        cache = be.dec.prefill_context(model, cfg, cache, {key: be.to(ctx)})
+        batch = {key: be.to(ctx)}
+        if lengths is not None:
+            batch["context_lengths"] = be.to(np.asarray(lengths, np.int32))
+        cache = be.dec.prefill_context(model, cfg, cache, batch)
     if family in ("dense", "moe"):
         for s in range(B):
-            prompt = rng.integers(0, cfg.vocab_size, (1, START[s])).astype(
+            prompt = rng.integers(0, cfg.vocab_size, (1, start[s])).astype(
                 np.int32)
             _, state = be.dec.prefill_prompt(model, cfg, be.to(prompt),
                                              MAX_LEN)
@@ -120,11 +126,11 @@ def fill_cache(be, model, cfg, family, layout):
     return cache, tok
 
 
-def drive(step, cache, tok, feed=None):
+def drive(step, cache, tok, feed=None, start=START):
     """STEPS steps of ``step(cache, tok, pos)`` → (logits, cache) from
-    START: each step's logits (numpy) and the tokens fed, the next
+    ``start``: each step's logits (numpy) and the tokens fed, the next
     step's being ``feed``'s or this step's argmax."""
-    pos = np.array(START, np.int32)
+    pos = np.array(start, np.int32)
     logits, fed = [], []
     for i in range(STEPS):
         if feed is not None:
@@ -218,7 +224,11 @@ def _equal_trees(a, b):
 
 
 def run_world(rank, world, tmp):
+    from repro_torch.distributed import sharding
     from repro_torch.launch.mesh import make_train_mesh
+    # these cases hold the head-parallel cache layout (the key split's
+    # are tests/test_torch_cp_decode.py's)
+    sharding.CACHE_SEQ_SHARD = False
     be = Port()
     res = {}
     for i, shape in enumerate(MESHES[world]):
