@@ -375,10 +375,12 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12
 FP32_FLOPS_PER_S = 67e12
 # max abs error against the plain version.  bf16 outputs are also held to
-# the plain version's bits: the kernel differs from it only in fp32
-# summation order, which flips the rounding of ~0.1% of the outputs, while
-# an fp32 selection predicate or a missing bf16 rounding of p moves 25% or
-# more of them (a 2e-2 max-abs limit alone lets the second pass).
+# the plain version's bits (the decode kernel's: the plain model of its
+# split over a cluster, ``held_to_plain``): the kernel differs from it only
+# in fp32 summation order, which flips the rounding of ~0.1% of the
+# outputs, while an fp32 selection predicate or a missing bf16 rounding of
+# p moves 25% or more of them (a 2e-2 max-abs limit alone lets the second
+# pass).
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 BF16_MISMATCH_MAX = 0.01    # share of bf16 outputs off the plain version
 SRC_CU = "src/repro_torch/kernels/csrc/sata_decode.cu"
@@ -471,37 +473,70 @@ def run_kernel(sd, c, paged):
         k_block=c["page"])
 
 
-def run_plain(sd, c, paged):
+def run_plain(sd, c, paged, splits=1):
     if paged:
         return sd.sata_decode_attention_ref(
             c["q"], c["kp"], c["vp"], c["idx"], c["cnt"], c["thr"],
-            c["pos"], k_block=c["page"], page_table=c["table"])
+            c["pos"], k_block=c["page"], page_table=c["table"],
+            splits=splits)
     return sd.sata_decode_attention_ref(
         c["q"], c["k"], c["v"], c["idx"], c["cnt"], c["thr"], c["pos"],
-        k_block=c["page"])
+        k_block=c["page"], splits=splits)
+
+
+def kernel_splits(sd, q, k_block):
+    """The cluster the kernel splits each row of q over (its shape's
+    ``launch_config``): the plain version's ``splits`` that models it."""
+    return sd.launch_config(q.shape[2], q.shape[3], k_block,
+                            q.dtype).cluster
+
+
+def held_to_plain(torch, sd, got, args, kw, what):
+    """A decode kernel output ``got`` against the plain version on the
+    same arguments (unsplit: within TOL) and against the plain model of
+    the kernel's split (within TOL, and bf16 at most BF16_MISMATCH_MAX
+    of the outputs off its bits: the kernel sums in another fp32 order,
+    while a split rounds p against each share's own running max, which
+    moves ~15% of the bf16 outputs off the unsplit version's bits).
+    Returns (error against the unsplit version, against the model, the
+    share of outputs off the model's bits)."""
+    tol = TOL[str(got.dtype).split(".")[-1]]
+    splits = kernel_splits(sd, args[0], kw["k_block"])
+    want = sd.sata_decode_attention_ref(*args, **kw)
+    model = want if splits == 1 else sd.sata_decode_attention_ref(
+        *args, splits=splits, **kw)
+    errs = [float((got.float() - w.float()).abs().max()) if got.numel()
+            else 0.0 for w in (want, model)]
+    off = float((got != model).float().mean()) if got.numel() else 0.0
+    assert max(errs) <= tol, f"{what}: {errs} > {tol}"
+    if got.dtype == torch.bfloat16:
+        assert off <= BF16_MISMATCH_MAX, f"{what}: {off:.4%} off"
+    return errs[0], errs[1], off
 
 
 def check_case(torch, sd, name, c):
-    """Kernel vs plain in both layouts + paged == contiguous bitwise.
-    Returns the largest kernel-vs-plain error."""
+    """Kernel vs plain (and the plain model of its split) in both layouts
+    + paged == contiguous bitwise.  Returns the largest kernel-vs-plain
+    error."""
     tol = TOL[str(c["q"].dtype).split(".")[-1]]
     outs = {}
     err = 0.0
     for paged in (False, True):
         got = run_kernel(sd, c, paged)
-        want = run_plain(sd, c, paged)
         torch.cuda.synchronize()
-        assert got.shape == want.shape == c["q"].shape, (got.shape, want.shape)
+        assert got.shape == c["q"].shape, got.shape
         assert torch.isfinite(got).all(), f"{name}: non-finite output"
-        e = float((got.float() - want.float()).abs().max()) \
-            if got.numel() else 0.0
         lay = "paged" if paged else "contiguous"
-        off = float((got != want).float().mean()) if got.numel() else 0.0
+        kk, vv = (c["kp"], c["vp"]) if paged else (c["k"], c["v"])
+        e, e_model, off = held_to_plain(
+            torch, sd, got, (c["q"], kk, vv, c["idx"], c["cnt"], c["thr"],
+                             c["pos"]),
+            dict(k_block=c["page"], page_table=c["table"] if paged else None),
+            f"{name} {lay}")
         log(f"[kernel] {name} {lay}: max_abs_err={e:.3e} (tol {tol:g}), "
-            f"{off:.4%} of outputs off the plain version's bits")
-        assert e <= tol, f"{name} {lay}: {e} > {tol}"
-        if got.dtype == torch.bfloat16:
-            assert off <= BF16_MISMATCH_MAX, f"{name} {lay}: {off:.4%} off"
+            f"{e_model:.3e} against the model of its "
+            f"{kernel_splits(sd, c['q'], c['page'])}-way split, {off:.4%} "
+            f"of outputs off the model's bits")
         err = max(err, e)
         outs[paged] = got
     assert torch.equal(outs[False], outs[True]), \
@@ -550,6 +585,25 @@ def edge_cases(torch, device):
                   seed=7, device=device, topk=4)
     c["idx"] = c["idx"][..., :0].contiguous()                  # P == 0
     yield "P0", c
+    yield from split_cases(torch, device)
+
+
+def split_cases(torch, device):
+    """The shares of a row split over a cluster (G 16, D 128, page 64)
+    that may be empty: row (0, 0) has count 0; (0, 1) one entry and
+    (1, 0) three, fewer than the cluster's ranks; (1, 1) plans four
+    pages of which only the third holds keys <= pos, so every admitted
+    key lies in one rank's share and the others admit none."""
+    for n, dt in enumerate((torch.bfloat16, torch.float32)):
+        c = make_case(torch, b=2, kv=2, g=16, d=128, page=64, s=1024,
+                      dtype=dt, seed=10 + n, device=device, pos_lo=100,
+                      pos_hi=128, topk=16)
+        idx, cnt = c["idx"].clone(), c["cnt"].clone()
+        cnt[0, 0], cnt[0, 1], cnt[1, 0] = 0, 1, min(3, int(cnt[1, 0]))
+        idx[1, 1, :4] = torch.tensor([5, 6, 0, 7], dtype=idx.dtype)
+        cnt[1, 1] = 4
+        c.update(idx=idx, cnt=cnt)
+        yield f"split_shares_G16_D128_{str(dt).split('.')[-1]}", c
 
 
 def build_all(build, root, names=("sata_decode", "sata_attention")):
@@ -568,9 +622,8 @@ def build_all(build, root, names=("sata_decode", "sata_attention")):
             f"{secs:.2f} s")
         ptxas = lib.parent / f"{lib.stem}.ptxas.txt"
         if ptxas.exists():
-            for line in ptxas.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[build] ptxas {name}: {line.strip()}")
+            for line in ptxas_lines(ptxas.read_text(), ""):
+                log(f"[build] ptxas {name}: {line}")
 
 
 # ---------------------------------------------------------------------------
@@ -743,6 +796,7 @@ def aliased_case(torch, dev):
 MAIN = "main_B8_KV8_G4_D128_page64_bf16"
 # qwen3-moe-235b-a22b's serving shape: 64 query heads over 4 KV heads
 G16 = "moe_B8_KV4_G16_D128_page64_bf16"
+G16_FP32 = G16.removesuffix("bf16") + "fp32"
 # whisper-base's serving shape: 8 heads over 8 KV heads of 64 (G = 1,
 # D = 64), a 448-token decoder context in 7 pages of 64
 D64 = "whisper_B8_KV8_G1_D64_page64_bf16"
@@ -803,7 +857,7 @@ def check_kernels(torch, sd, dev):
     G = 16, the D = 64 and the D = 80 bf16 cases and the errors."""
     errs, keep = {}, {}
     for cname, c in kernel_cases(torch, dev):
-        if cname in (MAIN, G16, D64, D80):
+        if cname in (MAIN, G16, G16_FP32, D64, D80):
             keep[cname] = c
             log(f"[kernel] {cname} plan: kv_counts mean "
                 f"{float(c['cnt'].float().mean()):.2f} of "
@@ -818,7 +872,8 @@ def check_partial(torch, sd, name, c, tag):
     decode: the fp32 output unrounded and each head's lse) against its
     plain version on a phase 2 case, contiguous, with one more row's
     count set to 0 (its lse must be −inf, its output 0), within TOL of
-    the case's dtype (lse over its finite entries, the −inf ones equal);
+    the case's dtype (lse over its finite entries, the −inf ones equal),
+    against the unsplit version and the model of the kernel's split;
     the partial combined alone (``KeySplit.combine`` on one rank) rounds
     to the default mode's bits; both modes timed.  Returns the largest
     error."""
@@ -829,19 +884,21 @@ def check_partial(torch, sd, name, c, tag):
     args = (c["q"], c["k"], c["v"], c["idx"], cnt, c["thr"], c["pos"])
     out, lse = sd.sata_decode_attention_kernel(*args, k_block=c["page"],
                                                partial=True)
-    p_out, p_lse = sd.sata_decode_attention_ref(*args, k_block=c["page"],
-                                                partial=True)
     whole = sd.sata_decode_attention_kernel(*args, k_block=c["page"])
     one = KeySplit(make_local_mesh(device=c["q"].device)).combine(out, lse)
     torch.cuda.synchronize()
     tol = TOL[str(c["q"].dtype).split(".")[-1]]
     assert out.dtype == lse.dtype == torch.float32
-    dead = torch.isneginf(p_lse)
-    assert torch.equal(torch.isneginf(lse), dead), f"{name}: −inf rows"
-    assert bool(dead[-1, 0].all()) and bool((out[-1, 0] == 0).all()), \
-        f"{name}: the count-0 row"
-    e_out = float((out - p_out).abs().max())
-    e_lse = float((lse - p_lse)[~dead].abs().max())
+    e_out = e_lse = 0.0
+    for splits in {1, kernel_splits(sd, c["q"], c["page"])}:
+        p_out, p_lse = sd.sata_decode_attention_ref(
+            *args, k_block=c["page"], partial=True, splits=splits)
+        dead = torch.isneginf(p_lse)
+        assert torch.equal(torch.isneginf(lse), dead), f"{name}: −inf rows"
+        assert bool(dead[-1, 0].all()) and bool((out[-1, 0] == 0).all()), \
+            f"{name}: the count-0 row"
+        e_out = max(e_out, float((out - p_out).abs().max()))
+        e_lse = max(e_lse, float((lse - p_lse)[~dead].abs().max()))
     assert e_out <= tol and e_lse <= tol, (name, e_out, e_lse, tol)
     assert torch.equal(one.to(whole.dtype), whole), \
         f"{name}: one partial combined != the default mode's output"
@@ -2322,14 +2379,10 @@ class KernelProbe:
     def __call__(self, fn):
         torch, sd = self.torch, self.sd
 
-        def held(out, want, note):
-            tol = TOL[str(out.dtype).split(".")[-1]]
-            err = float((out.float() - want.float()).abs().max())
-            off = float((out != want).float().mean())
+        def held(out, args, kw, note):
             assert torch.isfinite(out).all()
-            assert err <= tol, f"the recorded call: {err} > {tol}"
-            if out.dtype == torch.bfloat16:
-                assert off <= BF16_MISMATCH_MAX, f"{off:.4%} off"
+            err, _, off = held_to_plain(torch, sd, out, args, kw,
+                                        "the recorded call")
             self.result = (err, off, note)
             self.check = None
 
@@ -2338,9 +2391,8 @@ class KernelProbe:
             note = None if self.check is None else \
                 self.check(table, idx, cnt, pos)
             if note is not None:
-                held(out, sd.sata_decode_attention_ref(
-                    q, kp, vp, idx, cnt, thr, pos, k_block=kp.shape[1],
-                    page_table=table), note)
+                held(out, (q, kp, vp, idx, cnt, thr, pos),
+                     dict(k_block=kp.shape[1], page_table=table), note)
             return out
 
         def contiguous(q, k, v, idx, cnt, thr, pos, *, k_block):
@@ -2348,8 +2400,8 @@ class KernelProbe:
             note = None if self.check is None else \
                 self.check(None, idx, cnt, pos)
             if note is not None:
-                held(out, sd.sata_decode_attention_ref(
-                    q, k, v, idx, cnt, thr, pos, k_block=k_block), note)
+                held(out, (q, k, v, idx, cnt, thr, pos),
+                     dict(k_block=k_block), note)
             return out
         return paged if self.paged else contiguous
 
@@ -2868,7 +2920,8 @@ def moe_phase(torch, sd, serve, opts, dev, tag, n_layers=MOE_LAYERS):
     assert kprobe.result is not None, "B1's recorded call was not checked"
     kerr, koff, note = kprobe.result
     log(f"[moe] B1 on a recorded call at G = {g} ({note}): max_abs_err="
-        f"{kerr:.3e}, {koff:.4%} of outputs off the plain version's bits")
+        f"{kerr:.3e}, {koff:.4%} of outputs off the bits of the plain model "
+        f"of its split")
     out, _ = runs["paged"]
     probe = probes["paged"]
     steps = out["steps"]
@@ -4095,12 +4148,9 @@ def mesh_plain_step(torch, c, sd):
         args = (qg, k, v, plan["kv_indices"], plan["kv_counts"], thr, pos)
         out = sata_decode_attention(*args, k_block=c["page"],
                                     page_table=table)
-        want = sd.sata_decode_attention_ref(*args, k_block=c["page"],
-                                            page_table=table)
-        e = float((out.float() - want.float()).abs().max())
-        off = float((out != want).float().mean())
-        assert e <= TOL["bfloat16"] and off <= BF16_MISMATCH_MAX, (e, off)
-        errs.append(e)
+        errs.append(held_to_plain(
+            torch, sd, out, args, dict(k_block=c["page"], page_table=table),
+            "the plain single-device step")[0])
         return out, plan
     return step, errs
 
@@ -5033,6 +5083,10 @@ MUTANTS = {
                     "const float pr = p;"),
     "decode_pos_lt": (SRC_CU, "const bool live = tok <= pos_b;",
                       "const bool live = tok < pos_b;"),
+    # the cluster's combine reads an empty share's m and o (which it never
+    # wrote) as if the share had admitted keys
+    "combine_no_guard": (SRC_CU, "    live[r] = lr[r] > 0.f;",
+                         "    live[r] = r < cs;"),
     # the tensor-core body (bf16): an fp32 predicate, `<` for `<=` on the
     # causal test, l summed from the rounded p
     "attn_fp32_predicate": (SRC_ATTN_CU, "edge[h] = admit_edge(t);",
@@ -5053,7 +5107,8 @@ MUTANTS = {
 PHASE8_MUST_CATCH = ("attn_fp32_predicate", "attn_causal_lt")
 # decode mutants that a named phase-2 case must catch (any case of that
 # name's prefix)
-CASE_MUST_CATCH = {"decode_pos_lt": "pos_inside_page"}
+CASE_MUST_CATCH = {"decode_pos_lt": "pos_inside_page",
+                   "combine_no_guard": "split_shares"}
 PHASE8 = "phase8_route"
 
 _MUTANT_CHILD = """
@@ -5143,56 +5198,130 @@ def build_variant(build, src: str, lib) -> str:
     return res.stderr
 
 
+def kernel_label(entry: str) -> str:
+    """A decode kernel's instantiation from its mangled name
+    (``sata_decode_kernel<bf16, 16>``); other names as they are."""
+    import re
+    m = re.search(r"sata_decode_kernelI(f|13__nv_bfloat16)Li(\d+)E", entry)
+    if not m:
+        return entry
+    return (f"sata_decode_kernel<{'fp32' if m.group(1) == 'f' else 'bf16'}"
+            f", {m.group(2)}>")
+
+
 def ptxas_lines(text: str, key: str):
     """ptxas -v's register and spill lines for each kernel whose mangled
-    name holds ``key``, each prefixed with that name."""
+    name holds ``key``, each prefixed with its ``kernel_label``."""
     out, entry = [], None
     for line in text.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1] if "'" in line else line.strip()
         elif entry and key in entry and ("registers" in line
                                          or "spill" in line):
-            out.append(f"{entry}: {line.strip()}")
+            out.append(f"{kernel_label(entry)}: {line.strip()}")
     return out
+
+
+def c_params(path: str, symbol: str):
+    """The parameter names and ctypes kinds of the C entry point
+    ``symbol`` in the source ``path``."""
+    import ctypes
+    import re
+    with open(path) as f:
+        sig = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)",
+                        f.read(), re.S).group(1)
+    args = [a.split() for a in sig.split(",")]
+    return ([a[-1].lstrip("*") for a in args],
+            [ctypes.c_void_p if "*" in " ".join(a) else ctypes.c_int
+             for a in args])
 
 
 def parent_kernel(build, parent: str, name: str, symbol: str, argtypes):
     """Build ``parent``'s ``csrc/<name>.cu`` (an earlier checkout) and
-    return its C entry point ``symbol`` typed with ``argtypes`` (which
-    must be the parent's signature too) and ptxas's report."""
+    return its C entry point ``symbol``, called with this tree's argument
+    list (``argtypes``): the arguments the parent does not take are
+    dropped by name, so every argument it takes must be this tree's too;
+    and ptxas's report."""
     import ctypes
-    import re
     src = os.path.join(parent, os.path.dirname(SRC_CU), f"{name}.cu")
-    with open(src) as f:
-        sig = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)",
-                        f.read(), re.S).group(1)
-    kinds = [ctypes.c_void_p if "*" in a else ctypes.c_int
-             for a in sig.split(",")]
-    assert kinds == argtypes, f"{parent}: {symbol} has another C interface"
+    names, kinds = c_params(src, symbol)
+    mine, my_kinds = c_params(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), os.path.dirname(SRC_CU), f"{name}.cu"),
+        symbol)
+    assert my_kinds == argtypes, f"{symbol}: argtypes are not the source's"
+    assert all(n in mine and kinds[i] == my_kinds[mine.index(n)]
+               for i, n in enumerate(names)), \
+        f"{parent}: {symbol} has arguments this tree lacks"
+    pick = [mine.index(n) for n in names]
     lib = build.BUILD_DIR / "parent" / f"lib{name}_parent.so"
     report = build_variant(build, src, lib)
     fn = getattr(ctypes.CDLL(str(lib)), symbol)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return fn, report
+    fn.argtypes, fn.restype = kinds, ctypes.c_int
+    return (lambda *a: fn(*(a[i] for i in pick))), report
+
+
+def parent_launch_config(sd, parent: str):
+    """``parent``'s ``kernels/sata_decode.py::launch_config`` as a
+    function returning this tree's ``LaunchConfig`` (a parent without
+    clusters: ``cluster`` 1), for the parent's build of the kernel."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "parent_sata_decode",
+        os.path.join(parent, "src/repro_torch/kernels/sata_decode.py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod          # dataclasses look their module up
+    spec.loader.exec_module(mod)
+
+    def config(*a):
+        c = mod.launch_config(*a)
+        return sd.LaunchConfig(**{f.name: getattr(c, f.name)
+                                  for f in dataclasses.fields(c)})
+    return config
 
 
 @contextlib.contextmanager
-def launching(module, fn):
+def launching(module, fn, config=None):
     """While open, ``module``'s CUDA wrappers launch ``fn``, another build
-    of their C entry point."""
-    old = module._launcher
-    module._launcher = lambda: fn
+    of their C entry point (and, given, stage it by ``config`` in place
+    of ``module.launch_config``)."""
+    old, old_config = module._launcher, getattr(module, "launch_config",
+                                                None)
+    module._launcher = lambda *_: fn
+    if config is not None:
+        module.launch_config = config
     try:
         yield
     finally:
         module._launcher = old
+        if config is not None:
+            module.launch_config = old_config
+
+
+# the cluster sizes ``--ab`` times this tree's decode kernel at, on each
+# case (the shape's staging otherwise): whether a split pays at G <= 8 too
+AB_CLUSTERS = (1, 2, 4, 8)
+
+
+def max_clusters(build, c, cluster, smem_bytes) -> int:
+    """The clusters of ``cluster`` decode-kernel blocks with
+    ``smem_bytes`` each that the card holds at once at case ``c``'s G
+    and dtype (``cudaOccupancyMaxActiveClusters``)."""
+    import ctypes
+    fn = build.load("sata_decode").sata_decode_max_clusters
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    q = c["q"]
+    return fn(q.shape[2], 1 if q.element_size() == 2 else 0, cluster,
+              smem_bytes)
 
 
 def run_ab(root: str, parent: str) -> int:
     """``--ab PARENT``: phase 2 on this tree's decode kernel, then this
-    kernel and PARENT's timed in turns (parent, this, this, parent) at
-    phase 5's three shapes, both layouts, and the decode probes; then
-    ``ab_prefill``.  One process on one card."""
+    kernel and PARENT's (each staged by its own ``launch_config``) timed
+    in turns (parent, this, this, parent) at phase 5's shapes (MAIN, G16,
+    D64, D80, B1 and the long row), both layouts, with SDPA + mask and
+    the bound beside them; this kernel at each of AB_CLUSTERS (paged);
+    the decode probes at MAIN and G16; then ``ab_prefill``.  One process
+    on one card."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import sata_attention as sa
@@ -5203,15 +5332,20 @@ def run_ab(root: str, parent: str) -> int:
     log(f"[device] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     build_all(build, root)
-    old, _ = parent_kernel(build, parent, "sata_decode",
-                           "sata_decode_attention", sd.ARGTYPES)
+    old, report = parent_kernel(build, parent, "sata_decode",
+                                "sata_decode_attention", sd.ARGTYPES)
+    for line in ptxas_lines(report, "sata_decode"):
+        log(f"[ab] ptxas parent: {line}")
+    old_config = parent_launch_config(sd, parent)
     keep, _ = check_kernels(torch, sd, dev)
-    main_case = keep[MAIN]
-    cases = [(MAIN, main_case), *extra_decode_cases(torch, dev)]
+    cases = [*((n, keep[n]) for n in (MAIN, G16, G16_FP32, D64, D80)),
+             *extra_decode_cases(torch, dev)]
+    base = sd.launch_config
     rows = []
     for name, c in cases:
+        g, d = c["q"].shape[2:]
         for paged in (True, False):
-            with launching(sd, old):
+            with launching(sd, old, old_config):
                 got = run_kernel(sd, c, paged)
             want = run_plain(sd, c, paged)
             torch.cuda.synchronize()
@@ -5219,18 +5353,45 @@ def run_ab(root: str, parent: str) -> int:
             assert e <= TOL["bfloat16"], f"parent {name}: {e}"
             ts = {"parent": [], "change": []}
             for who in ("parent", "change", "change", "parent"):
-                with launching(sd, old) if who == "parent" \
+                with launching(sd, old, old_config) if who == "parent" \
                         else contextlib.nullcontext():
                     ts[who].append(time_ms(
                         torch, lambda: run_kernel(sd, c, paged)))
+            qh, kh, vh, mask = sdpa_inputs(torch, c)
+            lib_ms = time_ms(torch, lambda: torch.nn.functional
+                             .scaled_dot_product_attention(
+                                 qh, kh, vh, attn_mask=mask, enable_gqa=True))
+            del qh, kh, vh, mask
             bound_ms = kernel_bound(torch, c, paged)[0]
             lay = "paged" if paged else "contiguous"
+            row = dict(case=name, layout=lay, bound_ms=bound_ms,
+                       sdpa_ms=lib_ms, **ts)
+            if paged:
+                row["clusters"], row["resident_clusters"] = {}, {}
+                try:
+                    for cs in AB_CLUSTERS:
+                        cfg = dataclasses.replace(
+                            base(g, d, c["page"], c["q"].dtype), cluster=cs)
+                        sd.launch_config = lambda *_, cfg=cfg: cfg
+                        row["clusters"][cs] = time_ms(
+                            torch, lambda: run_kernel(sd, c, paged))
+                        row["resident_clusters"][cs] = max_clusters(
+                            build, c, cs, cfg.smem_bytes)
+                finally:
+                    sd.launch_config = base
             log(f"[ab] {name} {lay}: parent {ts['parent']} ms, change "
                 f"{ts['change']} ms (in turns: parent, change, change, "
-                f"parent); bound {bound_ms:.5f} ms {tag}")
-            rows.append(dict(case=name, layout=lay, bound_ms=bound_ms, **ts))
-    probes = probe_decode(torch, sd, build, root, main_case, tag)
-    del main_case, cases, keep
+                f"parent); SDPA+mask {lib_ms:.4f} ms; bound {bound_ms:.5f} "
+                f"ms; this kernel by cluster size "
+                f"{row.get('clusters', 'not timed')}, clusters resident at "
+                f"once {row.get('resident_clusters', '-')}; its staging "
+                f"{base(g, d, c['page'], c['q'].dtype)} {tag}")
+            rows.append(row)
+    probes = {n: probe_decode(torch, sd, build, root, keep[n], n, tag)
+              for n in (MAIN, G16)}
+    for n in (MAIN, G16):
+        probes[n]["phases"] = probe_phases(torch, sd, build, keep[n], n, tag)
+    del cases, keep
     prefill = ab_prefill(torch, sa, build, parent, dev, tag)
     log(card)
     log(json.dumps({"ab": rows, "probes": probes, "ab_prefill": prefill}))
@@ -5253,7 +5414,9 @@ def ab_prefill(torch, sa, build, parent, dev, tag):
         for line in ptxas_lines(text, "sata_block"):
             log(f"[ab] ptxas {who}: {line}")
     rows = []
-    for name, c in itertools.islice(attn_cases(torch, dev), 2):
+    for name, c in itertools.islice(attn_cases(torch, dev), 3):
+        if name == ATTN_ROWS:           # phase 6's context-parallel rows
+            continue
         check_attn_case(torch, sa, name, c)
         keep = attended_pairs(torch, c)
         bh, s, d = c["q"].shape
@@ -5359,13 +5522,15 @@ PROBES = {
                    "      for (int mt = C; mt * 16 < C; mt += kWarps) {"),
     "no_k_copies": ("        one(x, [](void* d, const void* g) { copy_async(d, g, 16); });",
                     "        one(x, [](void* d, const void* g) {});"),
+    "no_pv": ("      const int nb = min(nv - v0, VR);",
+              "      const int nb = 0;"),
 }
 # (chunk, stages) at the main shape, with a 20-block window and 128 V rows
 PROBE_RINGS = [(64, 2), (64, 4), (64, 8), (192, 2), (256, 2)]
 
 
-def probe_decode(torch, sd, build, root, c, tag):
-    """What bounds the decode kernel on main-path case ``c`` (paged):
+def probe_decode(torch, sd, build, root, c, label, tag):
+    """What bounds the decode kernel on case ``c`` (paged):
     the kernel with rows of count 0 (launch, prologue, epilogue), with
     the L2 warm (no flush, launches back to back), at other ring sizes,
     and with the PROBES taken out.  Returns {label: ms}."""
@@ -5391,8 +5556,11 @@ def probe_decode(torch, sd, build, root, c, tag):
     try:
         for chunk, stages in PROBE_RINGS:
             n = sd.smem_bytes(g, d, c["page"], 2, chunk, stages, 20, 128)
+            if n > sd.SMEM_MAX:
+                continue
             sd.launch_config = lambda *_, cfg=sd.LaunchConfig(
-                chunk, stages, 20, 128, n): cfg
+                chunk, stages, 20, 128, n, base(
+                    g, d, c["page"], c["q"].dtype).cluster): cfg
             out[f"chunk_{chunk}_stages_{stages}"] = time_ms(torch, run)
     finally:
         sd.launch_config = base
@@ -5400,21 +5568,136 @@ def probe_decode(torch, sd, build, root, c, tag):
     pdir = build.BUILD_DIR / "probe"
     pdir.mkdir(parents=True, exist_ok=True)
 
+    # the probes of this source, built once per source
+    stem = build.library_path("sata_decode").stem
+
     def compile_probe(name):
         old, new = PROBES[name]
         assert src.count(old) == 1, f"probe {name}: {old!r} not found once"
-        (pdir / f"{name}.cu").write_text(src.replace(old, new))
-        build_variant(build, pdir / f"{name}.cu", pdir / f"{name}.so")
+        so = pdir / f"{stem}_{name}.so"
+        if not so.exists():
+            (pdir / f"{stem}_{name}.cu").write_text(src.replace(old, new))
+            build_variant(build, pdir / f"{stem}_{name}.cu", so)
 
     with ThreadPoolExecutor(len(PROBES)) as ex:
         list(ex.map(compile_probe, PROBES))
     for name in PROBES:
-        fn = ctypes.CDLL(str(pdir / f"{name}.so")).sata_decode_attention
+        fn = ctypes.CDLL(str(pdir / f"{stem}_{name}.so")).sata_decode_attention
         fn.argtypes, fn.restype = sd.ARGTYPES, ctypes.c_int
         with launching(sd, fn):
             out[name] = time_ms(torch, run)
     for k, v in out.items():
-        log(f"[probe] decode kernel, main shape, paged, {k}: {v:.4f} ms {tag}")
+        log(f"[probe] decode kernel, {label}, paged, {k}: {v:.4f} ms {tag}")
+    return out
+
+
+# an instrumented build of the decode kernel for ``--ab``: thread 0 of each
+# block adds the global timer's ns between the points below to one of
+# PHASES, and the block's entry and exit times are kept
+# (``sata_decode_phases`` copies them out); (old, new) source substitutions
+PHASES = ("prologue", "K wait", "scoring", "K copies", "close: pack",
+          "close: block maxima", "close: prefix max", "close: p",
+          "close: PV", "share out")
+_NOW = 'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));'
+PHASE_STAMPS = (
+    ("namespace {\n\n// threads a block",
+     "namespace {\n\n__device__ unsigned long long g_phase[8192][12];\n"
+     "#define PT(k) if (threadIdx.x == 0) { unsigned long long t_; " + _NOW +
+     " pacc[k] += t_ - t_last; t_last = t_; }\n"
+     "#define EDGE(k) if (threadIdx.x == 0 && blockIdx.x < 8192) { "
+     "unsigned long long t_; " + _NOW + " g_phase[blockIdx.x][10 + k] = t_; }"
+     "\n\n// threads a block"),
+    ("  const int b = row / a.n_kv, h = row % a.n_kv;\n",
+     "  const int b = row / a.n_kv, h = row % a.n_kv;\n"
+     "  unsigned long long t_last = 0, pacc[10] = {};\n"
+     "  if (threadIdx.x == 0) { unsigned long long t_; " + _NOW +
+     " t_last = t_; }\n"),
+    ("  __syncthreads();\n\n  auto block_of",
+     "  __syncthreads();\n  PT(0)\n\n  auto block_of"),
+    ("    wait_pending(S - 1);      // chunk i has landed\n    __syncthreads();\n",
+     "    wait_pending(S - 1);      // chunk i has landed\n    __syncthreads();\n"
+     "    PT(1)\n"),
+    ("    __syncthreads();          // the slot is free; the chunk's selection "
+     "is visible\n    issue_k(i + S);\n    commit_group();\n  }\n",
+     "    PT(2)\n    __syncthreads();          // the slot is free; the chunk's "
+     "selection is visible\n    issue_k(i + S);\n    commit_group();\n"
+     "    PT(3)\n  }\n"),
+    ("    const int nv = *nv_sh;\n", "    const int nv = *nv_sh;\n    PT(4)\n"),
+    ("    __syncthreads();\n    // prefix max over the blocks",
+     "    __syncthreads();\n    PT(5)\n    // prefix max over the blocks"),
+    ("    __syncthreads();\n    // p of every (block, head, row)",
+     "    __syncthreads();\n    PT(6)\n    // p of every (block, head, row)"),
+    ("    __syncthreads();\n    // l = l * cw + sum_j",
+     "    __syncthreads();\n    PT(7)\n    // l = l * cw + sum_j"),
+    ("      __syncthreads();\n    }\n  };\n\n  // --- main loop",
+     "      __syncthreads();\n    }\n    PT(8)\n  };\n\n  // --- main loop"),
+    ("  // --- the share's output o[g][d] at the start of the ring",
+     "  PT(9)\n  if (threadIdx.x == 0 && blockIdx.x < 8192)\n"
+     "    for (int k = 0; k < 10; ++k) g_phase[blockIdx.x][k] = pacc[k];\n"
+     "  // --- the share's output o[g][d] at the start of the ring"),
+    ("  extern __shared__ __align__(16) unsigned char smem[];\n"
+     "  const int G = GC <= 8 ? GC : a.G;\n  const int cs = a.cs",
+     "  extern __shared__ __align__(16) unsigned char smem[];\n  EDGE(0)\n"
+     "  const int G = GC <= 8 ? GC : a.G;\n  const int cs = a.cs"),
+    ("  if (whole) return;\n", "  if (whole) {\n    EDGE(1)\n    return;\n  }\n"),
+    ("  if (cs > 1) cluster_sync(cs);   // no rank leaves",
+     "  EDGE(1)\n  if (cs > 1) cluster_sync(cs);   // no rank leaves"),
+)
+
+
+def probe_phases(torch, sd, build, c, label, tag):
+    """Where each block's time goes on case ``c`` (paged, one launch after
+    the L2 flush, the shape's own ``launch_config``): PHASES in µs from
+    the PHASE_STAMPS build of the decode kernel, the median and the
+    largest over the blocks that ran a share, and the blocks' spread of
+    start and end.  The row's split and the combine are the time from a
+    block's last phase to its end.  Returns {phase: [median, max]}."""
+    import ctypes
+    src = open(os.path.join(build.CSRC, "sata_decode.cu")).read()
+    for old, new in PHASE_STAMPS:
+        assert src.count(old) == 1, f"phase stamp: {old!r} not found once"
+        src = src.replace(old, new)
+    src += ('\nextern "C" int sata_decode_phases(void* host, int n) {\n'
+            "  return (int)cudaMemcpyFromSymbol(host, g_phase, (size_t)n * "
+            "12 * 8);\n}\n")
+    pdir = build.BUILD_DIR / "probe"
+    pdir.mkdir(parents=True, exist_ok=True)
+    stem = build.library_path("sata_decode").stem
+    so = pdir / f"{stem}_phases.so"
+    if not so.exists():
+        (pdir / f"{stem}_phases.cu").write_text(src)
+        build_variant(build, pdir / f"{stem}_phases.cu", so)
+    lib = ctypes.CDLL(str(so))
+    fn, read = lib.sata_decode_attention, lib.sata_decode_phases
+    fn.argtypes, fn.restype = sd.ARGTYPES, ctypes.c_int
+    read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    q = c["q"]
+    cfg = sd.launch_config(q.shape[2], q.shape[3], c["page"], q.dtype)
+    blocks = q.shape[0] * q.shape[1] * cfg.cluster
+    assert blocks <= 8192, blocks
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    with launching(sd, fn):
+        for _ in range(3):
+            run_kernel(sd, c, True)
+        torch.cuda.synchronize()
+        flush.zero_()
+        run_kernel(sd, c, True)
+        torch.cuda.synchronize()
+    t = np.zeros((blocks, 12), np.uint64)
+    assert read(t.ctypes.data, blocks) == 0
+    t = t.astype(np.float64)
+    edges = (t[:, 10:] - t[:, 10].min()) / 1e3
+    ran = t[:, :10].sum(1) > 0
+    us = t[ran, :10] / 1e3
+    out = {n: [float(np.median(us[:, k])), float(us[:, k].max())]
+           for k, n in enumerate(PHASES)}
+    rest = edges[ran, 1] - edges[ran, 0] - us.sum(1)
+    out["combine"] = [float(np.median(rest)), float(rest.max())]
+    out["start"] = [float(np.median(edges[:, 0])), float(edges[:, 0].max())]
+    out["end"] = [float(np.median(edges[:, 1])), float(edges[:, 1].max())]
+    log(f"[phases] decode kernel, {label}, paged, {int(ran.sum())} of "
+        f"{blocks} blocks ran a share; µs median / max: " + "; ".join(
+            f"{k} {a:.2f} / {b:.2f}" for k, (a, b) in out.items()) + f" {tag}")
     return out
 
 

@@ -28,41 +28,64 @@
 // the K rows of the planned blocks up to pos (every one is scored), only
 // the V rows of keys that at least one of the G heads selects (top-k per
 // head, so at most G·k of them), q, out and the plan, once each.  At
-// ~4·G·D flops per key row that is at most ~8 flops per bf16 byte at G = 4,
-// far below the ~295 flops/byte where the tensor cores would become the
-// limit, so the least time is those bytes / 3.35 TB/s.  This kernel does
-// not reach it: with one block per row (B·KV blocks) each block works
-// through its row's keys alone, and its time goes to the instructions that
-// score, stage and synchronise each chunk, not to waiting for memory
-// (PERF.md: a deeper ring or a warm L2 changes little).
+// ~4·G·D flops per key row that is at most ~32 flops per bf16 byte at
+// G = 16, far below the ~295 flops/byte where the tensor cores would become
+// the limit, so the least time is those bytes / 3.35 TB/s.  The kernel does
+// not reach it: a block's time goes to the latencies of the instructions
+// that score, stage, synchronise and sum each chunk of its row, with few
+// warps to hide them, not to the bytes (PERF.md: a deeper ring or a warm L2
+// changes little; at G = 16 taking the scoring, the K copies or the PV
+// product out each saved a third to a half of one block a row's time).
 //
-// What the design does about the memory side, and to keep the instruction
-// path short:
-//  - Prologue: the block loads its row's plan (kv_indices[0..count) and,
-//    for the pool, the page-table entries) into shared memory once, so a
-//    row's address is known before its copy is issued; the dependent
-//    index -> table -> data chain is paid once per row, not per block.
+// The split over a thread-block cluster.  With one block a row, B8 KV4
+// (qwen3-moe: 16 heads a KV head) is 32 blocks on 132 SMs, each with a
+// whole row's instruction path.  So a row is split over a cluster of cs
+// blocks (kernels/sata_decode.py::cluster_for: 1 at G = 1, 4 for bf16
+// past G = 8, staged so that two blocks fit an SM, else 2):
+//  - rank r of the cluster takes the contiguous share [r·per, min(count,
+//    (r + 1)·per)) of the row's plan entries, per = ceil(count / cs), and
+//    runs the body below on it alone, with its own online softmax: p is
+//    rounded against the share's own running max.  A share may be empty;
+//    an empty share publishes l = 0 and nothing else.
+//  - The combine reads every rank's (m, l, o) through distributed shared
+//    memory after a cluster barrier, in rank order, no atomics: M = the
+//    largest m of the ranks with l > 0, w_r = exp(m_r - M) for those ranks
+//    and 0 for the others, y = sum_r w_r o_r / sum_r w_r l_r (0 where that
+//    is 0), lse = M + log(sum_r w_r l_r).  A rank with l == 0 is left out
+//    explicitly: its m and o were never written.  Each rank writes D / cs
+//    of the columns; a second cluster barrier keeps every block resident
+//    until the others have read it.  One block a row (cs = 1) skips the
+//    combine and ends, as the kernel always did, with o / l.
+//  - cs depends on the shape (G and the dtype) alone, never on the
+//    grid (B·KV, the SM count, the device), so a row's output is the same
+//    bits whatever the batch or the heads a tensor-parallel rank holds.
+//    The plain version models the split (sata_decode_attention_ref's
+//    `splits`).
+//
+// The body, per share, and what it does about the memory side and to keep
+// the instruction path short:
+//  - Prologue: the block loads its share's plan (kv_indices and, for the
+//    pool, the page-table entries) into shared memory once, so a row's
+//    address is known before its copy is issued; the dependent
+//    index -> table -> data chain is paid once per share, not per block.
 //  - A ring of `stages` chunks of `chunk` K rows in shared memory (whole
 //    k-blocks, or a divisor of one, so the depth does not depend on the
 //    page size or the dtype), filled with 16-byte cp.async.cg copies where
 //    the rows allow (narrower ones otherwise) in one commit group per chunk,
 //    `stages` - 1 chunks ahead of the one being scored.  K rows past pos are
 //    not copied; a flag per row beside the ring says so.
-//  - Scoring, the largest share of the instructions: bf16 scores on the
-//    tensor cores (mma.sync m16n8k16, fp32 accumulation; K tiles by
-//    ldmatrix from rows padded to an odd multiple of 16 bytes, so without
-//    bank conflicts; q as the B operand in registers, one n-tile of 8 heads
-//    per 8 grouped heads, so a K tile read from shared memory scores all G).
-//    That is not for the flops (the bound is bytes) but for the
-//    instruction path: 16 instructions score 16 rows for all heads.  fp32
-//    stays exact on the CUDA cores: the lanes of a row group split D into
-//    16-byte vectors (no bank conflicts), q stays in registers, and a
-//    reduce-scatter butterfly leaves each head's sum in its own lanes
-//    (log2(lanes) + G - 1 shuffles a row group instead of G·log2(lanes)).
-//  - Any G up to 16 in one pass over the row's K/V: the softmax steps give
-//    each warp G / warps heads in turn, and the PV product splits the heads
-//    above 8 into two groups of threads (a thread's accumulators stay those
-//    of 8 heads).  G <= 8 is instantiated as such; 9..16 share one
+//  - Scoring: bf16 scores on the tensor cores (mma.sync m16n8k16, fp32
+//    accumulation; K tiles by ldmatrix from rows padded to an odd multiple
+//    of 16 bytes, so without bank conflicts; q as the B operand, one n-tile
+//    of 8 heads per 8 grouped heads, so a K tile read from shared memory
+//    scores all G; q's fragments stay in registers up to G = 8 and come
+//    from shared memory by ldmatrix past it).  That is not for the flops (the
+//    bound is bytes) but for the instruction path: 16 instructions score 16
+//    rows for all heads.  fp32 stays exact on the CUDA cores: the lanes of
+//    a row group split D into 16-byte vectors (no bank conflicts), q stays
+//    in registers, and a reduce-scatter butterfly leaves each head's sum in
+//    its own lanes (log2(lanes) + G - 1 shuffles a row group instead of
+//    G·log2(lanes)).  G <= 8 is instantiated as such; 9..16 share one
 //    instantiation padded to 16 with G read at run time.
 //  - Windows instead of a softmax step per block: the scores of up to
 //    `win_blocks` blocks stay in shared memory; when the window closes the
@@ -71,43 +94,64 @@
 //    window's block maxima up to j): the max the sequential step uses, so
 //    p is rounded exactly as there), and the V rows some head selected are
 //    copied then, packed, `v_rows` at a time, while the block maxima, the
-//    prefix max and p are computed.  V rows of unselected keys are not read.
-//  - PV: a thread owns one 16-byte column vector of the output for every
-//    head and a subset of the selected rows; the subsets' partial sums are
-//    added in a fixed order at the end.  Every sum has a fixed order, so a
-//    launch is deterministic and both layouts agree bitwise.
-// The chunk, the ring depth, the window and the V batch come from
-// kernels/sata_decode.py::launch_config; the layout below must match its
-// smem_bytes (the entry point checks).
+//    prefix max and p are computed, a warp per (block, head) with its lanes
+//    over the block's rows (the scores' odd head stride keeps the heads'
+//    reads off each other's banks).  V rows of unselected keys are not read.
+//  - PV, G <= 8 and fp32: on the CUDA cores, a thread owns one 16-byte
+//    column vector of the output for every head of its group (at most 8:
+//    the registers; two groups above 8) and a subset of the selected rows;
+//    the subsets' partial sums are added in a fixed order at the end.
+//  - PV, bf16 at G > 8: on the tensor cores.  The padded 16 heads are one
+//    m16 tile: A = p of the heads by a window block's packed rows (already
+//    rounded to bf16, so exact), B = those V rows by ldmatrix .trans from
+//    rows padded as K's, mma.sync m16n8k16 with fp32 sums; warp w owns the
+//    output columns 16 w .. 16 w + 15.  A block's sum is weighted by its
+//    w_j = exp(m_j - m_last) in fp32 before it is added, as the CUDA cores
+//    weight each row (p is rounded against the block's running max, so the
+//    weight cannot go into the bf16 operand).  The inputs are the CUDA
+//    cores' product's; only the fp32 summation order differs.
+// Every sum has a fixed order, so a launch is deterministic and both
+// layouts agree bitwise.  The chunk, the ring depth, the window, the V
+// batch and the cluster come from kernels/sata_decode.py::launch_config;
+// the layout below must match its smem_bytes (the entry point checks).
 
 #include <cmath>
+#include <type_traits>
+
+#include <cooperative_groups.h>
 
 #include "sata_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 // threads a block: 512 for G <= 4 (more warps to hide the latencies of
-// scoring), 256 above (the registers of q and the accumulators)
+// scoring), 256 above (the registers of q and the CUDA cores' accumulators)
 __host__ __device__ constexpr int threads_for(int G) { return G <= 4 ? 512 : 256; }
 // head groups of the PV product: a thread accumulates one 16-byte column
 // vector for the heads of its group, at most 8 heads (the registers)
 __host__ __device__ constexpr int head_groups(int G) { return G <= 8 ? 1 : 2; }
+// the PV product on the tensor cores: bf16 with G in 9..16, the padded 16
+// heads one m16 tile (fp32 stays exact on the CUDA cores)
+__host__ __device__ constexpr bool tc_pv(int G, int es) { return G > 8 && es == 2; }
 constexpr int kMaxG = 16;
 constexpr int kMaxD = 128;
 constexpr int kMaxBlock = 128;
 constexpr int kPlanWin = 1024;    // plan entries kept in shared memory
 constexpr int kMaxStages = 8;
+constexpr int kMaxCluster = 8;    // the portable cluster sizes: 1, 2, 4, 8
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
 
 // Shared-memory layout, byte offsets (kernels/sata_decode.py::smem_bytes
 // computes the same total).  rs: bytes of one K/V row, rounded up to 16;
 // a window holds the scores of up to `wp` blocks; its selected V rows go
-// through a buffer of `vr` rows.
+// through a buffer of `vr` rows (rv bytes each).
 struct Layout {
-  int rs, rk, nvec, nrs, wrows;
+  int rs, rk, rv, nvec, nrs, wrows, ws;
   int ring, live, vbuf, s, sel, rowsel, vlist, gcount, pm, pw, psum;
-  int m, l, thr, cw, plan_l, plan_p, nv;
+  int m, l, thr, cw, plan_l, plan_p, nv, boff, qs;
   int total;
 };
 
@@ -125,16 +169,23 @@ __host__ __device__ inline Layout make_layout(int G, int D, int kb, int es, int 
   // tensor cores' k-step), and 16 bytes more, so that the eight rows an
   // ldmatrix reads fall on eight different bank groups
   L.rk = es == 2 ? (D * 2 + 31) / 32 * 32 + 16 : L.rs;
+  const bool tc = tc_pv(G, es);
+  // V rows read by ldmatrix (the tensor-core PV) are padded as K rows
+  L.rv = tc ? L.rk : L.rs;
   L.nvec = L.rs / 16;
-  L.nrs = threads_for(G) / (L.nvec * head_groups(G));
+  // PV row subsets (the CUDA cores); the tensor cores keep one sum
+  L.nrs = tc ? 1 : threads_for(G) / (L.nvec * head_groups(G));
   L.wrows = wp * kb;
+  // a head's scores: an odd stride, so that the heads of a warp's loads
+  // fall on different banks
+  L.ws = L.wrows + 1;
   int off = 0;
   const int ring = stages * chunk * L.rk;                   // K ring, then the
   const int red = L.nrs * G * (L.rs / es) * 4;              // final reduction
   L.ring = take(off, ring > red ? ring : red);
   L.live = take(off, stages * chunk);
-  L.vbuf = take(off, vr * L.rs);
-  L.s = take(off, G * L.wrows * 4);
+  L.vbuf = take(off, vr * L.rv);
+  L.s = take(off, G * L.ws * 4);
   L.sel = take(off, G * L.wrows);
   L.rowsel = take(off, L.wrows);
   L.vlist = take(off, L.wrows * 2);
@@ -149,6 +200,8 @@ __host__ __device__ inline Layout make_layout(int G, int D, int kb, int es, int 
   L.plan_l = take(off, kPlanWin * 4);
   L.plan_p = take(off, kPlanWin * 4);
   L.nv = take(off, 4);
+  L.boff = take(off, tc ? (wp + 1) * 4 : 0);   // a window's blocks in the packed rows
+  L.qs = take(off, tc ? 16 * L.rk : 0);         // q of the 16 heads, rows as K's
   L.total = off;
   return L;
 }
@@ -227,22 +280,42 @@ struct Args {
   void* out;                 // (B, KV, G, D); fp32 in the partial mode
   float* lse;                // (B*KV, G), or null: the partial mode's
   int n_kv, G, D, P, kb, nkb, chunk, stages, wp, vr, copy_bytes;
+  int cs;                    // the cluster's blocks a row is split over
   float sm_scale;
 };
 
-// One block per (slot b, KV head h) row.  The row's planned rows (count
-// blocks of kb rows, in plan order) stream through the K ring `chunk` rows
-// at a time; each chunk is scored into the current window and the rows
-// some head selected get their V copies issued at once.  A window closes
-// when its scores or its V rows could overflow, and at the end of the row:
-// its online-softmax steps run then, all blocks at once, from the prefix
-// max over its blocks (m after block j = max(m before the window, the
-// window's block maxima up to j)), which gives every block the max the
-// sequential step would have used, so p is rounded exactly as there.
+template <typename P>
+__device__ __forceinline__ P* at_rank(P* p, int r, int cs) {
+  return cs > 1 ? cg::this_cluster().map_shared_rank(p, r) : p;
+}
+
+__device__ __forceinline__ void cluster_sync(int cs) {
+  if (cs > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// One block's share of (slot b, KV head h) row `row`: the `count` plan
+// entries from j_lo on (count > 0 unless the share is the whole row).
+// Their planned rows (count blocks of kb rows, in plan order) stream
+// through the K ring `chunk` rows at a time; each chunk is scored into the
+// current window, whose selected rows are packed and their V copies issued
+// when the window closes.  A window closes when its scores or
+// its V rows could overflow, and at the end of the share: its
+// online-softmax steps run then, all blocks at once, from the prefix max
+// over its blocks (m after block j = max(m before the window, the window's
+// block maxima up to j)), which gives every block the max the sequential
+// step over the share would have used, so p is rounded exactly as there.
+// Split over a cluster, leaves the share's running max and sum in m and l
+// and its unnormalised output (the sum of p v over its keys) o[g][d] at
+// the start of the ring; one block a row (cs = 1: G <= 8, the CUDA cores'
+// PV) ends as the kernel always did, with o / l written out.
 // GC: G itself for G <= 8, 16 for G in 9..16 (then G comes from a.G).
 template <typename T, int GC>
-__global__ void __launch_bounds__(threads_for(GC))
-sata_decode_kernel(const Args a) {
+__device__ __forceinline__ void row_share(const Args& a, const Layout& L,
+                                          unsigned char* smem, int row, int j_lo,
+                                          int count) {
   constexpr int kThreads = threads_for(GC), kWarps = kThreads / 32;
   const int G = GC <= 8 ? GC : a.G;
   using V = Vec<T>;
@@ -255,14 +328,12 @@ sata_decode_kernel(const Args a) {
   constexpr int NHG = head_groups(GC), HPG = GC / NHG;   // PV head groups, heads each
   constexpr int es = sizeof(T);
   constexpr bool use_mma = es == 2;              // bf16 scores on the tensor cores
-  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool tc = tc_pv(GC, es);             // and the PV product, G > 8
 
-  const int row = blockIdx.x;
   const int b = row / a.n_kv, h = row % a.n_kv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int D = a.D, kb = a.kb, C = a.chunk, S = a.stages, WP = a.wp, VR = a.vr;
-  const Layout L = make_layout(G, D, kb, es, C, S, WP, VR);
-  const int RS = L.rs, RK = L.rk, nvec = L.nvec, WR = L.wrows;
+  const int RS = L.rs, RK = L.rk, RV = L.rv, nvec = L.nvec, WR = L.wrows, WS = L.ws;
   const int rb = D * es;                         // bytes of a row in global memory
   const int cb = a.copy_bytes, ppr = rb / cb;    // copies per row
   // a window grows by whole units: one chunk of whole blocks, or the
@@ -273,7 +344,7 @@ sata_decode_kernel(const Args a) {
   unsigned char* ring = smem + L.ring;
   unsigned char* live_sh = smem + L.live;                      // [S][C]
   unsigned char* vbuf = smem + L.vbuf;
-  float* s_w = reinterpret_cast<float*>(smem + L.s);          // [G][WR]
+  float* s_w = reinterpret_cast<float*>(smem + L.s);          // [G][WS]
   unsigned char* sel_w = smem + L.sel;                         // [G][WR]
   unsigned char* rowsel = smem + L.rowsel;                     // [WR]
   int16_t* vlist = reinterpret_cast<int16_t*>(smem + L.vlist); // [WR]
@@ -288,12 +359,11 @@ sata_decode_kernel(const Args a) {
   int* plan_l = reinterpret_cast<int*>(smem + L.plan_l);
   int* plan_p = reinterpret_cast<int*>(smem + L.plan_p);
   int* nv_sh = reinterpret_cast<int*>(smem + L.nv);           // V rows packed
+  int* boff = reinterpret_cast<int*>(smem + L.boff);          // [WP + 1] (tc)
 
   const T* q = static_cast<const T*>(a.q);
   const unsigned char* kg = static_cast<const unsigned char*>(a.k);
   const unsigned char* vg = static_cast<const unsigned char*>(a.v);
-  T* out = static_cast<T*>(a.out);
-  const int count = min(a.kv_counts[row], a.P);
   const int pos_b = a.pos[b];
   const size_t tok_bytes = (size_t)a.n_kv * rb;  // bytes between token rows
   const int total_rows = count * kb;
@@ -301,7 +371,7 @@ sata_decode_kernel(const Args a) {
   const unsigned long long kb_m = div_magic(kb), ppr_m = div_magic(ppr);
 
   // --- prologue: the row's plan, thresholds, running max / sum, q
-  const int32_t* idx = a.kv_indices + (size_t)row * a.P;
+  const int32_t* idx = a.kv_indices + (size_t)row * a.P + j_lo;
   const int32_t* table = a.page_table;
   const int nkb = a.nkb;
   auto phys_of = [&](int lblk) -> int {
@@ -316,6 +386,16 @@ sata_decode_kernel(const Args a) {
     thr_sh[tid] = bf16_rn(a.thr[(size_t)row * G + tid]);
     m_sh[tid] = kNegInf;
     l_sh[tid] = 0.f;
+  }
+  if constexpr (tc) {
+    // q of the 16 (padded) heads in shared memory, the scores' B operand
+    // by ldmatrix (32 registers fewer than holding it)
+    T* qs = reinterpret_cast<T*>(smem + L.qs);
+    const int hw = RK / 2;
+    for (int x = tid; x < 16 * hw; x += kThreads) {
+      const int hh = x / hw, d = x - hh * hw;
+      qs[x] = hh < G && d < D ? q[((size_t)row * G + hh) * D + d] : from_f32<T>(0.f);
+    }
   }
   // the copies never write a row's padding, which scoring reads: zero it once
   if ((es == 2 ? (rb + 31) / 32 * 32 : RS) != rb)
@@ -380,7 +460,8 @@ sata_decode_kernel(const Args a) {
     commit_group();
   }
 
-  // PV: column vector cv of heads hg * HPG .. + HPG, over row subset rs_id
+  // PV on the CUDA cores: column vector cv of heads hg * HPG .. + HPG,
+  // over row subset rs_id
   const int cv = tid % nvec, hg = (tid / nvec) % NHG, rs_id = tid / (nvec * NHG);
   const int h0 = hg * HPG;
   float acc[HPG][E];
@@ -388,6 +469,10 @@ sata_decode_kernel(const Args a) {
   for (int g = 0; g < HPG; ++g)
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+  // PV on the tensor cores: warp w owns columns 16 w .. 16 w + 15 (two
+  // n-tiles of 8) of heads hr and hr + 8, in the m16n8 accumulator layout
+  const int hr = lane >> 2, tq = lane & 3;
+  float acc_t[2][4] = {};
 
   // V copies of the packed rows [v0, v0 + n) into the V buffer
   auto issue_v = [&](int j0, int v0, int n) {
@@ -397,7 +482,7 @@ sata_decode_kernel(const Args a) {
       const int jw = div_by(fw, kb_m);
       int lblk, phys;
       block_of(j0 + jw, lblk, phys);
-      copy_async(vbuf + k * RS + w * cb,
+      copy_async(vbuf + k * RV + w * cb,
                  vg + ((size_t)phys * kb + (fw - jw * kb)) * tok_bytes + (size_t)h * rb +
                      w * cb,
                  cb);
@@ -441,13 +526,29 @@ sata_decode_kernel(const Args a) {
     __syncthreads();
     const int nv = *nv_sh;
     issue_v(j0, 0, min(nv, VR));
-    // block maxima, one thread per (block, head)
-    for (int x = tid; x < nw * G; x += kThreads) {
+    if constexpr (tc) {
+      // boff[jj]: the packed rows before window block jj (vlist ascends)
+      for (int jj = tid; jj <= nw; jj += kThreads) {
+        int lo = 0, hi = nv;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (vlist[mid] < jj * kb)
+            lo = mid + 1;
+          else
+            hi = mid;
+        }
+        boff[jj] = lo;
+      }
+    }
+    // block maxima, a warp per (block, head), its lanes over the rows
+    for (int x = warp; x < nw * G; x += kWarps) {
       const int jj = x / G, g = x - jj * G;
-      const float* sg = s_w + g * WR + jj * kb;
+      const float* sg = s_w + g * WS + jj * kb;
       float mx = kNegInf;
-      for (int t = 0; t < kb; ++t) mx = fmaxf(mx, sg[t]);
-      pm[x] = mx;
+#pragma unroll 1
+      for (int t = lane; t < kb; t += 32) mx = fmaxf(mx, sg[t]);
+      mx = warp_max(mx);
+      if (lane == 0) pm[x] = mx;
     }
     __syncthreads();
     // prefix max over the blocks, one warp per head in turn; block weights
@@ -474,31 +575,23 @@ sata_decode_kernel(const Args a) {
     }
     __syncthreads();
     // p of every (block, head, row) against its block's running max,
-    // rounded in place, and the unrounded sum per (block, head); a team of
-    // ts lanes per (block, head)
-    {
-      const int pairs = nw * G;
-      int ts = 32;
-      while (ts > 1 && pairs * ts > kThreads) ts >>= 1;
-      const int team = tid / ts, mem = tid % ts, nteams = kThreads / ts;
-      for (int base = 0; base < pairs; base += nteams) {
-        const int x = base + team;
-        float sum = 0.f;
-        if (x < pairs) {
-          const int jj = x / G, g = x - jj * G;
-          const float mj = pm[x];
-          float* sg = s_w + g * WR + jj * kb;
-          const unsigned char* selg = sel_w + g * WR + jj * kb;
-          for (int t = mem; t < kb; t += ts) {
-            const float p = selg[t] ? expf(sg[t] - mj) : 0.f;
-            sum += p;
-            const float pr = to_f32(from_f32<T>(p));     // p.astype(v.dtype)
-            sg[t] = pr;
-          }
-        }
-        for (int o = ts / 2; o >= 1; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        if (x < pairs && mem == 0) psum[x] = sum;
+    // rounded in place, and the unrounded sum per (block, head); a warp
+    // per (block, head), its lanes over the rows
+    for (int x = warp; x < nw * G; x += kWarps) {
+      const int jj = x / G, g = x - jj * G;
+      const float mj = pm[x];
+      float* sg = s_w + g * WS + jj * kb;
+      const unsigned char* selg = sel_w + g * WR + jj * kb;
+      float sum = 0.f;
+#pragma unroll 1
+      for (int t = lane; t < kb; t += 32) {
+        const float p = selg[t] ? expf(sg[t] - mj) : 0.f;
+        sum += p;
+        const float pr = to_f32(from_f32<T>(p));     // p.astype(v.dtype)
+        sg[t] = pr;
       }
+      sum = warp_sum(sum);
+      if (lane == 0) psum[x] = sum;
     }
     __syncthreads();
     // l = l * cw + sum_j psum_j * w_j; acc = acc * cw + the V rows' terms
@@ -508,7 +601,16 @@ sata_decode_kernel(const Args a) {
       part = warp_sum(part);
       if (lane == 0) l_sh[g] = l_sh[g] * cw_sh[g] + part;
     }
-    if (rs_id < L.nrs) {
+    if constexpr (tc) {
+      const float c0 = hr < G ? cw_sh[hr] : 0.f, c1 = hr + 8 < G ? cw_sh[hr + 8] : 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        acc_t[nt][0] *= c0;
+        acc_t[nt][1] *= c0;
+        acc_t[nt][2] *= c1;
+        acc_t[nt][3] *= c1;
+      }
+    } else if (rs_id < L.nrs) {
 #pragma unroll
       for (int g = 0; g < HPG; ++g) {
         if (h0 + g < G) {
@@ -522,9 +624,48 @@ sata_decode_kernel(const Args a) {
       if (v0 > 0) issue_v(j0, v0, min(nv - v0, VR));
       asm volatile("cp.async.wait_all;\n" ::: "memory");
       __syncthreads();
-      if (rs_id < L.nrs) {
+      const int nb = min(nv - v0, VR);               // the batch's packed rows
+      if constexpr (tc) {
+        // one window block at a time (its p share one running max): heads
+        // by the block's packed rows in this batch (p as A, bf16 and exact)
+        // times their V rows (B, by ldmatrix .trans) for the warp's
+        // columns, fp32 sums; the block's sum then weighted by w_j in fp32,
+        // as the CUDA cores' product weights each row
+        if (16 * warp < D) {
+          for (int jj = 0; jj < nw; ++jj) {
+            const int lo = max(boff[jj], v0), hi = min(boff[jj + 1], v0 + nb);
+            if (lo >= hi) continue;
+            float c[2][4] = {};
+            for (int k0 = lo; k0 < hi; k0 += 16) {
+              auto pa = [&](int hh, int i) {
+                return hh < G && i < hi ? s_w[hh * WS + vlist[i]] : 0.f;
+              };
+              const int i0 = k0 + 2 * tq;
+              uint32_t af[4], bv[4];
+              af[0] = pack_bf16(pa(hr, i0), pa(hr, i0 + 1));
+              af[1] = pack_bf16(pa(hr + 8, i0), pa(hr + 8, i0 + 1));
+              af[2] = pack_bf16(pa(hr, i0 + 8), pa(hr, i0 + 9));
+              af[3] = pack_bf16(pa(hr + 8, i0 + 8), pa(hr + 8, i0 + 9));
+              // rows past the block read its last row (finite; p is 0 there)
+              const int vi = min(k0 + (lane & 7) + (lane & 8), hi - 1) - v0;
+              ldmatrix_x4_trans(bv, vbuf + vi * RV + (16 * warp + (lane >> 4) * 8) * 2);
+              mma_bf16(c[0], af, bv[0], bv[1]);
+              mma_bf16(c[1], af, bv[2], bv[3]);
+            }
+            const float w0 = hr < G ? pw[jj * G + hr] : 0.f;
+            const float w1 = hr + 8 < G ? pw[jj * G + hr + 8] : 0.f;
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              acc_t[nt][0] += w0 * c[nt][0];
+              acc_t[nt][1] += w0 * c[nt][1];
+              acc_t[nt][2] += w1 * c[nt][2];
+              acc_t[nt][3] += w1 * c[nt][3];
+            }
+          }
+        }
+      } else if (rs_id < L.nrs) {
         const unsigned char* vb = vbuf + cv * 16;
-        for (int i = rs_id; i < min(nv - v0, VR); i += L.nrs) {
+        for (int i = rs_id; i < nb; i += L.nrs) {
           const int fw = vlist[v0 + i];
           const int jw = div_by(fw, kb_m);
           float vf[E];
@@ -532,7 +673,7 @@ sata_decode_kernel(const Args a) {
 #pragma unroll
           for (int g = 0; g < HPG; ++g) {
             if (h0 + g < G) {
-              const float w = s_w[(h0 + g) * WR + fw] * pw[jw * G + h0 + g];
+              const float w = s_w[(h0 + g) * WS + fw] * pw[jw * G + h0 + g];
 #pragma unroll
               for (int e = 0; e < E; ++e) acc[g][e] += w * vf[e];
             }
@@ -554,19 +695,24 @@ sata_decode_kernel(const Args a) {
                             << (row_in_warp * LPR);
   // bf16 scores on the tensor cores: q as the B operand, head
   // nt * 8 + lane/4 of k-step ks in qb[nt][ks], heads past G and d past D
-  // zero (fp32 uses qr)
-  uint32_t qb[NT][kMaxD / 16][2];
+  // zero (fp32 uses qr; past G = 8 the fragments come from shared memory,
+  // both n-tiles of a k-step by one ldmatrix at qp)
+  uint32_t qb[tc ? 1 : NT][kMaxD / 16][2];
   float thr_mma[NT][2];
+  const unsigned char* qp =
+      smem + L.qs + ((lane & 7) + ((lane >> 4) << 3)) * RK + ((lane >> 3) & 1) * 16;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
+    if constexpr (!tc) {
 #pragma unroll
-    for (int ks = 0; ks < kMaxD / 16; ++ks) {
-      const int n = nt * 8 + (lane >> 2), d0 = ks * 16 + (lane & 3) * 2;
-      auto qv = [&](int d) {
-        return n < G && d < D ? to_f32(q[((size_t)row * G + n) * D + d]) : 0.f;
-      };
-      qb[nt][ks][0] = pack_bf16(qv(d0), qv(d0 + 1));
-      qb[nt][ks][1] = pack_bf16(qv(d0 + 8), qv(d0 + 9));
+      for (int ks = 0; ks < kMaxD / 16; ++ks) {
+        const int n = nt * 8 + (lane >> 2), d0 = ks * 16 + (lane & 3) * 2;
+        auto qv = [&](int d) {
+          return n < G && d < D ? to_f32(q[((size_t)row * G + n) * D + d]) : 0.f;
+        };
+        qb[nt][ks][0] = pack_bf16(qv(d0), qv(d0 + 1));
+        qb[nt][ks][1] = pack_bf16(qv(d0 + 8), qv(d0 + 9));
+      }
     }
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -602,8 +748,15 @@ sata_decode_kernel(const Args a) {
           if (ks * 16 < D) {
             uint32_t af[4];
             ldmatrix_x4(af, ap + ks * 32);
+            if constexpr (tc) {
+              uint32_t qf[4];
+              ldmatrix_x4(qf, qp + ks * 32);
+              mma_bf16(c[0], af, qf[0], qf[1]);
+              mma_bf16(c[1], af, qf[2], qf[3]);
+            } else {
 #pragma unroll
-            for (int nt = 0; nt < NT; ++nt) mma_bf16(c[nt], af, qb[nt][ks][0], qb[nt][ks][1]);
+              for (int nt = 0; nt < NT; ++nt) mma_bf16(c[nt], af, qb[nt][ks][0], qb[nt][ks][1]);
+            }
           }
         }
 #pragma unroll
@@ -619,7 +772,7 @@ sata_decode_kernel(const Args a) {
               const float s = c[nt][2 * half + e] * a.sm_scale;
               const bool sel = flag == 2 && h < G && admit(s, thr_mma[nt][e]);
               if (h < G && flag != 0) {
-                s_w[h * WR + fw0 + r] = sel ? s : kNegInf;
+                s_w[h * WS + fw0 + r] = sel ? s : kNegInf;
                 sel_w[h * WR + fw0 + r] = sel;
               }
               any |= sel;
@@ -667,7 +820,7 @@ sata_decode_kernel(const Args a) {
           const bool sel = flag == 2 && hd < G && admit(s, thr_hd);
           const bool writer = head_lane && in;
           if (writer) {
-            s_w[hd * WR + fw0 + r] = sel ? s : kNegInf;
+            s_w[hd * WS + fw0 + r] = sel ? s : kNegInf;
             sel_w[hd * WR + fw0 + r] = sel;
           }
           const unsigned grp = __ballot_sync(0xffffffffu, writer && sel);
@@ -683,58 +836,208 @@ sata_decode_kernel(const Args a) {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
-  // --- the row subsets' partial sums, added in a fixed order
+  // --- the share's output o[g][d] at the start of the ring; one block a
+  // row (cs = 1) divides by l and writes the output at once
   float* red = reinterpret_cast<float*>(ring);
   const int dpad = RS / es;
-  if (rs_id < L.nrs) {
+  if constexpr (tc) {
+    // one owner per (head, column)
+    if (16 * warp < D) {
 #pragma unroll
-    for (int g = 0; g < HPG; ++g)
-      if (h0 + g < G)
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-        for (int e = 0; e < E; ++e)
-          red[(rs_id * G + h0 + g) * dpad + cv * E + e] = acc[g][e];
+        for (int e = 0; e < 4; ++e) {
+          const int hh = hr + (e >> 1) * 8, d = 16 * warp + nt * 8 + 2 * tq + (e & 1);
+          if (hh < G && d < D) red[hh * dpad + d] = acc_t[nt][e];
+        }
+    }
+  } else {
+    // the row subsets' partial sums, added in a fixed order into subset 0's
+    if (rs_id < L.nrs) {
+#pragma unroll
+      for (int g = 0; g < HPG; ++g)
+        if (h0 + g < G)
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            red[(rs_id * G + h0 + g) * dpad + cv * E + e] = acc[g][e];
+    }
+    __syncthreads();
+    for (int x = tid; x < G * D; x += kThreads) {
+      const int g = x / D, d = x - g * D;
+      float o = 0.f;
+      for (int s2 = 0; s2 < L.nrs; ++s2) o += red[(s2 * G + g) * dpad + d];
+      if (a.cs > 1) {
+        red[g * dpad + d] = o;
+      } else {
+        const float l = l_sh[g];
+        const float y = l > 0.f ? o / l : 0.f;
+        if (a.lse)
+          static_cast<float*>(a.out)[((size_t)row * G + g) * D + d] = y;
+        else
+          static_cast<T*>(a.out)[((size_t)row * G + g) * D + d] = from_f32<T>(y);
+      }
+    }
+    if (a.cs == 1 && a.lse && tid < G) {
+      const float l = l_sh[tid];
+      a.lse[(size_t)row * G + tid] =
+          l > 0.f ? m_sh[tid] + logf(l) : -__int_as_float(0x7f800000);
+    }
   }
-  __syncthreads();
-  for (int x = tid; x < G * D; x += kThreads) {
-    const int g = x / D, d = x - g * D;
-    float o = 0.f;
-    for (int s2 = 0; s2 < L.nrs; ++s2) o += red[(s2 * G + g) * dpad + d];
-    const float l = l_sh[g];
-    const float y = l > 0.f ? o / l : 0.f;
+}
+
+// The rank-order combine of head g over the cluster's shares: the weight
+// w_r = exp(m_r - M) of each rank, M the largest m of the ranks that
+// admitted a key (kNegInf if none did); returns the denominator
+// sum_r w_r l_r.
+__device__ __forceinline__ float share_weights(const float* m_sh, const float* l_sh, int g,
+                                               int cs, float (&w)[kMaxCluster], float& M) {
+  bool live[kMaxCluster];
+  float lr[kMaxCluster];
+  M = kNegInf;
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) {
+    lr[r] = r < cs ? at_rank(l_sh, r, cs)[g] : 0.f;
+    // a rank that admitted no key contributes nothing, explicitly: an
+    // empty share never writes its m or its o, and with the finite
+    // sentinel exp(m - M) would be 1 where every rank is empty
+    live[r] = lr[r] > 0.f;
+    if (live[r]) M = fmaxf(M, at_rank(m_sh, r, cs)[g]);
+  }
+  float den = 0.f;
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) {
+    w[r] = 0.f;
+    if (live[r]) {
+      const float m = at_rank(m_sh, r, cs)[g];
+      w[r] = m == M ? 1.f : expf(m - M);
+      den = fmaf(w[r], lr[r], den);
+    }
+  }
+  return den;
+}
+
+// A cluster of cs blocks per (slot b, KV head h) row, rank r taking the
+// contiguous share [r * per, min(count, (r + 1) * per)) of the row's
+// `count` plan entries, per = ceil(count / cs); a share may be empty.
+// After the shares, each rank combines D / cs of the columns from every
+// rank's (m, l, o) through distributed shared memory, in rank order.
+// Launch bounds: two blocks an SM where a split row's blocks are staged
+// for two (the tensor cores' PV, 128 registers), else one, so that ptxas
+// may take the registers it needs without spilling.
+template <typename T, int GC>
+__global__ void __launch_bounds__(threads_for(GC), tc_pv(GC, (int)sizeof(T)) ? 2 : 1)
+sata_decode_kernel(const Args a) {
+  constexpr int kThreads = threads_for(GC);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int G = GC <= 8 ? GC : a.G;
+  const int cs = a.cs, rank = blockIdx.x % cs, row = blockIdx.x / cs;
+  const int tid = threadIdx.x, D = a.D;
+  const Layout L = make_layout(G, D, a.kb, sizeof(T), a.chunk, a.stages, a.wp, a.vr);
+  float* m_sh = reinterpret_cast<float*>(smem + L.m);
+  float* l_sh = reinterpret_cast<float*>(smem + L.l);
+  const float* o_sh = reinterpret_cast<const float*>(smem + L.ring);
+  const int count = min(a.kv_counts[row], a.P), per = (count + cs - 1) / cs;
+  const int j_lo = min(count, rank * per), n = min(count - j_lo, per);
+  // one block a row on the CUDA cores writes its output itself
+  const bool whole = cs == 1 && !tc_pv(GC, (int)sizeof(T));
+  if (n > 0 || whole)
+    row_share<T, GC>(a, L, smem, row, j_lo, n);
+  else if (tid < G)
+    l_sh[tid] = 0.f;          // an empty share publishes l = 0 and nothing else
+  if (whole) return;
+  cluster_sync(cs);           // every rank's m, l and o are written
+
+  const int dpad = L.rs / (int)sizeof(T);
+  const int dper = (D + cs - 1) / cs, d0 = min(D, rank * dper), nd = min(D - d0, dper);
+  for (int x = tid; x < G * nd; x += kThreads) {
+    const int g = x / nd, d = d0 + x - g * nd;
+    float w[kMaxCluster], M;
+    const float den = share_weights(m_sh, l_sh, g, cs, w, M);
+    float num = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (w[r] > 0.f) num = fmaf(w[r], at_rank(o_sh, r, cs)[g * dpad + d], num);
+    const float y = den > 0.f ? num / den : 0.f;
     if (a.lse)
       static_cast<float*>(a.out)[((size_t)row * G + g) * D + d] = y;
     else
-      out[((size_t)row * G + g) * D + d] = from_f32<T>(y);
+      static_cast<T*>(a.out)[((size_t)row * G + g) * D + d] = from_f32<T>(y);
   }
-  if (a.lse && tid < G) {
-    const float l = l_sh[tid];
-    a.lse[(size_t)row * G + tid] = l > 0.f ? m_sh[tid] + logf(l) : -__int_as_float(0x7f800000);
+  if (a.lse && rank == 0 && tid < G) {
+    float w[kMaxCluster], M;
+    const float den = share_weights(m_sh, l_sh, tid, cs, w, M);
+    a.lse[(size_t)row * G + tid] = den > 0.f ? M + logf(den) : -__int_as_float(0x7f800000);
   }
+  if (cs > 1) cluster_sync(cs);   // no rank leaves while another reads its memory
+}
+
+// The kernel's attributes for a launch of `smem_bytes` in clusters of cs,
+// and that launch's configuration (its grid: rows x cs blocks).  A split
+// row's blocks may be staged to fit two an SM: the carveout asks for all
+// of the SM's 228 KB as shared memory.
+template <typename T, int GC>
+cudaError_t configure(int rows, int cs, int smem_bytes, cudaStream_t s,
+                      cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+  auto* fn = sata_decode_kernel<T, GC>;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       smem_bytes);
+  if (e == cudaSuccess && cs > 1)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  cfg = {};
+  cfg.gridDim = dim3(rows * cs);
+  cfg.blockDim = dim3(threads_for(GC));
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = s;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cs;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return e;
 }
 
 template <typename T, int GC>
 int launch(const Args& a, int rows, int smem_bytes, cudaStream_t s) {
-  auto* fn = sata_decode_kernel<T, GC>;
-  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       smem_bytes);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = configure<T, GC>(rows, a.cs, smem_bytes, s, cfg, attr);
   if (e != cudaSuccess) return static_cast<int>(e);
-  fn<<<rows, threads_for(GC), smem_bytes, s>>>(a);
+  if (a.cs == 1) {
+    sata_decode_kernel<T, GC><<<rows, threads_for(GC), smem_bytes, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  e = cudaLaunchKernelEx(&cfg, sata_decode_kernel<T, GC>, a);   // cs blocks a row
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_g(const Args& a, int G, int rows, int smem_bytes, cudaStream_t s) {
+template <typename T, int GC>
+int max_clusters(int cs, int smem_bytes) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = configure<T, GC>(1, cs, smem_bytes, nullptr, cfg, attr);
+  int n = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, sata_decode_kernel<T, GC>, &cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+// f(std::integral_constant<int, GC>) for G's instantiation: G itself up to
+// 8, 16 for 9..16
+template <typename F>
+int by_g(int G, F&& f) {
   switch (G) {
-    case 1: return launch<T, 1>(a, rows, smem_bytes, s);
-    case 2: return launch<T, 2>(a, rows, smem_bytes, s);
-    case 3: return launch<T, 3>(a, rows, smem_bytes, s);
-    case 4: return launch<T, 4>(a, rows, smem_bytes, s);
-    case 5: return launch<T, 5>(a, rows, smem_bytes, s);
-    case 6: return launch<T, 6>(a, rows, smem_bytes, s);
-    case 7: return launch<T, 7>(a, rows, smem_bytes, s);
-    case 8: return launch<T, 8>(a, rows, smem_bytes, s);
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, 8>{});
   }
-  if (G > 8 && G <= kMaxG) return launch<T, 16>(a, rows, smem_bytes, s);
+  if (G > 8 && G <= kMaxG) return f(std::integral_constant<int, 16>{});
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -745,14 +1048,15 @@ int launch_g(const Args& a, int G, int rows, int smem_bytes, cudaStream_t s) {
 // limits or a shared-memory size that does not match the layout).
 // dtype: 0 = float32, 1 = bfloat16.  nkb: the page table's row stride
 // (max_pages) for the pool, or S / k_block for the contiguous cache.
-// chunk, stages, win_blocks, v_rows, smem_bytes:
+// chunk, stages, win_blocks, v_rows, smem_bytes, cluster:
 // kernels/sata_decode.py::launch_config; copy_bytes: 16, 8, 4 or 2,
 // dividing D * sizeof(dtype) and the alignment of k and v.
 static int run(const void* q, const void* k, const void* v, const void* page_table,
                const void* kv_indices, const void* kv_counts, const void* thresholds,
                const void* pos, void* out, void* lse, int batch, int n_kv, int G, int D,
                int P, int k_block, int nkb, int dtype, int chunk, int stages,
-               int win_blocks, int v_rows, int smem_bytes, int copy_bytes, void* stream) {
+               int win_blocks, int v_rows, int smem_bytes, int copy_bytes, int cluster,
+               void* stream) {
   const int es = dtype == 1 ? 2 : 4;
   const int unit = chunk >= k_block ? chunk : k_block;
   const bool ok = G >= 1 && G <= kMaxG && D >= 1 && D <= kMaxD && k_block >= 1 &&
@@ -763,6 +1067,7 @@ static int run(const void* q, const void* k, const void* v, const void* page_tab
                   win_blocks * k_block <= 32767 &&
                   (copy_bytes == 16 || copy_bytes == 8 || copy_bytes == 4 ||
                    copy_bytes == 2) && (D * es) % copy_bytes == 0 &&
+                  (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8) &&
                   make_layout(G, D, k_block, es, chunk, stages, win_blocks, v_rows).total ==
                       smem_bytes;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
@@ -778,12 +1083,16 @@ static int run(const void* q, const void* k, const void* v, const void* page_tab
   a.n_kv = n_kv; a.G = G; a.D = D; a.P = P; a.kb = k_block; a.nkb = nkb;
   a.chunk = chunk; a.stages = stages; a.wp = win_blocks; a.vr = v_rows;
   a.copy_bytes = copy_bytes;
+  a.cs = cluster;
   // rounded once from double, as the plain version's fp32 scale is
   a.sm_scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = batch * n_kv;
-  return dtype == 1 ? launch_g<__nv_bfloat16>(a, G, rows, smem_bytes, s)
-                    : launch_g<float>(a, G, rows, smem_bytes, s);
+  return by_g(G, [&](auto gc) {
+    constexpr int GC = decltype(gc)::value;
+    return dtype == 1 ? launch<__nv_bfloat16, GC>(a, rows, smem_bytes, s)
+                      : launch<float, GC>(a, rows, smem_bytes, s);
+  });
 }
 
 extern "C" int sata_decode_attention(
@@ -791,10 +1100,10 @@ extern "C" int sata_decode_attention(
     const void* kv_indices, const void* kv_counts, const void* thresholds,
     const void* pos, void* out, int batch, int n_kv, int G, int D, int P,
     int k_block, int nkb, int dtype, int chunk, int stages, int win_blocks,
-    int v_rows, int smem_bytes, int copy_bytes, void* stream) {
+    int v_rows, int smem_bytes, int copy_bytes, int cluster, void* stream) {
   return run(q, k, v, page_table, kv_indices, kv_counts, thresholds, pos, out, nullptr,
              batch, n_kv, G, D, P, k_block, nkb, dtype, chunk, stages, win_blocks,
-             v_rows, smem_bytes, copy_bytes, stream);
+             v_rows, smem_bytes, copy_bytes, cluster, stream);
 }
 
 // The partial mode: `out` is fp32 (B, KV, G, D) whatever the dtype, and
@@ -805,9 +1114,22 @@ extern "C" int sata_decode_attention_partial(
     const void* kv_indices, const void* kv_counts, const void* thresholds,
     const void* pos, void* out, void* lse, int batch, int n_kv, int G, int D,
     int P, int k_block, int nkb, int dtype, int chunk, int stages,
-    int win_blocks, int v_rows, int smem_bytes, int copy_bytes, void* stream) {
+    int win_blocks, int v_rows, int smem_bytes, int copy_bytes, int cluster,
+    void* stream) {
   if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return run(q, k, v, page_table, kv_indices, kv_counts, thresholds, pos, out, lse,
              batch, n_kv, G, D, P, k_block, nkb, dtype, chunk, stages, win_blocks,
-             v_rows, smem_bytes, copy_bytes, stream);
+             v_rows, smem_bytes, copy_bytes, cluster, stream);
+}
+
+// The clusters of `cluster` blocks of G's instantiation, each with
+// `smem_bytes` of dynamic shared memory, that the card holds at once
+// (cudaOccupancyMaxActiveClusters), for the timing scripts; a negative
+// cudaError_t on an error.
+extern "C" int sata_decode_max_clusters(int G, int dtype, int cluster, int smem_bytes) {
+  return by_g(G, [&](auto gc) {
+    constexpr int GC = decltype(gc)::value;
+    return dtype == 1 ? max_clusters<__nv_bfloat16, GC>(cluster, smem_bytes)
+                      : max_clusters<float, GC>(cluster, smem_bytes);
+  });
 }

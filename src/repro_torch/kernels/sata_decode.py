@@ -15,11 +15,13 @@ head's log-sum-exp instead, for the ranks' partials to be combined.
 
 ``launch_config`` picks the kernel's staging for a shape (the K rows a
 ring stage holds, the ring's depth, the k-blocks a softmax window holds,
-the V rows copied at once) and the shared memory that takes.
+the V rows copied at once), the shared memory that takes, and the
+thread-block cluster a row is split over (``cluster_for``).
 
 ``sata_decode_attention_ref`` is the same function as a per-tile loop in
 plain PyTorch, with the kernel's predicate, finite sentinel and p
-rounding.  The CUDA wrappers launch the kernel for CUDA tensors and
+rounding; its ``splits`` models the kernel's split of a row over a
+cluster (each share's own online softmax, combined in rank order).  The CUDA wrappers launch the kernel for CUDA tensors and
 raise on anything else; ``kernels.ops.sata_decode_attention`` picks the
 plain version only for CPU tensors.  Each CUDA wrapper counts its
 launches in ``<wrapper>.launches`` (a plain int) so a run can show that
@@ -43,6 +45,9 @@ MAX_G, MAX_D, MAX_BLOCK = 16, 128, 128    # csrc/sata_decode.cu limits
 # a block may use on an H100 (sm_90: 227 KB)
 PLAN_WIN, MAX_STAGES = 1024, 8
 SMEM_MAX = 232_448
+# a block of a row split over a cluster: two fit an SM's 228 KB (each
+# with the 1 KB the system reserves a block)
+SMEM_SPLIT = 115_712
 CHUNK_BYTES = 49152         # K bytes a ring stage holds, at most
 RING_BYTES = 98304          # K bytes the ring holds
 V_BYTES = 49152             # V bytes a window's PV product takes at once
@@ -53,13 +58,15 @@ class LaunchConfig:
     """How the decode kernel stages its work: ``chunk`` K rows per ring
     stage (whole k-blocks, or a divisor of one), ``stages`` ring stages,
     a window of up to ``win_blocks`` k-blocks' scores between two
-    softmax steps, its selected V rows ``v_rows`` at a time, and the
-    dynamic shared memory that layout takes."""
+    softmax steps, its selected V rows ``v_rows`` at a time, the
+    dynamic shared memory that layout takes, and the ``cluster`` of
+    blocks each row's plan entries are split over."""
     chunk: int
     stages: int
     win_blocks: int
     v_rows: int
     smem_bytes: int
+    cluster: int = 1
 
 
 def _round16(x: int) -> int:
@@ -72,9 +79,26 @@ def threads_for(g: int) -> int:
 
 
 def head_groups(g: int) -> int:
-    """csrc/sata_decode.cu's head groups in the PV product: a thread
-    accumulates the heads of one group, at most 8."""
+    """csrc/sata_decode.cu's head groups in the PV product on the CUDA
+    cores: a thread accumulates the heads of one group, at most 8."""
     return 1 if g <= 8 else 2
+
+
+def tc_pv(g: int, elem_bytes: int) -> bool:
+    """csrc/sata_decode.cu runs the PV product on the tensor cores: bf16
+    with G in 9..16 (the padded 16 heads are one m16 tile)."""
+    return g > 8 and elem_bytes == 2
+
+
+def cluster_for(g: int, elem_bytes: int) -> int:
+    """The blocks of a cluster each (slot, KV head) row's plan entries are
+    split over (portable cluster sizes): one at G = 1 (a model with as
+    many KV heads as heads has rows enough to fill the card), four where
+    two blocks fit an SM (the tensor cores' PV, ``tc_pv``: at most 128
+    registers a thread, staged within SMEM_SPLIT), else two.  A function
+    of the shape alone, never of the grid, so a row's result does not
+    depend on the batch or on how many KV heads a rank holds."""
+    return 1 if g == 1 else 4 if tc_pv(g, elem_bytes) else 2
 
 
 def smem_bytes(g: int, d: int, k_block: int, elem_bytes: int, chunk: int,
@@ -85,19 +109,25 @@ def smem_bytes(g: int, d: int, k_block: int, elem_bytes: int, chunk: int,
     # a K row in the ring: bf16 rows padded to the tensor cores' k-step
     # and 16 bytes more (ldmatrix without bank conflicts)
     rk = (-(-d * 2 // 32) * 32 + 16) if elem_bytes == 2 else rs
-    nrs = threads_for(g) // (rs // 16 * head_groups(g))   # PV row subsets
+    tc = tc_pv(g, elem_bytes)
+    rv = rk if tc else rs                    # a V row (ldmatrix: as K's)
+    # PV row subsets on the CUDA cores; the tensor cores keep one sum
+    nrs = 1 if tc else threads_for(g) // (rs // 16 * head_groups(g))
     wrows = win_blocks * k_block
     regions = [
         max(stages * chunk * rk,             # K ring, then the final
             nrs * g * (rs // elem_bytes) * 4),   # reduction of the subsets
         stages * chunk,                      # the ring's row flags
-        v_rows * rs,                         # V rows
-        g * wrows * 4, g * wrows, wrows,     # scores, selected, any head
+        v_rows * rv,                         # V rows
+        # scores (a head's at an odd stride), selected, any head
+        g * (wrows + 1) * 4, g * wrows, wrows,
         wrows * 2, -(-wrows // 32) * 4,      # packed rows, their offsets
         win_blocks * g * 4, win_blocks * g * 4, win_blocks * g * 4,
         g * 4, g * 4, g * 4, g * 4,          # m, l, thresholds, rescale
         PLAN_WIN * 4, PLAN_WIN * 4,          # plan: logical, physical block
         4,                                   # V rows packed
+        (win_blocks + 1) * 4 if tc else 0,   # the blocks' packed rows
+        16 * rk if tc else 0,                # q of the 16 heads
     ]
     return sum(_round16(x) for x in regions)
 
@@ -108,7 +138,10 @@ def launch_config(g: int, d: int, k_block: int,
     fit CHUNK_BYTES of K (at most 256 rows), or the largest divisor
     of a k-block that does; a ring of RING_BYTES of chunks (2 to
     MAX_STAGES); V_BYTES of V rows at a time; and a window of as many
-    k-blocks' scores as the rest of SMEM_MAX holds.  Raises ValueError,
+    k-blocks' scores as the rest of SMEM_MAX holds.  A row is split over
+    ``cluster_for`` blocks; with the tensor cores' PV each is staged at
+    half those sizes within SMEM_SPLIT, so that two blocks fit an SM.
+    Raises ValueError,
     naming G, D and k_block, for a shape outside the kernel's limits or
     one no layout fits."""
     return _launch_config(g, d, k_block, dtype.itemsize)
@@ -120,33 +153,36 @@ def _launch_config(g: int, d: int, k_block: int, es: int) -> LaunchConfig:
         raise ValueError(f"no decode kernel layout at G={g}, D={d}, "
                          f"k_block={k_block}: the kernel takes G <= {MAX_G}, "
                          f"D <= {MAX_D}, k_block <= {MAX_BLOCK}")
+    div, limit = (2, SMEM_SPLIT) if tc_pv(g, es) else (1, SMEM_MAX)
+    chunk_bytes, ring_bytes = CHUNK_BYTES // div, RING_BYTES // div
     rs = _round16(d * es)
-    if k_block * rs <= CHUNK_BYTES:
-        chunk = k_block * max(1, min(CHUNK_BYTES // (k_block * rs),
+    if k_block * rs <= chunk_bytes:
+        chunk = k_block * max(1, min(chunk_bytes // (k_block * rs),
                                      256 // k_block))
     else:
         chunk = max(c for c in range(1, k_block + 1)
-                    if k_block % c == 0 and c * rs <= CHUNK_BYTES)
-    stages = max(2, min(MAX_STAGES, RING_BYTES // (chunk * rs)))
+                    if k_block % c == 0 and c * rs <= chunk_bytes)
+    stages = max(2, min(MAX_STAGES, ring_bytes // (chunk * rs)))
     blocks = max(1, chunk // k_block)        # k-blocks a window grows by
-    vr = max(1, V_BYTES // rs)
+    rk = (-(-d * 2 // 32) * 32 + 16) if es == 2 else rs
+    vr = max(1, V_BYTES // div // (rk if tc_pv(g, es) else rs))
 
     def size(wp):
         return smem_bytes(g, d, k_block, es, chunk, stages, wp, vr)
 
-    while size(blocks) > SMEM_MAX and (stages > 2 or vr > 32):
+    while size(blocks) > limit and (stages > 2 or vr > 32):
         if vr > 32:
             vr //= 2
         else:
             stages -= 1
-    if size(blocks) > SMEM_MAX:
-        raise ValueError(f"no decode kernel layout fits {SMEM_MAX} bytes "
+    if size(blocks) > limit:
+        raise ValueError(f"no decode kernel layout fits {limit} bytes "
                          f"at G={g}, D={d}, k_block={k_block}")
     wp = blocks
-    while size(wp + blocks) <= SMEM_MAX and (wp + blocks) * k_block \
+    while size(wp + blocks) <= limit and (wp + blocks) * k_block \
             <= 32767 and wp + blocks <= PLAN_WIN:
         wp += blocks
-    return LaunchConfig(chunk, stages, wp, vr, size(wp))
+    return LaunchConfig(chunk, stages, wp, vr, size(wp), cluster_for(g, es))
 
 
 def copy_bytes(row_bytes: int, *ptrs: int) -> int:
@@ -165,7 +201,7 @@ def sata_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
                               thresholds: torch.Tensor, pos: torch.Tensor,
                               *, k_block: int,
                               page_table: Optional[torch.Tensor] = None,
-                              partial: bool = False):
+                              partial: bool = False, splits: int = 1):
     """Plain PyTorch version of the decode gather kernel: the reference's
     flash loop tile by tile, vectorized over (slot, KV head) rows.
 
@@ -179,7 +215,16 @@ def sata_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
     ``partial`` (context-parallel decode, a rank's share of the keys):
     returns (out (B, KV, G, D) fp32, o / l not rounded; lse (B, KV, G,
     1) fp32, m + log(l), −inf where l == 0), for
-    ``distributed.sharding.KeySplit.combine``."""
+    ``distributed.sharding.KeySplit.combine``.
+
+    ``splits`` models the kernel's split of a row over a thread-block
+    cluster (``launch_config(...).cluster``; tests and ``chip_smoke.py``
+    only): share r of a row holds its plan entries [r·per, min(count,
+    (r + 1)·per)), per = ⌈count / splits⌉, runs the flash loop on its
+    own (p rounded against the share's own running max) and the shares
+    combine in rank order: M the largest m of the shares with l > 0,
+    y = Σ exp(m_r − M)·acc_r / Σ exp(m_r − M)·l_r, 0 where that is 0.
+    ``splits=1`` is the unsplit function."""
     b, n_kv, g, d = q.shape
     p = kv_indices.shape[-1]
     if p == 0:
@@ -189,6 +234,39 @@ def sata_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
                     torch.full((b, n_kv, g, 1), float("-inf"),
                                device=q.device))
         return torch.zeros_like(q)
+    count = kv_counts.long().clamp(max=p)
+    per = (count + splits - 1) // splits
+    shares = []
+    for r in range(splits):
+        lo = torch.minimum(count, r * per)
+        shares.append(_flash_share(q, k, v, kv_indices, lo,
+                                   torch.minimum(count, lo + per),
+                                   thresholds, pos, k_block=k_block,
+                                   page_table=page_table))
+    # the combine, in rank order; a share with l == 0 contributes nothing
+    m, l, acc = (torch.stack(x) for x in zip(*shares))
+    live = l > 0
+    big = torch.where(live, m, float("-inf")).amax(dim=0)
+    w = torch.where(live, torch.exp(m - big), 0.0)
+    num = torch.zeros_like(acc[0])
+    den = torch.zeros_like(l[0])
+    for r in range(splits):
+        num = num + w[r] * acc[r]
+        den = den + w[r] * l[r]
+    out = torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
+    if partial:
+        return out, torch.where(
+            den > 0, big + torch.log(torch.where(den > 0, den, 1.0)),
+            float("-inf"))
+    return out.to(q.dtype)
+
+
+def _flash_share(q, k, v, kv_indices, lo, hi, thresholds, pos, *,
+                 k_block, page_table):
+    """The flash loop over each row's plan entries [lo, hi): its running
+    max m and sum l (B, KV, G, 1) and unnormalised output acc
+    (B, KV, G, D), all fp32."""
+    b, n_kv, g, d = q.shape
     scale = float(1.0 / np.sqrt(d))
     dev = q.device
     qf = q.float()
@@ -197,16 +275,17 @@ def sata_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
     m = torch.full((b, n_kv, g, 1), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, n_kv, g, 1), dtype=torch.float32, device=dev)
     ti = torch.arange(k_block, device=dev)
-    hi = torch.arange(n_kv, device=dev)[None, :, None]
-    for j in range(p):
+    hi_ = torch.arange(n_kv, device=dev)[None, :, None]
+    for j in range(int(lo.min()) if lo.numel() else 0,
+                   int(hi.max()) if hi.numel() else 0):
         blk = kv_indices[..., j].long()                       # (B, KV)
         kpos = blk[..., None] * k_block + ti                  # (B, KV, kb)
         if page_table is None:
             bi = torch.arange(b, device=dev)[:, None, None]
-            kt, vt = k[bi, kpos, hi], v[bi, kpos, hi]         # (B,KV,kb,D)
+            kt, vt = k[bi, kpos, hi_], v[bi, kpos, hi_]       # (B,KV,kb,D)
         else:
             phys = torch.gather(page_table.long(), 1, blk)[..., None]
-            kt, vt = k[phys, ti, hi], v[phys, ti, hi]
+            kt, vt = k[phys, ti, hi_], v[phys, ti, hi_]
         s = torch.einsum("bkgd,bktd->bkgt", qf, kt.float()) * scale
         mask = bisect_select(s, thr) & (kpos <= pos[:, None, None])[:, :, None]
         s = torch.where(mask, s, NEG_INF)
@@ -218,22 +297,18 @@ def sata_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
         l_new = l * alpha + pe.sum(dim=-1, keepdim=True)
         acc_new = acc * alpha + torch.einsum(
             "bkgt,bktd->bkgd", pe.to(v.dtype).float(), vt.float())
-        live = (j < kv_counts)[..., None, None]               # padding: skip
+        live = ((j >= lo) & (j < hi))[..., None, None]       # the share's
         m = torch.where(live, m_new, m)
         l = torch.where(live, l_new, l)
         acc = torch.where(live, acc_new, acc)
-    out = torch.where(l > 0, acc / torch.where(l > 0, l, 1.0), 0.0)
-    if partial:
-        return out, torch.where(
-            l > 0, m + torch.log(torch.where(l > 0, l, 1.0)), float("-inf"))
-    return out.to(q.dtype)
+    return m, l, acc
 
 
 # the C interface of csrc/sata_decode.cu::sata_decode_attention: 9
-# pointers, 14 ints, the stream; ``sata_decode_attention_partial``'s
+# pointers, 15 ints, the stream; ``sata_decode_attention_partial``'s
 # takes the lse pointer after the output
-ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
-PARTIAL_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 14 + \
+ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+PARTIAL_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 15 + \
     [ctypes.c_void_p]
 
 
@@ -285,10 +360,11 @@ def _launch(owner, q, k, v, page_table, kv_indices, kv_counts, thresholds,
     cfg = launch_config(g, d, k_block, q.dtype)     # raises past the limits
     out = torch.empty(q.shape, dtype=torch.float32, device=dev) if partial \
         else torch.empty_like(q)
-    lse = torch.full((b, n_kv, g, 1), float("-inf"), device=dev) \
-        if partial else None
+    # the kernel writes every lse (no fill kernel ahead of its launch)
+    lse = torch.empty((b, n_kv, g, 1), device=dev) if partial else None
     if p == 0 or b * n_kv == 0:
-        return (out.zero_(), lse) if partial else out.zero_()
+        return (out.zero_(), lse.fill_(float("-inf"))) if partial \
+            else out.zero_()
     i32 = [t.to(torch.int32).contiguous()
            for t in (kv_indices, kv_counts, pos)]
     tbl = None if page_table is None else \
@@ -303,7 +379,7 @@ def _launch(owner, q, k, v, page_table, kv_indices, kv_counts, thresholds,
         1 if q.dtype == torch.bfloat16 else 0, cfg.chunk, cfg.stages,
         cfg.win_blocks, cfg.v_rows, cfg.smem_bytes,
         copy_bytes(d * q.element_size(), k.data_ptr(), v.data_ptr()),
-        torch.cuda.current_stream(dev).cuda_stream)
+        cfg.cluster, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sata_decode kernel launch failed: cudaError {err}")
     owner.launches += 1

@@ -7,9 +7,9 @@ host C++ compiler), and refuse G = 17 naming the shape.  The plain
 version at G = 12 and 16 is held to the JAX Pallas kernel in interpret
 mode and to the reference's pure-jnp top-k decode (fp32, atol 1e-6: the
 order of the fp32 dot-product and softmax sums), and the CUDA kernel to
-the plain version on a GPU (the
-``cuda``-marked test; fp32 1e-5, bf16 2e-2 and at most 1% of the
-outputs off the plain version's bits, as ``chip_smoke.py``'s phase 2)."""
+the plain version and to the plain model of its split over a cluster on
+a GPU (the ``cuda``-marked test; fp32 1e-5, bf16 2e-2 and at most 1% of
+the outputs off the model's bits, as ``chip_smoke.py``'s phase 2)."""
 import itertools
 import pathlib
 import shutil
@@ -99,15 +99,19 @@ int main() {
 def test_launch_config_fits_every_g_up_to_16(tmp_path, dtype):
     """At D 128 and page 64 (the serving widths), and at a few other
     widths and pages, every G in 1..16 gets a ring of at least two stages
-    and a window of at least one chunk within the H100's shared memory,
-    and the CUDA source's layout has the same size."""
+    and a window of at least one chunk within the H100's shared memory
+    (past G = 8, a block of a row split over a cluster: within half an
+    SM's, so that two fit), and the CUDA source's layout has the same
+    size."""
     exe = _layout_program(tmp_path)
     es = 4 if dtype == "float32" else 2
     cases, want = [], []
     for g, (d, kb) in itertools.product(
             range(1, 17), ((128, 64), (128, 128), (64, 16), (20, 48))):
         cfg = tsd.launch_config(g, d, kb, getattr(torch, dtype))
-        assert cfg.stages >= 2 and cfg.smem_bytes <= SMEM_MAX, (g, d, cfg)
+        limit = tsd.SMEM_SPLIT if tsd.tc_pv(g, es) else SMEM_MAX
+        assert cfg.stages >= 2 and cfg.smem_bytes <= limit, (g, d, cfg)
+        assert cfg.cluster == tsd.cluster_for(g, es), (g, cfg)
         assert cfg.chunk % kb == 0 or kb % cfg.chunk == 0, (g, d, cfg)
         assert cfg.win_blocks * kb >= max(cfg.chunk, kb), (g, d, cfg)
         cases.append((g, d, kb, es, cfg.chunk, cfg.stages, cfg.win_blocks,
@@ -120,13 +124,31 @@ def test_launch_config_fits_every_g_up_to_16(tmp_path, dtype):
 
 
 def test_g_up_to_8_keeps_its_layout():
-    """The redesign leaves G <= 8 where it was: one head group, so the
-    PV row subsets and the final reduction are those of before."""
+    """The redesigns past G = 8 leave G <= 8's layout where it was: one
+    head group and the PV product on the CUDA cores, so the row subsets,
+    the final reduction and the staging of the serving shapes are those
+    of before (G 4 D 128, G 1 D 64 and D 80, page 64, bf16), the scores
+    at an odd head stride (no bank conflicts across heads); G = 1
+    keeps one block a row, G 2..8 splits a row over a cluster of two
+    with that same staging.  Past 8: two head groups on the CUDA cores
+    in fp32 (a cluster of two) or the tensor cores in bf16 (a cluster of
+    four, staged for two blocks an SM)."""
     for g in range(1, 9):
-        assert tsd.head_groups(g) == 1
+        assert tsd.head_groups(g) == 1 and not tsd.tc_pv(g, 2)
+        for dt in (torch.bfloat16, torch.float32):
+            assert tsd.launch_config(g, 128, 64, dt).cluster == (
+                1 if g == 1 else 2)
     assert tsd.head_groups(9) == tsd.head_groups(16) == 2
-    cfg = tsd.launch_config(4, 128, 64, torch.bfloat16)
-    assert (cfg.chunk, cfg.stages) == (192, 2)
+    assert tsd.tc_pv(9, 2) and tsd.tc_pv(16, 2) and not tsd.tc_pv(16, 4)
+    bf16 = torch.bfloat16
+    # (chunk, stages, window, V rows) as before; the scores' odd head
+    # stride adds G * 4 bytes (rounded to 16)
+    assert tsd.launch_config(4, 128, 64, bf16) == tsd.LaunchConfig(
+        192, 2, 45, 192, 231_024 + 16, 2)
+    assert tsd.launch_config(1, 64, 64, bf16) == tsd.LaunchConfig(
+        256, 3, 116, 384, 230_496 + 16, 1)
+    assert tsd.launch_config(1, 80, 64, bf16) == tsd.LaunchConfig(
+        256, 2, 156, 307, 231_008 + 16, 1)
 
 
 @pytest.mark.parametrize("g", [17, 32])
@@ -194,9 +216,14 @@ def test_cuda_kernel_matches_plain_version_past_g8(dtype, tol):
             args, kw = _args(c, paged, "cuda", dt)
             got = tops.sata_decode_attention(*args, **kw)
             want = tsd.sata_decode_attention_ref(*args, **kw)
+            model = tsd.sata_decode_attention_ref(
+                *args, splits=tsd.launch_config(
+                    args[0].shape[2], args[0].shape[3], c["blk"],
+                    dt).cluster, **kw)
             torch.cuda.synchronize()
-            assert float((got.float() - want.float()).abs().max()) <= tol
+            for w in (want, model):
+                assert float((got.float() - w.float()).abs().max()) <= tol
             if dt == torch.bfloat16:
-                assert float((got != want).float().mean()) <= 0.01
+                assert float((got != model).float().mean()) <= 0.01
             outs.append(got)
         assert torch.equal(outs[0], outs[1])

@@ -188,7 +188,9 @@ def test_launch_config_fits(dtype, k_block):
 def test_smem_layout_matches_the_cuda_source(tmp_path):
     """``smem_bytes`` is the byte count of ``csrc/sata_decode.cu``'s
     ``make_layout``: its host part is compiled with the host C++ compiler
-    and both are compared over every launch_config shape."""
+    and both are compared over every launch_config shape, those of a row
+    split over a cluster (G 12 and 16: the tensor cores' PV in bf16)
+    included."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler")
@@ -209,7 +211,7 @@ int main() {
     cases, want = [], []
     for dtype, d, kb, g in itertools.product(
             ("float32", "bfloat16"), (9, 16, 20, 64, 128), (8, 48, 64, 128),
-            (1, 3, 4, 8)):
+            (1, 3, 4, 8, 12, 16)):
         cfg = tsd.launch_config(g, d, kb, getattr(torch, dtype))
         es = 4 if dtype == "float32" else 2
         cases.append((g, d, kb, es, cfg.chunk, cfg.stages, cfg.win_blocks,
