@@ -31,6 +31,7 @@ meta tensors to the card's and rooflines two production cells.
     python3 chip_smoke.py --ab DIR   # phase 2, then this tree's decode
                                      # and prefill kernels and DIR's (an
                                      # earlier checkout) timed in turns
+    python3 chip_smoke.py --ab-prefill DIR  # the prefill part of --ab alone
     python3 chip_smoke.py --mesh     # phases 1, 24-25 and 27 alone
     python3 chip_smoke.py --dryrun   # phases 1 and 26 alone
 
@@ -1085,6 +1086,9 @@ def check_attn_case(torch, sa, name, c):
     padding slots), admitted counts held by ``compare``'s rule; where the
     mode exists on the dense grid, B4 vs plain and B3 == B4 bitwise.
     Returns B3's admitted-key counts per row on the full plan."""
+    if c["q"].dtype == torch.bfloat16:      # every bf16 case is on the 16-grid
+        body = attn_body(torch, c, False)[0]
+        assert body == "tensor cores", f"{name}: bf16 on the {body}"
     cnt_cut = c["cnt"].clone()
     cnt_cut[0, 0] = 0
     cnt_cut[-1, -1] = torch.clamp(cnt_cut[-1, -1] - 1, min=0)
@@ -1204,6 +1208,16 @@ def attn_cases(torch, dev):
         (3, 512, 128, 128, 128, bf16, "threshold", True),
         (2, 192, 64, 64, 64, bf16, "mask", False),
         (2, 256, 64, 128, 128, bf16, "block", False),
+        # the tensor cores at every width and mode: D 16 / 32 / 48 padded
+        # to 64, 96 to 128; one consumer warpgroup (q_block <= 64), a
+        # second one part-filled (80), k-blocks under 128
+        (2, 128, 16, 16, 16, bf16, "threshold", True),
+        (2, 128, 32, 32, 64, bf16, "mask", False),
+        (2, 160, 48, 80, 80, bf16, "threshold", True),
+        (2, 256, 64, 32, 32, bf16, "threshold", False),
+        (2, 256, 80, 128, 128, bf16, "mask", False),
+        (2, 256, 80, 64, 64, bf16, "block", True),
+        (2, 128, 96, 64, 64, bf16, "block", False),
     ]
     for n, (bh, s, d, qb, kb, dt, mode, causal) in enumerate(specs):
         yield (f"{mode}{'_causal' if causal else ''}_D{d}_qb{qb}_kb{kb}_"
@@ -5091,9 +5105,8 @@ MUTANTS = {
     # causal test, l summed from the rounded p
     "attn_fp32_predicate": (SRC_ATTN_CU, "edge[h] = admit_edge(t);",
                             "edge[h] = t;"),
-    "attn_causal_lt": (SRC_ATTN_CU,
-                       "if constexpr (kPos) sel = sel && kpos[key] <= qpos[h];",
-                       "if constexpr (kPos) sel = sel && kpos[key] < qpos[h];"),
+    "attn_causal_lt": (SRC_ATTN_CU, "sel = sel && kpos[key] <= qpos[h];",
+                       "sel = sel && kpos[key] < qpos[h];"),
     "attn_l_of_rounded_p": (SRC_ATTN_CU, "rs[e >> 1] += pe[e];",
                             "rs[e >> 1] += bf16_rn(pe[e]);"),
     # the CUDA-core body (fp32): an fp32 predicate
@@ -5257,7 +5270,11 @@ def parent_kernel(build, parent: str, name: str, symbol: str, argtypes):
     report = build_variant(build, src, lib)
     fn = getattr(ctypes.CDLL(str(lib)), symbol)
     fn.argtypes, fn.restype = kinds, ctypes.c_int
-    return (lambda *a: fn(*(a[i] for i in pick))), report
+
+    def call(*a):
+        return fn(*(a[i] for i in pick))
+    call.params = names
+    return call, report
 
 
 def parent_launch_config(sd, parent: str):
@@ -5286,15 +5303,28 @@ def launching(module, fn, config=None):
     of ``module.launch_config``)."""
     old, old_config = module._launcher, getattr(module, "launch_config",
                                                 None)
+    old_rows = getattr(module, "_rows", None)
     module._launcher = lambda *_: fn
     if config is not None:
         module.launch_config = config
+    if old_rows is not None and "q_pos_stride" not in getattr(
+            fn, "params", ("q_pos_stride",)):
+        # a parent without row strides reads (BH, S) positions: the copy
+        # its own wrapper made on every call
+        module._rows = lambda t, bh, n: (_contiguous_rows(t, bh, n), n)
     try:
         yield
     finally:
         module._launcher = old
         if config is not None:
             module.launch_config = old_config
+        if old_rows is not None:
+            module._rows = old_rows
+
+
+def _contiguous_rows(t, bh, n):
+    import torch
+    return t.to(torch.int32).reshape(bh, n).contiguous()
 
 
 # the cluster sizes ``--ab`` times this tree's decode kernel at, on each
@@ -5398,14 +5428,63 @@ def run_ab(root: str, parent: str) -> int:
     return 0
 
 
+def run_ab_prefill(root: str, parent: str) -> int:
+    """``--ab-prefill PARENT``: ``ab_prefill`` alone, after building this
+    tree's prefill kernel.  One process on one card."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import sata_attention as sa
+    dev = torch.device("cuda")
+    card = card_line()
+    tag = f"[{card}]"
+    log(f"[device] {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    build_all(build, root, names=("sata_attention",))
+    prefill = ab_prefill(torch, sa, build, parent, dev, tag)
+    log(card)
+    log(json.dumps({"ab_prefill": prefill}))
+    return 0
+
+
+# phase 6's cases that ``--ab`` times against the parent: the training
+# shape (threshold, causal), the dense-selection shape (mask) and
+# zamba2-2.7b's D = 80 shape; the probes run at the first and the last
+AB_PREFILL_CASES = ("main_BH32_S4096_D128_blk128_threshold_causal_bf16",
+                    "BH32_S2048_D128_blk128_mask_bf16", ATTN_D80)
+AB_PREFILL_PROBED = (AB_PREFILL_CASES[0], ATTN_D80)
+
+
+def wrapper_work(torch, sa, c, name, tag):
+    """The device kernels one B3 call on case ``c`` launches, by name,
+    with their device ms (``torch.profiler``): anything beside the
+    kernel is the wrapper's own work inside the timed call."""
+    from torch.profiler import ProfilerActivity, profile
+    run_attn(sa, c, plain=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            run_attn(sa, c, plain=False)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = {e.key[:80]: (e.count / 5, device_ms(e) / e.count)
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == cuda and device_ms(e) > 0}
+    for k, (n, ms) in rows.items():
+        log(f"[probe] B3 {name}: device kernel {k!r}: {n:g} a call, "
+            f"{ms:.4f} ms each {tag}")
+    return {k: ms for k, (n, ms) in rows.items()}
+
+
 def ab_prefill(torch, sa, build, parent, dev, tag):
     """``--ab`` for the prefill kernels: PARENT's ``sata_attention.cu``
     beside this tree's, ptxas's registers and spills for each body of
-    both, then phase 6's two main cases (BH32 S4096 threshold causal:
-    B3; BH32 S2048 mask: B3 and B4): this kernel against its plain
-    version (phase 6's checks), the parent against this kernel, both
-    timed in turns (parent, change, change, parent), SDPA with the
-    equivalent mask and the bound beside them."""
+    both, then AB_PREFILL_CASES of phase 6 (BH32 S4096 threshold causal:
+    B3; BH32 S2048 mask: B3 and B4; zamba2's D 80: B3): this kernel
+    against its plain version (phase 6's checks), the parent against
+    this kernel, both timed in turns (parent, change, change, parent),
+    SDPA with the equivalent mask and the bound beside them; the
+    wrapper's own device kernels and the probes at AB_PREFILL_PROBED."""
     old, report = parent_kernel(build, parent, "sata_attention",
                                 "sata_block_attention", sa.ARGTYPES)
     mine = build.library_path("sata_attention")
@@ -5414,8 +5493,8 @@ def ab_prefill(torch, sa, build, parent, dev, tag):
         for line in ptxas_lines(text, "sata_block"):
             log(f"[ab] ptxas {who}: {line}")
     rows = []
-    for name, c in itertools.islice(attn_cases(torch, dev), 3):
-        if name == ATTN_ROWS:           # phase 6's context-parallel rows
+    for name, c in attn_cases(torch, dev):
+        if name not in AB_PREFILL_CASES:
             continue
         check_attn_case(torch, sa, name, c)
         keep = attended_pairs(torch, c)
@@ -5452,8 +5531,10 @@ def ab_prefill(torch, sa, build, parent, dev, tag):
             rows.append(dict(kernel=kname, case=name, sdpa_ms=lib_ms,
                              bound_ms=bound_ms, body=body, smem=smem, **ts))
         del keep, q4, k4, v4
-        rows.append(dict(kernel="B3", case=name, probes=probe_prefill(
-            torch, sa, build, c, name, tag)))
+        if name in AB_PREFILL_PROBED:
+            rows.append(dict(kernel="B3", case=name, probes=probe_prefill(
+                torch, sa, build, c, name, tag), wrapper=wrapper_work(
+                torch, sa, c, name, tag)))
         del c
         torch.cuda.empty_cache()
     return rows
@@ -5463,19 +5544,20 @@ def ab_prefill(torch, sa, build, parent, dev, tag):
 # work away, timed by ``--ab`` (their outputs are wrong)
 PREFILL_PROBES = {
     "copies_and_barriers_only": (
-        "    {\n      // S = Q K^T for the warp's 16 rows",
-        "    issue(j + kStages - 1);\n    if (false) {\n"
-        "      // S = Q K^T for the warp's 16 rows"),
-    "no_near_test": ("            near |= fabsf(s[nt][e] - edge[e >> 1]) <=",
-                     "            near |= false && fabsf(s[nt][e] - edge[e >> 1]) <="),
-    "no_recheck": ("        if (__any_sync(0xffffffffu, near)) {",
-                   "        if (__any_sync(0xffffffffu, near) && p.n_bh < 0) {"),
-    "no_qk": ("      for (int ks = 0; ks < kMaxD / 16; ++ks) {\n        uint32_t a[4], b",
-              "      for (int ks = 0; ks < 0; ++ks) {\n        uint32_t a[4], b"),
-    "no_pv": ("      if (__any_sync(0xffffffffu, (selb[0] | selb[1]) != 0u)) {",
-              "      if (false) {"),
-    "no_kv_copies": ("      for (int x = tid; x < KB * cpr; x += kTcThreads) {",
-                     "      for (int x = tid; x < 0; x += kTcThreads) {"),
+        "      {\n        // S = Q K^T for the warpgroup's 64 rows",
+        "      if (kThr) mbar_wait(normed + s, ph);\n"
+        "      if (false) {\n        // S = Q K^T for the warpgroup's 64 rows"),
+    "no_near_test": (
+        "            near |= fabsf(sv[i] - eu[(i >> 1) & 1]) <= w[(i >> 1) & 1];",
+        "            near |= false;"),
+    "no_recheck": ("          if (__any_sync(0xffffffffu, near)) {",
+                   "          if (__any_sync(0xffffffffu, near) && p.n_bh < 0) {"),
+    "no_qk": ("        for (int ks = 0; ks < Dk / 16; ++ks) {",
+              "        for (int i = 0; i < kTcKeys / 2; ++i) sv[i] = 0.f;\n"
+              "        for (int ks = 0; ks < 0; ++ks) {"),
+    "no_pv": ("        if (pv) {", "        if (false) {"),
+    "no_kv_copies": ("      const int kv_chunks = kChunks;",
+                     "      const int kv_chunks = 0;"),
 }
 
 
@@ -5941,6 +6023,8 @@ def main() -> int:
     sys.path.insert(0, os.path.join(root, "src"))
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         return run_ab(root, sys.argv[2])
+    if sys.argv[1:2] == ["--ab-prefill"] and len(sys.argv) == 3:
+        return run_ab_prefill(root, sys.argv[2])
     from repro_torch.configs.archs import ARCHS
     from repro_torch.kernels import build
     from repro_torch.kernels import sata_attention as sa

@@ -197,7 +197,8 @@ def admitted_window(q, k, kv_indices, kv_counts, mask=None, thresholds=None,
     """The range of admitted-key counts per row that a kernel summing each
     score's products in another order may give (the tensor-core body
     recomputes the scores inside this bound in the plain version's order,
-    with |q|·|k| in place of Σ_d |q_d·k_d|, so it gives the plain count).  Returns (lo, hi), int32
+    with |q| times the k-block's largest |k| in place of Σ_d |q_d·k_d|, so
+    it gives the plain count).  Returns (lo, hi), int32
     (BH, Sq): the keys the compacted-grid plain version admits when every
     dot product q·k of the planned tiles is moved down (lo), or up (hi),
     by ε = slack · (D + 16) · 2^-24 · Σ_d |q_d·k_d| before the scale and
@@ -263,8 +264,8 @@ def admitted_window(q, k, kv_indices, kv_counts, mask=None, thresholds=None,
 
 
 # the C interface of csrc/sata_attention.cu::sata_block_attention: 12
-# pointers, 8 ints, the stream
-ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# pointers, 10 ints, the stream
+ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 @functools.cache
@@ -282,6 +283,16 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _i32(t: torch.Tensor, shape) -> torch.Tensor:
     return t.to(torch.int32).reshape(shape).contiguous()
+
+
+def _rows(t: torch.Tensor, bh: int, n: int):
+    """Positions (BH, n, 1) as the kernel reads them: int32 rows of n and
+    the elements between two rows.  Positions every row shares (the
+    path's, expanded over BH) pass with a row stride of 0, uncopied."""
+    t = t.to(torch.int32).reshape(bh, n)
+    if t.stride(1) != 1 or (bh > 1 and t.stride(0) not in (0, n)):
+        t = t.contiguous()
+    return t, (t.stride(0) if bh > 1 else 0)
 
 
 def _u8(t: torch.Tensor) -> torch.Tensor:
@@ -349,18 +360,18 @@ def _launch(owner, q, k, v, *, kv_indices=None, kv_counts=None,
         if admitted is not None:
             admitted.zero_()
         return out.zero_()
+    qp, qs = (None, 0) if q_pos is None else _rows(q_pos, bh, sq)
+    kp, ks = (None, 0) if k_pos is None else _rows(k_pos, bh, sk)
     ops = dict(bm=None if block_map is None else _u8(block_map),
                mask=None if mask is None else _u8(mask),
                thr=None if thresholds is None
-               else thresholds.reshape(bh, sq).contiguous(),
-               qp=None if q_pos is None else _i32(q_pos, (bh, sq)),
-               kp=None if k_pos is None else _i32(k_pos, (bh, sk)))
+               else thresholds.reshape(bh, sq).contiguous())
     err = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(plan[0]),
         _ptr(plan[1]), _ptr(ops["bm"]), _ptr(ops["mask"]), _ptr(ops["thr"]),
-        _ptr(ops["qp"]), _ptr(ops["kp"]), out.data_ptr(), _ptr(admitted),
+        _ptr(qp), _ptr(kp), out.data_ptr(), _ptr(admitted),
         bh, sq, sk, d, p, q_block, k_block,
-        1 if q.dtype == torch.bfloat16 else 0,
+        1 if q.dtype == torch.bfloat16 else 0, qs, ks,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sata_attention kernel launch failed: "

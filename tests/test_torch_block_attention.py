@@ -427,13 +427,10 @@ def test_library_key_covers_the_shared_headers(tmp_path, monkeypatch):
     assert build.library_path("k") == build.library_path("k")
 
 
-def test_main_shapes_take_the_tensor_core_body(tmp_path):
-    """The entry point routes bf16 to the tensor cores only where the
-    layout fits a block's shared memory: ``tc_layout`` (compiled with the
-    host C++ compiler) fits at the main path's shapes, D 128 with
-    128 x 128 tiles in every mode and plans up to 1024 k-blocks, and its
-    K/V and mask rows are odd multiples of 16 bytes (no ldmatrix bank
-    conflicts) at 128-wide tiles."""
+def _tc_layout_program(tmp_path):
+    """``tc_width`` and ``tc_layout`` of the ``.cu`` compiled with the host
+    C++ compiler into a program that reads ``D q_block mask pos thr`` lines
+    and prints ``width chunk warpgroups stages total limit`` for each."""
     import shutil
     import subprocess
     cxx = shutil.which("g++") or shutil.which("c++")
@@ -441,34 +438,99 @@ def test_main_shapes_take_the_tensor_core_body(tmp_path):
         pytest.skip("needs a host C++ compiler")
     src = (pathlib.Path(tsa.__file__).parent / "csrc" /
            "sata_attention.cu").read_text()
-    a = src.index("constexpr int kTcWarps")
-    b = src.index("  return L;\n}\n", a) + len("  return L;\n}\n")
-    limits = "".join(re.findall(r"^constexpr int kMax(?:D|Block) = \d+;.*\n",
-                                src, re.M))
+    a = src.index("constexpr int kTcRows")
+    b = src.index("  return L;\n}\n", src.index("inline TcLayout tc_layout(")) \
+        + len("  return L;\n}\n")
     prog = ("#define __host__\n#define __device__\n#include <cstdio>\n"
-            + limits + src[a:b] + """
+            + src[a:b] + """
 int main() {
   int v[5];
   while (scanf("%d %d %d %d %d", v, v + 1, v + 2, v + 3, v + 4) == 5) {
     const TcLayout L = tc_layout(v[0], v[1], v[2], v[3], v[4]);
-    printf("%d %d %d %d\\n", L.total, kMaxSmem, L.rk, L.ms);
+    printf("%d %d %d %d %d %d\\n", L.dk, tc_chunk(L.dk), L.nwg, L.stages,
+           L.total, kMaxSmem);
   }
 }
 """)
-    cases = [(128, m, p, t, n)
-             for m, p, t in ((0, 1, 1), (0, 0, 1), (1, 0, 0), (0, 1, 0))
-             for n in (32, 1024)]
     (tmp_path / "tc.cpp").write_text(prog)
     exe = tmp_path / "tc"
     subprocess.run([cxx, "-std=c++17", "-o", str(exe),
                     str(tmp_path / "tc.cpp")], check=True)
-    out = subprocess.run([str(exe)], check=True, capture_output=True,
-                         text=True, input="\n".join(
-                             " ".join(map(str, c)) for c in cases))
-    for line in out.stdout.splitlines():
-        total, limit, rk, ms = map(int, line.split())
-        assert total <= limit, line
-        assert rk % 32 == 16 and ms % 32 == 16, line
+
+    def run(cases):
+        out = subprocess.run([str(exe)], check=True, capture_output=True,
+                             text=True, input="\n".join(
+                                 " ".join(map(str, c)) for c in cases))
+        return [tuple(map(int, line.split()))
+                for line in out.stdout.splitlines()]
+    return run
+
+
+# the selection modes the tensor-core body is instantiated for: (mask,
+# positions, thresholds)
+TC_MODES = ((1, 0, 0), (0, 1, 1), (0, 0, 1), (0, 1, 0), (0, 0, 0))
+
+
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("q_block", [16, 32, 64, 80, 128])
+def test_main_shapes_take_the_tensor_core_body(tmp_path, d, q_block):
+    """The entry point routes bf16 on the 16-grid to the tensor cores, whose
+    layout (``tc_layout``, compiled with the host C++ compiler) must fit a
+    block's shared memory, 232,448 bytes: every instantiated width, in
+    every selection mode and for every q-block edge (one consumer
+    warpgroup up to 64 rows, two above), with 2 to 4 stages, at D <= 80
+    with three at least; its swizzled rows are 64 columns (128 bytes)
+    where the width is a multiple of 64, else 16."""
+    run = _tc_layout_program(tmp_path)
+    for (dk, w, nwg, stages, total, limit), mode in zip(
+            run([(d, q_block, *m) for m in TC_MODES]), TC_MODES):
+        assert limit == 232448
+        assert dk == d and w == (64 if d % 64 == 0 else 16)
+        assert nwg == (2 if q_block > 64 else 1)
+        assert total <= limit, (mode, total)
+        assert (3 if d <= 80 else 2) <= stages <= 4, (mode, stages)
+
+
+@pytest.mark.parametrize("d,width", [(16, 64), (32, 64), (48, 64), (64, 64),
+                                     (80, 80), (96, 128), (112, 128),
+                                     (128, 128)])
+def test_each_width_pads_to_its_instantiation(tmp_path, d, width):
+    """D on the 16-grid takes the tensor cores at the next instantiated
+    width: 64 (whisper-base's), 80 (zamba2-2.7b's) or 128, so phase 6's
+    D 16 / 32 cases keep the tensor cores and D 80 computes no product
+    wider than 80 columns."""
+    run = _tc_layout_program(tmp_path)
+    assert [r[0] for r in run([(d, 128, *m) for m in TC_MODES])] == \
+        [width] * len(TC_MODES)
+
+
+@pytest.mark.parametrize("layout", ["expanded", "contiguous", "int64",
+                                    "sliced"])
+def test_positions_reach_the_kernel_without_a_copy_when_shared(layout):
+    """``_launch`` hands the kernel positions as int32 rows and a row
+    stride: positions every row shares (the path's, a (1, S, 1) arange
+    expanded over BH) pass uncopied with a stride of 0; any other layout
+    is made contiguous (stride S).  Either way the kernel's reads
+    ``pos[bh * stride + i]`` give the same values as the contiguous copy
+    the wrapper made before, bit for bit."""
+    bh, s = 3, 32
+    base = torch.arange(s, dtype=torch.int32)
+    if layout == "expanded":
+        pos = base[None, :, None].expand(bh, s, 1)
+    elif layout == "contiguous":
+        pos = (base[None, :, None] + 5 * torch.arange(bh, dtype=torch.int32)
+               [:, None, None]).contiguous()
+    elif layout == "int64":
+        pos = base.long()[None, :, None].expand(bh, s, 1)
+    else:
+        pos = torch.arange(2 * s, dtype=torch.int32).reshape(1, 2 * s, 1)[
+            :, ::2].expand(bh, s, 1)
+    rows, stride = tsa._rows(pos, bh, s)
+    assert rows.dtype == torch.int32
+    if layout == "expanded":
+        assert stride == 0 and rows.data_ptr() == pos.data_ptr()
+    flat = torch.as_strided(rows, (bh, s), (stride, 1))
+    assert torch.equal(flat, tsa._i32(pos, (bh, s)))
 
 
 def test_admission_edge_is_the_bf16_predicate(tmp_path):
@@ -532,18 +594,8 @@ int main() {
         assert torch.equal(s >= e, want), (float(t), float(e))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
-def test_cuda_kernels_match_plain_versions(dtype, tol):
-    """Needs a CUDA GPU (and nvcc): both kernels against their plain
-    versions in every mode, and the compacted grid == the dense grid
-    bitwise on the same plan.  Admitted-key counts: equal to the plain
-    version's, except bf16 threshold mode, where the tensor cores sum
-    each score in their own order and every row's count must lie in
-    ``admitted_window``.  Tolerances: fp32 summation order; bf16 output
-    rounding."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the CUDA kernel has no CPU mode")
+def _cuda_small_case(dtype, tol):
+    """D 16, 16-row blocks (the JAX planner's case), every mode."""
     dt = getattr(torch, dtype)
     q, k, v, thr, bm, pos = _threshold_case(13, True)
     cu = lambda a: _t(a).cuda()                      # noqa: E731
@@ -576,3 +628,68 @@ def test_cuda_kernels_match_plain_versions(dtype, tol):
                                              mask=sel.get("mask"),
                                              q_block=BLK, k_block=BLK)
             assert torch.equal(dense, got)
+
+
+def _cuda_width_case(d, mode, tol):
+    """bf16 at head width d, 128 x 128 tiles, one selection mode; outputs
+    within ``tol`` of the plain version's."""
+    from repro_torch.core.selection import select_thresholds_chunked
+    bh, s = 4, 512
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((bh, s, d)).astype(
+        np.float32)).cuda().to(torch.bfloat16) for _ in range(3))
+    pos = torch.arange(s, dtype=torch.int32, device="cuda")[None, :, None] \
+        .expand(bh, s, 1)
+    if mode == "threshold":
+        thr, bm = select_thresholds_chunked(q, k, 64, causal=True, chunk=s,
+                                            q_block=128, k_block=128)
+        sel = dict(thresholds=thr, causal=True, q_pos=pos, k_pos=pos)
+    elif mode == "mask":
+        mask = torch.from_numpy(rng.random((bh, s, s)) < 0.1).cuda()
+        mask[0, :64] = False
+        bm = tbm.block_occupancy(mask, 128, 128)
+        sel = dict(mask=mask)
+    else:
+        bm = torch.from_numpy(rng.random((bh, s // 128, s // 128)) < 0.5) \
+            .cuda()
+        sel = dict(causal=True, q_pos=pos, k_pos=pos)
+    idx, cnt = tbm.compact_kv_plan(bm)
+    adm_k = torch.zeros((bh, s), dtype=torch.int32, device="cuda")
+    adm_p = torch.zeros_like(adm_k)
+    got = tsa.sata_block_attention_compact(q, k, v, idx, cnt, admitted=adm_k,
+                                           **sel)
+    want = tsa.sata_block_attention_compact_ref(q, k, v, idx, cnt,
+                                                admitted=adm_p, **sel)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    if mode == "threshold":
+        lo, hi = tsa.admitted_window(q, k, idx, cnt, **sel)
+        assert ((lo <= adm_k) & (adm_k <= hi)).all()
+    else:
+        assert torch.equal(adm_k, adm_p)
+    if mode == "mask":
+        dense = tsa.sata_block_attention(q, k, v, bm, mask=sel["mask"])
+        assert torch.equal(dense, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,d", [
+    ("float32", 1e-5, 16), ("bfloat16", 2e-2, 16), ("bfloat16", 2e-2, 64),
+    ("bfloat16", 2e-2, 80), ("bfloat16", 2e-2, 128)])
+def test_cuda_kernels_match_plain_versions(dtype, tol, d):
+    """Needs a CUDA GPU (and nvcc): both kernels against their plain
+    versions in every mode, and the compacted grid == the dense grid
+    bitwise on the same plan: at D 16 in fp32 and bf16, and in bf16 at
+    each width the tensor-core body is instantiated for (64, 80, 128) in
+    threshold, mask and block mode.  Admitted-key counts: equal to the
+    plain version's, except bf16 threshold mode, where the tensor cores
+    sum each score in their own order and every row's count must lie in
+    ``admitted_window``.  Tolerances: fp32 summation order; bf16 output
+    rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the CUDA kernel has no CPU mode")
+    if d == 16:
+        _cuda_small_case(dtype, tol)
+    else:
+        for mode in ("threshold", "mask", "block"):
+            _cuda_width_case(d, mode, tol)
